@@ -8,7 +8,9 @@ each against its plain PyTorch version on the card, drives the port's main
 path (``lightgbm_tpu_torch.train`` on a 1M x 28 Higgs-shaped binary table,
 255 leaves, float32 histograms; save, reload, predict held-out rows), runs
 the int8 path on the card and on the CPU and requires identical trees, and
-prints one JSON line of kernel measurements.  Every phase must pass; the
+prints one JSON line of kernel measurements: each kernel at the main-path
+shape, and the histogram kernel replayed at the first tree's launch sizes
+(``tree_ms``) and at the wide shapes of phase 2.  Every phase must pass; the
 last line of standard output is ``{"ok": true, "device": {...}}``.  Exits
 nonzero, printing no result, when there is no CUDA device or the package
 is not beside this script.
@@ -26,10 +28,14 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 SEED = 42
-# the main path's sizes; a rehearsal on the CPU may pass smaller ones
+# the main path's sizes; a rehearsal on the CPU may pass smaller ones.
+# hist_shapes: (F, N, B, C, offset); offset > 0 slices the bins out of
+# wider rows at that lane, as the grower slices the pane
 FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
-        "hist_shapes": ((28, 1_000_000, 256, 1), (28, 1_000_000, 256, 42),
-                        (28, 1_000_000, 256, 64), (200, 250_000, 256, 1))}
+        "hist_shapes": ((28, 1_000_000, 256, 1, 0), (28, 1_000_000, 256, 42, 0),
+                        (28, 1_000_000, 256, 64, 0), (200, 250_000, 256, 1, 0),
+                        (28, 2047, 256, 1, 0), (28, 300_001, 256, 1, 13)),
+        "pane_segment": (12_345, 300_001)}
 
 
 def make_data(rows: int, features: int, seed: int):
@@ -53,12 +59,15 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up."""
+    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up.
+    The stream first sleeps while the host enqueues the calls, so a call
+    shorter than its own enqueue is timed by its device work alone."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000 * reps)       # about 0.1 ms per call
     start.record()
     for _ in range(reps):
         fn()
@@ -121,9 +130,9 @@ def run(dev, sizes, timer=None):
     # ---- phase 2: histogram kernel vs its plain version
     gen = np.random.RandomState(SEED)
 
-    def hist_inputs(F, N, B, C):
-        bins = torch.as_tensor(gen.randint(0, B, (F, N)).astype(np.uint8),
-                               device=dev)
+    def hist_inputs(F, N, B, C, offset=0):
+        rows = gen.randint(0, B, (F, N + 2 * offset)).astype(np.uint8)
+        bins = torch.as_tensor(rows, device=dev)[:, offset:offset + N]
         grad = torch.as_tensor(gen.randn(N).astype(np.float32), device=dev)
         hess = torch.as_tensor(gen.rand(N).astype(np.float32), device=dev)
         cid = torch.as_tensor(np.where(gen.rand(N) < 0.9,
@@ -131,10 +140,7 @@ def run(dev, sizes, timer=None):
                               .astype(np.int32), device=dev)
         return bins, grad, hess, cid
 
-    hist_err = {}
-    for F, N, B, C in sizes["hist_shapes"]:
-        bins, grad, hess, cid = hist_inputs(F, N, B, C)
-        got = hist_cuda.hist_float(bins, grad, hess, cid, C, B)
+    def float_err(what, got, bins, grad, hess, cid, C, B):
         want = hist_cuda.hist_plain(
             bins, torch.stack([grad, hess, torch.ones_like(grad)], 1), cid,
             C, B)
@@ -148,19 +154,42 @@ def run(dev, sizes, timer=None):
         tol = 1e-5 * mag + 1e-6
         counts_exact = torch.equal(got[..., 2::3], want[..., 2::3])
         if not (bool((err <= tol).all()) and counts_exact):
-            fail("hist float F=%d N=%d C=%d: max err %g" % (
-                F, N, C, float(err.max())))
+            fail("hist float %s: max err %g" % (what, float(err.max())))
+        return float(err.max())
+
+    hist_err = {}
+    shape_inputs = {}
+    for F, N, B, C, offset in sizes["hist_shapes"]:
+        bins, grad, hess, cid = hist_inputs(F, N, B, C, offset)
+        shape_inputs[(F, N, B, C, offset)] = (bins, grad, hess, cid)
+        got = hist_cuda.hist_float(bins, grad, hess, cid, C, B)
+        what = "F=%d N=%d B=%d C=%d offset=%d" % (F, N, B, C, offset)
+        err = float_err(what, got, bins, grad, hess, cid, C, B)
         ok = cid >= 0
         levels, _ = quantize_values(grad, hess, ok)
         got_i = hist_cuda.hist_int8(bins, levels, cid, C, B)
         want_i = hist_cuda.hist_plain(bins, levels.t().to(torch.int32), cid,
                                       C, B)
         if not torch.equal(got_i, want_i):
-            fail("hist int8 F=%d N=%d C=%d not bitwise" % (F, N, C))
-        hist_err[(F, N, B, C)] = float(err.max())
-        say("phase 2 hist F=%d N=%d B=%d C=%d: float max abs err %.3g "
-            "(tol 1e-5 x cell |sum|), counts exact, int8 bitwise"
-            % (F, N, B, C, hist_err[(F, N, B, C)]))
+            fail("hist int8 %s not bitwise" % what)
+        hist_err[(F, N, B, C, offset)] = err
+        say("phase 2 hist %s: float max abs err %.3g (tol 1e-5 x cell "
+            "|sum|), counts exact, int8 bitwise" % (what, err))
+
+    # the pane entry on a segment at an unaligned lane of a 28-feature pane
+    F = 28
+    bins, grad, hess, _ = shape_inputs[sizes["hist_shapes"][0]]
+    P = compact.bucket_table(bins.shape[1])[0]
+    pane = compact.pack_planes(bins, grad, hess, grad > -1.0, P)
+    sstart, scnt = sizes["pane_segment"]
+    got = hist_cuda.hist_pane_float(pane, F, sstart, scnt, 256)
+    pb, pg, ph, pvalid = compact.unpack_values(
+        pane[:, sstart:sstart + scnt], F)
+    pane_err = float_err("pane sstart=%d scnt=%d" % (sstart, scnt),
+                         got.reshape(F, 256, 3), pb, pg, ph,
+                         torch.where(pvalid, 0, -1).to(torch.int32), 1, 256)
+    say("phase 2 hist pane F=%d P=%d sstart=%d scnt=%d: float max abs err "
+        "%.3g, counts exact" % (F, P, sstart, scnt, pane_err))
 
     # ---- phase 3: partition kernel vs its plain version
     n_train, n_test, F = sizes["n_train"], sizes["n_test"], 28
@@ -210,12 +239,14 @@ def run(dev, sizes, timer=None):
         clock[0] = now
 
     hist_cuda.launches = 0
+    hist_cuda.launch_rows.clear()
     compact.launches = 0
     sync()
     clock[0] = time.perf_counter()
     booster = lgt.train(params, train_set, device=dev, progress_fn=progress)
     sync()
     launches = {"hist": hist_cuda.launches, "partition": compact.launches}
+    launch_rows = list(hist_cuda.launch_rows)
     trees = len(booster.models)
     if trees != 5:
         fail("trained %d trees, expected 5" % trees)
@@ -226,6 +257,17 @@ def run(dev, sizes, timer=None):
         launches["hist"] / trees, launches["partition"] / trees))
     if launches["hist"] == 0 or launches["partition"] == 0:
         fail("a kernel was not launched on the main path: %s" % launches)
+    # one histogram launch per leaf: the root, then each split's smaller
+    # child
+    first_tree = launch_rows[:leaves[0]]
+    if len(launch_rows) != sum(leaves):
+        fail("histogram launches %d != leaves %d" % (len(launch_rows),
+                                                      sum(leaves)))
+    q = np.percentile(first_tree, [50, 90])
+    say("phase 4 first tree's histogram launch rows: %d launches, root %d, "
+        "children median %d, p90 %d, %d under 10,000" % (
+            len(first_tree), first_tree[0], q[0], q[1],
+            sum(n < 10_000 for n in first_tree)))
     label = y[:n_train]
     losses = []
     for k in range(1, trees + 1):
@@ -329,10 +371,37 @@ def run(dev, sizes, timer=None):
         "library_ms": timer(lambda: seg[:, torch.sort(
             keys, stable=True).indices]),
     }
+    # the first tree's histogram launches replayed through the pane entry,
+    # each segment at an unaligned lane of the 28-feature pane of phase 2
+    tree_ms = tree_bound_ms = 0.0
+    for n in first_tree:
+        start = min(1001, P - n)
+        tree_ms += timer(lambda: hist_cuda.hist_pane_float(pane, F, start, n,
+                                                           B), reps=5)
+        tree_bound_ms += (n * (F + 9) + F * B * 3 * 4) / HBM_BYTES_PER_S * 1e3
+    kernels["hist"]["tree_ms"] = tree_ms
+    kernels["hist"]["tree_bound_ms"] = tree_bound_ms
+    shapes = []
+    for (F_, N_, B_, C_, off), (sb, sg, sh, sc) in shape_inputs.items():
+        if off or N_ < 100_000:
+            continue
+        shapes.append({
+            "F": F_, "N": N_, "B": B_, "C": C_,
+            "ms": timer(lambda: hist_cuda.hist_float(sb, sg, sh, sc, C_,
+                                                     B_)),
+            "bound_ms": (N_ * F_ + 12 * N_ + F_ * B_ * 3 * C_ * 4)
+            / HBM_BYTES_PER_S * 1e3})
+    kernels["hist"]["shapes"] = shapes
     for k in kernels.values():
         say("phase 6 %s: %.4f ms (plain %.4f, library %.4f, bound %.4f)"
             % (k["name"], k["ms"], k["plain_ms"], k["library_ms"],
                k["bound_ms"]))
+    say("phase 6 hist first tree replayed (%d launches): %.4f ms, bound "
+        "%.4f ms" % (len(first_tree), tree_ms, tree_bound_ms))
+    for sh_ in shapes:
+        say("phase 6 hist F=%d N=%d B=%d C=%d: %.4f ms (bound %.4f)" % (
+            sh_["F"], sh_["N"], sh_["B"], sh_["C"], sh_["ms"],
+            sh_["bound_ms"]))
     return list(kernels.values())
 
 

@@ -5,28 +5,63 @@
 //   acc[f, b, 3*c + k] = sum over rows with bin[f, row] == b and
 //                        cid[row] == c of val[k, row]
 // (k = grad, hess, count) as one-hot x value matmuls on the MXU.  The TPU
-// needs that matmul form and its bf16 hi/lo operand split because its
-// vector unit has no scatter; the H100 has shared-memory atomics, so this
-// kernel scatters each row straight into a block-private histogram.
+// needs that matmul form because its vector unit has no scatter; the H100
+// has shared-memory atomics, so this kernel scatters each row straight into
+// a block-private histogram.  Rows with cid outside [0, C) and bins >= B
+// are dropped.
 //
-// Bound on this card: bytes.  One pass reads the uint8 bin matrix
-// (F bytes per row) plus the per-row side band (grad, hess, cid: 12 bytes
-// per row in the float mode, 3 + 4 in the int8 mode) once, and writes
-// F*B*3C accumulators.  At the main-path shape (F=28, N=1M, C=1) that is
-// about 40 MB.  Design: blockIdx.x picks a block of Fb features whose
-// [Fb, B, 3C] accumulator fills at most the 227 KB of dynamic shared
-// memory (the analogue of feature_block's VMEM budget, :176-183);
-// blockIdx.y picks a contiguous chunk of rows.  Threads stride the chunk so
-// each feature row is read coalesced, add into shared memory, and the block
-// adds its partial into the global accumulator with one atomic per nonzero
-// cell.  Two instantiations:
+// Bound on this card: bytes, in principle.  A pass must read the uint8
+// bin matrix (F bytes per row) and the per-row side band once, and write
+// F*B*3C accumulators: about 40 MB at the root of the main path (F=28,
+// N=1M, C=1), 12 us at 3.35 TB/s.  In practice two things bound it:
+//   - the shared-memory atomics (one per row, feature and value).  The card
+//     has a native shared add for integers but not for f32, which compiles
+//     to a compare-and-swap loop; the int8 mode runs about twice as fast as
+//     the float mode at the same shape for that reason;
+//   - the main path launches the kernel once per leaf, mostly on children
+//     of a few thousand rows, so what bounds a tree is how much of the card
+//     each small launch fills and what each block pays around its rows.
+// The design, per cost:
+//   - Fill the card at every size.  blockIdx.x picks a small group of g
+//     features (about 12 KB of accumulator: 4 features at C=1, one feature
+//     at wide C), blockIdx.y a chunk of rows; the wrapper
+//     (ops/hist_cuda.plan) sizes chunks for up to 8 resident blocks per SM
+//     with a floor of one row tile, and gives each thread 16 rows of a
+//     feature only where that still fills every SM, else 4, so a child of
+//     4,000 rows runs on 112 blocks and short per-thread atomic chains.
+//   - Small per-block overhead.  Each block zeroes and flushes only its
+//     group's [g, B, 3C] cells, adding nonzero cells into the global
+//     output with one atomic each.
+//   - Fewer and cheaper atomics in the float mode.  A row adds its f32
+//     (grad, hess) pair with one 64-bit compare-and-swap loop and its
+//     count with a native integer increment (counts are kept as int32 and
+//     converted at the flush).  Where shared memory allows (narrow C) a
+//     block keeps two copies of its accumulator, one per warp parity, so
+//     no two warps contend for the same cells; the copies are summed in
+//     shared memory before the flush.  A warp whose rows are all kept
+//     takes a branch-free path; one with dropped rows lets them add zeros
+//     rather than diverge around the atomics.
+//   - Wide loads, side band once.  Each thread reads its rows of one
+//     feature as one 16- or 4-byte load (rows start at an arbitrary lane,
+//     so the tile origin is shifted to the 16-byte boundary and unaligned
+//     or partial vectors are read byte by byte).  Each row tile's side band
+//     (values and column id) is staged in shared memory once and read by
+//     every feature of the group; it is padded one word per vector, so the
+//     32 lanes of a warp, a vector apart, read 32 distinct banks.
+//   - Wide C (one block per SM fits): 512 threads per block, not 256.
+// Three instantiations:
 //   float: f32 grad/hess, count 1.0 per row, f32 accumulation.  Atomic
 //          order varies run to run, so sums agree with a sequential sum to
 //          f32 rounding, not bitwise.
 //   int8:  int8 quantized levels (ops/hist_cuda.quantize_values), int32
 //          accumulation: order-free and bitwise.
+//   pane:  the float mode read straight from a slice of the compacted
+//          grower's plane pane (ops/compact.py): f32 grad and hess are
+//          assembled from their four little-endian byte planes (bit-equal
+//          to Tensor.view(float32)), and the validity plane gives column 0
+//          or "dropped".  C = 1.
 // Bins are read as uint8, so values >= 128 need no masking (the TPU kernel
-// carries them as int8 and masks with & 255, :79); bins >= B are dropped.
+// carries them as int8 and masks with & 255, :79).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,123 +69,335 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kMaxThreads = 512;
 constexpr int kMaxSmem = 232448;  // 227 KB per block on sm_90
+constexpr int kFloat = 0, kInt8 = 1, kPane = 2;
 
-template <bool kInt8>
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const uint8_t* __restrict__ bins, long long ld,
-            const float* __restrict__ grad, const float* __restrict__ hess,
-            const int8_t* __restrict__ q, long long qld,
-            const int32_t* __restrict__ cid, int n, int num_f, int fb,
-            int num_b, int num_c, int rows_per_block, void* out) {
-  using Acc = typename std::conditional<kInt8, int, float>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* sh = reinterpret_cast<Acc*>(smem_raw);
-  const int f0 = blockIdx.x * fb;
-  const int nf = min(fb, num_f - f0);
-  const int k3 = 3 * num_c;
-  const int cells = nf * num_b * k3;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) sh[i] = Acc(0);
-  __syncthreads();
+struct Args {
+  const uint8_t* bins;   // bin row f starts at bins + f * ld
+  long long ld;
+  const float* grad;     // float
+  const float* hess;
+  const int8_t* q;       // int8: [3, qld] levels
+  long long qld;
+  const int32_t* cid;    // float, int8
+  const uint8_t* planes; // pane: grad byte planes at planes + k * ld,
+                         // hess at + (4 + k) * ld, validity at + 8 * ld
+  int n, num_f, num_b, num_c;
+  int g;                 // features per block
+  int copies;            // private accumulator copies per block
+  int tile;              // rows per staged tile, a multiple of 16
+  int shift;             // rows start at -shift: bins + r is 16-aligned
+                         // at every tile start
+  long long chunk;       // rows per block, a multiple of tile
+  void* out;
+};
 
-  const long long r0 = (long long)blockIdx.y * rows_per_block;
-  const long long r1 = min((long long)n, r0 + rows_per_block);
-  const uint8_t* fbase = bins + (long long)f0 * ld;
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int c = cid[r];
-    if (c < 0 || c >= num_c) continue;
-    Acc v0, v1, v2;
-    if constexpr (kInt8) {
-      v0 = q[r];
-      v1 = q[qld + r];
-      v2 = q[2 * qld + r];
+// Side-band index of tile row i: one pad word per kVec rows, so lanes
+// kVec rows apart read words kVec + 1 apart, in 32 distinct banks.
+template <int kVec>
+__device__ __forceinline__ int padded(int i) { return i + i / kVec; }
+
+// Bin bytes of rows [0, kVec) at src, packed little-endian into w; bytes
+// of rows outside [lo, hi) are left 0xFF and never read.
+template <int kVec>
+__device__ __forceinline__ void load_bins(const uint8_t* src, int lo, int hi,
+                                          uint32_t (&w)[kVec / 4]) {
+  if (lo <= 0 && hi >= kVec
+      && (reinterpret_cast<uintptr_t>(src) & (kVec - 1)) == 0) {
+    if constexpr (kVec == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src);
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
     } else {
-      v0 = grad[r];
-      v1 = hess[r];
-      v2 = 1.0f;
+      w[0] = *reinterpret_cast<const uint32_t*>(src);
     }
-    for (int f = 0; f < nf; ++f) {
-      const int b = fbase[(long long)f * ld + r];
-      if (b >= num_b) continue;
-      Acc* cell = sh + ((long long)f * num_b + b) * k3 + 3 * c;
-      atomicAdd(cell, v0);
-      atomicAdd(cell + 1, v1);
-      atomicAdd(cell + 2, v2);
-    }
+    return;
   }
-  __syncthreads();
-
-  Acc* o = reinterpret_cast<Acc*>(out) + (long long)f0 * num_b * k3;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const Acc v = sh[i];
-    if (v != Acc(0)) atomicAdd(o + i, v);
+  // ragged head or tail, or a row stride off the vector boundary
+#pragma unroll
+  for (int k = 0; k < kVec / 4; ++k) w[k] = 0xFFFFFFFFu;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    if (k >= lo && k < hi) {
+      w[k >> 2] = (w[k >> 2] & ~(0xFFu << (8 * (k & 3))))
+                  | (uint32_t)src[k] << (8 * (k & 3));
+    }
   }
 }
 
-template <bool kInt8>
-int launch(const uint8_t* bins, long long ld, const float* grad,
-           const float* hess, const int8_t* q, long long qld,
-           const int32_t* cid, int n, int num_f, int num_b, int num_c,
-           int num_sms, void* out, cudaStream_t stream) {
-  const size_t cell_bytes = 4;
-  const size_t out_bytes = (size_t)num_f * num_b * 3 * num_c * cell_bytes;
-  cudaError_t err = cudaMemsetAsync(out, 0, out_bytes, stream);
-  if (err != cudaSuccess) return (int)err;
-  if (n <= 0 || num_f <= 0) return (int)cudaGetLastError();
-  // features per block: the largest count whose accumulator fits shared
-  // memory, balanced over the blocks
-  const size_t per_feature = (size_t)num_b * 3 * num_c * cell_bytes;
-  int fb_max = (int)(kMaxSmem / per_feature);
-  if (fb_max < 1) return (int)cudaErrorInvalidValue;
-  const int nfb = (num_f + fb_max - 1) / fb_max;
-  const int fb = (num_f + nfb - 1) / nfb;
-  const size_t smem = (size_t)fb * per_feature;
-  // rows: enough chunks for about two blocks per SM, at least 8192 rows
-  // each so the per-block flush stays small next to the row work
-  long long target = (2LL * num_sms + nfb - 1) / nfb;
-  if (target < 1) target = 1;
-  long long rows = (n + target - 1) / target;
-  if (rows < 8192) rows = 8192;
-  rows = (rows + kThreads - 1) / kThreads * kThreads;
-  const int chunks = (int)((n + rows - 1) / rows);
-  err = cudaFuncSetAttribute(hist_kernel<kInt8>,
+// Adds (g, h) to an f32 pair with one 64-bit compare-and-swap loop: the
+// card has no native f32 add on shared memory, so this halves the loops
+// of two separate f32 atomics.  Each component still takes one f32 add.
+__device__ __forceinline__ void add_pair(unsigned long long* p, float g,
+                                         float h) {
+  unsigned long long seen = *p, want;
+  do {
+    want = seen;
+    const float x = __uint_as_float((unsigned)want) + g;
+    const float y = __uint_as_float((unsigned)(want >> 32)) + h;
+    seen = atomicCAS(p, want,
+                     (unsigned long long)__float_as_uint(x)
+                         | (unsigned long long)__float_as_uint(y) << 32);
+  } while (seen != want);
+}
+
+template <int kMode, int kVec>
+__global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int f0 = blockIdx.x * a.g;
+  const int nf = min(a.g, a.num_f - f0);
+  const int fcells = a.num_b * a.num_c;  // (bin, column) cells per feature
+  const int cells = nf * fcells;         // per copy
+  // accumulator, 3 words per cell and copy.  int8: int [copies][cells][3].
+  // float, pane: f32 (grad, hess) pairs [copies][cells], then int counts
+  // [copies][cells] (exact, and a native atomic)
+  int* acc = reinterpret_cast<int*>(smem_raw);
+  unsigned long long* pairs = reinterpret_cast<unsigned long long*>(smem_raw);
+  int* counts = reinterpret_cast<int*>(pairs + a.copies * cells);
+  // side band, structure of arrays of padded(tile) words each:
+  //   float, pane: sc (column or -1), sg, sh;  int8: sc packs
+  //   (q0, q1, q2, column or 0xFF) as bytes
+  const long long acc_bytes =
+      ((long long)a.copies * a.g * fcells * 12 + 15) / 16 * 16;
+  const int pt = padded<kVec>(a.tile);
+  int* sc = reinterpret_cast<int*>(smem_raw + acc_bytes);
+  float* sg = reinterpret_cast<float*>(sc + pt);
+  float* sh = sg + pt;
+  for (int i = threadIdx.x; i < 3 * a.copies * cells; i += blockDim.x)
+    acc[i] = 0;
+  const int copy = (threadIdx.x >> 5) % a.copies;
+
+  const long long c0 = -(long long)a.shift + (long long)blockIdx.y * a.chunk;
+  const long long c1 = min((long long)a.n, c0 + a.chunk);
+  for (long long t0 = c0; t0 < c1; t0 += a.tile) {
+    const int tn = (int)min((long long)a.tile, c1 - t0);
+    __syncthreads();  // zeroing done / previous tile consumed
+    for (int i = threadIdx.x; i < tn; i += blockDim.x) {
+      const long long r = t0 + i;
+      const int p = padded<kVec>(i);
+      if (r < 0) {
+        sc[p] = -1;  // before the segment: dropped
+        continue;
+      }
+      if constexpr (kMode == kPane) {
+        const uint8_t* pl = a.planes + r;
+        uint32_t ug = 0, uh = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          ug |= (uint32_t)pl[k * a.ld] << (8 * k);
+          uh |= (uint32_t)pl[(4 + k) * a.ld] << (8 * k);
+        }
+        sg[p] = __uint_as_float(ug);
+        sh[p] = __uint_as_float(uh);
+        sc[p] = pl[8 * a.ld] == 1 ? 0 : -1;
+      } else {
+        const int c = a.cid[r];
+        const bool ok = c >= 0 && c < a.num_c;
+        if constexpr (kMode == kInt8) {
+          sc[p] = (int)((uint32_t)(uint8_t)a.q[r]
+                        | (uint32_t)(uint8_t)a.q[a.qld + r] << 8
+                        | (uint32_t)(uint8_t)a.q[2 * a.qld + r] << 16
+                        | (uint32_t)(ok ? c : 0xFF) << 24);
+        } else {
+          sg[p] = a.grad[r];
+          sh[p] = a.hess[r];
+          sc[p] = ok ? c : -1;
+        }
+      }
+    }
+    __syncthreads();
+
+    const int vecs = (tn + kVec - 1) / kVec;
+    for (int s = threadIdx.x; s < nf * vecs; s += blockDim.x) {
+      const int fi = s / vecs;
+      const int j = s - fi * vecs;
+      const long long r0 = t0 + kVec * j;
+      uint32_t w[kVec / 4];
+      load_bins<kVec>(a.bins + (long long)(f0 + fi) * a.ld + r0,
+                      (int)max(0LL, -r0), tn - kVec * j, w);
+      const int fbase = copy * cells + fi * fcells;
+      const int base = (kVec + 1) * j;
+      const int kmax = min(kVec, tn - kVec * j);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        if (k >= kmax) break;
+        const int b = (w[k >> 2] >> (8 * (k & 3))) & 0xFF;
+        if (b >= a.num_b) continue;
+        const int side = sc[base + k];
+        if constexpr (kMode == kInt8) {
+          const int c = (int)((uint32_t)side >> 24);
+          if (c == 0xFF) continue;
+          int* cell = acc + 3 * (fbase + b * a.num_c + c);
+          atomicAdd(cell, (int)(int8_t)(side & 0xFF));
+          atomicAdd(cell + 1, (int)(int8_t)((side >> 8) & 0xFF));
+          atomicAdd(cell + 2, (int)(int8_t)((side >> 16) & 0xFF));
+        } else {
+          const bool ok = side >= 0;
+          const int cell = fbase + b * a.num_c + max(side, 0);
+          if (__all_sync(__activemask(), ok)) {
+            add_pair(pairs + cell, sg[base + k], sh[base + k]);
+            atomicAdd(counts + cell, 1);
+          } else {
+            // some of the warp's rows are dropped: they add zeros, as a
+            // branch around the atomics costs more than the atomics
+            atomicAdd(counts + cell, ok ? 1 : 0);
+            add_pair(pairs + cell, ok ? sg[base + k] : 0.0f,
+                     ok ? sh[base + k] : 0.0f);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // merge the copies; add each nonzero cell into the output
+  const long long o0 = (long long)f0 * fcells * 3;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    if constexpr (kMode == kInt8) {
+      int* o = reinterpret_cast<int*>(a.out) + o0 + 3 * i;
+      for (int k = 0; k < 3; ++k) {
+        int v = 0;
+        for (int cp = 0; cp < a.copies; ++cp) v += acc[3 * (cp * cells + i) + k];
+        if (v != 0) atomicAdd(o + k, v);
+      }
+    } else {
+      int n = 0;
+      float g = 0.0f, h = 0.0f;
+      for (int cp = 0; cp < a.copies; ++cp) {
+        const int cell = cp * cells + i;
+        n += counts[cell];
+        g += __uint_as_float((unsigned)pairs[cell]);
+        h += __uint_as_float((unsigned)(pairs[cell] >> 32));
+      }
+      if (n == 0) continue;
+      float* o = reinterpret_cast<float*>(a.out) + o0 + 3 * i;
+      atomicAdd(o, g);
+      atomicAdd(o + 1, h);
+      atomicAdd(o + 2, (float)n);
+    }
+  }
+}
+
+// The dynamic shared-memory limit is raised once per instantiation and
+// device, not on every launch.
+template <int kMode, int kVec>
+cudaError_t raise_smem_limit() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(hist_kernel<kMode, kVec>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMaxSmem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+// vec (rows per thread and load: 16 or 4), threads (per block), groups,
+// chunks, smem: the launch plan of ops/hist_cuda.plan.
+template <int kMode, int kVec>
+int launch_vec(const Args& a, int threads, int groups, int chunks, int smem,
+               cudaStream_t stream) {
+  cudaError_t err = raise_smem_limit<kMode, kVec>();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(nfb, chunks);
-  hist_kernel<kInt8><<<grid, kThreads, smem, stream>>>(
-      bins, ld, grad, hess, q, qld, cid, n, num_f, fb, num_b, num_c,
-      (int)rows, out);
+  hist_kernel<kMode, kVec>
+      <<<dim3(groups, chunks), threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int launch(Args a, int vec, int threads, int groups, int chunks, int smem,
+           cudaStream_t stream) {
+  const size_t out_bytes = (size_t)a.num_f * a.num_b * 3 * a.num_c * 4;
+  cudaError_t err = cudaMemsetAsync(a.out, 0, out_bytes, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (a.n <= 0 || a.num_f <= 0) return (int)cudaGetLastError();
+  if (smem > kMaxSmem || threads % 64 != 0 || threads > kMaxThreads
+      || a.tile % 16 != 0 || a.chunk % a.tile != 0
+      || (long long)groups * a.g < a.num_f
+      || (long long)chunks * a.chunk < (long long)a.n + a.shift)
+    return (int)cudaErrorInvalidValue;
+  if (vec == 16)
+    return launch_vec<kMode, 16>(a, threads, groups, chunks, smem, stream);
+  if (vec == 4)
+    return launch_vec<kMode, 4>(a, threads, groups, chunks, smem, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+Args make_args(const void* bins, long long ld, int n, int num_f, int num_b,
+               int num_c, int g, int copies, int tile, int shift,
+               long long chunk, void* out) {
+  Args a = {};
+  a.bins = static_cast<const uint8_t*>(bins);
+  a.ld = ld;
+  a.n = n;
+  a.num_f = num_f;
+  a.num_b = num_b;
+  a.num_c = num_c;
+  a.g = g;
+  a.copies = copies;
+  a.tile = tile;
+  a.shift = shift;
+  a.chunk = chunk;
+  a.out = out;
+  return a;
 }
 
 }  // namespace
 
 extern "C" {
 
-// out: [num_f, num_b, 3 * num_c] float32.  bins: row f starts at
-// bins + f * ld.  Rows with cid outside [0, num_c) are skipped.
+// Every entry: bins row f starts at bins + f * ld, and bins is shift
+// bytes past a 16-byte boundary; out is [num_f, num_b, 3 * num_c] and is
+// zeroed here.  The arguments vec .. smem are the launch plan of
+// ops/hist_cuda.plan.
+
+// float32: rows with cid outside [0, num_c) are skipped.
 int lgbm_hist_f32(const void* bins, long long ld, const void* grad,
                   const void* hess, const void* cid, int n, int num_f,
-                  int num_b, int num_c, int num_sms, void* out,
+                  int num_b, int num_c, int shift, int vec, int threads,
+                  int g, int copies, int tile, long long chunk,
+                  int groups, int chunks, int smem, void* out,
                   void* stream) {
-  return launch<false>(static_cast<const uint8_t*>(bins), ld,
-                       static_cast<const float*>(grad),
-                       static_cast<const float*>(hess), nullptr, 0,
-                       static_cast<const int32_t*>(cid), n, num_f, num_b,
-                       num_c, num_sms, out, (cudaStream_t)stream);
+  Args a = make_args(bins, ld, n, num_f, num_b, num_c, g, copies, tile,
+                     shift, chunk, out);
+  a.grad = static_cast<const float*>(grad);
+  a.hess = static_cast<const float*>(hess);
+  a.cid = static_cast<const int32_t*>(cid);
+  return launch<kFloat>(a, vec, threads, groups, chunks, smem,
+                        (cudaStream_t)stream);
 }
 
 // q: [3, qld] int8 quantized (grad, hess, ok) levels.  out: int32.
 int lgbm_hist_i8(const void* bins, long long ld, const void* q,
                  long long qld, const void* cid, int n, int num_f,
-                 int num_b, int num_c, int num_sms, void* out,
+                 int num_b, int num_c, int shift, int vec, int threads,
+                 int g, int copies, int tile, long long chunk,
+                 int groups, int chunks, int smem, void* out,
                  void* stream) {
-  return launch<true>(static_cast<const uint8_t*>(bins), ld, nullptr,
-                      nullptr, static_cast<const int8_t*>(q), qld,
-                      static_cast<const int32_t*>(cid), n, num_f, num_b,
-                      num_c, num_sms, out, (cudaStream_t)stream);
+  Args a = make_args(bins, ld, n, num_f, num_b, num_c, g, copies, tile,
+                     shift, chunk, out);
+  a.q = static_cast<const int8_t*>(q);
+  a.qld = qld;
+  a.cid = static_cast<const int32_t*>(cid);
+  return launch<kInt8>(a, vec, threads, groups, chunks, smem,
+                       (cudaStream_t)stream);
+}
+
+// Plane-pane slice: bins = pane + sstart (row stride ld), planes = the
+// pane's row num_f at the same lane.  float32, num_c must be 1.
+int lgbm_hist_pane(const void* bins, long long ld, const void* planes,
+                   int n, int num_f, int num_b, int num_c, int shift,
+                   int vec, int threads, int g, int copies, int tile,
+                   long long chunk, int groups, int chunks, int smem,
+                   void* out, void* stream) {
+  if (num_c != 1) return (int)cudaErrorInvalidValue;
+  Args a = make_args(bins, ld, n, num_f, num_b, num_c, g, copies, tile,
+                     shift, chunk, out);
+  a.planes = static_cast<const uint8_t*>(planes);
+  return launch<kPane>(a, vec, threads, groups, chunks, smem,
+                       (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,8 @@ contiguous in one plane pane (ops/compact.py), so a split
 
 1. stably partitions the parent's lane range in place, sliced at its
    bucketed width (``bucket_table``) — the partition kernel;
-2. histograms only the smaller child's lanes — the histogram kernel;
+2. histograms only the smaller child's lanes — the histogram kernel,
+   which in the float mode reads the pane slice in place;
 3. derives the sibling's histogram by subtraction from the parent's;
 4. searches both children's best splits in one batched call.
 
@@ -33,6 +34,7 @@ import torch
 
 from ..ops.compact import (BLOCK, bucket_table, pack_planes, pane_rows,
                            partition_segment, unpack_values)
+from ..ops.hist_cuda import hist_pane_float
 from ..ops.histogram import build_histogram
 from ..ops.split import find_best_split
 
@@ -181,9 +183,12 @@ def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
         left_small = lcnt <= rcnt
         sstart = start if left_small else start + plcnt
         scnt = plcnt if left_small else prcnt
-        hbins, hg, hh, hvalid = unpack_values(pane[:, sstart:sstart + scnt],
-                                              F)
-        small = hist_of(hbins, hg, hh, hvalid)
+        if compute_dtype == "int8":
+            # quantization needs the pass maximum first: unpack, then the
+            # int8 route
+            small = hist_of(*unpack_values(pane[:, sstart:sstart + scnt], F))
+        else:
+            small = hist_pane_float(pane, F, sstart, scnt, B)
         large = hist_cache[bl] - small
         lhist, rhist = (small, large) if left_small else (large, small)
         depth = int(leaf_depth[bl]) + 1

@@ -98,10 +98,14 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "hist":
-        lib.lgbm_hist_f32.argtypes = [p, ll, p, p, p, i, i, i, i, i, p, p]
-        lib.lgbm_hist_f32.restype = i
-        lib.lgbm_hist_i8.argtypes = [p, ll, p, ll, p, i, i, i, i, i, p, p]
-        lib.lgbm_hist_i8.restype = i
+        # ..., n, num_f, num_b, num_c, shift, then the plan (vec, threads,
+        # g, copies, tile, chunk, groups, chunks, smem), out, stream
+        tail = [i, i, i, i, i, i, ll, i, i, i, p, p]
+        lib.lgbm_hist_f32.argtypes = [p, ll, p, p, p, i, i, i, i] + tail
+        lib.lgbm_hist_i8.argtypes = [p, ll, p, ll, p, i, i, i, i] + tail
+        lib.lgbm_hist_pane.argtypes = [p, ll, p, i, i, i, i] + tail
+        for fn in (lib.lgbm_hist_f32, lib.lgbm_hist_i8, lib.lgbm_hist_pane):
+            fn.restype = i
     elif name == "partition":
         lib.lgbm_partition.argtypes = [p, ll, p, p, i, i, i, i, i, p, p]
         lib.lgbm_partition.restype = i

@@ -9,10 +9,14 @@ kernel ``_hist_pallas_raw_fn`` (hist_pallas.py:86):
 
 with val = (grad, hess, 1) in the float mode and the int8 levels of
 ``quantize_values`` in the int8 mode; rows whose cid lies outside
-[0, num_cols) are excluded.  On a CUDA tensor they launch csrc/hist.cu
-(its header says what bounds it and how it is laid out); on a CPU tensor
-they run the plain version, an ``index_add_`` on ``(f*B + bin)*C + cid``.
-There is no other route: a CUDA tensor that the kernel refuses raises.
+[0, num_cols) are excluded.  ``hist_pane_float`` computes the float mode
+with one column straight from a slice of the compacted grower's plane
+pane (ops/compact.py), so the grower's per-split histogram needs no
+unpacking.  On a CUDA tensor they launch csrc/hist.cu (its header says
+what bounds it and how it is laid out) with the launch plan of ``plan``;
+on a CPU tensor they run the plain version, an ``index_add_`` on
+``(f*B + bin)*C + cid``.  There is no other route: a CUDA tensor that the
+kernel refuses raises.
 
 The TPU kernel's operand tricks have no counterpart here, because the
 CUDA kernel computes their target directly: the bf16 hi/lo split of the
@@ -25,12 +29,26 @@ from __future__ import annotations
 import torch
 
 from . import cuda_build
+from .compact import unpack_values
 from .cuda_build import require
 
-# kernel launches (both modes); chip_smoke.py zeroes it around the main path
+# kernel launches (every entry), and the row count of each; chip_smoke.py
+# resets both around the main path
 launches = 0
+launch_rows = []
 
 _num_sms = {}
+
+# launch plan (csrc/hist.cu's header says why)
+MAX_SMEM = 232448        # dynamic shared memory a block may use on sm_90
+SM_SMEM = 233472         # shared memory of one SM
+SM_THREADS = 2048        # resident threads of one SM
+GROUP_BYTES = 12288      # accumulator bytes per feature group
+COPIES_BYTES = 49152     # two accumulator copies where they fit this
+BLOCKS_PER_SM = 8        # target resident blocks per SM
+MIN_CHUNK_TILES = 1      # rows per block: at least this many tiles
+VEC = None               # rows per thread and bin load (16, 4; None: plan)
+THREADS = None           # threads per block (256, 512; None: plan)
 
 
 def quantize_values(grad, hess, col_ok):
@@ -40,8 +58,12 @@ def quantize_values(grad, hess, col_ok):
     okf = col_ok.to(torch.float32)
     ag = torch.max(grad.abs() * okf)
     ah = torch.max(hess.abs() * okf)
-    gs = torch.clamp_min(ag, 1e-30) / 127.0
-    hs = torch.clamp_min(ah, 1e-30) / 127.0
+    # divide by a tensor, not a Python number: CUDA turns division by a
+    # host scalar into a multiplication by its reciprocal, which can round
+    # the scale one ulp away from the CPU's (and the JAX package's)
+    top = ag.new_tensor(127.0)
+    gs = torch.clamp_min(ag, 1e-30) / top
+    hs = torch.clamp_min(ah, 1e-30) / top
     gq = torch.clamp(torch.round(grad / gs), -127, 127)
     hq = torch.clamp(torch.round(hess / hs), -127, 127)
     vals = torch.stack([gq * okf, hq * okf, okf]).to(torch.int8)
@@ -89,14 +111,65 @@ def _sms(device) -> int:
     return _num_sms[idx]
 
 
-def _launch(entry, bins, args, num_cols, B, out):
+def plan(n: int, F: int, B: int, C: int, side_words: int, shift: int,
+         sms: int):
+    """Launch plan of csrc/hist.cu for ``n`` rows starting ``shift``
+    bytes past a 16-byte boundary: (vec, threads, g, copies, tile, chunk,
+    groups, chunks, smem).  Blocks take g features (about GROUP_BYTES of
+    accumulator) and ``chunk`` rows (a multiple of the staged ``tile``),
+    sized for BLOCKS_PER_SM resident blocks on each of ``sms`` SMs;
+    ``side_words`` is the side band's 4-byte words per row (3 float, 1
+    int8).  Each thread takes ``vec`` rows of one feature per load: 16
+    where that still gives every SM its full complement of threads and
+    keeps at least three quarters of a block's threads busy, else 4, so
+    a small segment spreads over more threads.  Where a block's
+    accumulator leaves room for one block per SM (wide C), the block has
+    512 threads instead of 256."""
+    per_f = B * 3 * C * 4
+    g = max(1, min(8, F, GROUP_BYTES // per_f))
+    groups = -(-F // g)
+    g = -(-F // groups)
+    copies = 2 if 2 * g * per_f <= COPIES_BYTES else 1
+    acc = -(-copies * g * per_f // 16) * 16
+    wide = 2 * (acc + 1024) > SM_SMEM
+    threads = THREADS or (512 if wide else 256)
+    rows = max(n + shift, 1)
+
+    def tile_of(vec):
+        # one pad word per vec rows of the side band
+        row_bytes = side_words * 4 * (vec + 1) / vec
+        return min(threads * vec // g,
+                   int((MAX_SMEM - acc) // row_bytes)) // 16 * 16
+
+    vec = VEC or (16 if F * rows >= 16 * SM_THREADS * sms
+                  and tile_of(16) * g >= 12 * threads else 4)
+    tile = tile_of(vec)
+    require(tile >= 16, "histogram accumulator does not fit shared memory "
+            "(B=%d, num_cols=%d)" % (B, C))
+    smem = acc + side_words * 4 * (tile + tile // vec)
+    per_sm = min(SM_THREADS // threads, SM_SMEM // (smem + 1024),
+                 BLOCKS_PER_SM)
+    chunks = -(-per_sm * sms // groups)
+    chunk = max(MIN_CHUNK_TILES * tile, -(-rows // chunks))
+    chunk = -(-chunk // tile) * tile
+    chunks = -(-rows // chunk)
+    return vec, threads, g, copies, tile, chunk, groups, chunks, smem
+
+
+def _launch(entry, bins, args, num_cols, B, side_words, out):
     global launches
     F, N = bins.shape
+    if N == 0 or F == 0:
+        return out.zero_()                  # no rows: nothing to launch
+    shift = bins.data_ptr() % 16
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     rc = entry(bins.data_ptr(), bins.stride(0), *args, N, F, B, num_cols,
-               _sms(bins.device), out.data_ptr(), stream)
+               shift, *plan(N, F, B, num_cols, side_words, shift,
+                            _sms(bins.device)),
+               out.data_ptr(), stream)
     cuda_build.check(rc, "hist kernel")
     launches += 1
+    launch_rows.append(N)
     return out
 
 
@@ -115,7 +188,7 @@ def hist_float(bins, grad, hess, cid, num_cols: int, B: int):
     lib = cuda_build.load("hist")
     return _launch(lib.lgbm_hist_f32, bins,
                    (grad.data_ptr(), hess.data_ptr(), cid.data_ptr()),
-                   num_cols, B, out)
+                   num_cols, B, 3, out)
 
 
 def hist_int8(bins, levels, cid, num_cols: int, B: int):
@@ -131,7 +204,39 @@ def hist_int8(bins, levels, cid, num_cols: int, B: int):
     lib = cuda_build.load("hist")
     return _launch(lib.lgbm_hist_i8, bins,
                    (levels.data_ptr(), levels.stride(0), cid.data_ptr()),
-                   num_cols, B, out)
+                   num_cols, B, 1, out)
+
+
+def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int):
+    """[F, B, 3] f32 histogram of (grad, hess, 1) over the valid rows of
+    the plane-pane lanes [sstart, sstart + scnt): ``build_histogram`` of
+    ``unpack_values(pane[:, sstart:sstart + scnt], F)``, read in place."""
+    R, P = pane.shape
+    require(pane.dtype == torch.int8 and pane.stride(1) == 1,
+            "pane must be int8 [R, P] with contiguous rows")
+    require(R >= F + 9 and 1 <= B <= 256, "pane has too few rows, or B > 256")
+    require(0 <= sstart and 0 <= scnt and sstart + scnt <= P,
+            "segment out of range")
+    if scnt == 0:                           # no rows: nothing to launch
+        return torch.zeros((F, B, 3), dtype=torch.float32,
+                           device=pane.device)
+    seg = pane[:, sstart:sstart + scnt]
+    if pane.device.type == "cpu":
+        return pane_plain(seg, F, B)
+    out = torch.empty((F, B, 3), dtype=torch.float32, device=pane.device)
+    lib = cuda_build.load("hist")
+    planes = seg[F:F + 9]
+    return _launch(lib.lgbm_hist_pane, seg[:F].view(torch.uint8),
+                   (planes.data_ptr(),), 1, B, 3, out)
+
+
+def pane_plain(seg, F: int, B: int):
+    """Plain version of the pane entry: unpack the slice, then the float
+    mode's plain version with column 0 for valid rows."""
+    bins, grad, hess, valid = unpack_values(seg, F)
+    cid = torch.where(valid, 0, -1).to(torch.int32)
+    return hist_plain(bins, torch.stack([grad, hess, torch.ones_like(grad)],
+                                        1), cid, 1, B)
 
 
 def hist_plain(bins, vals, cid, num_cols: int, B: int):

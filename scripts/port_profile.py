@@ -7,8 +7,10 @@ Trains the chip_smoke.py main-path configuration (Higgs-shaped binary
 table, 28 features, max_bin 255, 255 leaves, float32 histograms): one
 warm-up iteration, then ``--iters`` iterations under ``torch.profiler``.
 Prints the wall time per iteration, the device time per kernel name (top
-20), the device busy and idle shares of the profiled window, and the
-card's name and power limit; ``--out`` also writes the report to FILE.
+20), the device time of the port's histogram and partition kernels with
+all their instantiations summed, the device busy and idle shares of the
+profiled window, and the card's name and power limit; ``--out`` also
+writes the report to FILE.
 """
 from __future__ import annotations
 
@@ -74,6 +76,15 @@ def main() -> int:
     for name, us in per_name.most_common(20):
         lines.append("  %10.3f ms %7d  %s" % (
             us / 1e3 / args.iters, calls[name] // args.iters, name[:100]))
+    # the port's own kernels, every instantiation summed
+    for label, key in (("histogram", "hist_kernel"),
+                       ("partition", "part_")):
+        names = [n for n in per_name if key in n]
+        lines.append("%s kernels (%s*): %.3f ms per iteration, %d launches "
+                     "per iteration" % (
+                         label, key,
+                         sum(per_name[n] for n in names) / 1e3 / args.iters,
+                         sum(calls[n] for n in names) // args.iters))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import lightgbm_tpu_torch as lgt
-from lightgbm_tpu_torch.ops import compact
+from lightgbm_tpu_torch.ops import compact, hist_cuda
 from lightgbm_tpu_torch.ops.histogram import histogram_leafbatch
 
 pytestmark = pytest.mark.cuda
@@ -51,6 +51,89 @@ def test_hist_kernel_matches_plain(cuda, dtype, C):
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _assert_hist(got, want, dtype):
+    np.testing.assert_array_equal(got[..., 2], want[..., 2])
+    if dtype == "int8":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _bins_view(rng, F, N, B, offset, ld, device):
+    """[F, N] uint8 bins as a column slice starting ``offset`` lanes into
+    rows of stride ``ld``, as the grower slices the pane."""
+    wide = torch.as_tensor(rng.randint(0, B, (F, ld)).astype(np.uint8),
+                           device=device)
+    view = wide[:, offset:offset + N]
+    assert view.stride(0) == ld
+    return view
+
+
+@pytest.mark.parametrize("N", [1, 100, 2047, 8191])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_hist_kernel_small_n(cuda, dtype, N):
+    rng = np.random.RandomState(N)
+    F, B = 28, 256
+    args = (rng.randint(0, B, (F, N)).astype(np.uint8),
+            (rng.randn(N) * 0.4).astype(np.float32),
+            (rng.rand(N) * 0.25).astype(np.float32),
+            np.zeros(N, np.int32), rng.rand(N) < 0.85)
+    _assert_hist(_hist(*args, 1, B, dtype, cuda),
+                 _hist(*args, 1, B, dtype, "cpu"), dtype)
+
+
+@pytest.mark.parametrize("F,N,C", [(28, 60_001, 64), (200, 30_000, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_hist_kernel_wide_shapes(cuda, dtype, F, N, C):
+    rng = np.random.RandomState(F + C)
+    B = 256
+    args = (rng.randint(0, B, (F, N)).astype(np.uint8),
+            (rng.randn(N) * 0.4).astype(np.float32),
+            (rng.rand(N) * 0.25).astype(np.float32),
+            rng.randint(0, C, N).astype(np.int32), rng.rand(N) < 0.85)
+    _assert_hist(_hist(*args, C, B, dtype, cuda),
+                 _hist(*args, C, B, dtype, "cpu"), dtype)
+
+
+# offsets off the 16-byte boundary; row strides aligned (the pane's) and not
+@pytest.mark.parametrize("offset,ld", [(1, 40960), (13, 40960), (7, 40001),
+                                       (2048, 40960)])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_hist_kernel_unaligned_slices(cuda, dtype, offset, ld):
+    rng = np.random.RandomState(offset)
+    F, N, B, C = 12, 33_333, 256, 3
+    view = _bins_view(rng, F, N, B, offset, ld, cuda)
+    g = torch.as_tensor(rng.randn(N).astype(np.float32), device=cuda)
+    h = torch.as_tensor(rng.rand(N).astype(np.float32), device=cuda)
+    cid = torch.as_tensor(rng.randint(-1, C + 1, N).astype(np.int32),
+                          device=cuda)
+    ok = torch.ones(N, dtype=torch.bool, device=cuda)
+    got = histogram_leafbatch(view, g, h, cid.clamp(0, C - 1), ok & (
+        cid >= 0) & (cid < C), C, B, dtype)
+    want = histogram_leafbatch(view.cpu(), g.cpu(), h.cpu(),
+                               cid.clamp(0, C - 1).cpu(),
+                               ((cid >= 0) & (cid < C)).cpu(), C, B, dtype)
+    _assert_hist(got.cpu().numpy(), want.numpy(), dtype)
+
+
+@pytest.mark.parametrize("sstart,scnt", [(0, 0), (5, 1), (17, 15), (16, 16),
+                                         (4095, 17), (1001, 4000),
+                                         (12345, 100_001)])
+def test_hist_pane_matches_plain(cuda, sstart, scnt):
+    rng = np.random.RandomState(sstart + scnt)
+    F, N, B, P = 28, 120_000, 256, 122_880
+    bins = torch.as_tensor(rng.randint(0, B, (F, N)).astype(np.uint8))
+    grad = torch.as_tensor(rng.randn(N).astype(np.float32))
+    hess = torch.as_tensor(rng.rand(N).astype(np.float32))
+    mask = torch.as_tensor(rng.rand(N) < 0.8)
+    pane = compact.pack_planes(bins, grad, hess, mask, P)
+    before = hist_cuda.launches
+    got = hist_cuda.hist_pane_float(pane.to(cuda), F, sstart, scnt, B)
+    assert hist_cuda.launches == before + (scnt > 0)
+    want = hist_cuda.hist_pane_float(pane, F, sstart, scnt, B)
+    _assert_hist(got.cpu().numpy(), want.numpy(), "float32")
 
 
 def test_hist_kernel_strided_rows(cuda):
