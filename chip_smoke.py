@@ -372,7 +372,27 @@ def run(dev, sizes, timer=None):
             keys, stable=True).indices]),
     }
     # the first tree's histogram launches replayed through the pane entry,
-    # each segment at an unaligned lane of the 28-feature pane of phase 2
+    # each segment at an unaligned lane of a 28-feature pane whose rows are
+    # all valid, as on the main path.  First the entry against its plain
+    # version there at the root's size and at the smallest, median and
+    # p90 child sizes
+    P = compact.bucket_table(N)[0]
+    pane = compact.pack_planes(bins, grad, hess,
+                               torch.ones(N, dtype=torch.bool, device=dev),
+                               P)
+    children = sorted(first_tree[1:]) or [1]
+    for what, n in (("root", first_tree[0]), ("smallest child", children[0]),
+                    ("median child", children[len(children) // 2]),
+                    ("p90 child", children[len(children) * 9 // 10])):
+        start = min(1001, P - n)
+        got = hist_cuda.hist_pane_float(pane, F, start, n, B)
+        pb, pg, ph, pvalid = compact.unpack_values(
+            pane[:, start:start + n], F)
+        err = float_err("pane %s sstart=%d scnt=%d" % (what, start, n), got,
+                        pb, pg, ph, torch.where(pvalid, 0, -1)
+                        .to(torch.int32), 1, B)
+        say("phase 6 hist pane, rows all valid, %s sstart=%d scnt=%d: float "
+            "max abs err %.3g, counts exact" % (what, start, n, err))
     tree_ms = tree_bound_ms = 0.0
     for n in first_tree:
         start = min(1001, P - n)

@@ -369,13 +369,16 @@ int lgbm_hist_f32(const void* bins, long long ld, const void* grad,
                         (cudaStream_t)stream);
 }
 
-// q: [3, qld] int8 quantized (grad, hess, ok) levels.  out: int32.
+// q: [3, qld] int8 quantized (grad, hess, ok) levels; num_c <= 255.
+// out: int32.
 int lgbm_hist_i8(const void* bins, long long ld, const void* q,
                  long long qld, const void* cid, int n, int num_f,
                  int num_b, int num_c, int shift, int vec, int threads,
                  int g, int copies, int tile, long long chunk,
                  int groups, int chunks, int smem, void* out,
                  void* stream) {
+  // a staged row carries its column id in one byte, 0xFF for "dropped"
+  if (num_c > 255) return (int)cudaErrorInvalidValue;
   Args a = make_args(bins, ld, n, num_f, num_b, num_c, g, copies, tile,
                      shift, chunk, out);
   a.q = static_cast<const int8_t*>(q);

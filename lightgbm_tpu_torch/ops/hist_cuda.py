@@ -26,16 +26,19 @@ padding of the value operand has no meaning for a scatter.
 """
 from __future__ import annotations
 
+import collections
+import functools
+
 import torch
 
 from . import cuda_build
 from .compact import unpack_values
 from .cuda_build import require
 
-# kernel launches (every entry), and the row count of each; chip_smoke.py
-# resets both around the main path
+# kernel launches (every entry), and the row counts of the latest ones;
+# chip_smoke.py resets both around the main path
 launches = 0
-launch_rows = []
+launch_rows = collections.deque(maxlen=1 << 16)
 
 _num_sms = {}
 
@@ -47,8 +50,6 @@ GROUP_BYTES = 12288      # accumulator bytes per feature group
 COPIES_BYTES = 49152     # two accumulator copies where they fit this
 BLOCKS_PER_SM = 8        # target resident blocks per SM
 MIN_CHUNK_TILES = 1      # rows per block: at least this many tiles
-VEC = None               # rows per thread and bin load (16, 4; None: plan)
-THREADS = None           # threads per block (256, 512; None: plan)
 
 
 def quantize_values(grad, hess, col_ok):
@@ -111,6 +112,30 @@ def _sms(device) -> int:
     return _num_sms[idx]
 
 
+@functools.lru_cache(maxsize=None)
+def _shape_plan(F: int, B: int, C: int, side_words: int, sms: int):
+    """The part of ``plan`` that does not depend on the row count:
+    (threads, g, copies, groups, {vec: (tile, smem, blocks per SM)})."""
+    per_f = B * 3 * C * 4
+    g = max(1, min(8, F, GROUP_BYTES // per_f))
+    groups = -(-F // g)
+    g = -(-F // groups)
+    copies = 2 if 2 * g * per_f <= COPIES_BYTES else 1
+    acc = -(-copies * g * per_f // 16) * 16
+    threads = 512 if 2 * (acc + 1024) > SM_SMEM else 256
+    by_vec = {}
+    for vec in (16, 4):
+        # one pad word per vec rows of the side band
+        row_bytes = side_words * 4 * (vec + 1) / vec
+        tile = min(threads * vec // g,
+                   int((MAX_SMEM - acc) // row_bytes)) // 16 * 16
+        smem = acc + side_words * 4 * (tile + tile // vec)
+        by_vec[vec] = (tile, smem, min(SM_THREADS // threads,
+                                       SM_SMEM // (smem + 1024),
+                                       BLOCKS_PER_SM))
+    return threads, g, copies, groups, by_vec
+
+
 def plan(n: int, F: int, B: int, C: int, side_words: int, shift: int,
          sms: int):
     """Launch plan of csrc/hist.cu for ``n`` rows starting ``shift``
@@ -124,31 +149,16 @@ def plan(n: int, F: int, B: int, C: int, side_words: int, shift: int,
     keeps at least three quarters of a block's threads busy, else 4, so
     a small segment spreads over more threads.  Where a block's
     accumulator leaves room for one block per SM (wide C), the block has
-    512 threads instead of 256."""
-    per_f = B * 3 * C * 4
-    g = max(1, min(8, F, GROUP_BYTES // per_f))
-    groups = -(-F // g)
-    g = -(-F // groups)
-    copies = 2 if 2 * g * per_f <= COPIES_BYTES else 1
-    acc = -(-copies * g * per_f // 16) * 16
-    wide = 2 * (acc + 1024) > SM_SMEM
-    threads = THREADS or (512 if wide else 256)
+    512 threads instead of 256.  All but the row split is cached per
+    shape, so a launch pays a few integer operations."""
+    threads, g, copies, groups, by_vec = _shape_plan(F, B, C, side_words,
+                                                     sms)
     rows = max(n + shift, 1)
-
-    def tile_of(vec):
-        # one pad word per vec rows of the side band
-        row_bytes = side_words * 4 * (vec + 1) / vec
-        return min(threads * vec // g,
-                   int((MAX_SMEM - acc) // row_bytes)) // 16 * 16
-
-    vec = VEC or (16 if F * rows >= 16 * SM_THREADS * sms
-                  and tile_of(16) * g >= 12 * threads else 4)
-    tile = tile_of(vec)
+    vec = 16 if (F * rows >= 16 * SM_THREADS * sms
+                 and by_vec[16][0] * g >= 12 * threads) else 4
+    tile, smem, per_sm = by_vec[vec]
     require(tile >= 16, "histogram accumulator does not fit shared memory "
             "(B=%d, num_cols=%d)" % (B, C))
-    smem = acc + side_words * 4 * (tile + tile // vec)
-    per_sm = min(SM_THREADS // threads, SM_SMEM // (smem + 1024),
-                 BLOCKS_PER_SM)
     chunks = -(-per_sm * sms // groups)
     chunk = max(MIN_CHUNK_TILES * tile, -(-rows // chunks))
     chunk = -(-chunk // tile) * tile
@@ -194,6 +204,8 @@ def hist_float(bins, grad, hess, cid, num_cols: int, B: int):
 def hist_int8(bins, levels, cid, num_cols: int, B: int):
     """[F, B, 3*num_cols] int32 accumulator of int8 ``levels`` [3, N]."""
     _check(bins, cid, (levels,), num_cols, B)
+    # the kernel stages a row's column id in one byte, 0xFF for "dropped"
+    require(num_cols <= 255, "the int8 mode takes num_cols <= 255")
     if bins.device.type == "cpu":
         return hist_plain(bins, levels.t().to(torch.int32), cid, num_cols, B)
     require(levels.dtype == torch.int8 and levels.shape[0] == 3,

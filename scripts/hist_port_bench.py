@@ -1,29 +1,29 @@
 #!/usr/bin/env python3
-"""The port's histogram kernel (lightgbm_tpu_torch/csrc/hist.cu) on one
-CUDA card: device time per launch at the main path's shapes, under the
-default launch plan and under variants of it, and optionally beside an
-older hist.cu from another checkout of the repo.
+"""What each step of the histogram kernel's launch plan buys, on one CUDA
+card: device time per launch of lightgbm_tpu_torch/csrc/hist.cu at the
+main path's shapes, under the wrapper's plan (``ops/hist_cuda.plan``) and
+under variants of it that undo one step each.
 
-    python3 scripts/hist_port_bench.py [--parent DIR] [--out FILE]
+    python3 scripts/hist_port_bench.py [--out FILE]
 
 Shapes: the root pass (F=28, N=1M, B=256, C=1) through each entry (float,
 int8, pane; the pane with every row valid, as on the main path, and with
-16% of its rows dropped, as a row sample would), the pane entry on children of 50,000 and 4,000 rows (the
-main path's children run from a few thousand to a few tens of thousands
-of rows) and on one row (the fixed cost of a launch), and the wide shapes (C=42, C=64, F=200).  Variants change one
-constant of ``ops/hist_cuda.plan`` each, so each line says what that
-step of the design buys.  ``--parent DIR`` builds DIR's
-lightgbm_tpu_torch/csrc/hist.cu (the entry ``lgbm_hist_f32`` of the
-first port, which plans its own launch) and times it on the float
-shapes.  Prints one line per (variant, shape), then the card's name and
-power limit, and the SASS opcodes of the kernels' shared-memory atomics
+16% of its rows dropped, as a row sample would), the pane entry on
+children of 150,000, 50,000 and 4,000 rows (most of the main path's
+children have a few thousand to a few tens of thousands of rows) and on
+one row (the fixed cost of a launch), and the wide shapes (C=42, C=64,
+F=200).  A variant is this script's copy of the plan with one argument
+changed, launched through the library's entries directly; the copy's
+default must equal the wrapper's plan at every shape, or the script
+stops.  Prints one line per (variant, shape), then the card's name and
+power limit and the SASS opcodes of the kernels' shared-memory atomics
 where ``cuobjdump`` is installed.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -32,22 +32,57 @@ sys.path.insert(0, ROOT)
 
 HBM_BYTES_PER_S = 3.35e12
 
-# variant name -> overrides of ops/hist_cuda's plan constants
+# variant name -> arguments of bench_plan that undo one step of the design
 VARIANTS = {
-    "default": {},
-    "16 rows per thread": {"VEC": 16},
-    "4 rows per thread": {"VEC": 4},
-    "256 threads": {"THREADS": 256},
-    "one copy": {"COPIES_BYTES": 0},
-    "4 blocks/SM": {"BLOCKS_PER_SM": 4},
-    "8-tile chunk floor": {"MIN_CHUNK_TILES": 8},
-    "8 features per block": {"GROUP_BYTES": 8 * 3 * 256 * 4},
+    "final plan": {},
+    "one accumulator copy": {"copies_bytes": 0},
+    "always 16 rows per thread": {"vec": 16},
+    "always 4 rows per thread": {"vec": 4},
+    "256 threads at wide C": {"threads": 256},
+    "4 blocks per SM": {"blocks_per_sm": 4},
+    "8-tile chunk floor": {"min_chunk_tiles": 8},
+    "8 features per block": {"group_bytes": 8 * 3 * 256 * 4},
 }
+
+
+def bench_plan(n, F, B, C, side_words, shift, sms, hc, group_bytes=None,
+               copies_bytes=None, blocks_per_sm=None, min_chunk_tiles=None,
+               vec=None, threads=None):
+    """``hist_cuda.plan`` (module ``hc``) written out, with each of its
+    choices open to an override."""
+    group_bytes = group_bytes or hc.GROUP_BYTES
+    copies_bytes = hc.COPIES_BYTES if copies_bytes is None else copies_bytes
+    blocks_per_sm = blocks_per_sm or hc.BLOCKS_PER_SM
+    min_chunk_tiles = min_chunk_tiles or hc.MIN_CHUNK_TILES
+    per_f = B * 3 * C * 4
+    g = max(1, min(8, F, group_bytes // per_f))
+    groups = -(-F // g)
+    g = -(-F // groups)
+    copies = 2 if 2 * g * per_f <= copies_bytes else 1
+    acc = -(-copies * g * per_f // 16) * 16
+    threads = threads or (512 if 2 * (acc + 1024) > hc.SM_SMEM else 256)
+    rows = max(n + shift, 1)
+
+    def tile_of(v):
+        row_bytes = side_words * 4 * (v + 1) / v
+        return min(threads * v // g,
+                   int((hc.MAX_SMEM - acc) // row_bytes)) // 16 * 16
+
+    vec = vec or (16 if F * rows >= 16 * hc.SM_THREADS * sms
+                  and tile_of(16) * g >= 12 * threads else 4)
+    tile = tile_of(vec)
+    smem = acc + side_words * 4 * (tile + tile // vec)
+    per_sm = min(hc.SM_THREADS // threads, hc.SM_SMEM // (smem + 1024),
+                 blocks_per_sm)
+    chunks = -(-per_sm * sms // groups)
+    chunk = max(min_chunk_tiles * tile, -(-rows // chunks))
+    chunk = -(-chunk // tile) * tile
+    chunks = -(-rows // chunk)
+    return vec, threads, g, copies, tile, chunk, groups, chunks, smem
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import numpy as np
@@ -56,10 +91,14 @@ def main() -> int:
         print("hist_port_bench: no CUDA device", file=sys.stderr)
         return 2
     from chip_smoke import cuda_ms
-    from lightgbm_tpu_torch.ops import compact, cuda_build, hist_cuda
+    from lightgbm_tpu_torch.ops import compact, cuda_build
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
 
     cuda_build.build()
+    lib = cuda_build.load("hist")
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.RandomState(0)
     F, N, B = 28, 1_000_000, 256
     P = compact.bucket_table(N)[0]
@@ -74,11 +113,20 @@ def main() -> int:
 
     bins, grad, hess, cid1 = arrays(F, N, 1)
     cid1.zero_()
-    levels, _ = hist_cuda.quantize_values(grad, hess, cid1 >= 0)
+    levels, _ = hc.quantize_values(grad, hess, cid1 >= 0)
     pane = compact.pack_planes(bins, grad, hess, cid1 == 0, P)
     pane84 = compact.pack_planes(bins, grad, hess, grad > -1.0, P)
     wide = {C: arrays(F, N, C) for C in (42, 64)}
     f200 = arrays(200, 250_000, 1)
+
+    def float_call(b, g, h, c, C):
+        return (lib.lgbm_hist_f32, b, (g.data_ptr(), h.data_ptr(),
+                                       c.data_ptr()), C, 3, torch.float32)
+
+    def pane_call(p, sstart, n):
+        seg = p[:, sstart:sstart + n]
+        return (lib.lgbm_hist_pane, seg[:F].view(torch.uint8),
+                (seg[F].data_ptr(),), 1, 3, torch.float32)
 
     def bound(n, f, c, row_bytes):
         return (n * (f + row_bytes) + f * B * 3 * c * 4) / HBM_BYTES_PER_S \
@@ -86,80 +134,51 @@ def main() -> int:
 
     shapes = [
         ("root float F=28 N=1M C=1", bound(N, F, 1, 12),
-         lambda: hist_cuda.hist_float(bins, grad, hess, cid1, 1, B)),
+         float_call(bins, grad, hess, cid1, 1)),
         ("root int8 F=28 N=1M C=1", bound(N, F, 1, 7),
-         lambda: hist_cuda.hist_int8(bins, levels, cid1, 1, B)),
-        ("root pane F=28 N=1M", bound(N, F, 1, 9),
-         lambda: hist_cuda.hist_pane_float(pane, F, 1001, N, B)),
+         (lib.lgbm_hist_i8, bins, (levels.data_ptr(), levels.stride(0),
+                                   cid1.data_ptr()), 1, 1, torch.int32)),
+        ("root pane F=28 N=1M", bound(N, F, 1, 9), pane_call(pane, 1001, N)),
         ("root pane 84% valid", bound(N, F, 1, 9),
-         lambda: hist_cuda.hist_pane_float(pane84, F, 1001, N, B)),
-        ("child pane N=150000", bound(150_000, F, 1, 9),
-         lambda: hist_cuda.hist_pane_float(pane, F, 1001, 150_000, B)),
-        ("child pane N=50000", bound(50_000, F, 1, 9),
-         lambda: hist_cuda.hist_pane_float(pane, F, 1001, 50_000, B)),
-        ("child pane N=4000", bound(4000, F, 1, 9),
-         lambda: hist_cuda.hist_pane_float(pane, F, 1001, 4000, B)),
-        ("child pane N=1", bound(1, F, 1, 9),
-         lambda: hist_cuda.hist_pane_float(pane, F, 1001, 1, B)),
+         pane_call(pane84, 1001, N)),
+    ] + [("child pane N=%d" % n, bound(n, F, 1, 9), pane_call(pane, 1001, n))
+         for n in (150_000, 50_000, 4000, 1)] + [
         ("float F=28 N=1M C=42", bound(N, F, 42, 12),
-         lambda: hist_cuda.hist_float(*wide[42], 42, B)),
+         float_call(*wide[42], 42)),
         ("float F=28 N=1M C=64", bound(N, F, 64, 12),
-         lambda: hist_cuda.hist_float(*wide[64], 64, B)),
+         float_call(*wide[64], 64)),
         ("float F=200 N=250K C=1", bound(250_000, 200, 1, 12),
-         lambda: hist_cuda.hist_float(*f200, 1, B)),
+         float_call(*f200, 1)),
     ]
+
+    def launcher(entry, b, ptrs, C, side, dtype, over):
+        nf, n = b.shape
+        shift = b.data_ptr() % 16
+        pl = bench_plan(n, nf, B, C, side, shift, sms, hc, **over)
+        if not over and pl != hc.plan(n, nf, B, C, side, shift, sms):
+            raise SystemExit("bench_plan differs from hist_cuda.plan at "
+                             "F=%d n=%d C=%d: update this script" % (nf, n, C))
+        out = torch.empty((nf, B, 3 * C), dtype=dtype, device=dev)
+
+        def call():
+            cuda_build.check(entry(b.data_ptr(), b.stride(0), *ptrs, n, nf,
+                                   B, C, shift, *pl, out.data_ptr(), stream),
+                             "hist kernel")
+        return call
+
     lines = []
-    defaults = {k: getattr(hist_cuda, k) for v in VARIANTS.values()
-                for k in v}
     for name, over in VARIANTS.items():
-        for k, v in defaults.items():
-            setattr(hist_cuda, k, over.get(k, v))
-        for label, bnd, fn in shapes:
-            lines.append("%-24s %-26s %8.4f ms  (bound %.4f)" % (
-                name, label, cuda_ms(fn), bnd))
-            print(lines[-1], flush=True)
-    for k, v in defaults.items():
-        setattr(hist_cuda, k, v)
-
-    if args.parent:
-        lib = build_parent(args.parent, cuda_build)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        stream = torch.cuda.current_stream().cuda_stream
-        unpacked = compact.unpack_values(pane[:, 1001:1001 + N], F)
-
-        def parent(b, g, h, c, C, n=None):
-            n = b.shape[1] if n is None else n
-            out = torch.empty((b.shape[0], B, 3 * C), dtype=torch.float32,
-                              device=dev)
-
-            def call():
-                cuda_build.check(lib.lgbm_hist_f32(
-                    b.data_ptr(), b.stride(0), g.data_ptr(), h.data_ptr(),
-                    c.data_ptr(), n, b.shape[0], B, C, sms, out.data_ptr(),
-                    stream), "parent hist kernel")
-            return call
-
-        pb, pg, ph, pv = unpacked
-        pc = torch.where(pv, 0, -1).to(torch.int32)
-        for label, fn in (
-                ("root float F=28 N=1M C=1", parent(bins, grad, hess, cid1,
-                                                    1)),
-                ("child unpacked N=50000", parent(pb, pg, ph, pc, 1,
-                                                  50_000)),
-                ("child unpacked N=4000", parent(pb, pg, ph, pc, 1, 4000)),
-                ("float F=28 N=1M C=42", parent(*wide[42], 42)),
-                ("float F=28 N=1M C=64", parent(*wide[64], 64)),
-                ("float F=200 N=250K C=1", parent(*f200, 1))):
-            lines.append("%-24s %-26s %8.4f ms" % ("parent", label,
-                                                   cuda_ms(fn)))
+        for label, bnd, call in shapes:
+            lines.append("%-26s %-26s %8.4f ms  (bound %.4f)" % (
+                name, label, cuda_ms(launcher(*call, over)), bnd))
             print(lines[-1], flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     lines.append(smi.stdout.strip())
-    lines.extend(sass_atomics(cuda_build.library_path("hist")))
-    print("\n".join(lines[-3:]))
+    lines.append(sass_atomics(cuda_build.library_path("hist")))
+    print("\n".join(lines[-2:]))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -167,30 +186,15 @@ def main() -> int:
     return 0
 
 
-def build_parent(parent_dir, cuda_build):
-    src = os.path.join(parent_dir, "lightgbm_tpu_torch", "csrc", "hist.cu")
-    out = os.path.join(cuda_build.BUILD_DIR, "libhist-parent.so")
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    subprocess.run([cuda_build.nvcc_path()] + cuda_build.ARCH_FLAGS
-                   + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                      "-o", out, src], check=True)
-    lib = ctypes.CDLL(out)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lgbm_hist_f32.argtypes = [p, ll, p, p, p, i, i, i, i, i, p, p]
-    lib.lgbm_hist_f32.restype = i
-    return lib
-
-
 def sass_atomics(lib_path):
     """Distinct shared-memory atomic opcodes in the built kernels."""
-    import re
     exe = "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
-        return ["cuobjdump not found"]
+        return "cuobjdump not found"
     text = subprocess.run([exe, "-sass", lib_path], capture_output=True,
                           text=True, timeout=120).stdout
     ops = sorted(set(re.findall(r"\b(ATOMS[.\w]*)", text)))
-    return ["shared atomics in SASS: %s" % (", ".join(ops) or "none")]
+    return "shared atomics in SASS: %s" % (", ".join(ops) or "none")
 
 
 if __name__ == "__main__":

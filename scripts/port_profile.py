@@ -5,8 +5,9 @@
 
 Trains the chip_smoke.py main-path configuration (Higgs-shaped binary
 table, 28 features, max_bin 255, 255 leaves, float32 histograms): one
-warm-up iteration, then ``--iters`` iterations under ``torch.profiler``.
-Prints the wall time per iteration, the device time per kernel name (top
+warm-up iteration, ``--iters`` iterations timed on the host clock without
+the profiler, then ``--iters`` more under ``torch.profiler``.  Prints the
+wall time per iteration of both, the device time per kernel name (top
 20), the device time of the port's histogram and partition kernels with
 all their instantiations summed, the device busy and idle shares of the
 profiled window, and the card's name and power limit; ``--out`` also
@@ -45,6 +46,12 @@ def main() -> int:
     booster = lgt.train({"objective": "binary", "num_leaves": 255,
                          "num_iterations": 1, "max_bin": 255}, ds)
     torch.cuda.synchronize()
+    plain_s = []
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        booster.train_one_iter(is_eval=False)
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -67,7 +74,11 @@ def main() -> int:
     busy_s = sum(per_name.values()) / 1e6
     lines = ["rows %d, 28 features, 255 leaves, float32: %d iterations "
              "profiled" % (args.rows, args.iters),
-             "wall per iteration: %.4f s" % (wall / args.iters),
+             "wall per iteration without the profiler: %.4f s (%s)" % (
+                 sum(plain_s) / args.iters,
+                 ", ".join("%.4f" % t for t in plain_s)),
+             "wall per iteration under the profiler: %.4f s" % (
+                 wall / args.iters),
              "device kernel time per iteration: %.4f s; busy share %.3f, "
              "idle share %.3f" % (busy_s / args.iters, busy_s / wall,
                                   1 - busy_s / wall),

@@ -8,8 +8,9 @@ package, so it runs where only PyTorch for CUDA is installed:
 
 Tolerances: the float histogram adds f32 values with atomics in a
 run-dependent order, so it agrees with the plain ``index_add_`` to f32
-reordering (rtol 1e-5, atol 1e-4 for cells that cancel to near zero);
-counts, the int8 histogram, the partition and the int8 trees are exact.
+reordering (rtol 1e-5, atol 1e-4 for cells that cancel to near zero; on
+a root-sized segment, 1e-5 of each cell's absolute sum); counts, the int8
+histogram, the partition and the int8 trees are exact.
 """
 import numpy as np
 import pytest
@@ -134,6 +135,43 @@ def test_hist_pane_matches_plain(cuda, sstart, scnt):
     assert hist_cuda.launches == before + (scnt > 0)
     want = hist_cuda.hist_pane_float(pane, F, sstart, scnt, B)
     _assert_hist(got.cpu().numpy(), want.numpy(), "float32")
+
+
+# every row valid, as on the main path (each warp takes its all-kept
+# branch): a root-sized segment (16 rows per thread), a median and a p90
+# child of a 255-leaf tree on 1M rows, and a small child (4 rows per thread)
+@pytest.mark.parametrize("scnt", [1, 3907, 22_236, 1_000_000])
+def test_hist_pane_all_rows_valid(cuda, scnt):
+    rng = np.random.RandomState(scnt)
+    F, B, N = 28, 256, scnt + 2000
+    P = compact.bucket_table(N)[0]
+    bins = torch.as_tensor(rng.randint(0, B, (F, N)).astype(np.uint8))
+    grad = torch.as_tensor(rng.randn(N).astype(np.float32))
+    hess = torch.as_tensor(rng.rand(N).astype(np.float32))
+    ones = torch.ones(N, dtype=torch.bool)
+    pane = compact.pack_planes(bins, grad, hess, ones, P)
+    got = hist_cuda.hist_pane_float(pane.to(cuda), F, 1001, scnt, B).cpu()
+    want = hist_cuda.hist_pane_float(pane, F, 1001, scnt, B)
+    # cells of thousands of terms cancel: each is held within 1e-5 of its
+    # absolute sum, as chip_smoke.py holds the kernel
+    mag = hist_cuda.hist_pane_float(
+        compact.pack_planes(bins, grad.abs(), hess, ones, P), F, 1001, scnt,
+        B)
+    assert float(want[0, :, 2].sum()) == scnt
+    assert torch.equal(got[..., 2], want[..., 2])
+    assert bool(((got - want).abs() <= 1e-5 * mag + 1e-6).all())
+
+
+def test_hist_int8_widest_column_byte(cuda):
+    """Column 254, the widest id the int8 mode's staged byte holds."""
+    rng = np.random.RandomState(255)
+    F, N, B, C = 3, 20_000, 16, 255
+    bins = torch.as_tensor(rng.randint(0, B, (F, N)).astype(np.uint8))
+    levels = torch.as_tensor(rng.randint(-127, 128, (3, N)).astype(np.int8))
+    cid = torch.as_tensor(rng.randint(-1, C, N).astype(np.int32))
+    got = hist_cuda.hist_int8(bins.to(cuda), levels.to(cuda), cid.to(cuda),
+                              C, B)
+    assert torch.equal(got.cpu(), hist_cuda.hist_int8(bins, levels, cid, C, B))
 
 
 def test_hist_kernel_strided_rows(cuda):

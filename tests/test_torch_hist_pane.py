@@ -130,6 +130,18 @@ def test_launch_plan_fits_and_covers(n, F, C, side):
         assert g * tile // vec <= threads      # one load per thread a tile
 
 
+@pytest.mark.parametrize("F,C,side", PLAN_SHAPES)
+def test_bench_plan_copy_is_the_wrappers_plan(F, C, side):
+    """scripts/hist_port_bench.py times variants of a written-out copy of
+    the plan; with no override the copy is the wrapper's plan."""
+    from scripts import hist_port_bench
+    for n in (1, 4000, 1_000_000):
+        for shift in (0, 9):
+            assert hist_port_bench.bench_plan(
+                n, F, B, C, side, shift, 132, hist_cuda) == \
+                hist_cuda.plan(n, F, B, C, side, shift, 132)
+
+
 def test_launch_plan_fills_the_card_at_child_sizes():
     """Main-path shapes (F=28, B=256, one column, on 132 SMs): the root
     runs on a few hundred blocks of about 3K cells each, and children of
@@ -141,3 +153,22 @@ def test_launch_plan_fills_the_card_at_child_sizes():
     assert 300 <= root_blocks <= 1100 and cells == 3072
     assert blocks(50_000)[0] >= 300
     assert blocks(4000)[0] >= 100
+
+
+@pytest.mark.parametrize("C", [255, 256])
+def test_int8_takes_at_most_255_columns(C):
+    """The int8 kernel stages each row's column id in one byte, 0xFF for a
+    dropped row, so 256 columns or more are refused on every device rather
+    than wrapped on the card."""
+    rng = np.random.RandomState(C)
+    n, B = 300, 16
+    bins = torch.as_tensor(rng.randint(0, B, (3, n)).astype(np.uint8))
+    levels = torch.as_tensor(rng.randint(-127, 128, (3, n)).astype(np.int8))
+    cid = torch.as_tensor(rng.randint(0, C, n).astype(np.int32))
+    if C > 255:
+        with pytest.raises(ValueError):
+            hist_cuda.hist_int8(bins, levels, cid, C, B)
+        return
+    got = hist_cuda.hist_int8(bins, levels, cid, C, B)
+    assert got.shape == (3, B, 3 * C)
+    assert int(got[..., 2::3].sum()) == 3 * int(levels[2].long().sum())
