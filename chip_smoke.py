@@ -9,8 +9,12 @@ path (``lightgbm_tpu_torch.train`` on a 1M x 28 Higgs-shaped binary table,
 255 leaves, float32 histograms; save, reload, predict held-out rows), runs
 the int8 path on the card and on the CPU and requires identical trees, and
 prints one JSON line of kernel measurements: each kernel at the main-path
-shape, and the histogram kernel replayed at the first tree's launch sizes
-(``tree_ms``) and at the wide shapes of phase 2.  Every phase must pass; the
+shape and replayed at the first tree's launch sizes through its pane entry
+(``tree_ms``), and the histogram kernel at the wide shapes of phase 2.
+Phase 3 holds both partition entries against their plain versions, lanes
+outside the segment included; phase 4 checks that every split went
+through the pane entry in one kernel launch, or two where the segment
+spans more than a few tiles.  Every phase must pass; the
 last line of standard output is ``{"ok": true, "device": {...}}``.  Exits
 nonzero, printing no result, when there is no CUDA device or the package
 is not beside this script.
@@ -35,7 +39,7 @@ FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
         "hist_shapes": ((28, 1_000_000, 256, 1, 0), (28, 1_000_000, 256, 42, 0),
                         (28, 1_000_000, 256, 64, 0), (200, 250_000, 256, 1, 0),
                         (28, 2047, 256, 1, 0), (28, 300_001, 256, 1, 13)),
-        "pane_segment": (12_345, 300_001)}
+        "pane_segment": (12_345, 300_001), "n_f200": 250_000}
 
 
 def make_data(rows: int, features: int, seed: int):
@@ -191,12 +195,15 @@ def run(dev, sizes, timer=None):
     say("phase 2 hist pane F=%d P=%d sstart=%d scnt=%d: float max abs err "
         "%.3g, counts exact" % (F, P, sstart, scnt, pane_err))
 
-    # ---- phase 3: partition kernel vs its plain version
+    # ---- phase 3: partition kernel vs its plain version, both entries
     n_train, n_test, F = sizes["n_train"], sizes["n_test"], 28
     R = compact.pane_rows(F)
     W = compact.bucket_table(n_train)[0]
     seg_full = torch.as_tensor(gen.randint(-128, 128, (R, W))
                                .astype(np.int8), device=dev)
+    # row F - 1 holds bins of 1 or more: threshold 0 sends every lane right
+    seg_full[F - 1] = torch.as_tensor(gen.randint(1, 256, W).astype(np.uint8),
+                                      device=dev).view(torch.int8)
     part_err = 0
     for name, delta, cnt, kind in (
             ("full", 0, n_train, "random"),
@@ -216,8 +223,54 @@ def run(dev, sizes, timer=None):
         part_err = max(part_err, int((got.int() - want.int()).abs().max()))
         if not torch.equal(got, want):
             fail("partition %s not byte-exact" % name)
-        say("phase 3 partition %s R=%d W=%d delta=%d cnt=%d: byte-exact"
-            % (name, R, W, delta, cnt))
+        say("phase 3 partition mask3 entry %s R=%d W=%d delta=%d cnt=%d: "
+            "byte-exact" % (name, R, W, delta, cnt))
+
+    # the pane entry: lanes of one pane into the same lanes of another.
+    # Both panes must keep every other lane
+    def check_pane(what, src, dst0, F_, feat, thr, start, cnt):
+        src0 = src.clone()
+        got, want = dst0.clone(), dst0.clone()
+        left = compact.partition_pane(src, got, F_, feat, thr, start, cnt)
+        want_left = compact.pane_plain(src, want, feat, thr, start, cnt)
+        sync()
+        err = int((got.int() - want.int()).abs().max())
+        if not (torch.equal(got, want) and int(left) == int(want_left)):
+            fail("partition pane %s not byte-exact (max abs err %d, left "
+                 "%d vs %d)" % (what, err, int(left), int(want_left)))
+        if not (torch.equal(got[:, :start], dst0[:, :start])
+                and torch.equal(got[:, start + cnt:], dst0[:, start + cnt:])
+                and torch.equal(src, src0)):
+            fail("partition pane %s wrote a lane outside its segment" % what)
+        say("phase 3 partition pane entry %s R=%d start=%d cnt=%d feat=%d "
+            "thr=%d: byte-exact, left %d, other lanes untouched"
+            % (what, src.shape[0], start, cnt, feat, thr, int(left)))
+        return err
+
+    dst0 = torch.as_tensor(gen.randint(-128, 128, (R, W)).astype(np.int8),
+                           device=dev)
+    tile = compact.TILE
+    for what, start, cnt, feat, thr in (
+            ("root", 0, n_train, 3, 127),
+            ("offset", 1001, n_train // 2, 5, 200),
+            ("one tile", 13, tile - 13, 0, 128),
+            ("two tiles", 13, tile - 12, 1, 64),
+            ("one launch", 3, compact.ONE_LAUNCH_TILES * tile - 3, 2, 140),
+            ("count pass", 3, compact.ONE_LAUNCH_TILES * tile - 2, 5, 90),
+            ("one lane", 7, 1, 2, 100),
+            ("all-left", 5000, n_train // 3, 4, 255),
+            ("all-right", 2048, n_train // 3, F - 1, 0),
+            ("empty", 777, 0, 0, 0)):
+        part_err = max(part_err, check_pane(what, seg_full, dst0, F, feat,
+                                            thr, start, cnt))
+    F200, n200 = 200, sizes["n_f200"]
+    W200 = compact.bucket_table(n200)[0]
+    src200 = torch.as_tensor(gen.randint(-128, 128, (compact.pane_rows(
+        F200), W200)).astype(np.int8), device=dev)
+    part_err = max(part_err, check_pane(
+        "F=200", src200, torch.zeros_like(src200), F200, 150, 128, 3,
+        n200))
+    del src200
 
     # ---- phase 4: full-width training through the user entry points
     x, y = make_data(n_train + n_test, F, SEED)
@@ -241,12 +294,16 @@ def run(dev, sizes, timer=None):
     hist_cuda.launches = 0
     hist_cuda.launch_rows.clear()
     compact.launches = 0
+    compact.kernel_launches = 0
+    compact.launch_rows.clear()
     sync()
     clock[0] = time.perf_counter()
     booster = lgt.train(params, train_set, device=dev, progress_fn=progress)
     sync()
     launches = {"hist": hist_cuda.launches, "partition": compact.launches}
+    part_kernels = compact.kernel_launches
     launch_rows = list(hist_cuda.launch_rows)
+    part_rows = list(compact.launch_rows)
     trees = len(booster.models)
     if trees != 5:
         fail("trained %d trees, expected 5" % trees)
@@ -268,6 +325,28 @@ def run(dev, sizes, timer=None):
         "children median %d, p90 %d, %d under 10,000" % (
             len(first_tree), first_tree[0], q[0], q[1],
             sum(n < 10_000 for n in first_tree)))
+    # one partition per split, every one through the pane entry; one kernel
+    # launch where the segment spans at most ONE_LAUNCH_TILES tiles (from
+    # the 16-byte boundary at or below its first lane), two otherwise
+    splits = sum(leaves) - trees
+    if not launches["partition"] == len(part_rows) == splits:
+        fail("partition launches %d, pane-entry launches %d, splits %d"
+             % (launches["partition"], len(part_rows), splits))
+    span = compact.ONE_LAUNCH_TILES * compact.TILE
+    one = sum(n <= span - 15 for n in part_rows)
+    two = sum(n > span for n in part_rows)
+    if not splits + two <= part_kernels <= 2 * splits - one:
+        fail("partition kernel launches %d outside [%d, %d]" % (
+            part_kernels, splits + two, 2 * splits - one))
+    first_parts = part_rows[:leaves[0] - 1]
+    q = np.percentile(first_parts, [50, 90])
+    say("phase 4 partition: %d calls, %d kernel launches (%.3f per split), "
+        "%d of one launch, %d of one tile; first tree's parents: root %d, "
+        "median %d, p90 %d, lanes summed %d" % (
+            splits, part_kernels, part_kernels / splits,
+            2 * splits - part_kernels,
+            sum(n <= compact.TILE - 15 for n in part_rows), first_parts[0],
+            q[0], q[1], sum(first_parts)))
     label = y[:n_train]
     losses = []
     for k in range(1, trees + 1):
@@ -349,28 +428,36 @@ def run(dev, sizes, timer=None):
         "bound_by": "bytes",
         "library_ms": timer(lambda: acc.scatter_add_(0, idx3, src3)),
     }
-    W = compact.bucket_table(N)[0]
-    seg = seg_full[:, :W]
-    mask3 = torch.as_tensor(gen.randint(0, 2, W).astype(np.int8),
-                            device=dev)
-    mask3[N:] = -1
-    plcnt = int((mask3 == 1).sum())
-    keys = torch.where(mask3 == 1, 0, torch.where(mask3 == 0, 1, 2))
+    # the pane entry at the root: N lanes of the 28-feature pane into the
+    # second pane; its bound is the segment's bytes read and written once
+    feat, thr = 3, 127
+    keys = (seg_full[feat, :N].view(torch.uint8) > thr).to(torch.int8)
     kernels["partition"] = {
         "name": "partition", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/partition.cu",
         "replaces": "lightgbm_tpu/ops/compact.py:393",
         "launches": launches["partition"],
+        "kernel_launches": part_kernels,
         "max_abs_err": part_err,
-        "ms": timer(lambda: compact.partition_segment(seg, mask3, 0, N,
-                                                      plcnt)),
-        "plain_ms": timer(lambda: compact.partition_plain(seg, mask3, 0,
-                                                          N)),
-        "bound_ms": (2 * R * W + W) / HBM_BYTES_PER_S * 1e3,
+        "ms": timer(lambda: compact.partition_pane(seg_full, dst0, F, feat,
+                                                   thr, 0, N)),
+        "plain_ms": timer(lambda: compact.pane_plain(seg_full, dst0, feat,
+                                                     thr, 0, N)),
+        "bound_ms": 2 * R * N / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
-        "library_ms": timer(lambda: seg[:, torch.sort(
+        "library_ms": timer(lambda: seg_full[:, :N][:, torch.sort(
             keys, stable=True).indices]),
     }
+    # the first tree's partitions replayed through the pane entry at their
+    # own sizes, each at an unaligned lane
+    tree_ms = tree_bound_ms = 0.0
+    for n in first_parts:
+        start = min(1001, W - n)
+        tree_ms += timer(lambda: compact.partition_pane(
+            seg_full, dst0, F, feat, thr, start, n), reps=5)
+        tree_bound_ms += 2 * R * n / HBM_BYTES_PER_S * 1e3
+    kernels["partition"]["tree_ms"] = tree_ms
+    kernels["partition"]["tree_bound_ms"] = tree_bound_ms
     # the first tree's histogram launches replayed through the pane entry,
     # each segment at an unaligned lane of a 28-feature pane whose rows are
     # all valid, as on the main path.  First the entry against its plain
@@ -416,8 +503,9 @@ def run(dev, sizes, timer=None):
         say("phase 6 %s: %.4f ms (plain %.4f, library %.4f, bound %.4f)"
             % (k["name"], k["ms"], k["plain_ms"], k["library_ms"],
                k["bound_ms"]))
-    say("phase 6 hist first tree replayed (%d launches): %.4f ms, bound "
-        "%.4f ms" % (len(first_tree), tree_ms, tree_bound_ms))
+    for k in kernels.values():
+        say("phase 6 %s first tree replayed: %.4f ms, bound %.4f ms"
+            % (k["name"], k["tree_ms"], k["tree_bound_ms"]))
     for sh_ in shapes:
         say("phase 6 hist F=%d N=%d B=%d C=%d: %.4f ms (bound %.4f)" % (
             sh_["F"], sh_["N"], sh_["B"], sh_["C"], sh_["ms"],

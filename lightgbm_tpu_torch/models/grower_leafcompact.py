@@ -5,17 +5,23 @@ Counterpart of lightgbm_tpu/models/grower_unified.py::_grow_leafcompact
 The split order is the reference's strict best-first growth
 (serial_tree_learner.cpp:119-153): each of ``num_leaves - 1`` splits takes
 the leaf with the largest candidate gain.  Every leaf's rows stay
-contiguous in one plane pane (ops/compact.py), so a split
+contiguous in a plane pane (ops/compact.py), so a split
 
-1. stably partitions the parent's lane range in place, sliced at its
-   bucketed width (``bucket_table``) — the partition kernel;
+1. stably partitions the parent's lane range — the partition kernel,
+   which decides each lane from the pane's own bin row;
 2. histograms only the smaller child's lanes — the histogram kernel,
-   which in the float mode reads the pane slice in place;
+   which in the float mode reads the pane in place;
 3. derives the sibling's histogram by subtraction from the parent's;
 4. searches both children's best splits in one batched call.
 
 The root histogram runs over the original arrays, exactly as in the JAX
 package, and row leaf ids are kept in original row order.
+
+The pane is double-buffered: a split reads the parent's lanes from the
+pane that holds them and writes them, partitioned, to the same lanes of
+the other pane, where both children then live.  Live leaves own disjoint
+lane ranges, so neither pane's other lanes are ever read stale, and no
+partitioned segment is copied back.
 
 The JAX version is one ``fori_loop`` with every decision on the device.
 Here the loop is eager Python, and the host reads back each split's
@@ -32,8 +38,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.compact import (BLOCK, bucket_table, pack_planes, pane_rows,
-                           partition_segment, unpack_values)
+from ..ops.compact import (BLOCK, pack_planes, pane_rows, partition_pane,
+                           unpack_values)
 from ..ops.hist_cuda import hist_pane_float
 from ..ops.histogram import build_histogram
 from ..ops.split import find_best_split
@@ -69,12 +75,7 @@ def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
     dev = bins.device
     L, B = num_leaves, num_bins_max
     f32 = torch.float32
-    table = bucket_table(N, min_width=max(BLOCK,
-                                          (-(-N // BLOCK) * BLOCK) >> 9))
-    P = table[0]
-
-    def bucket_of(x: int) -> int:
-        return sum(1 for w in table if w >= max(x, 1)) - 1
+    P = -(-N // BLOCK) * BLOCK              # pane width: the root bucket
 
     def hist_of(hbins, hg, hh, hmask):
         return build_histogram(hbins, hg, hh, hmask, B, compute_dtype)
@@ -132,8 +133,9 @@ def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
                              device=dev)
     hist_cache[0] = root_hist
     pane = pack_planes(bins, grad, hess, row_mask, P)
+    panes = (pane, torch.empty_like(pane))
+    side = np.zeros(L, np.int64)            # the pane that holds each leaf
     leaf_ids = torch.zeros(N, dtype=torch.int32, device=dev)
-    lane_w = {}
     nl = 1
 
     for _ in range(L - 1):
@@ -158,22 +160,11 @@ def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
         leaf_ids = torch.where((leaf_ids == bl) & (bins[feat] > thr),
                                new, leaf_ids).to(torch.int32)
 
-        # --- partition the parent's lanes at its bucket width
+        # --- partition the parent's lanes into the other pane; the left
+        # count is read once the kernel is queued
         start, cnt = int(seg_start[bl]), int(seg_cnt[bl])
-        W = table[bucket_of(cnt)]
-        cs = min(start, P - W)            # clamp the slice into the pane
-        delta = start - cs
-        seg = pane[:, cs:cs + W]
-        if W not in lane_w:
-            lane_w[W] = torch.arange(W, device=dev)
-        lane = lane_w[W]
-        inseg = (lane >= delta) & (lane < delta + cnt)
-        go_right = seg[feat].view(torch.uint8) > thr
-        mask3 = torch.where(inseg, torch.where(go_right, 0, 1),
-                            -1).to(torch.int8)
-        plcnt = int((inseg & ~go_right).sum())
-        new_seg = partition_segment(seg, mask3, delta, cnt, plcnt)
-        pane[:, start:start + cnt] = new_seg[:, delta:delta + cnt]
+        src, dst = panes[side[bl]], panes[1 - side[bl]]
+        plcnt = int(partition_pane(src, dst, F, feat, thr, start, cnt))
         prcnt = cnt - plcnt
 
         # --- smaller child's histogram; the sibling by subtraction.  The
@@ -186,9 +177,9 @@ def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
         if compute_dtype == "int8":
             # quantization needs the pass maximum first: unpack, then the
             # int8 route
-            small = hist_of(*unpack_values(pane[:, sstart:sstart + scnt], F))
+            small = hist_of(*unpack_values(dst[:, sstart:sstart + scnt], F))
         else:
-            small = hist_pane_float(pane, F, sstart, scnt, B)
+            small = hist_pane_float(dst, F, sstart, scnt, B)
         large = hist_cache[bl] - small
         lhist, rhist = (small, large) if left_small else (large, small)
         depth = int(leaf_depth[bl]) + 1
@@ -208,6 +199,7 @@ def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
         leaf_count[bl], leaf_count[new] = lcnt, rcnt
         seg_start[new] = start + plcnt
         seg_cnt[bl], seg_cnt[new] = plcnt, prcnt
+        side[bl] = side[new] = 1 - side[bl]
         leaf_depth[bl] = leaf_depth[new] = depth
         cand[bl], cand[new] = pair[0], pair[1]
         cand[bl, 0] = gated(pair[0, 0], depth)

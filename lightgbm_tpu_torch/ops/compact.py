@@ -1,19 +1,26 @@
 """Stable row partition of the plane pane — the compacted leaf-wise
 grower's core op.  Counterpart of lightgbm_tpu/ops/compact.py.
 
-Every leaf's rows stay contiguous in one ``[R, P]`` int8 pane: F bin rows,
+Every leaf's rows stay contiguous in an ``[R, P]`` int8 pane: F bin rows,
 the f32 grad and hess as four byte planes each, a validity row, zero rows
 up to a multiple of 8 (``pack_planes``).  Each split stably partitions the
-parent's lane range (``partition_segment``), so the smaller child's
-histogram reads only that child's rows.
+parent's lane range, so the smaller child's histogram reads only that
+child's rows.  Two entries:
 
-``partition_segment`` launches csrc/partition.cu on a CUDA tensor (its
-header says what bounds it and how it works) and runs the plain version —
-the stable-sort formulation of the JAX package's oracle
-(compact.py:438-444) — on a CPU tensor.  The byte planes go through
+- ``partition_pane``, the grower's: decides each lane from the pane's own
+  bin row and writes the partitioned lanes into a second pane;
+- ``partition_segment``, the JAX package's contract: a ``mask3`` over a
+  bucketed slice, a new slice returned.
+
+On a CUDA tensor both launch csrc/partition.cu (its header says what
+bounds it and how it works) with the launch plan of ``plan``; on a CPU
+tensor they run the plain version, the stable-sort formulation of the JAX
+package's oracle (compact.py:438-444).  The byte planes go through
 ``Tensor.view(dtype)``, so a pane is bit-exact with the JAX package's.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -21,9 +28,17 @@ from . import cuda_build
 from .cuda_build import require
 
 BLOCK = 2048  # lane block of the bucket table (compact.py:54)
+# launch plan of csrc/partition.cu (its header says why)
+TILE = 4096            # lanes per block
+MAX_GROUP = 8          # pane rows per block, at most
+ONE_LAUNCH_TILES = 6   # up to this many tiles, blocks count their own sides
 
-# kernel launches (one per partition); chip_smoke.py zeroes it
+# partition calls that launched the kernel (either entry), CUDA kernels
+# launched (one or two per call), and the lanes of the latest pane-entry
+# launches; chip_smoke.py resets them around the main path
 launches = 0
+kernel_launches = 0
+launch_rows = collections.deque(maxlen=1 << 16)
 
 
 def pane_rows(num_features: int) -> int:
@@ -71,6 +86,88 @@ def bucket_table(n: int, block: int = BLOCK, min_width: int = 0):
     return tuple(table)
 
 
+def plan(cnt: int, shift: int, rows: int, sms: int):
+    """Launch plan of csrc/partition.cu for ``cnt`` lanes whose first lies
+    ``shift`` bytes past a 16-byte boundary, ``rows`` pane rows and ``sms``
+    SMs: (tiles, group, count_pass).  Tiles of TILE lanes start at that
+    boundary.  A segment of up to ONE_LAUNCH_TILES tiles takes one launch,
+    a longer one a count pass first.  Blocks take ``group`` pane rows: the
+    most, up to MAX_GROUP, that still gives one block per SM, or one per
+    two SMs in one launch, where each block also counts every tile's
+    sides (scripts/partition_port_bench.py measures both choices)."""
+    tiles = -(-(cnt + shift) // TILE)
+    count_pass = tiles > ONE_LAUNCH_TILES
+    want = sms if count_pass else -(-sms // 2)
+    group = MAX_GROUP
+    while group > 1 and tiles * -(-rows // group) < want:
+        group //= 2
+    return tiles, group, count_pass
+
+
+def _launch(entry, src, dst, args, cnt: int, left):
+    """Launch ``entry`` on the lanes at ``src`` and ``dst`` (column slices
+    starting at the segment's first lane); ``left`` gets the left count."""
+    global launches, kernel_launches
+    tiles, group, count_pass = plan(cnt, src.data_ptr() % 16, src.shape[0],
+                                    cuda_build.num_sms(src.device))
+    counts = (torch.empty(tiles, dtype=torch.int32, device=src.device)
+              if count_pass else None)
+    rc = entry(src.data_ptr(), src.stride(0), dst.data_ptr(), dst.stride(0),
+               *args, tiles, group,
+               None if counts is None else counts.data_ptr(),
+               left.data_ptr(),
+               torch.cuda.current_stream(src.device).cuda_stream)
+    cuda_build.check(rc, "partition kernel")
+    launches += 1
+    kernel_launches += 2 if count_pass else 1
+    return left
+
+
+def partition_pane(src, dst, F: int, feat: int, thr: int, start: int,
+                   cnt: int):
+    """Stable partition of the lanes [start, start + cnt) of the [R, P]
+    pane ``src`` into the same lanes of ``dst``: first the lanes whose bin
+    in row ``feat`` (read as uint8) is <= ``thr``, in order, then the
+    others, in order.  No other lane of either pane is written.
+
+    Returns the left count as a 0-dim int32 tensor on the panes' device;
+    reading it on the host is the caller's synchronisation."""
+    R, P = src.shape
+    require(src.dtype == torch.int8 and dst.dtype == torch.int8
+            and dst.shape == src.shape and src.stride(1) == 1
+            and dst.stride(1) == 1 and dst.device == src.device,
+            "src and dst must be int8 [R, P] panes with contiguous rows on "
+            "one device")
+    require(src.untyped_storage().data_ptr()
+            != dst.untyped_storage().data_ptr(),
+            "src and dst must be different buffers")
+    require(0 <= feat < F <= R and 0 <= thr <= 255,
+            "need 0 <= feat < F <= R and 0 <= thr <= 255")
+    require(0 <= start and 0 <= cnt and start + cnt <= P,
+            "segment out of range")
+    if src.device.type == "cpu":
+        return pane_plain(src, dst, feat, thr, start, cnt)
+    if cnt == 0:                            # no lanes: nothing to launch
+        return torch.zeros((), dtype=torch.int32, device=src.device)
+    left = torch.empty((), dtype=torch.int32, device=src.device)
+    lib = cuda_build.load("partition")
+    _launch(lib.lgbm_partition_pane, src[:, start:], dst[:, start:],
+            (R, cnt, feat, thr), cnt, left)
+    launch_rows.append(cnt)
+    return left
+
+
+def pane_plain(src, dst, feat: int, thr: int, start: int, cnt: int):
+    """Plain version of the pane entry: ``mask3`` from the bin row, then
+    ``partition_plain`` on the segment alone."""
+    seg = src[:, start:start + cnt]
+    go_left = seg[feat].view(torch.uint8) <= thr
+    if cnt:
+        mask3 = go_left.to(torch.int8)
+        dst[:, start:start + cnt] = partition_plain(seg, mask3, 0, cnt)
+    return go_left.sum(dtype=torch.int32)
+
+
 def partition_segment(seg, mask3, delta: int, cnt: int, plcnt: int):
     """Stable in-segment partition of ``seg``'s lanes [delta, delta+cnt).
 
@@ -91,17 +188,14 @@ def partition_segment(seg, mask3, delta: int, cnt: int, plcnt: int):
             and 0 <= plcnt <= cnt, "segment out of range")
     if seg.device.type == "cpu":
         return partition_plain(seg, mask3, delta, cnt)
-    global launches
-    out = torch.empty((R, W), dtype=torch.int8, device=seg.device)
-    scratch = torch.empty(4 * (-(-W // 1024)), dtype=torch.int32,
-                          device=seg.device)
+    # the kernel writes the segment's lanes only; the rest come from here
+    out = seg.clone(memory_format=torch.contiguous_format)
+    if cnt == 0:                            # no lanes: nothing to launch
+        return out
     lib = cuda_build.load("partition")
-    rc = lib.lgbm_partition(
-        seg.data_ptr(), seg.stride(0), mask3.data_ptr(), out.data_ptr(), R,
-        W, int(delta), int(cnt), int(plcnt), scratch.data_ptr(),
-        torch.cuda.current_stream(seg.device).cuda_stream)
-    cuda_build.check(rc, "partition kernel")
-    launches += 1
+    left = torch.empty((), dtype=torch.int32, device=seg.device)
+    _launch(lib.lgbm_partition_mask, seg[:, delta:], out[:, delta:],
+            (mask3[delta:].data_ptr(), R, cnt), cnt, left)
     return out
 
 

@@ -107,8 +107,27 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.lgbm_hist_f32, lib.lgbm_hist_i8, lib.lgbm_hist_pane):
             fn.restype = i
     elif name == "partition":
-        lib.lgbm_partition.argtypes = [p, ll, p, p, i, i, i, i, i, p, p]
-        lib.lgbm_partition.restype = i
+        # src, lds, dst, ldd, then the entry's own arguments, then the
+        # plan (tiles, group), counts, left, stream
+        tail = [i, i, p, p, p]
+        lib.lgbm_partition_pane.argtypes = [p, ll, p, ll, i, i, i, i] + tail
+        lib.lgbm_partition_mask.argtypes = [p, ll, p, ll, p, i, i] + tail
+        for fn in (lib.lgbm_partition_pane, lib.lgbm_partition_mask):
+            fn.restype = i
+
+
+_num_sms: Dict[int, int] = {}
+
+
+def num_sms(device) -> int:
+    """Streaming multiprocessors of a CUDA device, read once per device."""
+    import torch
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _num_sms:
+        _num_sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _num_sms[idx]
 
 
 def require(ok: bool, what: str) -> None:

@@ -40,8 +40,6 @@ from .cuda_build import require
 launches = 0
 launch_rows = collections.deque(maxlen=1 << 16)
 
-_num_sms = {}
-
 # launch plan (csrc/hist.cu's header says why)
 MAX_SMEM = 232448        # dynamic shared memory a block may use on sm_90
 SM_SMEM = 233472         # shared memory of one SM
@@ -101,15 +99,6 @@ def _check(bins, cid, values, num_cols, B):
         require(v.shape[-1] == N and v.is_contiguous(),
                 "values must be contiguous [..., N]")
     require(1 <= num_cols and 1 <= B <= 256, "need num_cols >= 1, B <= 256")
-
-
-def _sms(device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _num_sms:
-        _num_sms[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _num_sms[idx]
 
 
 @functools.lru_cache(maxsize=None)
@@ -175,7 +164,7 @@ def _launch(entry, bins, args, num_cols, B, side_words, out):
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     rc = entry(bins.data_ptr(), bins.stride(0), *args, N, F, B, num_cols,
                shift, *plan(N, F, B, num_cols, side_words, shift,
-                            _sms(bins.device)),
+                            cuda_build.num_sms(bins.device)),
                out.data_ptr(), stream)
     cuda_build.check(rc, "hist kernel")
     launches += 1

@@ -9,9 +9,9 @@ warm-up iteration, ``--iters`` iterations timed on the host clock without
 the profiler, then ``--iters`` more under ``torch.profiler``.  Prints the
 wall time per iteration of both, the device time per kernel name (top
 20), the device time of the port's histogram and partition kernels with
-all their instantiations summed, the device busy and idle shares of the
-profiled window, and the card's name and power limit; ``--out`` also
-writes the report to FILE.
+all their instantiations summed and of torch's copy and other elementwise
+kernels, the device busy and idle shares of the profiled window, and the
+card's name and power limit; ``--out`` also writes the report to FILE.
 """
 from __future__ import annotations
 
@@ -87,13 +87,22 @@ def main() -> int:
     for name, us in per_name.most_common(20):
         lines.append("  %10.3f ms %7d  %s" % (
             us / 1e3 / args.iters, calls[name] // args.iters, name[:100]))
-    # the port's own kernels, every instantiation summed
-    for label, key in (("histogram", "hist_kernel"),
-                       ("partition", "part_")):
-        names = [n for n in per_name if key in n]
-        lines.append("%s kernels (%s*): %.3f ms per iteration, %d launches "
+    # the port's own kernels, every instantiation summed; then torch's
+    # copies and its other elementwise kernels (the glue around them)
+    families = (
+        ("histogram", "hist_kernel*", lambda n: "hist_kernel" in n),
+        # part_*: the three kernels of the earlier partition design, so
+        # the script reads an older checkout too
+        ("partition", "partition_* or part_*",
+         lambda n: "partition_" in n or "part_" in n),
+        ("copy", "*copy*", lambda n: "copy" in n),
+        ("elementwise", "*elementwise* but not *copy*",
+         lambda n: "elementwise" in n and "copy" not in n))
+    for label, pattern, match in families:
+        names = [n for n in per_name if match(n)]
+        lines.append("%s kernels (%s): %.3f ms per iteration, %d launches "
                      "per iteration" % (
-                         label, key,
+                         label, pattern,
                          sum(per_name[n] for n in names) / 1e3 / args.iters,
                          sum(calls[n] for n in names) // args.iters))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

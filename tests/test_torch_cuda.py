@@ -10,7 +10,8 @@ Tolerances: the float histogram adds f32 values with atomics in a
 run-dependent order, so it agrees with the plain ``index_add_`` to f32
 reordering (rtol 1e-5, atol 1e-4 for cells that cancel to near zero; on
 a root-sized segment, 1e-5 of each cell's absolute sum); counts, the int8
-histogram, the partition and the int8 trees are exact.
+histogram, both partition entries (with every lane outside the segment
+untouched) and the int8 trees are exact.
 """
 import numpy as np
 import pytest
@@ -191,7 +192,8 @@ def test_hist_kernel_strided_rows(cuda):
 
 
 @pytest.mark.parametrize("delta,cnt", [
-    (0, 10240), (0, 8192), (1023, 4097), (77, 0), (2048, 5000)])
+    (0, 10240), (0, 8192), (1023, 4097), (77, 0), (2048, 5000), (5, 1),
+    (3, 4093), (3, 4094)])
 def test_partition_kernel_matches_plain(cuda, delta, cnt):
     rng = np.random.RandomState(delta + cnt)
     R, P, W = 40, 12288, 10240
@@ -206,6 +208,79 @@ def test_partition_kernel_matches_plain(cuda, delta, cnt):
                                     cnt, plcnt)
     want = compact.partition_segment(seg, mask3, delta, cnt, plcnt)
     assert torch.equal(got.cpu(), want)
+
+
+def _panes(seed, F, P):
+    """A random [pane_rows(F), P] pane whose row 1 holds bins of 10 or
+    more, and a random destination pane."""
+    rng = np.random.RandomState(seed)
+    R = compact.pane_rows(F)
+    src = torch.as_tensor(rng.randint(-128, 128, (R, P)).astype(np.int8))
+    src[1] = torch.as_tensor(rng.randint(10, 256, P).astype(np.uint8)
+                             ).view(torch.int8)
+    dst = torch.as_tensor(rng.randint(-128, 128, (R, P)).astype(np.int8))
+    return src, dst
+
+
+# one lane; around one kernel tile (4096 lanes from the 16-byte boundary),
+# a bucket block and the largest one-launch segment (ONE_LAUNCH_TILES = 6
+# tiles); the main path's root; at aligned and unaligned starts.  kind: (feature row, threshold) — random sides with a threshold
+# in the sign byte, all left, all right
+@pytest.mark.parametrize("start,cnt", [
+    (0, 1), (5, 2047), (16, 2048), (1001, 2049), (13, 4083), (13, 4084),
+    (3, 24_573), (3, 24_574), (0, 1_000_000), (7, 1_000_000)])
+@pytest.mark.parametrize("kind", ["random", "all-left", "all-right"])
+@pytest.mark.parametrize("F", [28, 200])
+def test_partition_pane_matches_plain(cuda, F, kind, start, cnt):
+    feat, thr = {"random": (0, 130), "all-left": (0, 255),
+                 "all-right": (1, 9)}[kind]
+    P = -(-(start + cnt) // 2048) * 2048
+    src, dst0 = _panes(start + cnt, F, P)
+    want = dst0.clone()
+    want_left = compact.partition_pane(src, want, F, feat, thr, start, cnt)
+    s, d = src.to(cuda), dst0.to(cuda)
+    before = (compact.launches, compact.kernel_launches)
+    left = compact.partition_pane(s, d, F, feat, thr, start, cnt)
+    count_pass = compact.plan(cnt, (s.data_ptr() + start) % 16, s.shape[0],
+                              torch.cuda.get_device_properties(
+                                  cuda).multi_processor_count)[2]
+    assert (compact.launches, compact.kernel_launches) == (
+        before[0] + 1, before[1] + (2 if count_pass else 1))
+    assert compact.launch_rows[-1] == cnt
+    assert left.dtype == torch.int32 and left.device == s.device
+    assert int(left) == int(want_left)
+    if kind == "all-left":
+        assert int(left) == cnt
+    if kind == "all-right":
+        assert int(left) == 0
+    # the segment byte for byte; every other lane of both panes untouched
+    assert torch.equal(d.cpu(), want)
+    assert torch.equal(d[:, :start].cpu(), dst0[:, :start])
+    assert torch.equal(d[:, start + cnt:].cpu(), dst0[:, start + cnt:])
+    assert torch.equal(s.cpu(), src)
+
+
+def test_partition_pane_empty_and_strided(cuda):
+    """No lanes: nothing launched, nothing written.  Panes that are column
+    slices of wider buffers (row stride off 16 bytes) still partition
+    byte for byte."""
+    src, dst0 = _panes(5, 28, 12288)
+    s, d = src.to(cuda), dst0.to(cuda)
+    before = compact.kernel_launches
+    assert int(compact.partition_pane(s, d, 28, 0, 100, 777, 0)) == 0
+    assert compact.kernel_launches == before
+    assert torch.equal(d.cpu(), dst0)
+    wide_src = torch.cat([src, src[:, :13]], 1)         # stride 12301
+    want = dst0.clone()
+    want_left = compact.partition_pane(wide_src[:, 3:12291], want, 28, 0,
+                                       130, 1001, 9000)
+    got_buf = torch.cat([dst0, dst0[:, :7]], 1).to(cuda)  # stride 12295
+    got = got_buf[:, :12288]
+    left = compact.partition_pane(wide_src.to(cuda)[:, 3:12291], got, 28, 0,
+                                  130, 1001, 9000)
+    assert int(left) == int(want_left)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got_buf[:, 12288:].cpu(), dst0[:, :7])
 
 
 def test_int8_trees_equal_on_card_and_cpu(cuda):

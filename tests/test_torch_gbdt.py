@@ -121,10 +121,10 @@ def test_jax_trees_carry_into_port(pair, tmp_path):
                                   j.models[0].leaf_value)
 
 
-def _grower_case(seed, bagging):
-    """tests/test_leafcompact.py::_grow_both's inputs."""
+def _grower_case(seed, bagging, B=32):
+    """tests/test_leafcompact.py::_grow_both's inputs, with B bins."""
     rng = np.random.RandomState(seed)
-    N, F, B = 4000, 5, 32
+    N, F = 4000, 5
     x = rng.randn(N, F)
     lo, hi = x.min(0), x.max(0)
     bins = np.clip((x - lo) / (hi - lo) * (B - 1), 0, B - 1)
@@ -141,12 +141,15 @@ def _grower_case(seed, bagging):
             np.full(F, B, np.int32)), B
 
 
-@pytest.mark.parametrize("bagging", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
-def test_grower_matches_jax(dtype, bagging):
+# B = 256 puts bins of 128 and more (the int8 pane's sign byte) under the
+# double-buffered pane's partition
+@pytest.mark.parametrize("dtype,bagging,B", [
+    pytest.param(d, g, b, id="%s-%s%s" % (d, g, "" if b == 32 else "-B256"))
+    for b in (32, 256) for g in (False, True) for d in ("float32", "int8")])
+def test_grower_matches_jax(dtype, bagging, B):
     """Grower level, including the row-mask seam the boosting loop keeps
     all-true in this slice: leaf counts and original-order leaf ids."""
-    args, B = _grower_case(11, bagging)
+    args, B = _grower_case(11, bagging, B)
     kw = dict(num_leaves=15, num_bins_max=B, min_data_in_leaf=20,
               min_sum_hessian_in_leaf=1e-3)
     j = jgrow(*map(jnp.asarray, args),
