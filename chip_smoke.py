@@ -14,7 +14,16 @@ shape and replayed at the first tree's launch sizes through its pane entry
 Phase 3 holds both partition entries against their plain versions, lanes
 outside the segment included; phase 4 checks that every split went
 through the pane entry in one kernel launch, or two where the segment
-spans more than a few tiles.  Every phase must pass; the
+spans more than a few tiles.  Phase 5 then drives the other growth
+policies through the same entry point, each with every count set to 0
+just before it: depth-wise (bench.py's headline configuration, int8 and
+float32; one histogram launch at the root and one per level pass, at most
+64 columns each), and masked leaf-wise (one launch per leaf over all
+rows); neither may launch the partition kernel.  Depth-wise int8 must grow
+the same trees on the card as on the CPU, and masked int8 the same trees
+as compacted int8.  Phase 6 adds the int8 mode at the depth-wise widths
+(``int8_shapes``) and the first depth-wise tree's launches replayed
+(``depthwise_tree_ms``).  Every phase must pass; the
 last line of standard output is ``{"ok": true, "device": {...}}``.  Exits
 nonzero, printing no result, when there is no CUDA device or the package
 is not beside this script.
@@ -39,7 +48,8 @@ FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
         "hist_shapes": ((28, 1_000_000, 256, 1, 0), (28, 1_000_000, 256, 42, 0),
                         (28, 1_000_000, 256, 64, 0), (200, 250_000, 256, 1, 0),
                         (28, 2047, 256, 1, 0), (28, 300_001, 256, 1, 13)),
-        "pane_segment": (12_345, 300_001), "n_f200": 250_000}
+        "pane_segment": (12_345, 300_001), "n_f200": 250_000,
+        "int8_cols": (1, 8, 32, 64)}
 
 
 def make_data(rows: int, features: int, seed: int):
@@ -78,6 +88,128 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def reset_counts() -> None:
+    """Every kernel count to 0."""
+    from lightgbm_tpu_torch.ops import compact, hist_cuda
+    hist_cuda.launches = 0
+    hist_cuda.launch_rows.clear()
+    hist_cuda.launch_cols.clear()
+    compact.launches = 0
+    compact.kernel_launches = 0
+    compact.launch_rows.clear()
+
+
+def drive(params, train_set, dev, sync):
+    """Train through ``lightgbm_tpu_torch.train`` with every kernel count
+    set to 0 just before and read just after.  Returns the booster, the
+    seconds of each iteration and the counts: launches of each kernel,
+    each histogram launch's rows and columns, each partition's lanes, and
+    the histogram launch count at the end of each iteration."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import compact, hist_cuda
+    iter_s, ends = [], []
+    clock = [0.0]
+
+    def progress(it):
+        sync()
+        now = time.perf_counter()
+        iter_s.append(now - clock[0])
+        clock[0] = now
+        ends.append(hist_cuda.launches)
+
+    reset_counts()
+    sync()
+    clock[0] = time.perf_counter()
+    booster = lgt.train(params, train_set, device=dev, progress_fn=progress)
+    sync()
+    counts = {"hist": hist_cuda.launches, "partition": compact.launches,
+              "partition_kernels": compact.kernel_launches,
+              "hist_rows": list(hist_cuda.launch_rows),
+              "hist_cols": list(hist_cuda.launch_cols),
+              "part_rows": list(compact.launch_rows), "ends": ends}
+    return booster, iter_s, counts
+
+
+def check_model(what, booster, x, y, n_train, dev):
+    """Train logloss must fall with every tree, the saved and reloaded
+    model must predict the held-out rows as the booster does, and their
+    AUC must exceed 0.7.  Returns (losses, held-out AUC)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.metrics import AUCMetric
+    label = y[:n_train]
+    losses = []
+    for k in range(1, len(booster.models) + 1):
+        p = np.clip(booster.predict(x[:n_train], k), 1e-15, 1 - 1e-15)
+        losses.append(float(-np.mean(label * np.log(p)
+                                     + (1 - label) * np.log(1 - p))))
+    say("%s train logloss per iteration: %s" % (
+        what, " ".join("%.6f" % v for v in losses)))
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail("%s: train logloss does not fall" % what)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.txt")
+        booster.save_model_to_file(True, path)
+        loaded = lgt.GBDT.from_model_file(path, device=dev)
+    n_test = len(y) - n_train
+    pred = loaded.predict(x[n_train:])
+    if not (pred.shape == (n_test,) and np.isfinite(pred).all()):
+        fail("%s: held-out predictions are not finite [N]" % what)
+    if not np.allclose(pred, booster.predict(x[n_train:]), rtol=0,
+                       atol=1e-12):
+        fail("%s: reloaded model predicts differently" % what)
+
+    class _Md:
+        label = y[n_train:]
+        weights = None
+
+    auc = AUCMetric(None)
+    auc.init("test", _Md, n_test)
+    held_auc = auc.eval(pred)[0]
+    say("%s saved + reloaded model, held-out AUC %.6f on %d rows"
+        % (what, held_auc, n_test))
+    if not held_auc > 0.7:
+        fail("%s: held-out AUC %.4f too low" % (what, held_auc))
+    return losses, held_auc
+
+
+def same_trees(what, a, b, fields=("split_feature", "threshold_bin",
+                                   "left_child", "right_child",
+                                   "leaf_count")):
+    """Fail unless two boosters' trees agree in ``fields``; returns the
+    largest leaf value difference."""
+    if len(a.models) != len(b.models):
+        fail("%s: tree counts differ" % what)
+    diff = 0.0
+    for k, (ta, tb) in enumerate(zip(a.models, b.models)):
+        for field in fields:
+            if not np.array_equal(getattr(ta, field), getattr(tb, field)):
+                fail("%s tree %d: %s differs" % (what, k, field))
+        diff = max(diff, float(np.abs(ta.leaf_value - tb.leaf_value).max()))
+    return diff
+
+
+def level_passes(tree, num_leaves: int) -> int:
+    """The level passes the depth-wise grower runs for ``tree``: one
+    after each level that chose a slot, unless it was the last level or
+    spent the leaf budget (models/grower_depthwise.py)."""
+    from lightgbm_tpu_torch.models.grower_depthwise import num_levels
+    n = tree.num_leaves - 1
+    depth = np.zeros(max(n, 1), np.int64)
+    for k in range(n):
+        for child in (tree.left_child[k], tree.right_child[k]):
+            if child >= 0:
+                depth[child] = depth[k] + 1
+    per_level = np.bincount(depth[:n], minlength=64)
+    passes, nodes = 0, 0
+    for d in range(num_levels(num_leaves)):
+        nodes += per_level[d]
+        if per_level[d] == 0 or d + 1 >= num_levels(num_leaves) \
+                or nodes >= num_leaves - 1:
+            break
+        passes += 1
+    return passes
 
 
 def main() -> int:
@@ -125,7 +257,6 @@ def run(dev, sizes, timer=None):
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.metrics import AUCMetric
     from lightgbm_tpu_torch.ops import compact, hist_cuda
     from lightgbm_tpu_torch.ops.hist_cuda import quantize_values
     timer = timer or cuda_ms
@@ -282,28 +413,11 @@ def run(dev, sizes, timer=None):
     params = {"objective": "binary", "num_leaves": 255,
               "num_iterations": 5, "learning_rate": 0.1,
               "hist_dtype": "float32", "max_bin": 255}
-    iter_s = []
-    clock = [0.0]
-
-    def progress(it):
-        sync()
-        now = time.perf_counter()
-        iter_s.append(now - clock[0])
-        clock[0] = now
-
-    hist_cuda.launches = 0
-    hist_cuda.launch_rows.clear()
-    compact.launches = 0
-    compact.kernel_launches = 0
-    compact.launch_rows.clear()
-    sync()
-    clock[0] = time.perf_counter()
-    booster = lgt.train(params, train_set, device=dev, progress_fn=progress)
-    sync()
-    launches = {"hist": hist_cuda.launches, "partition": compact.launches}
-    part_kernels = compact.kernel_launches
-    launch_rows = list(hist_cuda.launch_rows)
-    part_rows = list(compact.launch_rows)
+    booster, iter_s, counts = drive(params, train_set, dev, sync)
+    launches = {"hist": counts["hist"], "partition": counts["partition"]}
+    part_kernels = counts["partition_kernels"]
+    launch_rows = counts["hist_rows"]
+    part_rows = counts["part_rows"]
     trees = len(booster.models)
     if trees != 5:
         fail("trained %d trees, expected 5" % trees)
@@ -347,38 +461,7 @@ def run(dev, sizes, timer=None):
             2 * splits - part_kernels,
             sum(n <= compact.TILE - 15 for n in part_rows), first_parts[0],
             q[0], q[1], sum(first_parts)))
-    label = y[:n_train]
-    losses = []
-    for k in range(1, trees + 1):
-        p = np.clip(booster.predict(x[:n_train], k), 1e-15, 1 - 1e-15)
-        losses.append(float(-np.mean(label * np.log(p)
-                                     + (1 - label) * np.log(1 - p))))
-    say("phase 4 train logloss per iteration: %s" % (
-        " ".join("%.6f" % v for v in losses)))
-    if not all(b < a for a, b in zip(losses, losses[1:])):
-        fail("train logloss does not fall")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "model.txt")
-        booster.save_model_to_file(True, path)
-        loaded = lgt.GBDT.from_model_file(path, device=dev)
-    pred = loaded.predict(x[n_train:])
-    if not (pred.shape == (n_test,) and np.isfinite(pred).all()):
-        fail("held-out predictions are not finite [N]")
-    if not np.allclose(pred, booster.predict(x[n_train:]), rtol=0,
-                       atol=1e-12):
-        fail("reloaded model predicts differently")
-
-    class _Md:
-        label = y[n_train:]
-        weights = None
-
-    auc = AUCMetric(None)
-    auc.init("test", _Md, n_test)
-    held_auc = auc.eval(pred)[0]
-    say("phase 4 saved + reloaded model, held-out AUC %.6f on %d rows"
-        % (held_auc, n_test))
-    if not held_auc > 0.7:
-        fail("held-out AUC %.4f too low" % held_auc)
+    check_model("phase 4", booster, x, y, n_train, dev)
 
     # ---- phase 5: int8 end to end, kernels on the card vs plain on the CPU
     n5 = sizes["n_int8"]
@@ -387,22 +470,109 @@ def run(dev, sizes, timer=None):
           "hist_dtype": "int8", "max_bin": 255}
     on_card = lgt.train(p5, small, device=dev)
     on_cpu = lgt.train(p5, small, device="cpu")
-    if len(on_card.models) != len(on_cpu.models):
-        fail("int8: tree counts differ")
-    value_diff = 0.0
-    for k, (a, b) in enumerate(zip(on_card.models, on_cpu.models)):
-        for field in ("split_feature", "threshold_bin", "left_child",
-                      "right_child", "leaf_count"):
-            if not np.array_equal(getattr(a, field), getattr(b, field)):
-                fail("int8 tree %d: %s differs between cuda and cpu"
-                     % (k, field))
-        value_diff = max(value_diff,
-                         float(np.abs(a.leaf_value - b.leaf_value).max()))
+    value_diff = same_trees("int8 cuda vs cpu", on_card, on_cpu)
     if value_diff > 1e-6:
         fail("int8 leaf values differ by %g" % value_diff)
     say("phase 5 int8 %d x %d, 63 leaves, 2 trees: cuda == cpu in structure "
         "and leaf_count; leaf values max abs diff %g"
         % (n5, F, value_diff))
+
+    # ---- phase 5, the other growth policies through the user entry
+    # point, each with every count set to 0 just before it.  Neither moves
+    # rows, so neither may launch the partition kernel.
+    launches_by_path = {"leafcompact_float32": launches["hist"]}
+    seconds_by_path = {"leafcompact_float32": iter_s}
+    depthwise_first = None
+    for dtype, iters in (("int8", 5), ("float32", 3)):
+        what = "phase 5 depthwise %s" % dtype
+        # bench.py's headline configuration (bench.py:1277-1289)
+        pd = {"objective": "binary", "grow_policy": "depthwise",
+              "hist_dtype": dtype, "num_leaves": 255,
+              "min_data_in_leaf": 100, "min_sum_hessian_in_leaf": 10,
+              "learning_rate": 0.1, "max_bin": 255, "num_iterations": iters}
+        booster, iter_s, counts = drive(pd, train_set, dev, sync)
+        if len(booster.models) != iters:
+            fail("%s: %d trees, expected %d" % (what, len(booster.models),
+                                                 iters))
+        if counts["hist"] == 0 or counts["partition"] != 0:
+            fail("%s: launches %s, expected histograms and no partition"
+                 % (what, {k: counts[k] for k in ("hist", "partition")}))
+        # per tree: the root, then one pass per level that chose a slot,
+        # C = 1, 2, 4, ... <= 64 columns, every pass over all rows
+        per_tree = []
+        for k, tree in enumerate(booster.models):
+            lo = counts["ends"][k - 1] if k else 0
+            rows = counts["hist_rows"][lo:counts["ends"][k]]
+            cols = counts["hist_cols"][lo:counts["ends"][k]]
+            passes = level_passes(tree, 255)
+            if not (len(rows) == 1 + passes <= 8
+                    and cols == [1] + [1 << d for d in range(passes)]
+                    and all(r == n_train for r in rows)):
+                fail("%s tree %d: histogram launches (rows, cols) %s, "
+                     "expected the root and %d level passes of %d rows"
+                     % (what, k, list(zip(rows, cols)), passes, n_train))
+            per_tree.append(list(zip(rows, cols)))
+        say("%s: %d trees, leaves %s, seconds per iteration %s" % (
+            what, iters, [t.num_leaves for t in booster.models],
+            ["%.3f" % v for v in iter_s]))
+        say("%s histogram launches per tree %s (0 partitions); first tree's "
+            "(rows, columns): %s" % (what, [len(t) for t in per_tree],
+                                     per_tree[0]))
+        check_model(what, booster, x, y, n_train, dev)
+        launches_by_path["depthwise_" + dtype] = counts["hist"]
+        seconds_by_path["depthwise_" + dtype] = iter_s
+        if dtype == "int8":
+            depthwise_first = per_tree[0]
+
+    # depth-wise int8 on the card and on the CPU: the same trees, a 64-
+    # column level pass included
+    pd = {"objective": "binary", "grow_policy": "depthwise",
+          "hist_dtype": "int8", "num_leaves": 255, "min_data_in_leaf": 100,
+          "min_sum_hessian_in_leaf": 10, "max_bin": 255, "num_iterations": 2}
+    reset_counts()
+    on_card = lgt.train(pd, small, device=dev)
+    widest = max(hist_cuda.launch_cols)
+    on_cpu = lgt.train(pd, small, device="cpu")
+    value_diff = same_trees("depthwise int8 cuda vs cpu", on_card, on_cpu)
+    if widest != 64 or value_diff > 1e-6:
+        fail("depthwise int8 cuda vs cpu: widest pass %d columns, leaf "
+             "values differ by %g" % (widest, value_diff))
+    say("phase 5 depthwise int8 %d x %d, 255 leaves %s, 2 trees: cuda == cpu "
+        "in structure and leaf_count, widest pass %d columns; leaf values max "
+        "abs diff %g" % (n5, F, [t.num_leaves for t in on_card.models],
+                         widest, value_diff))
+
+    # the masked leaf-wise grower: one histogram launch over all rows per
+    # leaf
+    what = "phase 5 masked leafwise float32"
+    pm = dict(params, leafwise_compact="false", num_iterations=3)
+    booster, iter_s, counts = drive(pm, train_set, dev, sync)
+    mleaves = [t.num_leaves for t in booster.models]
+    if len(mleaves) != 3:
+        fail("%s: %d trees, expected 3" % (what, len(mleaves)))
+    if not (counts["hist"] == sum(mleaves) and counts["partition"] == 0
+            and set(counts["hist_rows"]) == {n_train}
+            and set(counts["hist_cols"]) == {1}):
+        fail("%s: %d histogram launches over rows %s, %d partitions; "
+             "expected %d over %d rows and none" % (
+                 what, counts["hist"], sorted(set(counts["hist_rows"])),
+                 counts["partition"], sum(mleaves), n_train))
+    say("%s: 3 trees, leaves %s, seconds per iteration %s; histogram "
+        "launches per tree %.1f over %d rows each, 0 partitions" % (
+            what, mleaves, ["%.3f" % v for v in iter_s],
+            counts["hist"] / 3, n_train))
+    check_model(what, booster, x, y, n_train, dev)
+    launches_by_path["leafwise_float32"] = counts["hist"]
+    seconds_by_path["leafwise_float32"] = iter_s
+    # masked against compacted in int8 on the card: the same trees
+    pi = {"objective": "binary", "num_leaves": 63, "num_iterations": 2,
+          "hist_dtype": "int8", "max_bin": 255}
+    masked = lgt.train(dict(pi, leafwise_compact="false"), small, device=dev)
+    compacted = lgt.train(pi, small, device=dev)
+    value_diff = same_trees("masked vs compacted int8", masked, compacted)
+    say("phase 5 masked vs compacted int8 %d x %d, 63 leaves, 2 trees on the "
+        "card: equal in structure and leaf_count; leaf values max abs diff "
+        "%g" % (n5, F, value_diff))
 
     # ---- phase 6: kernel times at the main-path shape
     N, B = n_train, 256
@@ -499,6 +669,64 @@ def run(dev, sizes, timer=None):
             "bound_ms": (N_ * F_ + 12 * N_ + F_ * B_ * 3 * C_ * 4)
             / HBM_BYTES_PER_S * 1e3})
     kernels["hist"]["shapes"] = shapes
+    # the int8 mode at the depth-wise widths, each beside its bound (the
+    # bin bytes, a side band of 3 int8 levels and a 4-byte column id per
+    # row, the accumulator written once) and the library call for the same
+    # function: a scatter_add_ of int32 levels on a prebuilt index
+    def int8_inputs(n, C, keep):
+        cid_c = torch.as_tensor(np.where(gen.rand(n) < keep,
+                                         gen.randint(0, C, n), -1)
+                                .astype(np.int32), device=dev)
+        levels, _ = quantize_values(grad[:n], hess[:n], cid_c >= 0)
+        return cid_c, levels
+
+    def int8_bound(n, C):
+        return (n * F + 7 * n + F * B * 3 * C * 4) / HBM_BYTES_PER_S * 1e3
+
+    int8_shapes = []
+    for C in sizes["int8_cols"]:
+        cid_c, levels = int8_inputs(N, C, 0.9)
+        lev32 = levels.t().to(torch.int32)
+        got = hist_cuda.hist_int8(bins, levels, cid_c, C, B)
+        if not torch.equal(got, hist_cuda.hist_plain(bins, lev32, cid_c, C,
+                                                     B)):
+            fail("hist int8 F=%d N=%d C=%d not bitwise" % (F, N, C))
+        cidx = (torch.arange(F, device=dev)[:, None] * B + bins.long()) * C \
+            + cid_c.long().clamp(0, C - 1)[None, :]
+        cidx = torch.where((cid_c >= 0)[None, :], cidx, F * B * C)
+        cidx3 = cidx.reshape(-1, 1).expand(-1, 3)
+        csrc3 = lev32[None].expand(F, N, 3).reshape(-1, 3)
+        cacc = torch.zeros((F * B * C + 1, 3), dtype=torch.int32, device=dev)
+        int8_shapes.append({
+            "F": F, "N": N, "B": B, "C": C, "max_abs_err": 0,
+            "ms": timer(lambda: hist_cuda.hist_int8(bins, levels, cid_c, C,
+                                                    B)),
+            "plain_ms": timer(lambda: hist_cuda.hist_plain(bins, lev32, cid_c,
+                                                           C, B)),
+            "bound_ms": int8_bound(N, C), "bound_by": "bytes",
+            "library_ms": timer(lambda: cacc.scatter_add_(0, cidx3, csrc3))})
+        del cidx, cidx3, csrc3, cacc
+    kernels["hist"]["int8_shapes"] = int8_shapes
+    # the first depth-wise int8 tree's launches replayed at their own rows
+    # and columns; a level pass keeps the smaller children, about half of
+    # the rows
+    dw_ms = dw_bound_ms = 0.0
+    for k, (n, C) in enumerate(depthwise_first):
+        cid_c, levels = int8_inputs(n, C, 1.0 if k == 0 else 0.5)
+        dw_ms += timer(lambda: hist_cuda.hist_int8(bins[:, :n], levels, cid_c,
+                                                   C, B), reps=5)
+        dw_bound_ms += int8_bound(n, C)
+    kernels["hist"]["depthwise_tree_ms"] = dw_ms
+    kernels["hist"]["depthwise_tree_bound_ms"] = dw_bound_ms
+    kernels["hist"]["depthwise_tree_launches"] = depthwise_first
+    kernels["hist"]["launches_by_path"] = launches_by_path
+    kernels["partition"]["launches_by_path"] = dict(
+        {k: 0 for k in launches_by_path},
+        leafcompact_float32=launches["partition"])
+    for path, secs in seconds_by_path.items():
+        say("phase 6 seconds per iteration, %s: %s (launches: hist %d)" % (
+            path, " ".join("%.3f" % v for v in secs),
+            launches_by_path[path]))
     for k in kernels.values():
         say("phase 6 %s: %.4f ms (plain %.4f, library %.4f, bound %.4f)"
             % (k["name"], k["ms"], k["plain_ms"], k["library_ms"],
@@ -510,6 +738,13 @@ def run(dev, sizes, timer=None):
         say("phase 6 hist F=%d N=%d B=%d C=%d: %.4f ms (bound %.4f)" % (
             sh_["F"], sh_["N"], sh_["B"], sh_["C"], sh_["ms"],
             sh_["bound_ms"]))
+    for sh_ in int8_shapes:
+        say("phase 6 hist int8 F=%d N=%d B=%d C=%d: %.4f ms (plain %.4f, "
+            "library %.4f, bound %.4f)" % (
+                sh_["F"], sh_["N"], sh_["B"], sh_["C"], sh_["ms"],
+                sh_["plain_ms"], sh_["library_ms"], sh_["bound_ms"]))
+    say("phase 6 hist first depthwise int8 tree replayed (%d launches): "
+        "%.4f ms, bound %.4f ms" % (len(depthwise_first), dw_ms, dw_bound_ms))
     return list(kernels.values())
 
 

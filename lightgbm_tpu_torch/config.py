@@ -5,8 +5,10 @@ for the keys the binary ``task=train`` / ``task=predict`` example uses.
 The difference is the slice rule: a key the port does not run raises
 ``Fatal`` naming it, instead of being parsed and silently ignored.  Keys
 whose JAX-package default is the only value the slice runs (serial
-learner, leaf-wise compacted growth, no sampling) are accepted at that
-value and refused at any other.
+learner, uniform bin layout, no sampling) are accepted at that
+value and refused at any other.  Growth runs under all three policies of
+the JAX package: compacted leaf-wise (the default), masked leaf-wise
+(``leafwise_compact=false``) and depth-wise (``grow_policy=depthwise``).
 """
 from __future__ import annotations
 
@@ -65,7 +67,8 @@ SLICE_KEYS = frozenset((
     "min_data_in_leaf", "min_sum_hessian_in_leaf", "max_bin", "sigmoid",
     "is_unbalance", "hist_dtype", "quant_rounding", "device",
     "data_random_seed", "verbose", "metric_freq", "is_training_metric",
-    "has_header", "is_sigmoid", "num_model_predict",
+    "has_header", "is_sigmoid", "num_model_predict", "grow_policy",
+    "leafwise_compact", "hist_chunk", "leafwise_segments",
 ))
 
 # keys of the JAX package whose default is the only value the slice runs
@@ -74,8 +77,6 @@ DEFAULT_ONLY = {
     "tree_learner": ("serial",),
     "num_machines": ("1",),
     "num_class": ("1",),
-    "grow_policy": ("leafwise",),
-    "leafwise_compact": ("auto", "true"),
     "mixed_bin": ("auto", "false"),
     "bagging_fraction": ("1", "1.0"),
     "bagging_freq": ("0",),
@@ -211,6 +212,30 @@ class TreeConfig:
     max_depth: int = -1
     hist_dtype: str = "float32"
     quant_rounding: str = "nearest"
+    # "leafwise": best-first growth; "depthwise": level-batched growth
+    # (models/grower_depthwise.py), whatever leafwise_compact says
+    grow_policy: str = "leafwise"
+    # leaf-wise growth through the plane pane ("auto", "true") or the
+    # masked leaf-id vector ("false").  "auto" is the compacted grower,
+    # as the JAX package resolves it on an accelerator
+    leafwise_compact: str = "auto"
+    # accepted and validated as in the JAX package, with no effect: there
+    # it sets the row chunk of the XLA histogram scans, which this port
+    # does not have (its kernel takes whole passes); trees are the same
+    hist_chunk: int = 0
+    # accepted and validated as in the JAX package, with no effect: there
+    # it splits one masked tree across several dispatches of the same
+    # loop; here the loop is eager Python, so there is nothing to split
+    leafwise_segments: int = 1
+
+    @property
+    def policy(self) -> str:
+        """The grower this configuration runs (models/grower_unified.py),
+        resolved as lightgbm_tpu/models/gbdt.py::_serial_learner does."""
+        if self.grow_policy == "depthwise":
+            return "depthwise"
+        return "leafwise" if self.leafwise_compact == "false" \
+            else "leafcompact"
 
     def set(self, params: Dict[str, str]) -> None:
         self.min_data_in_leaf = _get_int(params, "min_data_in_leaf",
@@ -225,6 +250,22 @@ class TreeConfig:
         self.max_depth = _get_int(params, "max_depth", self.max_depth)
         log.check(self.max_depth > 1 or self.max_depth < 0,
                   "max_depth should be > 1 or < 0")
+        if "grow_policy" in params:
+            value = params["grow_policy"].lower()
+            log.check(value in ("leafwise", "depthwise"),
+                      "grow_policy must be leafwise or depthwise")
+            self.grow_policy = value
+        self.hist_chunk = _get_int(params, "hist_chunk", self.hist_chunk)
+        log.check(self.hist_chunk >= 0, "hist_chunk should be >= 0")
+        self.leafwise_segments = _get_int(params, "leafwise_segments",
+                                          self.leafwise_segments)
+        log.check(self.leafwise_segments >= 1,
+                  "leafwise_segments should be >= 1")
+        if "leafwise_compact" in params:
+            value = params["leafwise_compact"].lower()
+            log.check(value in ("auto", "true", "false"),
+                      "leafwise_compact must be auto, true or false")
+            self.leafwise_compact = value
         if "hist_dtype" in params:
             value = params["hist_dtype"].lower()
             if value not in ("float32", "int8"):

@@ -5,10 +5,12 @@ Ported: ``init``, ``add_valid_dataset``, ``train_one_iter`` (:1141-1319
 without sampling, health, telemetry or pipelining), ``run_training``'s
 per-iteration loop, ``output_metric``, ``save_model_to_file``,
 ``models_from_string``, ``from_model_file``, ``predict_raw`` /
-``predict`` and ``feature_importance``.  Every tree grows through the
-compacted leaf-wise grower (models/grower_leafcompact.py), which is what
-``leafwise_compact=auto`` resolves to on an accelerator in the JAX
-package.  The fused chunk programs, the deferred-readback pipeline,
+``predict`` and ``feature_importance``.  Trees grow under the policy
+that ``grow_policy`` and ``leafwise_compact`` select, as in the JAX
+package's ``_serial_learner`` (:2945-2984): depth-wise, masked
+leaf-wise, or compacted leaf-wise, which is what ``leafwise_compact=auto``
+resolves to on an accelerator there (models/grower_unified.py).  The
+fused chunk programs, the deferred-readback pipeline,
 checkpoints and the elastic and health monitors are outside this slice.
 
 The score is a [1, N] f32 tensor on the training device; gradients,
@@ -26,7 +28,7 @@ import torch
 from ..device import resolve_device
 from ..ops.scoring import add_tree_score, train_score_update
 from ..utils import log
-from .grower_leafcompact import grow_tree_leafcompact
+from .grower_unified import grow_tree_unified
 from .predictor import predict_raw_scores
 from .tree import Tree
 
@@ -108,9 +110,10 @@ class GBDT:
         num_leaves = tc.num_leaves
         if tc.max_depth > 0:    # config.h:159-163
             num_leaves = min(num_leaves, 1 << (tc.max_depth - 1))
-        tree_arrays = grow_tree_leafcompact(
+        tree_arrays = grow_tree_unified(
             self.bins_device, grad, hess, self.row_mask, self.feature_mask,
-            self.num_bins_device, num_leaves=max(num_leaves, 2),
+            self.num_bins_device, policy=tc.policy,
+            num_leaves=max(num_leaves, 2),
             num_bins_max=self.num_bins_max,
             min_data_in_leaf=tc.min_data_in_leaf,
             min_sum_hessian_in_leaf=tc.min_sum_hessian_in_leaf,

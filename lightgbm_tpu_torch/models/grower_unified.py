@@ -1,0 +1,219 @@
+"""What the three growth policies share, and the policy dispatch.
+
+Counterpart of lightgbm_tpu/models/grower_unified.py under the serial
+schedule: ``TreeArrays`` (:77-88), the root-stats rule ``_root_stats_of``
+(:203-231), depth gating ``_depth_gated`` (:260-265) and
+``grow_tree_unified`` (:277-358).  The policies:
+
+- ``leafcompact`` — best-first growth over a plane pane
+  (models/grower_leafcompact.py), the default on the card;
+- ``leafwise`` — the masked best-first grower (models/grower.py), which
+  histograms the smaller child over all N rows under a leaf-id mask;
+- ``depthwise`` — level-batched growth (models/grower_depthwise.py).
+
+The two best-first policies differ only in how a split's smaller child
+gets its histogram, so they share one split loop here
+(``grow_best_first``), as in the JAX package they share the same split
+body (:479-594 and :1036-1279).  The loop is eager Python: the host
+reads back each split's candidate record once, and keeps the tree
+arrays and the candidate table as numpy f32/int32 with the same values
+as the device scalars they come from, so the best-first choice
+(``np.argmax``, first maximum) is the JAX package's ``jnp.argmax``.
+Row leaf ids stay on the device, in original row order.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.histogram import build_histogram
+from ..ops.split import find_best_split
+
+GROW_POLICIES = ("leafwise", "depthwise", "leafcompact")
+
+
+class TreeArrays(NamedTuple):
+    """One grown tree (tree.h:124-149); host arrays, device leaf ids."""
+    num_leaves: int
+    split_feature: np.ndarray    # [L-1] int32
+    threshold_bin: np.ndarray    # [L-1] int32
+    split_gain: np.ndarray       # [L-1] f32
+    left_child: np.ndarray       # [L-1] int32 (~leaf encoding)
+    right_child: np.ndarray      # [L-1] int32
+    leaf_parent: np.ndarray      # [L] int32
+    leaf_value: np.ndarray       # [L] f32
+    leaf_count: np.ndarray       # [L] int32
+    leaf_ids: torch.Tensor       # [N] int32 on the device: row -> leaf
+
+
+def root_stats_of(root_hist, compute_dtype: str, grad, hess, row_mask):
+    """[3] f32 device tensor (sum grad, sum hess, count) of the root.
+
+    int8: from the histogram — its cells are exact multiples of the pass
+    scale, and any feature's bins sum to the quantized totals.  float32:
+    from the gradient vectors, as the reference computes root sums once
+    (serial_tree_learner.cpp:178-198).  Both sum in f64 and round once,
+    so the card and the CPU agree."""
+    if compute_dtype == "int8":
+        return root_hist[0].to(torch.float64).sum(0).to(torch.float32)
+    m = row_mask.to(torch.float64)
+    return torch.stack([(grad.to(torch.float64) * m).sum(),
+                        (hess.to(torch.float64) * m).sum(),
+                        m.sum()]).to(torch.float32)
+
+
+def depth_gated(gain: np.float32, depth: int, max_depth: int) -> np.float32:
+    """Depth-limited leaves cannot split (serial_tree_learner.cpp:240-249)."""
+    if max_depth > 0 and depth >= max_depth:
+        return np.float32(-np.inf)
+    return gain
+
+
+# columns of a packed split record (ops/split.SplitResult.packed)
+_F, _T, _LO, _RO, _LC, _RC, _LG, _LH, _RG, _RH = range(1, 11)
+
+# smaller-child histogram of a best-first split:
+# (parent leaf, new leaf, feature, threshold, left is smaller,
+#  row leaf ids after the split) -> [F, B, 3] f32
+SmallHist = Callable[[int, int, int, int, bool, torch.Tensor], torch.Tensor]
+
+
+def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
+                    small_hist: SmallHist, *, num_leaves: int,
+                    num_bins_max: int, min_data_in_leaf: int,
+                    min_sum_hessian_in_leaf: float, max_depth: int,
+                    compute_dtype: str) -> TreeArrays:
+    """The reference's strict best-first growth
+    (serial_tree_learner.cpp:119-153): each of ``num_leaves - 1`` splits
+    takes the leaf with the largest candidate gain, builds the smaller
+    child's histogram with ``small_hist``, derives the sibling by
+    subtraction from the parent's and searches both children in one
+    batched call.  The root histogram runs over the original arrays."""
+    F, N = bins.shape
+    dev = bins.device
+    L = num_leaves
+    f32 = torch.float32
+
+    def search(hist, g, h, c):
+        """Best splits of a [k, F, B, 3] stack -> host [k, 11] f32."""
+        totals = torch.tensor(np.stack([g, h, c], 0), dtype=f32, device=dev)
+        res = find_best_split(hist, totals[0], totals[1], totals[2],
+                              num_bins, feature_mask,
+                              float(min_data_in_leaf),
+                              float(min_sum_hessian_in_leaf))
+        return res.packed().cpu().numpy()
+
+    root_hist = build_histogram(bins, grad, hess, row_mask, num_bins_max,
+                                compute_dtype)
+    root_g, root_h, root_c = root_stats_of(root_hist, compute_dtype, grad,
+                                           hess, row_mask).cpu().numpy()
+    best = search(root_hist[None], [root_g], [root_h], [root_c])[0]
+
+    # ---- host state (grower_unified.py:439-475)
+    split_feature = np.zeros(L - 1, np.int32)
+    threshold_bin = np.zeros(L - 1, np.int32)
+    split_gain = np.zeros(L - 1, np.float32)
+    left_child = np.zeros(L - 1, np.int32)
+    right_child = np.zeros(L - 1, np.int32)
+    leaf_parent = np.full(L, -1, np.int32)
+    leaf_value = np.zeros(L, np.float32)
+    leaf_count = np.zeros(L, np.int32)
+    leaf_count[0] = np.int32(root_c)
+    leaf_depth = np.zeros(L, np.int32)
+    leaf_depth[0] = 1
+    cand = np.zeros((L, 11), np.float32)
+    cand[:, 0] = -np.inf
+    cand[0] = best
+    cand[0, 0] = depth_gated(best[0], 1, max_depth)
+
+    hist_cache = torch.empty((L,) + tuple(root_hist.shape), dtype=f32,
+                             device=dev)
+    hist_cache[0] = root_hist
+    leaf_ids = torch.zeros(N, dtype=torch.int32, device=dev)
+    nl = 1
+
+    for _ in range(L - 1):
+        bl = int(np.argmax(cand[:, 0]))
+        best_gain = cand[bl, 0]
+        if not best_gain > 0.0:
+            break
+        node, new = nl - 1, nl
+        feat, thr = int(cand[bl, _F]), int(cand[bl, _T])
+
+        # --- record the node (Tree::Split, tree.cpp:50-83)
+        p = leaf_parent[bl]
+        if p >= 0:
+            if left_child[p] == ~bl:
+                left_child[p] = node
+            if right_child[p] == ~bl:
+                right_child[p] = node
+        left_child[node] = ~bl
+        right_child[node] = ~new
+
+        # --- original-order leaf ids
+        leaf_ids = torch.where((leaf_ids == bl) & (bins[feat] > thr),
+                               new, leaf_ids).to(torch.int32)
+
+        # --- the smaller child's histogram (smaller by valid count, as in
+        # the JAX package); the sibling by subtraction
+        lcnt, rcnt = int(cand[bl, _LC]), int(cand[bl, _RC])
+        left_small = lcnt <= rcnt
+        small = small_hist(bl, new, feat, thr, left_small, leaf_ids)
+        large = hist_cache[bl] - small
+        lhist, rhist = (small, large) if left_small else (large, small)
+        depth = int(leaf_depth[bl]) + 1
+        pair = search(torch.stack([lhist, rhist]),
+                      cand[bl, [_LG, _RG]], cand[bl, [_LH, _RH]],
+                      np.array([lcnt, rcnt], np.float32))
+        hist_cache[bl] = lhist
+        hist_cache[new] = rhist
+
+        # --- tree and candidate bookkeeping
+        split_feature[node] = feat
+        threshold_bin[node] = thr
+        split_gain[node] = best_gain
+        leaf_parent[bl] = leaf_parent[new] = node
+        leaf_value[bl] = cand[bl, _LO]
+        leaf_value[new] = cand[bl, _RO]
+        leaf_count[bl], leaf_count[new] = lcnt, rcnt
+        leaf_depth[bl] = leaf_depth[new] = depth
+        cand[bl], cand[new] = pair[0], pair[1]
+        cand[bl, 0] = depth_gated(pair[0, 0], depth, max_depth)
+        cand[new, 0] = depth_gated(pair[1, 0], depth, max_depth)
+        nl += 1
+
+    return TreeArrays(nl, split_feature, threshold_bin, split_gain,
+                      left_child, right_child, leaf_parent, leaf_value,
+                      leaf_count, leaf_ids)
+
+
+def grow_tree_unified(bins, grad, hess, row_mask, feature_mask, num_bins,
+                      *, policy: str, num_leaves: int, num_bins_max: int,
+                      min_data_in_leaf: int, min_sum_hessian_in_leaf: float,
+                      max_depth: int = -1,
+                      compute_dtype: str = "float32") -> TreeArrays:
+    """Grow one tree under ``policy`` (GROW_POLICIES).  bins [F, N] uint8,
+    grad/hess [N] f32, row_mask [N] bool, feature_mask [F] bool, num_bins
+    [F] int — tensors on one device.  ``compute_dtype``: "float32" or
+    "int8" histograms."""
+    if policy not in GROW_POLICIES:
+        raise ValueError("unknown grow policy %r" % (policy,))
+    kwargs = dict(num_leaves=num_leaves, num_bins_max=num_bins_max,
+                  min_data_in_leaf=min_data_in_leaf,
+                  min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
+                  max_depth=max_depth, compute_dtype=compute_dtype)
+    args = (bins, grad, hess, row_mask, feature_mask, num_bins)
+    if policy == "depthwise":
+        from .grower_depthwise import grow_tree_depthwise
+        return grow_tree_depthwise(*args, **kwargs)
+    if policy == "leafcompact":
+        from .grower_leafcompact import grow_tree_leafcompact
+        return grow_tree_leafcompact(*args, **kwargs)
+    from .grower import grow_tree
+    return grow_tree(*args, **kwargs)
+
+
+__all__ = ["GROW_POLICIES", "TreeArrays", "depth_gated", "grow_best_first",
+           "grow_tree_unified", "root_stats_of"]

@@ -35,10 +35,11 @@ from . import cuda_build
 from .compact import unpack_values
 from .cuda_build import require
 
-# kernel launches (every entry), and the row counts of the latest ones;
-# chip_smoke.py resets both around the main path
+# kernel launches (every entry), and the row and column counts of the
+# latest ones; chip_smoke.py resets them around each path it drives
 launches = 0
 launch_rows = collections.deque(maxlen=1 << 16)
+launch_cols = collections.deque(maxlen=1 << 16)
 
 # launch plan (csrc/hist.cu's header says why)
 MAX_SMEM = 232448        # dynamic shared memory a block may use on sm_90
@@ -169,6 +170,7 @@ def _launch(entry, bins, args, num_cols, B, side_words, out):
     cuda_build.check(rc, "hist kernel")
     launches += 1
     launch_rows.append(N)
+    launch_cols.append(num_cols)
     return out
 
 

@@ -2,9 +2,12 @@
 """Where the time goes on lightgbm_tpu_torch's main path, on one CUDA card.
 
     python3 scripts/port_profile.py [--rows 1000000] [--iters 2] [--out FILE]
+        [--set KEY=VALUE ...]
 
 Trains the chip_smoke.py main-path configuration (Higgs-shaped binary
-table, 28 features, max_bin 255, 255 leaves, float32 histograms): one
+table, 28 features, max_bin 255, 255 leaves, float32 histograms), or
+that configuration with the training keys of ``--set`` added (e.g.
+``--set grow_policy=depthwise hist_dtype=int8``): one
 warm-up iteration, ``--iters`` iterations timed on the host clock without
 the profiler, then ``--iters`` more under ``torch.profiler``.  Prints the
 wall time per iteration of both, the device time per kernel name (top
@@ -31,7 +34,10 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
+                    help="training keys added to the main-path ones")
     args = ap.parse_args()
+    extra = dict(kv.split("=", 1) for kv in args.set)
     import torch
     if not torch.cuda.is_available():
         print("port_profile: no CUDA device", file=sys.stderr)
@@ -43,8 +49,9 @@ def main() -> int:
     cuda_build.build()
     x, y = make_data(args.rows, 28, SEED)
     ds = lgt.Dataset.from_arrays(x, y, max_bin=255)
-    booster = lgt.train({"objective": "binary", "num_leaves": 255,
-                         "num_iterations": 1, "max_bin": 255}, ds)
+    booster = lgt.train(dict({"objective": "binary", "num_leaves": 255,
+                              "num_iterations": 1, "max_bin": 255}, **extra),
+                        ds)
     torch.cuda.synchronize()
     plain_s = []
     for _ in range(args.iters):
@@ -72,8 +79,9 @@ def main() -> int:
         per_name[evt.name] += us
         calls[evt.name] += 1
     busy_s = sum(per_name.values()) / 1e6
-    lines = ["rows %d, 28 features, 255 leaves, float32: %d iterations "
-             "profiled" % (args.rows, args.iters),
+    lines = ["rows %d, 28 features, 255 leaves, %s: %d iterations "
+             "profiled" % (args.rows, " ".join(args.set) or "float32",
+                           args.iters),
              "wall per iteration without the profiler: %.4f s (%s)" % (
                  sum(plain_s) / args.iters,
                  ", ".join("%.4f" % t for t in plain_s)),

@@ -293,3 +293,27 @@ def test_int8_trees_equal_on_card_and_cpu(cuda):
     on_card = lgt.train(params, ds, device=cuda)
     on_cpu = lgt.train(params, ds, device="cpu")
     assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+@pytest.mark.parametrize("policy", [
+    {"grow_policy": "depthwise", "num_leaves": 255},
+    {"leafwise_compact": "false", "num_leaves": 31}],
+    ids=["depthwise", "masked"])
+def test_int8_policies_equal_on_card_and_cpu(cuda, policy):
+    """Both other growth policies, every histogram through the kernel on
+    the card: the same model as the plain versions on the CPU, and no
+    partition launch.  255 depth-wise leaves reach a 64-column level."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(30_000, 10)
+    y = (x[:, 0] - x[:, 1] + 0.3 * rng.randn(30_000) > 0).astype(np.float32)
+    ds = lgt.Dataset.from_arrays(x, y, max_bin=255)
+    params = dict({"objective": "binary", "num_iterations": 2,
+                   "hist_dtype": "int8", "min_data_in_leaf": 20}, **policy)
+    before = (hist_cuda.launches, compact.launches)
+    on_card = lgt.train(params, ds, device=cuda)
+    assert hist_cuda.launches > before[0]
+    assert compact.launches == before[1]
+    if "grow_policy" in policy:
+        assert max(list(hist_cuda.launch_cols)[-8:]) == 64
+    on_cpu = lgt.train(params, ds, device="cpu")
+    assert on_card.model_to_string() == on_cpu.model_to_string()

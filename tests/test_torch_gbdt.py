@@ -48,27 +48,28 @@ def _data():
     return x, y
 
 
-def _jax_booster(x, y, hist_dtype):
+def booster_pair(params):
+    """(x, JAX booster, port booster), each trained ITERS iterations on
+    ``_data()`` with the same ``params``."""
+    x, y = _data()
     cfg = JConfig()
-    cfg.set(dict(PARAMS, grow_policy="leafwise", leafwise_compact="true",
-                 hist_dtype=hist_dtype), require_data=False)
-    b = JGBDT()
-    b.init(cfg.boosting_config, JDataset.from_arrays(x, y, max_bin=32),
+    cfg.set(params, require_data=False)
+    j = JGBDT()
+    j.init(cfg.boosting_config, JDataset.from_arrays(x, y, max_bin=32),
            jcreate(cfg.objective_type, cfg.objective_config))
     for _ in range(ITERS):
-        if b.train_one_iter(is_eval=False):
+        if j.train_one_iter(is_eval=False):
             break
-    return b
+    t = lgt.train(dict(params, num_iterations=ITERS),
+                  lgt.Dataset.from_arrays(x, y, max_bin=32), device="cpu")
+    return x, j, t
 
 
 @pytest.fixture(scope="module", params=["float32", "int8"])
 def pair(request):
-    x, y = _data()
-    j = _jax_booster(x, y, request.param)
-    t = lgt.train(dict(PARAMS, num_iterations=ITERS,
-                       hist_dtype=request.param),
-                  lgt.Dataset.from_arrays(x, y, max_bin=32), device="cpu")
-    return x, j, t
+    return booster_pair(dict(PARAMS, grow_policy="leafwise",
+                             leafwise_compact="true",
+                             hist_dtype=request.param))
 
 
 def test_trees_match_jax(pair):
@@ -139,6 +140,25 @@ def _grower_case(seed, bagging, B=32):
         row_mask[rng.rand(N) < 0.4] = False
     return (bins, grad, hess, row_mask, np.ones(F, bool),
             np.full(F, B, np.int32)), B
+
+
+def assert_grown_alike(t, j, dtype="float32"):
+    """A port TreeArrays against a JAX one: structure, leaf counts and
+    original-order leaf ids exact; leaf values rtol 1e-6 in float32, and
+    rtol 1e-4 / atol 1e-7 in int8, where XLA CPU may contract the
+    dequantize multiply into an FMA (tests/test_leafcompact.py:186-193)."""
+    assert int(j.num_leaves) == t.num_leaves
+    for field in STRUCTURE + ("leaf_count",):
+        np.testing.assert_array_equal(getattr(t, field),
+                                      np.asarray(getattr(j, field)),
+                                      err_msg=field)
+    np.testing.assert_array_equal(t.leaf_ids.numpy(), np.asarray(j.leaf_ids))
+    if dtype == "int8":
+        np.testing.assert_allclose(t.leaf_value, np.asarray(j.leaf_value),
+                                   rtol=1e-4, atol=1e-7)
+    else:
+        np.testing.assert_allclose(t.leaf_value, np.asarray(j.leaf_value),
+                                   rtol=1e-6, atol=1e-9)
 
 
 # B = 256 puts bins of 128 and more (the int8 pane's sign byte) under the

@@ -87,8 +87,8 @@ def test_default_device_needs_cuda():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("objective", "regression"), ("grow_policy", "depthwise"),
-    ("leafwise_compact", "false"), ("tree_learner", "data"),
+    ("objective", "regression"), ("grow_policy", "levelwise"),
+    ("leafwise_compact", "maybe"), ("tree_learner", "data"),
     ("num_machines", "4"), ("bagging_fraction", "0.5"),
     ("feature_fraction", "0.8"), ("goss", "true"),
     ("hist_dtype", "bfloat16"), ("quant_rounding", "stochastic"),
@@ -111,6 +111,30 @@ def test_slice_defaults_accepted():
     assert cfg.boosting_config.num_iterations == 7
     assert cfg.boosting_config.tree_config.min_data_in_leaf == 3
     assert cfg.boosting_config.tree_config.hist_dtype == "int8"
+    assert cfg.boosting_config.tree_config.policy == "leafcompact"
+    # every growth policy of the JAX package; depthwise wins whatever
+    # leafwise_compact says; hist_chunk and leafwise_segments (bench.py
+    # passes both) are accepted and change nothing
+    for extra, policy in (
+            ({"leafwise_compact": "true"}, "leafcompact"),
+            ({"leafwise_compact": "false"}, "leafwise"),
+            ({"grow_policy": "depthwise"}, "depthwise"),
+            ({"grow_policy": "depthwise", "leafwise_compact": "false"},
+             "depthwise"),
+            ({"grow_policy": "Depthwise", "hist_chunk": "65536",
+              "leafwise_segments": "4"}, "depthwise")):
+        cfg = lgt.OverallConfig()
+        cfg.set(dict({"objective": "binary"}, **extra), require_data=False)
+        assert cfg.boosting_config.tree_config.policy == policy, extra
+
+
+@pytest.mark.parametrize("key,value", [
+    ("hist_chunk", "-1"), ("leafwise_segments", "0"),
+    ("hist_chunk", "big")])
+def test_invalid_tuning_knob_is_fatal(key, value):
+    cfg = lgt.OverallConfig()
+    with pytest.raises(log.Fatal, match=key):
+        cfg.set({"objective": "binary", key: value}, require_data=False)
 
 
 def test_cpu_tensor_takes_plain_version_only():
