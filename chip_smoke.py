@@ -23,10 +23,19 @@ rows); neither may launch the partition kernel.  Depth-wise int8 must grow
 the same trees on the card as on the CPU, and masked int8 the same trees
 as compacted int8.  Phase 6 adds the int8 mode at the depth-wise widths
 (``int8_shapes``) and the first depth-wise tree's launches replayed
-(``depthwise_tree_ms``).  Every phase must pass; the
-last line of standard output is ``{"ok": true, "device": {...}}``.  Exits
-nonzero, printing no result, when there is no CUDA device or the package
-is not beside this script.
+(``depthwise_tree_ms``).  Phase 7 trains the other objectives at
+the main path's settings on its features: regression on the table's
+continuous latent (held-out RMSE must fall every iteration), multiclass
+with K = 5 (held-out multi_logloss must fall; 5 trees an iteration,
+interleaved per class; softmax rows sum to 1; the saved model reloads
+and predicts identically) and lambdarank over queries of 50-190
+documents (held-out NDCG@5 must rise), each with one histogram launch per
+leaf and one partition per split; then int8 regression and multiclass
+trees on the card against the CPU (equal) and lambdarank gradients on
+both (rtol 1e-5 / atol 1e-7).  Every phase must pass; the last line of
+standard output is ``{"ok": true, "device": {...}}``.  Exits nonzero,
+printing no result, when there is no CUDA device or the package is not
+beside this script.
 """
 from __future__ import annotations
 
@@ -52,15 +61,21 @@ FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
         "int8_cols": (1, 8, 32, 64)}
 
 
-def make_data(rows: int, features: int, seed: int):
+def make_table(rows: int, features: int, seed: int):
     """Higgs-like synthetic table: bench.py's make_data (all-continuous
-    default), copied."""
+    default), copied, with its continuous latent (logits + noise), whose
+    sign is the binary label."""
     rng = np.random.RandomState(seed)
     x = rng.randn(rows, features).astype(np.float32)
     w = rng.randn(features) / np.sqrt(features)
     logits = x @ w + 0.5 * np.sin(x[:, 0] * 2) + 0.3 * x[:, 1] * x[:, 2]
-    y = (logits + rng.randn(rows) * 0.5 > 0).astype(np.float32)
-    return x.astype(np.float64), y
+    return x.astype(np.float64), logits + rng.randn(rows) * 0.5
+
+
+def make_data(rows: int, features: int, seed: int):
+    """make_table's features and binary labels."""
+    x, latent = make_table(rows, features, seed)
+    return x, (latent > 0).astype(np.float32)
 
 
 def say(msg: str) -> None:
@@ -253,7 +268,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-6 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-7 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -404,7 +419,8 @@ def run(dev, sizes, timer=None):
     del src200
 
     # ---- phase 4: full-width training through the user entry points
-    x, y = make_data(n_train + n_test, F, SEED)
+    x, latent = make_table(n_train + n_test, F, SEED)
+    y = (latent > 0).astype(np.float32)
     t0 = time.perf_counter()
     train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
                                         max_bin=255)
@@ -745,7 +761,236 @@ def run(dev, sizes, timer=None):
                 sh_["plain_ms"], sh_["library_ms"], sh_["bound_ms"]))
     say("phase 6 hist first depthwise int8 tree replayed (%d launches): "
         "%.4f ms, bound %.4f ms" % (len(depthwise_first), dw_ms, dw_bound_ms))
+
+    # ---- phase 7: the other objectives through the same kernels
+    for path, counts in objectives_phase(dev, sizes, x, latent, train_set,
+                                         sync, timer).items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
     return list(kernels.values())
+
+
+def rank_queries(rows: int, rng) -> np.ndarray:
+    """Boundaries of queries of 50-190 documents, uniform, over ``rows``
+    (MSLR-WEB10K averages about 120 documents a query); the last query
+    takes what is left."""
+    ends = np.cumsum(rng.randint(50, 191, rows // 50 + 1))
+    return np.concatenate([[0], ends[ends < rows], [rows]]).astype(np.int32)
+
+
+def held_out(metric, booster, x_test, iterations):
+    """The metric's first value on the held-out rows after each of the
+    first ``iterations`` iterations (K trees each)."""
+    out = []
+    for k in range(1, iterations + 1):
+        raw = booster.predict_raw(x_test, k)
+        out.append(metric.eval(raw.reshape(-1))[0])
+    return out
+
+
+def objectives_phase(dev, sizes, x, latent, train_set, sync, timer):
+    """Phase 7: regression, multiclass (K = 5) and lambdarank at the main
+    path's settings (compacted leaf-wise, float32, 255 leaves) on the
+    main path's features, each driven with every count set to 0 just
+    before it; then the int8 trees of regression and multiclass on the
+    card against the CPU, and the lambdarank gradients on both devices.
+    Returns the launch counts of each objective's run."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.config import OverallConfig
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.metrics import (L2Metric, MultiLoglossMetric,
+                                            NDCGMetric)
+    from lightgbm_tpu_torch.objectives import create_objective
+    n_train, n_test, F = sizes["n_train"], sizes["n_test"], x.shape[1]
+    K = 5
+    rng = np.random.RandomState(SEED + 7)
+    proj = rng.randn(F, K) / np.sqrt(F)
+    y_multi = np.argmax(x @ proj + 0.5 * rng.randn(len(x), K), 1) \
+        .astype(np.float32)
+    cuts = np.quantile(latent[:n_train], [0.4, 0.7, 0.9, 0.97])
+    y_rank = np.digitize(latent, cuts).astype(np.float32)
+    qb_train = rank_queries(n_train, rng)
+    qb_test = rank_queries(n_test, rng)
+
+    def metadata(label, qb=None):
+        md = Metadata()
+        md.set_label(label)
+        md.query_boundaries = qb
+        md.finalize(len(label))
+        return md
+
+    def config(params):
+        cfg = OverallConfig()
+        cfg.set({k: str(v) for k, v in params.items()}, require_data=False)
+        return cfg
+
+    base = {"num_leaves": 255, "learning_rate": 0.1, "hist_dtype": "float32",
+            "max_bin": 255}
+    runs = (
+        ("regression", {"objective": "regression", "num_iterations": 5},
+         latent.astype(np.float32), None, None, L2Metric, "RMSE"),
+        ("multiclass", {"objective": "multiclass", "num_class": K,
+                        "num_iterations": 3}, y_multi, None, None,
+         MultiLoglossMetric, "multi_logloss"),
+        ("lambdarank", {"objective": "lambdarank", "num_iterations": 3,
+                        "ndcg_eval_at": 5}, y_rank, qb_train, qb_test,
+         NDCGMetric, "NDCG@5"))
+    by_path = {}
+    for name, extra, label, qb, qb_held, metric_cls, metric_name in runs:
+        what = "phase 7 %s" % name
+        params = dict(base, **extra)
+        t0 = time.perf_counter()
+        ds = lgt.Dataset.from_arrays(x[:n_train], label[:n_train],
+                                     max_bin=255, query_boundaries=qb,
+                                     reference=train_set)
+        say("%s dataset: %d rows%s, labels from the main path's bins in "
+            "%.1f s" % (what, n_train, "" if qb is None else
+                        " in %d queries" % (len(qb) - 1),
+                        time.perf_counter() - t0))
+        booster, iter_s, counts = drive(params, ds, dev, sync)
+        per_iter = K if name == "multiclass" else 1
+        iters = extra["num_iterations"]
+        leaves = [t.num_leaves for t in booster.models]
+        if len(leaves) != iters * per_iter:
+            fail("%s: %d trees, expected %d" % (what, len(leaves),
+                                                 iters * per_iter))
+        # one histogram launch per leaf and one pane-entry partition per
+        # split, tree by tree, as phase 4 counts them
+        ends = [0] + counts["ends"]
+        for it in range(iters):
+            got = ends[it + 1] - ends[it]
+            want = sum(leaves[it * per_iter:(it + 1) * per_iter])
+            if got != want:
+                fail("%s iteration %d: %d histogram launches, %d leaves"
+                     % (what, it + 1, got, want))
+        splits = sum(leaves) - len(leaves)
+        if not (counts["hist"] == len(counts["hist_rows"]) == sum(leaves)
+                and counts["partition"] == len(counts["part_rows"])
+                == splits):
+            fail("%s: %d histogram launches for %d leaves, %d partitions "
+                 "for %d splits" % (what, counts["hist"], sum(leaves),
+                                    counts["partition"], splits))
+        say("%s: %d trees, %d of them of 255 leaves, seconds per iteration %s; "
+            "launches per tree: hist %.1f, partition %.1f" % (
+                what, len(leaves), sum(n == 255 for n in leaves),
+                " ".join("%.3f" % v for v in iter_s),
+                counts["hist"] / len(leaves),
+                counts["partition"] / len(leaves)))
+        # held-out metric after each iteration, from the predictor
+        metric_params = {k: extra[k] for k in ("objective", "num_class",
+                                               "ndcg_eval_at") if k in extra}
+        metric = metric_cls(config(metric_params).metric_config)
+        metric.init("test", metadata(label[n_train:], qb_held), n_test)
+        curve = held_out(metric, booster, x[n_train:], iters)
+        zero = metric.eval(np.zeros(n_test * per_iter))[0]
+        say("%s held-out %s per iteration: %s (score 0: %.6f)" % (
+            what, metric_name, " ".join("%.6f" % v for v in curve), zero))
+        if name == "lambdarank":
+            if not curve[-1] > curve[0]:
+                fail("%s: held-out NDCG@5 does not rise" % what)
+        elif not (all(b < a for a, b in zip(curve, curve[1:]))
+                  and curve[0] < zero):
+            fail("%s: held-out %s does not fall every iteration"
+                 % (what, metric_name))
+        if name == "multiclass":
+            check_multiclass(what, booster, x, n_train, dev)
+        score = booster.score if per_iter > 1 else booster.score[0]
+        grad_ms = timer(lambda: booster.objective.get_gradients(score),
+                        reps=5)
+        say("%s gradients at full width: %.4f ms" % (what, grad_ms))
+        by_path[name] = {"hist": counts["hist"],
+                         "partition": counts["partition"]}
+        del booster, ds
+
+    # int8 on the card against the CPU at the smaller size: regression
+    # and multiclass trees equal; lambdarank gradients within tolerance
+    n5 = sizes["n_int8"]
+    small = {"num_leaves": 63, "num_iterations": 2, "hist_dtype": "int8",
+             "max_bin": 255}
+    for name, extra, label in (
+            ("regression", {"objective": "regression"}, latent),
+            ("multiclass", {"objective": "multiclass", "num_class": K},
+             y_multi)):
+        ds = lgt.Dataset.from_arrays(x[:n5], label[:n5].astype(np.float32),
+                                     max_bin=255)
+        params = dict(small, **extra)
+        on_card = lgt.train(params, ds, device=dev)
+        on_cpu = lgt.train(params, ds, device="cpu")
+        value_diff = same_trees("phase 7 %s int8 cuda vs cpu" % name,
+                                on_card, on_cpu)
+        if value_diff > 1e-6:
+            fail("phase 7 %s int8 leaf values differ by %g"
+                 % (name, value_diff))
+        say("phase 7 %s int8 %d x %d, 63 leaves, %d trees: cuda == cpu in "
+            "structure and leaf_count; leaf values max abs diff %g" % (
+                name, n5, F, len(on_card.models), value_diff))
+    qb5 = rank_queries(n5, rng)
+    ds = lgt.Dataset.from_arrays(x[:n5], y_rank[:n5], max_bin=255,
+                                 query_boundaries=qb5)
+    cfg = config({"objective": "lambdarank"})
+    cpu = torch.device("cpu")
+    objs = {}
+    for d in (dev, cpu):
+        objs[d.type] = create_objective("lambdarank", cfg.objective_config)
+        objs[d.type].init(ds.metadata, n5, d)
+    one = lgt.train(dict(small, objective="lambdarank", num_iterations=1,
+                         hist_dtype="float32"), ds, device=dev)
+    for what, score in (("score 0", torch.zeros(n5)),
+                        ("after one iteration", one.score[0].cpu())):
+        on_card = [t.cpu() for t in objs[dev.type].get_gradients(
+            score.to(dev))]
+        on_cpu = objs["cpu"].get_gradients(score)
+        errs = []
+        for a, b in zip(on_card, on_cpu):
+            err = (a - b).abs()
+            if not bool((err <= 1e-5 * b.abs() + 1e-7).all()):
+                fail("phase 7 lambdarank gradients %s: cuda vs cpu max abs "
+                     "err %g outside rtol 1e-5 / atol 1e-7"
+                     % (what, float(err.max())))
+            errs.append((float(err.max()), float((a == b).double().mean())))
+        say("phase 7 lambdarank gradients %d rows in %d queries, %s: cuda "
+            "vs cpu max abs err grad %g, hess %g (rtol 1e-5 / atol 1e-7); "
+            "bitwise equal share %.6f, %.6f" % (
+                n5, len(qb5) - 1, what, errs[0][0], errs[1][0], errs[0][1],
+                errs[1][1]))
+    params = dict(small, objective="lambdarank")
+    same = (lgt.train(params, ds, device=dev).model_to_string()
+            == lgt.train(params, ds, device="cpu").model_to_string())
+    say("phase 7 lambdarank int8 %d rows, 63 leaves, 2 trees: cuda and cpu "
+        "models %s (not required)" % (n5, "equal" if same else "differ"))
+    return by_path
+
+
+def check_multiclass(what, booster, x, n_train, dev):
+    """Trees interleaved per class (tree i updated score[i % K]), softmax
+    rows that sum to 1, and a saved model that reloads and predicts the
+    held-out rows identically."""
+    import lightgbm_tpu_torch as lgt
+    K = booster.num_class
+    n = min(n_train, 20_000)
+    raw = booster.predict_raw(x[:n])
+    err = float(np.abs(raw - booster.score[:, :n].cpu().numpy()).max())
+    if not err < 1e-4:
+        fail("%s: trees do not replay the per-class training scores (max "
+             "abs err %g)" % (what, err))
+    prob = booster.predict_multiclass(x[n_train:])
+    row_err = float(np.abs(prob.sum(1) - 1.0).max())
+    if not (prob.shape == (len(x) - n_train, K) and row_err <= 1e-6):
+        fail("%s: predicted rows are not [N, %d] summing to 1 (%g)"
+             % (what, K, row_err))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.txt")
+        booster.save_model_to_file(True, path)
+        loaded = lgt.GBDT.from_model_file(path, device=dev)
+    if not (loaded.num_class == K
+            and np.allclose(loaded.predict_multiclass(x[n_train:]), prob,
+                            rtol=0, atol=1e-12)):
+        fail("%s: reloaded model predicts differently" % what)
+    say("%s: %d trees interleaved per class (training scores replayed, max "
+        "abs err %g); held-out rows sum to 1 within %g; saved + reloaded "
+        "model predicts identically" % (what, len(booster.models), err,
+                                        row_err))
 
 
 if __name__ == "__main__":

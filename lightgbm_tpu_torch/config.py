@@ -1,14 +1,18 @@
-"""Configuration: the subset of lightgbm_tpu/config.py this slice runs.
+"""Configuration: the subset of lightgbm_tpu/config.py the port runs.
 
-Same parameter names, aliases (lightgbm_tpu/config.py:26-84) and defaults
-for the keys the binary ``task=train`` / ``task=predict`` example uses.
-The difference is the slice rule: a key the port does not run raises
-``Fatal`` naming it, instead of being parsed and silently ignored.  Keys
-whose JAX-package default is the only value the slice runs (serial
-learner, uniform bin layout, no sampling) are accepted at that
-value and refused at any other.  Growth runs under all three policies of
-the JAX package: compacted leaf-wise (the default), masked leaf-wise
-(``leafwise_compact=false``) and depth-wise (``grow_policy=depthwise``).
+Same parameter names, aliases (lightgbm_tpu/config.py:26-84), defaults
+and conflict rules (``_check_param_conflict``, :972-985) for the keys of
+the reference's four ``task=train`` / ``task=predict`` examples: the
+objectives regression, binary, multiclass (``num_class``) and lambdarank
+(``label_gain``, ``max_position``) and their eight metrics
+(``ndcg_eval_at``).  The difference is the slice rule: a key the port
+does not run raises ``Fatal`` naming it, instead of being parsed and
+silently ignored.  Keys whose JAX-package default is the only value the
+port runs (serial learner, uniform bin layout, no sampling) are accepted
+at that value and refused at any other.  Growth runs under all three
+policies of the JAX package: compacted leaf-wise (the default), masked
+leaf-wise (``leafwise_compact=false``) and depth-wise
+(``grow_policy=depthwise``).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ ALIAS_TABLE: Dict[str, str] = {
     "test": "valid_data",
     "tranining_metric": "is_training_metric",
     "train_metric": "is_training_metric",
+    "ndcg_at": "ndcg_eval_at",
     "min_data_per_leaf": "min_data_in_leaf",
     "min_data": "min_data_in_leaf",
     "min_sum_hessian_per_leaf": "min_sum_hessian_in_leaf",
@@ -68,15 +73,20 @@ SLICE_KEYS = frozenset((
     "is_unbalance", "hist_dtype", "quant_rounding", "device",
     "data_random_seed", "verbose", "metric_freq", "is_training_metric",
     "has_header", "is_sigmoid", "num_model_predict", "grow_policy",
-    "leafwise_compact", "hist_chunk", "leafwise_segments",
+    "leafwise_compact", "hist_chunk", "leafwise_segments", "num_class",
+    "label_gain", "max_position", "ndcg_eval_at",
 ))
+
+OBJECTIVES = ("regression", "binary", "multiclass", "lambdarank")
+# metric.cpp:9-28
+METRICS = ("l1", "l2", "binary_logloss", "binary_error", "auc", "ndcg",
+           "multi_logloss", "multi_error")
 
 # keys of the JAX package whose default is the only value the slice runs
 DEFAULT_ONLY = {
     "boosting_type": ("gbdt", "gbrt"),
     "tree_learner": ("serial",),
     "num_machines": ("1",),
-    "num_class": ("1",),
     "mixed_bin": ("auto", "false"),
     "bagging_fraction": ("1", "1.0"),
     "bagging_freq": ("0",),
@@ -184,23 +194,72 @@ class IOConfig:
                                           self.num_model_predict)
 
 
+def _get_num_class(params, default):
+    value = _get_int(params, "num_class", default)
+    log.check(value >= 1, "num_class should be >= 1")
+    return value
+
+
+def _default_label_gain() -> List[float]:
+    # label_gain = 2^i - 1 up to 31 labels (config.cpp:226-232)
+    return [0.0] + [float((1 << i) - 1) for i in range(1, 31)]
+
+
+def _parse_label_gain(value: str) -> List[float]:
+    """The comma-separated label_gain list, a Fatal on a junk token."""
+    try:
+        return [float(x) for x in value.split(",") if x]
+    except ValueError:
+        log.fatal("Parameter label_gain should be comma-separated "
+                  "doubles, passed is [%s]" % value)
+
+
 @dataclasses.dataclass
 class ObjectiveConfig:
+    """lightgbm_tpu/config.py ObjectiveConfig (:484-502)."""
     sigmoid: float = 1.0
+    label_gain: List[float] = dataclasses.field(
+        default_factory=_default_label_gain)
+    max_position: int = 20
     is_unbalance: bool = False
+    num_class: int = 1
 
     def set(self, params: Dict[str, str]) -> None:
         self.is_unbalance = _get_bool(params, "is_unbalance",
                                       self.is_unbalance)
         self.sigmoid = _get_float(params, "sigmoid", self.sigmoid)
+        self.max_position = _get_int(params, "max_position",
+                                     self.max_position)
+        log.check(self.max_position > 0, "max_position should be > 0")
+        self.num_class = _get_num_class(params, self.num_class)
+        if "label_gain" in params:
+            self.label_gain = _parse_label_gain(params["label_gain"])
 
 
 @dataclasses.dataclass
 class MetricConfig:
+    """lightgbm_tpu/config.py MetricConfig (:516-533)."""
+    num_class: int = 1
     sigmoid: float = 1.0
+    label_gain: List[float] = dataclasses.field(
+        default_factory=_default_label_gain)
+    eval_at: List[int] = dataclasses.field(
+        default_factory=lambda: [1, 2, 3, 4, 5])
 
     def set(self, params: Dict[str, str]) -> None:
         self.sigmoid = _get_float(params, "sigmoid", self.sigmoid)
+        self.num_class = _get_num_class(params, self.num_class)
+        if "label_gain" in params:
+            self.label_gain = _parse_label_gain(params["label_gain"])
+        if "ndcg_eval_at" in params:
+            try:
+                self.eval_at = sorted(
+                    int(x) for x in params["ndcg_eval_at"].split(",") if x)
+            except ValueError:
+                log.fatal("Parameter ndcg_eval_at should be comma-separated "
+                          "ints, passed is [%s]" % params["ndcg_eval_at"])
+            for k in self.eval_at:
+                log.check(k > 0, "ndcg_eval_at should be > 0")
 
 
 @dataclasses.dataclass
@@ -288,6 +347,7 @@ class BoostingConfig:
     is_provide_training_metric: bool = False
     num_iterations: int = 10
     learning_rate: float = 0.1
+    num_class: int = 1
     tree_config: TreeConfig = dataclasses.field(default_factory=TreeConfig)
 
     def set(self, params: Dict[str, str]) -> None:
@@ -301,6 +361,7 @@ class BoostingConfig:
         log.check(self.output_freq >= 0, "metric_freq should be >= 0")
         self.is_provide_training_metric = _get_bool(
             params, "is_training_metric", self.is_provide_training_metric)
+        self.num_class = _get_num_class(params, self.num_class)
         self.tree_config.set(params)
 
 
@@ -333,19 +394,20 @@ class OverallConfig:
                 log.fatal("Task type error")
         if "objective" in params:
             self.objective_type = params["objective"].lower()
-        if self.task_type == "train" and self.objective_type != "binary":
+        if self.task_type == "train" \
+                and self.objective_type not in OBJECTIVES:
             log.fatal("Parameter objective=%s is not supported by "
-                      "lightgbm_tpu_torch (the ported slice trains "
-                      "objective=binary)" % self.objective_type)
+                      "lightgbm_tpu_torch (it trains %s)"
+                      % (self.objective_type, ", ".join(OBJECTIVES)))
         if "metric" in params:
             seen = []
             for m in params["metric"].lower().split(","):
                 m = m.strip()
                 if m and m not in seen:
-                    if m not in ("binary_logloss", "auc"):
+                    if m not in METRICS:
                         log.fatal("Parameter metric=%s is not supported by "
-                                  "lightgbm_tpu_torch (the ported slice "
-                                  "runs binary_logloss, auc)" % m)
+                                  "lightgbm_tpu_torch (it runs %s)"
+                                  % (m, ", ".join(METRICS)))
                     seen.append(m)
             self.metric_types = seen
         self.device = params.get("device", self.device)
@@ -353,7 +415,25 @@ class OverallConfig:
         self.boosting_config.set(params)
         self.objective_config.set(params)
         self.metric_config.set(params)
+        self._check_param_conflict()
         log.set_level_from_verbosity(self.io_config.verbosity)
+
+    def _check_param_conflict(self) -> None:
+        """The objective, num_class and metric rules of
+        lightgbm_tpu/config.py:972-985 (config.cpp:133-182)."""
+        objective_multiclass = self.objective_type == "multiclass"
+        num_class = self.boosting_config.num_class
+        if objective_multiclass:
+            if num_class <= 1:
+                log.fatal("You should specify number of class(>=2) for "
+                          "multiclass training.")
+        elif self.task_type == "train" and num_class != 1:
+            log.fatal("Number of class must be 1 for non-multiclass "
+                      "training.")
+        for metric_type in self.metric_types:
+            if objective_multiclass != (metric_type in ("multi_logloss",
+                                                        "multi_error")):
+                log.fatal("Objective and metrics don't match.")
 
 
 def parse_config_file(path: str) -> Dict[str, str]:

@@ -54,9 +54,12 @@ def trees_to_numpy(trees: List[Tree]) -> List[Dict[str, np.ndarray]]:
 
 
 def booster_from_trees(trees: List[Tree], max_feature_idx: int,
-                       sigmoid: float = 1.0, device=None) -> GBDT:
-    """A prediction-only port booster over ``trees``."""
+                       sigmoid: float = 1.0, device=None,
+                       num_class: int = 1) -> GBDT:
+    """A prediction-only port booster over ``trees``; with K = num_class
+    > 1, tree i belongs to class i % K."""
     b = GBDT()
+    b.num_class = int(num_class)
     b.models = list(trees)
     b.max_feature_idx = int(max_feature_idx)
     b.sigmoid = float(sigmoid)

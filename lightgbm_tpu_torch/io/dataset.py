@@ -5,8 +5,9 @@ same signature) and the one-round text loader (:242-302), with the same
 ≤50k-row binning sample, trivial-feature removal and uint8 ``[F, N]`` bin
 matrix, so the port bins a dataset exactly as the JAX package does.
 ``to_device`` places the bin matrix, labels and weights as tensors on the
-training device.  Binary caches, streaming and distributed sharding are
-outside this slice.
+training device.  Query boundaries stay on the host (the lambdarank
+objective builds its own device tables from them).  Binary caches,
+streaming and distributed sharding are outside the port.
 """
 from __future__ import annotations
 
@@ -56,11 +57,8 @@ class Dataset:
                     reference: Optional["Dataset"] = None) -> "Dataset":
         """Build from in-memory arrays (lightgbm_tpu/io/dataset.py:551).
         ``reference``: a training Dataset whose bin mappers are reused (for
-        validation sets).  ``query_boundaries`` belong to ranking, outside
-        this slice, and must stay None."""
-        if query_boundaries is not None:
-            log.fatal("query_boundaries are not supported by "
-                      "lightgbm_tpu_torch (outside the ported slice)")
+        validation sets).  ``query_boundaries``: [nq + 1] row offsets of
+        the queries, for lambdarank and ndcg."""
         if max_bin > 256:
             log.fatal("max_bin should be in (0, 256] (uint8 bin matrix)")
         self = cls()
@@ -85,6 +83,10 @@ class Dataset:
         self.metadata.set_label(np.asarray(labels, dtype=np.float32))
         if weights is not None:
             self.metadata.weights = np.asarray(weights, dtype=np.float32)
+        if query_boundaries is not None:
+            self.metadata.query_boundaries = np.asarray(query_boundaries,
+                                                        dtype=np.int32)
+            self.metadata.load_query_weights()
         self._binarize(features)
         self.metadata.finalize(self.num_data)
         return self
@@ -92,7 +94,7 @@ class Dataset:
     @classmethod
     def load_train(cls, io_config) -> "Dataset":
         """LoadTrainData, one-round path (dataset.cpp:420-465): label in
-        column 0, ``<data>.weight`` side file."""
+        column 0, ``<data>.weight`` and ``<data>.query`` side files."""
         self = cls()
         self.max_bin = io_config.max_bin
         self.metadata.init_from_files(io_config.data_filename)
@@ -117,7 +119,7 @@ class Dataset:
     def load_valid(cls, train: "Dataset", filename: str,
                    has_header: bool = False) -> "Dataset":
         """LoadValidationData (dataset.cpp:467-511): binned with the
-        training set's mappers."""
+        training set's mappers; its own weight and query side files."""
         self = cls()
         self.max_bin = train.max_bin
         self.num_total_features = train.num_total_features

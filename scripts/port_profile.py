@@ -7,7 +7,9 @@
 Trains the chip_smoke.py main-path configuration (Higgs-shaped binary
 table, 28 features, max_bin 255, 255 leaves, float32 histograms), or
 that configuration with the training keys of ``--set`` added (e.g.
-``--set grow_policy=depthwise hist_dtype=int8``): one
+``--set grow_policy=depthwise hist_dtype=int8`` or ``--set
+objective=multiclass num_class=5``; ``objective=lambdarank`` adds
+chip_smoke.py's queries of 50-190 documents): one
 warm-up iteration, ``--iters`` iterations timed on the host clock without
 the profiler, then ``--iters`` more under ``torch.profiler``.  Prints the
 wall time per iteration of both, the device time per kernel name (top
@@ -24,6 +26,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -43,12 +47,14 @@ def main() -> int:
         print("port_profile: no CUDA device", file=sys.stderr)
         return 2
     import lightgbm_tpu_torch as lgt
-    from chip_smoke import SEED, make_data
+    from chip_smoke import SEED, make_data, rank_queries
     from lightgbm_tpu_torch.ops import cuda_build
 
     cuda_build.build()
     x, y = make_data(args.rows, 28, SEED)
-    ds = lgt.Dataset.from_arrays(x, y, max_bin=255)
+    qb = (rank_queries(args.rows, np.random.RandomState(SEED))
+          if extra.get("objective") == "lambdarank" else None)
+    ds = lgt.Dataset.from_arrays(x, y, max_bin=255, query_boundaries=qb)
     booster = lgt.train(dict({"objective": "binary", "num_leaves": 255,
                               "num_iterations": 1, "max_bin": 255}, **extra),
                         ds)

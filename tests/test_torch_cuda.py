@@ -317,3 +317,54 @@ def test_int8_policies_equal_on_card_and_cpu(cuda, policy):
         assert max(list(hist_cuda.launch_cols)[-8:]) == 64
     on_cpu = lgt.train(params, ds, device="cpu")
     assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+@pytest.mark.parametrize("objective", ["regression", "multiclass"])
+def test_int8_objective_trees_equal_on_card_and_cpu(cuda, objective):
+    """Regression (constant hessian: one int8 level) and multiclass (five
+    trees an iteration, float64 softmax): the same int8 model on the card
+    as on the CPU."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(20_000, 10)
+    if objective == "regression":
+        y = x[:, 0] - x[:, 1] + 0.3 * rng.randn(20_000)
+        extra = {}
+    else:
+        y = np.argmax(x[:, :5] + 0.5 * rng.randn(20_000, 5), 1)
+        extra = {"num_class": 5}
+    ds = lgt.Dataset.from_arrays(x, y.astype(np.float32), max_bin=255)
+    params = dict({"objective": objective, "num_leaves": 31,
+                   "num_iterations": 3, "hist_dtype": "int8",
+                   "min_data_in_leaf": 20}, **extra)
+    before = (hist_cuda.launches, compact.launches)
+    on_card = lgt.train(params, ds, device=cuda)
+    assert hist_cuda.launches > before[0] and compact.launches > before[1]
+    on_cpu = lgt.train(params, ds, device="cpu")
+    assert len(on_card.models) == 3 * extra.get("num_class", 1)
+    assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+def test_lambdarank_gradients_on_card_and_cpu(cuda):
+    """The lambdarank gradients of ragged queries on both devices, at
+    score 0 and at random scores: within rtol 1e-5 / atol 1e-7 (float64
+    ``exp`` and pair sums leave only float64 sums in another order)."""
+    from lightgbm_tpu_torch.config import ObjectiveConfig
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective
+    rng = np.random.RandomState(7)
+    qb = np.concatenate([[0], np.cumsum(rng.randint(1, 191, 300))])
+    md = Metadata()
+    md.set_label(rng.randint(0, 5, qb[-1]).astype(np.float32))
+    md.query_boundaries = qb.astype(np.int32)
+    md.finalize(int(qb[-1]))
+    objs = []
+    for dev in (cuda, torch.device("cpu")):
+        objs.append(create_objective("lambdarank", ObjectiveConfig()))
+        objs[-1].init(md, int(qb[-1]), dev)
+    for score in (np.zeros(qb[-1], np.float32),
+                  rng.randn(qb[-1]).astype(np.float32)):
+        s = torch.as_tensor(score)
+        on_card = [t.cpu() for t in objs[0].get_gradients(s.to(cuda))]
+        on_cpu = objs[1].get_gradients(s)
+        for a, b in zip(on_card, on_cpu):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)

@@ -59,6 +59,10 @@ def _port_modules():
 def test_imports_with_jax_blocked():
     mods = sorted(_port_modules())
     assert "lightgbm_tpu_torch.ops.hist_cuda" in mods
+    assert {"lightgbm_tpu_torch.objectives.rank",
+            "lightgbm_tpu_torch.objectives.multiclass",
+            "lightgbm_tpu_torch.objectives.regression",
+            "lightgbm_tpu_torch.metrics.dcg"} <= set(mods)
     code = ("import sys\n"
             "for m in [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'lightgbm_tpu')]:\n"
@@ -84,17 +88,27 @@ def test_default_device_needs_cuda():
     with pytest.raises(log.Fatal, match="no CUDA device"):
         lgt.train({"objective": "binary", "num_iterations": 1}, ds,
                   device="cuda")
+    # every objective, and a multiclass model file, asks for the card
+    qds = lgt.Dataset.from_arrays(x, (x[:, 0] > 0).astype(np.float32),
+                                  query_boundaries=[0, 50, 120, 200])
+    for params in ({"objective": "regression"},
+                   {"objective": "multiclass", "num_class": 2},
+                   {"objective": "lambdarank"}):
+        with pytest.raises(log.Fatal, match="no CUDA device"):
+            lgt.train(dict(params, num_iterations=1), qds)
 
 
 @pytest.mark.parametrize("key,value", [
-    ("objective", "regression"), ("grow_policy", "levelwise"),
+    ("objective", "huber"), ("grow_policy", "levelwise"),
     ("leafwise_compact", "maybe"), ("tree_learner", "data"),
     ("num_machines", "4"), ("bagging_fraction", "0.5"),
     ("feature_fraction", "0.8"), ("goss", "true"),
     ("hist_dtype", "bfloat16"), ("quant_rounding", "stochastic"),
     ("mixed_bin", "true"), ("streaming", "true"),
     ("checkpoint_interval", "5"), ("metrics_out", "m.jsonl"),
-    ("metric", "auc,l2"), ("early_stopping_round", "3"),
+    ("metric", "auc,map"), ("early_stopping_round", "3"),
+    ("input_init_score", "init.txt"), ("group_column", "0"),
+    ("weight_column", "1"), ("label_column", "0"), ("bagging_freq", "1"),
 ])
 def test_out_of_slice_config_is_fatal(key, value):
     cfg = lgt.OverallConfig()
@@ -130,7 +144,8 @@ def test_slice_defaults_accepted():
 
 @pytest.mark.parametrize("key,value", [
     ("hist_chunk", "-1"), ("leafwise_segments", "0"),
-    ("hist_chunk", "big")])
+    ("hist_chunk", "big"), ("num_class", "0"), ("max_position", "0"),
+    ("label_gain", "0,1,x"), ("ndcg_eval_at", "0,3")])
 def test_invalid_tuning_knob_is_fatal(key, value):
     cfg = lgt.OverallConfig()
     with pytest.raises(log.Fatal, match=key):
@@ -185,3 +200,61 @@ def test_chip_smoke_refuses_without_card_or_package(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("params,message", [
+    ({"objective": "multiclass"}, "number of class"),
+    ({"objective": "multiclass", "num_class": "1"}, "number of class"),
+    ({"objective": "regression", "num_class": "3"}, "Number of class"),
+    ({"objective": "binary", "num_class": "2"}, "Number of class"),
+    ({"objective": "binary", "metric": "multi_logloss"}, "don't match"),
+    ({"objective": "multiclass", "num_class": "3", "metric": "auc"},
+     "don't match"),
+    ({"objective": "multiclass", "num_class": "3",
+      "metric": "multi_error,l2"}, "don't match"),
+], ids=["multiclass-default", "multiclass-1", "regression-3", "binary-2",
+        "binary-multi_logloss", "multiclass-auc", "multiclass-l2"])
+def test_objective_conflicts_are_fatal(params, message):
+    """lightgbm_tpu/config.py:972-985, for task=train."""
+    cfg = lgt.OverallConfig()
+    with pytest.raises(log.Fatal, match=message):
+        cfg.set(params, require_data=False)
+
+
+def test_objective_keys_accepted():
+    cfg = lgt.OverallConfig()
+    cfg.set({"objective": "lambdarank", "metric": "ndcg,l1",
+             "ndcg_at": "5,1", "label_gain": "0,1,3", "max_position": "10"},
+            require_data=False)
+    assert cfg.metric_config.eval_at == [1, 5]
+    assert cfg.metric_config.label_gain == cfg.objective_config.label_gain \
+        == [0.0, 1.0, 3.0]
+    assert cfg.objective_config.max_position == 10
+    cfg = lgt.OverallConfig()
+    cfg.set({"objective": "multiclass", "num_class": "4",
+             "metric": "multi_logloss,multi_error"}, require_data=False)
+    assert cfg.boosting_config.num_class == cfg.objective_config.num_class \
+        == cfg.metric_config.num_class == 4
+    # the default objective is regression, as in the JAX package; a
+    # prediction run reads num_class from the model file
+    cfg = lgt.OverallConfig()
+    cfg.set({"metric": "l2"}, require_data=False)
+    assert cfg.objective_type == "regression"
+    cfg = lgt.OverallConfig()
+    cfg.set({"task": "predict", "num_class": "3"}, require_data=False)
+
+
+def test_training_data_faults_are_fatal():
+    """lambdarank without queries, and a multiclass label outside
+    [0, num_class), through the user entry point."""
+    x = np.random.RandomState(1).randn(100, 3)
+    y = np.arange(100, dtype=np.float32) % 4
+    with pytest.raises(log.Fatal, match="query information"):
+        lgt.train({"objective": "lambdarank", "num_iterations": 1},
+                  lgt.Dataset.from_arrays(x, y), device="cpu")
+    with pytest.raises(log.Fatal, match="Label must be in"):
+        lgt.train({"objective": "multiclass", "num_class": 3,
+                   "num_iterations": 1},
+                  lgt.Dataset.from_arrays(x, y), device="cpu")
+    with pytest.raises(log.Fatal, match="query size"):
+        lgt.Dataset.from_arrays(x, y, query_boundaries=[0, 40, 90])
