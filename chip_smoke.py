@@ -32,7 +32,21 @@ and predicts identically) and lambdarank over queries of 50-190
 documents (held-out NDCG@5 must rise), each with one histogram launch per
 leaf and one partition per split; then int8 regression and multiclass
 trees on the card against the CPU (equal) and lambdarank gradients on
-both (rtol 1e-5 / atol 1e-7).  Every phase must pass; the last line of
+both (rtol 1e-5 / atol 1e-7).  Phase 8 runs the sampling slice at the
+main path's width: the reference binary example's hot path (63 leaves,
+feature_fraction 0.8, bagging 0.8 every 5 iterations, the threefry draw
+on the card; exactly 800,000 in-bag rows a draw, a new bag each redraw,
+every tree over the in-bag rows, 63 histogram launches and 62
+partitions a tree, held-out AUC > 0.7) beside the same configuration
+unsampled, the mask draw timed on the host (numpy) and on the card;
+GOSS (trees over exactly top + other rows); early stopping on a
+validation set (3 trees popped, the saved file holding the kept trees
+and reloading to the same predictions); continued training through the
+CLI (3 + 3 iterations, the input trees first and byte-equal, the score
+starting from the input model's float64 sum); multiclass K = 5 with one
+draw per class tree; and int8 sampled trees (threefry bagging, GOSS,
+feature_fraction) on the card equal to the CPU's for the compacted and
+depth-wise growers.  Every phase must pass; the last line of
 standard output is ``{"ok": true, "device": {...}}``.  Exits nonzero,
 printing no result, when there is no CUDA device or the package is not
 beside this script.
@@ -58,7 +72,7 @@ FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
                         (28, 1_000_000, 256, 64, 0), (200, 250_000, 256, 1, 0),
                         (28, 2047, 256, 1, 0), (28, 300_001, 256, 1, 13)),
         "pane_segment": (12_345, 300_001), "n_f200": 250_000,
-        "int8_cols": (1, 8, 32, 64)}
+        "int8_cols": (1, 8, 32, 64), "n_es": 40_000, "n_cli": 100_000}
 
 
 def make_table(rows: int, features: int, seed: int):
@@ -767,6 +781,11 @@ def run(dev, sizes, timer=None):
                                          sync, timer).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    # ---- phase 8: sampling, early stopping and continued training
+    for path, counts in sampling_phase(dev, sizes, x, y, train_set,
+                                       sync).items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
     return list(kernels.values())
 
 
@@ -960,6 +979,323 @@ def objectives_phase(dev, sizes, x, latent, train_set, sync, timer):
     say("phase 7 lambdarank int8 %d rows, 63 leaves, 2 trees: cuda and cpu "
         "models %s (not required)" % (n5, "equal" if same else "differ"))
     return by_path
+
+
+def per_tree_launches(what, booster, counts, per_iter=1):
+    """Fail unless every tree took one histogram launch per leaf and one
+    pane-entry partition per split (the compacted grower), iteration by
+    iteration as ``drive`` counts them."""
+    leaves = [t.num_leaves for t in booster.models]
+    ends = [0] + counts["ends"]
+    for it in range(len(leaves) // per_iter):
+        got = ends[it + 1] - ends[it]
+        want = sum(leaves[it * per_iter:(it + 1) * per_iter])
+        if got != want:
+            fail("%s iteration %d: %d histogram launches, %d leaves"
+                 % (what, it + 1, got, want))
+    splits = sum(leaves) - len(leaves)
+    if not (counts["hist"] == sum(leaves)
+            and counts["partition"] == len(counts["part_rows"]) == splits):
+        fail("%s: %d histogram launches for %d leaves, %d partitions for "
+             "%d splits" % (what, counts["hist"], sum(leaves),
+                            counts["partition"], splits))
+    return leaves
+
+
+def record_bag_draws():
+    """Wrap the device bagging draw so each draw's in-bag count and mask
+    are kept; returns the list they go into."""
+    from lightgbm_tpu_torch.ops import sampling
+    draws = []
+    inner = sampling.bag_mask_for_draw
+
+    def recorded(*args, **kwargs):
+        mask = inner(*args, **kwargs)
+        draws.append(mask)
+        return mask
+
+    recorded.inner = getattr(inner, "inner", inner)
+    sampling.bag_mask_for_draw = recorded
+    return draws
+
+
+def sampling_phase(dev, sizes, x, y, train_set, sync):
+    """Phase 8: the reference example's sampled hot path (bagging and
+    feature_fraction, the threefry draw on the card), GOSS, early
+    stopping, continued training through the CLI, multiclass bagging
+    (K draws a redraw), and int8 sampled trees on the card against the
+    CPU.  Returns the launch counts of each path driven."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import compact, hist_cuda, sampling
+    n_train, F = sizes["n_train"], x.shape[1]
+    by_path = {}
+    draws = record_bag_draws()
+    try:
+        # (a) examples/binary_classification/train.conf's hot path
+        what = "phase 8a bagged"
+        pa = {"objective": "binary", "num_leaves": 63, "max_bin": 255,
+              "hist_dtype": "float32", "learning_rate": 0.1,
+              "num_iterations": 10, "feature_fraction": 0.8,
+              "bagging_fraction": 0.8, "bagging_freq": 5}
+        booster, iter_s, counts = drive(pa, train_set, dev, sync)
+        bag_cnt = int(0.8 * n_train)
+        if not (len(draws) == 2 and all(int(m.sum()) == bag_cnt
+                                        for m in draws)
+                and not torch.equal(draws[0], draws[1])):
+            fail("%s: %d draws with in-bag counts %s, expected 2 different "
+                 "draws of %d" % (what, len(draws),
+                                  [int(m.sum()) for m in draws], bag_cnt))
+        leaves = per_tree_launches(what, booster, counts)
+        if leaves != [63] * 10:
+            fail("%s: leaves %s, expected 10 trees of 63" % (what, leaves))
+        sums = [int(t.leaf_count.sum()) for t in booster.models]
+        if not all(v == bag_cnt for v in sums):
+            fail("%s: leaf counts sum to %s, not the %d in-bag rows"
+                 % (what, sums, bag_cnt))
+        say("%s %d x %d, 63 leaves, feature_fraction 0.8, bagging 0.8 "
+            "every 5 (threefry on the card): 2 draws of %d rows, different; "
+            "10 trees of 63 leaves over exactly the in-bag rows; 63 "
+            "histogram launches and 62 partitions a tree; seconds per "
+            "iteration %s" % (what, n_train, F, bag_cnt,
+                              " ".join("%.3f" % v for v in iter_s)))
+        check_model(what, booster, x, y, n_train, dev)
+        by_path["bagged_leafcompact_float32"] = counts
+        unsampled = {k: v for k, v in pa.items()
+                     if k not in ("feature_fraction", "bagging_fraction",
+                                  "bagging_freq")}
+        unsampled["num_iterations"] = 5
+        _, plain_s, _ = drive(unsampled, train_set, dev, sync)
+        say("phase 8a unsampled, same settings, seconds per iteration %s "
+            "(sampled mean %.4f, unsampled mean %.4f)" % (
+                " ".join("%.3f" % v for v in plain_s),
+                float(np.mean(iter_s)), float(np.mean(plain_s))))
+        # the draw alone at 1M rows, host clock, synchronized: numpy's
+        # choice plus the upload, against threefry on the card
+        key = sampling.bag_key(3)
+        reps = 5
+        t0 = time.perf_counter()
+        for r in range(reps):
+            sampling.bag_mask_for_draw.inner(key, r, n_train, bag_cnt, dev)
+        sync()
+        device_ms = (time.perf_counter() - t0) / reps * 1e3
+        rng = np.random.RandomState(3)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mask = np.zeros(n_train, dtype=bool)
+            mask[rng.choice(n_train, bag_cnt, replace=False)] = True
+            torch.from_numpy(mask).to(dev)
+        sync()
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        say("phase 8a mask draw at %d rows, %d in-bag: numpy choice + "
+            "upload %.3f ms, threefry on the card %.3f ms (host clock, "
+            "synchronized, mean of %d)" % (n_train, bag_cnt, host_ms,
+                                           device_ms, reps))
+
+        # (b) GOSS
+        what = "phase 8b goss"
+        pb = dict(unsampled, goss="true", top_rate=0.2, other_rate=0.1,
+                  num_iterations=3)
+        booster, iter_s, counts = drive(pb, train_set, dev, sync)
+        leaves = per_tree_launches(what, booster, counts)
+        top_cnt, other_cnt, _ = sampling.goss_counts(n_train, 0.2, 0.1)
+        sums = [int(t.leaf_count.sum()) for t in booster.models]
+        if len(leaves) != 3 or not all(v == top_cnt + other_cnt
+                                       for v in sums):
+            fail("%s: %d trees over %s rows, expected 3 over %d"
+                 % (what, len(leaves), sums, top_cnt + other_cnt))
+        say("%s 0.2 / 0.1: 3 trees of %s leaves, each over exactly %d + %d "
+            "rows; one histogram launch a leaf, one partition a split; "
+            "seconds per iteration %s" % (
+                what, leaves, top_cnt, other_cnt,
+                " ".join("%.3f" % v for v in iter_s)))
+        by_path["goss_leafcompact_float32"] = counts
+
+        # (c) early stopping on a training slice small enough to overfit,
+        # against the held-out rows
+        what = "phase 8c early stopping"
+        n_es = sizes["n_es"]
+        es_train = lgt.Dataset.from_arrays(x[:n_es], y[:n_es], max_bin=255,
+                                           reference=train_set)
+        es_valid = lgt.Dataset.from_arrays(x[n_train:], y[n_train:],
+                                           max_bin=255, reference=train_set)
+        pc = {"objective": "binary", "metric": "binary_logloss",
+              "num_leaves": 255, "min_data_in_leaf": 5,
+              "min_sum_hessian_in_leaf": 0.001, "learning_rate": 0.5,
+              "max_bin": 255, "early_stopping_round": 3,
+              "bagging_fraction": 0.8, "bagging_freq": 1}
+        from lightgbm_tpu_torch.config import OverallConfig
+        from lightgbm_tpu_torch.metrics import create_metrics
+        from lightgbm_tpu_torch.objectives import create_objective
+        cfg = OverallConfig()
+        cfg.set({k: str(v) for k, v in pc.items()}, require_data=False)
+        es = lgt.GBDT()
+        es.init(cfg.boosting_config, es_train,
+                create_objective("binary", cfg.objective_config),
+                device=dev)
+        es.add_valid_dataset(es_valid, create_metrics(cfg))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "model.txt")
+            reset_counts()
+            es.run_training(60, True,
+                            save_fn=lambda: es.save_model_to_file(False,
+                                                                  path))
+            sync()
+            es_counts = {"hist": hist_cuda.launches,
+                         "partition": compact.launches}
+            es.save_model_to_file(True, path)
+            with open(path) as f:
+                text = f.read()
+            loaded = lgt.GBDT.from_model_file(path, device=dev)
+        best = es.best_iter[0][0]
+        if not (es.iter < 60 and es.iter - best == 3
+                and len(es.models) == es.iter - 3 == best):
+            fail("%s: stopped at %d (best %d) with %d trees, expected a "
+                 "stop 3 past the best and %d trees"
+                 % (what, es.iter, best, len(es.models), es.iter - 3))
+        if not (text.count("Tree=") == len(es.models)
+                and text == es.model_to_string()):
+            fail("%s: the saved file holds %d trees, the booster %d"
+                 % (what, text.count("Tree="), len(es.models)))
+        pred = loaded.predict(x[n_train:])
+        if not np.allclose(pred, es.predict(x[n_train:]), rtol=0,
+                           atol=1e-12):
+            fail("%s: the reloaded model predicts differently" % what)
+        say("%s: %d-row training slice, held-out logloss best at "
+            "iteration %d (%.6f), stopped at %d, 3 trees popped; the saved "
+            "file holds the %d kept trees and reloads to the same "
+            "predictions" % (what, n_es, best, es.best_score[0][0], es.iter,
+                             len(es.models)))
+        by_path["early_stopping_leafcompact_float32"] = es_counts
+        del es, loaded, es_train, es_valid
+
+        # (d) continued training through the CLI on the card
+        by_path.update(continue_phase(dev, sizes, x, y, sync))
+
+        # (e) multiclass K = 5 with bagging: K draws a redraw iteration
+        what = "phase 8e multiclass bagged"
+        K = 5
+        rng = np.random.RandomState(SEED + 8)
+        proj = rng.randn(F, K) / np.sqrt(F)
+        y_multi = np.argmax(x[:n_train] @ proj + 0.5 * rng.randn(n_train, K),
+                            1).astype(np.float32)
+        ds = lgt.Dataset.from_arrays(x[:n_train], y_multi, max_bin=255,
+                                     reference=train_set)
+        pe = dict(unsampled, objective="multiclass", num_class=K,
+                  num_iterations=2, bagging_fraction=0.8, bagging_freq=1)
+        draws.clear()
+        booster, iter_s, counts = drive(pe, ds, dev, sync)
+        leaves = per_tree_launches(what, booster, counts, per_iter=K)
+        masks = [m for m in draws]
+        if not (len(leaves) == 2 * K and len(masks) == 2 * K
+                and all(int(m.sum()) == bag_cnt for m in masks)
+                and all(not torch.equal(a, b)
+                        for a, b in zip(masks, masks[1:]))):
+            fail("%s: %d trees, %d draws (%s in-bag), expected %d of each, "
+                 "all different" % (what, len(leaves), len(masks),
+                                    [int(m.sum()) for m in masks], 2 * K))
+        say("%s K = %d, bagging 0.8 every iteration: %d class trees, %d "
+            "draws of %d rows (one per class tree), all different; one "
+            "histogram launch a leaf, one partition a split; seconds per "
+            "iteration %s" % (what, K, len(leaves), len(masks), bag_cnt,
+                              " ".join("%.3f" % v for v in iter_s)))
+        by_path["multiclass_bagged_leafcompact_float32"] = counts
+        del booster, ds, masks
+        draws.clear()
+    finally:
+        sampling.bag_mask_for_draw = sampling.bag_mask_for_draw.inner
+
+    # (f) int8 sampled trees on the card against the CPU
+    n5 = sizes["n_int8"]
+    small = lgt.Dataset.from_arrays(x[:n5], y[:n5], max_bin=255)
+    for grower in ({}, {"grow_policy": "depthwise"}):
+        for extra in ({"bagging_device": "true", "bagging_fraction": 0.8,
+                       "bagging_freq": 1, "feature_fraction": 0.8},
+                      {"goss": "true", "feature_fraction": 0.8}):
+            pf = dict({"objective": "binary", "num_leaves": 63,
+                       "num_iterations": 2, "hist_dtype": "int8",
+                       "max_bin": 255}, **grower, **extra)
+            name = "%s %s" % (grower.get("grow_policy", "compacted"),
+                              "goss" if "goss" in extra else "bagging")
+            on_card = lgt.train(pf, small, device=dev)
+            on_cpu = lgt.train(pf, small, device="cpu")
+            value_diff = same_trees("phase 8f int8 %s cuda vs cpu" % name,
+                                    on_card, on_cpu)
+            if value_diff > 1e-6 or \
+                    on_card.model_to_string() != on_cpu.model_to_string():
+                fail("phase 8f int8 %s: cuda and cpu models differ (leaf "
+                     "values by %g)" % (name, value_diff))
+            say("phase 8f int8 %s + feature_fraction 0.8, %d x %d, 63 "
+                "leaves, 2 trees: cuda == cpu, model text byte for byte"
+                % (name, n5, F))
+    return {k: {"hist": v["hist"], "partition": v["partition"]}
+            for k, v in by_path.items()}
+
+
+def continue_phase(dev, sizes, x, y, sync):
+    """Phase 8d: ``task=train input_model=...`` on the card: 3 + 3
+    iterations give 6 trees, the first 3 as the input model wrote them,
+    and the training score starts from the continuation score (every
+    input tree summed in float64, rounded once)."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.cli import main as cli_main
+    from lightgbm_tpu_torch.models.predictor import continuation_score
+    from lightgbm_tpu_torch.ops import compact, hist_cuda
+    what = "phase 8d continued training"
+    n = sizes["n_cli"]
+    starts = []
+    init = lgt.GBDT.init
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        starts.append(self.score.clone())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train = os.path.join(tmp, "train.tsv")
+        np.savetxt(train, np.column_stack([y[:n], x[:n]]), delimiter="\t",
+                   fmt="%.17g")
+        base = ["task=train", "data=" + train, "objective=binary",
+                "num_leaves=63", "max_bin=255", "num_iterations=3",
+                "feature_fraction=0.8", "bagging_fraction=0.8",
+                "bagging_freq=1", "device=" + str(dev)]
+        m1, m2 = os.path.join(tmp, "m1.txt"), os.path.join(tmp, "m2.txt")
+        if cli_main(base + ["output_model=" + m1]) != 0:
+            fail("%s: the first CLI run failed" % what)
+        lgt.GBDT.init = recording_init
+        try:
+            reset_counts()
+            rc = cli_main(base + ["input_model=" + m1, "output_model=" + m2])
+            sync()
+            counts = {"hist": hist_cuda.launches,
+                      "partition": compact.launches}
+        finally:
+            lgt.GBDT.init = init
+        if rc != 0:
+            fail("%s: the continuing CLI run failed" % what)
+        with open(m1) as f:
+            first = f.read()
+        with open(m2) as f:
+            second = f.read()
+    blocks = lambda text: ["Tree=" + b.split("\n\n")[0]    # noqa: E731
+                           for b in text.split("\nTree=")[1:]]
+    b1, b2 = blocks(first), blocks(second)
+    if not (len(b1) == 3 and len(b2) == 6 and b2[:3] == b1):
+        fail("%s: %d + 3 iterations gave %d trees; the first 3 %s the "
+             "input model's" % (what, len(b1), len(b2),
+                                "equal" if b2[:3] == b1 else "differ from"))
+    cont = lgt.GBDT()
+    cont.models_from_string(first)
+    want = continuation_score(cont.models, x[:n], dev)
+    got = starts[0][0].cpu().numpy() if starts else None
+    if got is None or not np.array_equal(got, want):
+        fail("%s: the training score does not start from the continuation "
+             "score" % what)
+    say("%s through the CLI on the card, %d rows, bagging and "
+        "feature_fraction: 3 + 3 iterations give 6 trees, the first 3 the "
+        "input model's text; the start score equals the float64 sum of "
+        "the input trees (rounded once) on all %d rows" % (what, n, n))
+    return {"continued_leafcompact_float32": counts}
 
 
 def check_multiclass(what, booster, x, n_train, dev):

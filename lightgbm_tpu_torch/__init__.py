@@ -24,7 +24,11 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
           device=None, progress_fn=None) -> GBDT:
     """Train a booster (lightgbm_tpu.train's counterpart).  ``device``:
     explicit argument, else ``params["device"]``, else "cuda".
-    ``progress_fn(iteration)`` runs after every boosting iteration."""
+    ``progress_fn(iteration)`` runs after every boosting iteration.  With
+    ``early_stopping_round`` in ``params``, the metrics of ``valid_sets``
+    stop the run and the last ``early_stopping_round`` iterations' trees
+    are dropped; a dataset whose metadata carries ``init_score`` starts
+    from it (tiled over the classes)."""
     from .metrics import create_metrics
     from .objectives import create_objective
 

@@ -5,11 +5,14 @@ and conflict rules (``_check_param_conflict``, :972-985) for the keys of
 the reference's four ``task=train`` / ``task=predict`` examples: the
 objectives regression, binary, multiclass (``num_class``) and lambdarank
 (``label_gain``, ``max_position``) and their eight metrics
-(``ndcg_eval_at``).  The difference is the slice rule: a key the port
-does not run raises ``Fatal`` naming it, instead of being parsed and
-silently ignored.  Keys whose JAX-package default is the only value the
-port runs (serial learner, uniform bin layout, no sampling) are accepted
-at that value and refused at any other.  Growth runs under all three
+(``ndcg_eval_at``), row and feature sampling (bagging, GOSS,
+``feature_fraction``), early stopping, continued training
+(``input_model`` under ``task=train``) and ``input_init_score``.  The
+difference is the slice rule: a key the port does not run raises
+``Fatal`` naming it, instead of being parsed and silently ignored.  Keys
+whose JAX-package default is the only value the port runs (serial
+learner, uniform bin layout) are accepted at that value and refused at
+any other.  Growth runs under all three
 policies of the JAX package: compacted leaf-wise (the default), masked
 leaf-wise (``leafwise_compact=false``) and depth-wise
 (``grow_policy=depthwise``).
@@ -34,6 +37,7 @@ ALIAS_TABLE: Dict[str, str] = {
     "model_out": "output_model",
     "model_input": "input_model",
     "model_in": "input_model",
+    "init_score": "input_init_score",
     "predict_result": "output_result",
     "prediction_result": "output_result",
     "valid": "valid_data",
@@ -75,6 +79,10 @@ SLICE_KEYS = frozenset((
     "has_header", "is_sigmoid", "num_model_predict", "grow_policy",
     "leafwise_compact", "hist_chunk", "leafwise_segments", "num_class",
     "label_gain", "max_position", "ndcg_eval_at",
+    # sampling, early stopping and initial scores
+    "bagging_fraction", "bagging_freq", "bagging_seed", "bagging_device",
+    "feature_fraction", "feature_fraction_seed", "goss", "top_rate",
+    "other_rate", "early_stopping_round", "input_init_score",
 ))
 
 OBJECTIVES = ("regression", "binary", "multiclass", "lambdarank")
@@ -88,11 +96,6 @@ DEFAULT_ONLY = {
     "tree_learner": ("serial",),
     "num_machines": ("1",),
     "mixed_bin": ("auto", "false"),
-    "bagging_fraction": ("1", "1.0"),
-    "bagging_freq": ("0",),
-    "feature_fraction": ("1", "1.0"),
-    "goss": ("false", "-"),
-    "early_stopping_round": ("0",),
     "streaming": ("false",),
     "checkpoint_interval": ("0",),
     "predict_leaf_index": ("false", "-"),
@@ -166,6 +169,7 @@ class IOConfig:
     output_model: str = "LightGBM_model.txt"
     output_result: str = "LightGBM_predict_result.txt"
     input_model: str = ""
+    input_init_score: str = ""
     verbosity: int = 1
     has_header: bool = False
     is_sigmoid: bool = True
@@ -187,6 +191,8 @@ class IOConfig:
         self.output_model = params.get("output_model", self.output_model)
         self.output_result = params.get("output_result", self.output_result)
         self.input_model = params.get("input_model", self.input_model)
+        self.input_init_score = params.get("input_init_score",
+                                           self.input_init_score)
         self.verbosity = _get_int(params, "verbose", self.verbosity)
         self.has_header = _get_bool(params, "has_header", self.has_header)
         self.is_sigmoid = _get_bool(params, "is_sigmoid", self.is_sigmoid)
@@ -268,6 +274,8 @@ class TreeConfig:
     min_data_in_leaf: int = 100
     min_sum_hessian_in_leaf: float = 10.0
     num_leaves: int = 127
+    feature_fraction_seed: int = 2
+    feature_fraction: float = 1.0
     max_depth: int = -1
     hist_dtype: str = "float32"
     quant_rounding: str = "nearest"
@@ -306,6 +314,12 @@ class TreeConfig:
                   "min_sum_hessian_in_leaf/min_data_in_leaf check failed")
         self.num_leaves = _get_int(params, "num_leaves", self.num_leaves)
         log.check(self.num_leaves > 1, "num_leaves should be > 1")
+        self.feature_fraction_seed = _get_int(params, "feature_fraction_seed",
+                                              self.feature_fraction_seed)
+        self.feature_fraction = _get_float(params, "feature_fraction",
+                                           self.feature_fraction)
+        log.check(0.0 < self.feature_fraction <= 1.0,
+                  "feature_fraction should be in (0, 1]")
         self.max_depth = _get_int(params, "max_depth", self.max_depth)
         log.check(self.max_depth > 1 or self.max_depth < 0,
                   "max_depth should be > 1 or < 0")
@@ -343,26 +357,71 @@ class TreeConfig:
 
 @dataclasses.dataclass
 class BoostingConfig:
+    """lightgbm_tpu/config.py BoostingConfig (:699-845), slice subset."""
     output_freq: int = 1
     is_provide_training_metric: bool = False
     num_iterations: int = 10
     learning_rate: float = 0.1
+    bagging_fraction: float = 1.0
+    bagging_seed: int = 3
+    bagging_freq: int = 0
+    early_stopping_round: int = 0
     num_class: int = 1
+    # where a bagging redraw runs: "auto" on the card with threefry
+    # (ops/sampling.py) and on the CPU with numpy, as the JAX package
+    # resolves it on an accelerator and on its CPU backend; "true" forces
+    # the threefry draw wherever it applies (not per query), "false" the
+    # numpy one
+    bagging_device: str = "auto"
+    goss: bool = False
+    top_rate: float = 0.2
+    other_rate: float = 0.1
     tree_config: TreeConfig = dataclasses.field(default_factory=TreeConfig)
 
     def set(self, params: Dict[str, str]) -> None:
         self.num_iterations = _get_int(params, "num_iterations",
                                        self.num_iterations)
         log.check(self.num_iterations >= 0, "num_iterations should be >= 0")
+        self.bagging_seed = _get_int(params, "bagging_seed",
+                                     self.bagging_seed)
+        self.bagging_freq = _get_int(params, "bagging_freq",
+                                     self.bagging_freq)
+        log.check(self.bagging_freq >= 0, "bagging_freq should be >= 0")
+        self.bagging_fraction = _get_float(params, "bagging_fraction",
+                                           self.bagging_fraction)
+        log.check(0.0 < self.bagging_fraction <= 1.0,
+                  "bagging_fraction should be in (0, 1]")
         self.learning_rate = _get_float(params, "learning_rate",
                                         self.learning_rate)
         log.check(self.learning_rate > 0.0, "learning_rate should be > 0")
+        self.early_stopping_round = _get_int(params, "early_stopping_round",
+                                             self.early_stopping_round)
+        log.check(self.early_stopping_round >= 0,
+                  "early_stopping_round should be >= 0")
         self.output_freq = _get_int(params, "metric_freq", self.output_freq)
         log.check(self.output_freq >= 0, "metric_freq should be >= 0")
         self.is_provide_training_metric = _get_bool(
             params, "is_training_metric", self.is_provide_training_metric)
         self.num_class = _get_num_class(params, self.num_class)
         self.tree_config.set(params)
+        if "bagging_device" in params:
+            value = params["bagging_device"].lower()
+            log.check(value in ("auto", "true", "false"),
+                      "bagging_device must be auto, true or false")
+            self.bagging_device = value
+        self.goss = _get_bool(params, "goss", self.goss)
+        self.top_rate = _get_float(params, "top_rate", self.top_rate)
+        self.other_rate = _get_float(params, "other_rate", self.other_rate)
+        if self.goss:
+            log.check(0.0 <= self.top_rate < 1.0,
+                      "top_rate should be in [0, 1)")
+            log.check(0.0 < self.other_rate <= 1.0,
+                      "other_rate should be in (0, 1]")
+            log.check(self.top_rate + self.other_rate <= 1.0,
+                      "top_rate + other_rate should be <= 1")
+            if self.bagging_fraction < 1.0 and self.bagging_freq > 0:
+                log.fatal("Cannot use bagging in GOSS mode "
+                          "(goss=true with bagging_fraction < 1)")
 
 
 @dataclasses.dataclass

@@ -4,14 +4,17 @@ The slice subset of lightgbm_tpu/io/dataset.py: ``from_arrays`` (:551,
 same signature) and the one-round text loader (:242-302), with the same
 ≤50k-row binning sample, trivial-feature removal and uint8 ``[F, N]`` bin
 matrix, so the port bins a dataset exactly as the JAX package does.
-``to_device`` places the bin matrix, labels and weights as tensors on the
-training device.  Query boundaries stay on the host (the lambdarank
+Continued training attaches each row's initial score: the raw prediction
+of the input model (``predict_fun``, lightgbm_tpu/io/dataset.py:620-626)
+over the training rows and every validation set's rows, else, for the
+training set, the ``input_init_score`` file.  ``to_device`` places the
+bin matrix, labels and weights as tensors on the training device.  Query boundaries stay on the host (the lambdarank
 objective builds its own device tables from them).  Binary caches,
 streaming and distributed sharding are outside the port.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -92,12 +95,16 @@ class Dataset:
         return self
 
     @classmethod
-    def load_train(cls, io_config) -> "Dataset":
+    def load_train(cls, io_config,
+                   predict_fun: Optional[Callable] = None) -> "Dataset":
         """LoadTrainData, one-round path (dataset.cpp:420-465): label in
-        column 0, ``<data>.weight`` and ``<data>.query`` side files."""
+        column 0, ``<data>.weight`` and ``<data>.query`` side files, the
+        ``input_init_score`` file; ``predict_fun(features)``, when given,
+        scores every row instead (continued training)."""
         self = cls()
         self.max_bin = io_config.max_bin
-        self.metadata.init_from_files(io_config.data_filename)
+        self.metadata.init_from_files(io_config.data_filename,
+                                      io_config.input_init_score)
         parsed = self._parse(io_config.data_filename, io_config.has_header)
         features = parsed.features
         rng = np.random.RandomState(io_config.data_random_seed)
@@ -113,13 +120,16 @@ class Dataset:
         self.metadata.set_label(parsed.labels)
         self._binarize(features)
         self.metadata.finalize(self.num_data)
+        self._attach_init_score_values(features, predict_fun)
         return self
 
     @classmethod
     def load_valid(cls, train: "Dataset", filename: str,
-                   has_header: bool = False) -> "Dataset":
+                   has_header: bool = False,
+                   predict_fun: Optional[Callable] = None) -> "Dataset":
         """LoadValidationData (dataset.cpp:467-511): binned with the
-        training set's mappers; its own weight and query side files."""
+        training set's mappers; its own weight and query side files; its
+        rows scored by ``predict_fun`` when given."""
         self = cls()
         self.max_bin = train.max_bin
         self.num_total_features = train.num_total_features
@@ -135,9 +145,18 @@ class Dataset:
         self.metadata.set_label(parsed.labels)
         self._binarize(features)
         self.metadata.finalize(self.num_data)
+        self._attach_init_score_values(features, predict_fun)
         return self
 
     # ------------------------------------------------------------ internals
+
+    def _attach_init_score_values(self, features: np.ndarray,
+                                  predict_fun) -> None:
+        """Continued training: every row's score under the input model
+        (dataset.cpp:546-581), as float32."""
+        if predict_fun is not None:
+            self.metadata.init_score = np.asarray(
+                predict_fun(features), dtype=np.float32).reshape(-1)
 
     @staticmethod
     def _parse(filename: str, has_header: bool):

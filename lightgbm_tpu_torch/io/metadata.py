@@ -1,10 +1,11 @@
-"""Labels, weights and query boundaries of a dataset.
+"""Labels, weights, query boundaries and initial scores of a dataset.
 
 The port's subset of lightgbm_tpu/io/metadata.py: labels, per-row
 weights, the ``<data>.weight`` and ``<data>.query`` side files
 (metadata.cpp:228-299), query weights (the per-query mean of the row
-weights) and the ``finalize`` size checks.  Init scores, query-id columns
-and distributed partitioning belong to features outside the port.
+weights), the initial scores of an ``input_init_score`` file (one value
+per line) and the ``finalize`` size checks.  Query-id columns and
+distributed partitioning belong to features outside the port.
 """
 from __future__ import annotations
 
@@ -23,8 +24,10 @@ class Metadata:
         self.weights: Optional[np.ndarray] = None           # float32 [N]
         self.query_boundaries: Optional[np.ndarray] = None  # int32 [nq+1]
         self.query_weights: Optional[np.ndarray] = None     # float32 [nq]
+        self.init_score: Optional[np.ndarray] = None        # float32 [N]
 
-    def init_from_files(self, data_filename: str) -> None:
+    def init_from_files(self, data_filename: str,
+                        init_score_filename: str = "") -> None:
         self._load_query_boundaries(data_filename + ".query")
         path = data_filename + ".weight"
         if os.path.exists(path):
@@ -32,6 +35,13 @@ class Metadata:
             self.weights = np.loadtxt(path, dtype=np.float64,
                                       ndmin=1).astype(np.float32)
         self.load_query_weights()
+        if init_score_filename:
+            self._load_init_score(init_score_filename)
+
+    def _load_init_score(self, path: str) -> None:
+        log.info("Start loading initial scores")
+        self.init_score = np.loadtxt(path, dtype=np.float64,
+                                     ndmin=1).astype(np.float32)
 
     def _load_query_boundaries(self, path: str) -> None:
         """One document count per line -> boundaries [nq + 1]."""
@@ -66,3 +76,5 @@ class Metadata:
         if (self.query_boundaries is not None
                 and self.query_boundaries[-1] != num_data):
             log.fatal("Initial query size doesn't equal to data")
+        if self.init_score is not None and self.init_score.size != num_data:
+            log.fatal("Initial score size doesn't equal to data")

@@ -21,6 +21,8 @@ from .dcg import DCGCalculator
 
 class Metric:
     display_name: str = ""
+    # early stopping's direction (lightgbm_tpu/metrics/__init__.py:21)
+    is_bigger_better: bool = False
 
     def init(self, test_name, metadata, num_data):
         self.name = f"{test_name}'s {self.display_name}"
@@ -103,6 +105,7 @@ class BinaryErrorMetric(_BinaryMetric):
 class AUCMetric(Metric):
     """AUC with tie handling (binary_metric.hpp:146-254)."""
     display_name = "AUC"
+    is_bigger_better = True
 
     def __init__(self, config):
         pass
@@ -166,6 +169,7 @@ class MultiLoglossMetric(_MulticlassMetric):
 
 class NDCGMetric(Metric):
     """NDCG@ks (rank_metric.hpp:16-167)."""
+    is_bigger_better = True
 
     def __init__(self, config):
         self.eval_at = list(config.eval_at)

@@ -44,6 +44,19 @@ def predict_raw_scores(models, features: np.ndarray, device: torch.device,
     return out.to(torch.float64).cpu().numpy()
 
 
+def continuation_score(models, features: np.ndarray,
+                       device: torch.device) -> np.ndarray:
+    """[N] float32 initial scores of continued training: "PredictRaw over
+    all models", each row's float64 sum of every tree of the input model
+    whatever its class, in model order, rounded once to float32 — the JAX
+    package's host rule (lightgbm_tpu/models/gbdt.py:2553-2556 through
+    its dataset's float32 cast), here at every size.  (Above 20M
+    rows x trees the JAX package sums class 0's trees alone, in its
+    serving engine: ROADMAP §C.)"""
+    return predict_raw_scores(models, features, device)[0].astype(
+        np.float32)
+
+
 def softmax_rows(raw: np.ndarray) -> np.ndarray:
     """Softmax of each row of [N, K] raw scores (gbdt.cpp:496-508)."""
     z = raw - raw.max(axis=1, keepdims=True)

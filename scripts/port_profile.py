@@ -9,7 +9,11 @@ table, 28 features, max_bin 255, 255 leaves, float32 histograms), or
 that configuration with the training keys of ``--set`` added (e.g.
 ``--set grow_policy=depthwise hist_dtype=int8`` or ``--set
 objective=multiclass num_class=5``; ``objective=lambdarank`` adds
-chip_smoke.py's queries of 50-190 documents): one
+chip_smoke.py's queries of 50-190 documents; the sampling keys too, e.g.
+the reference example's ``--set num_leaves=63 feature_fraction=0.8
+bagging_fraction=0.8 bagging_freq=5``, whose redraws fall on iterations
+0, 5, 10, ... of the run, the warm-up being iteration 0; or ``--set
+goss=true``): one
 warm-up iteration, ``--iters`` iterations timed on the host clock without
 the profiler, then ``--iters`` more under ``torch.profiler``.  Prints the
 wall time per iteration of both, the device time per kernel name (top
@@ -85,9 +89,9 @@ def main() -> int:
         per_name[evt.name] += us
         calls[evt.name] += 1
     busy_s = sum(per_name.values()) / 1e6
-    lines = ["rows %d, 28 features, 255 leaves, %s: %d iterations "
-             "profiled" % (args.rows, " ".join(args.set) or "float32",
-                           args.iters),
+    lines = ["rows %d, 28 features, %s leaves, %s: %d iterations "
+             "profiled" % (args.rows, extra.get("num_leaves", 255),
+                           " ".join(args.set) or "float32", args.iters),
              "wall per iteration without the profiler: %.4f s (%s)" % (
                  sum(plain_s) / args.iters,
                  ", ".join("%.4f" % t for t in plain_s)),

@@ -368,3 +368,93 @@ def test_lambdarank_gradients_on_card_and_cpu(cuda):
         on_cpu = objs[1].get_gradients(s)
         for a, b in zip(on_card, on_cpu):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def test_sampling_draws_equal_on_card_and_cpu(cuda):
+    """The threefry bagging draw and the GOSS draw are integer arithmetic
+    and stable sorts: bitwise the same on the card as on the CPU, at a
+    million rows (where float32 uniforms tie) and for five classes."""
+    from lightgbm_tpu_torch.ops import sampling
+    from lightgbm_tpu_torch.utils import threefry
+    key = sampling.bag_key(3)
+    n = 1 << 20
+    for draw in range(3):
+        a = sampling.bag_mask_for_draw(key, draw, n, int(0.8 * n), cuda)
+        b = sampling.bag_mask_for_draw(key, draw, n, int(0.8 * n))
+        assert torch.equal(a.cpu(), b) and int(b.sum()) == int(0.8 * n)
+    u = threefry.uniform(threefry.fold_in(key, 1), n, cuda)
+    assert torch.equal(u.cpu(), threefry.uniform(threefry.fold_in(key, 1), n))
+    rng = np.random.RandomState(8)
+    for K in (1, 5):
+        g = torch.as_tensor(rng.randn(K, 200_000).astype(np.float32))
+        g[:, :50_000] = torch.round(g[:, :50_000])      # tied |grad|
+        h = torch.as_tensor(rng.rand(K, 200_000).astype(np.float32))
+        top, other, amp = sampling.goss_counts(200_000, 0.2, 0.1)
+        k = threefry.fold_in(key, 2)
+        on_card = sampling.goss_select(k, g.to(cuda), h.to(cuda), top, other,
+                                       amp)
+        on_cpu = sampling.goss_select(k, g, h, top, other, amp)
+        for x, y in zip(on_card, on_cpu):
+            assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("extra", [
+    {"bagging_fraction": 0.8, "bagging_freq": 1, "bagging_device": "true",
+     "feature_fraction": 0.8},
+    {"goss": "true", "top_rate": 0.2, "other_rate": 0.1,
+     "feature_fraction": 0.8},
+    {"grow_policy": "depthwise", "num_leaves": 63, "bagging_fraction": 0.7,
+     "bagging_freq": 2, "bagging_device": "true", "feature_fraction": 0.6},
+    {"grow_policy": "depthwise", "num_leaves": 63, "goss": "true"},
+    {"leafwise_compact": "false", "goss": "true", "feature_fraction": 0.8},
+    {"objective": "multiclass", "num_class": 3, "bagging_fraction": 0.8,
+     "bagging_freq": 1, "bagging_device": "true"}],
+    ids=["compacted-bagging", "compacted-goss", "depthwise-bagging",
+         "depthwise-goss", "masked-goss", "multiclass-bagging"])
+def test_int8_sampled_trees_equal_on_card_and_cpu(cuda, extra):
+    """Sampled int8 training: the threefry draws, feature samples and GOSS
+    masks feed both kernels on the card, and the model equals the CPU's
+    byte for byte."""
+    rng = np.random.RandomState(9)
+    x = rng.randn(30_000, 10)
+    if extra.get("objective") == "multiclass":
+        y = np.argmax(x[:, :3] + 0.5 * rng.randn(30_000, 3), 1)
+    else:
+        y = x[:, 0] - x[:, 1] + 0.3 * rng.randn(30_000) > 0
+    ds = lgt.Dataset.from_arrays(x, y.astype(np.float32), max_bin=255)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "num_iterations": 3, "hist_dtype": "int8",
+                   "min_data_in_leaf": 20}, **extra)
+    before = hist_cuda.launches
+    on_card = lgt.train(params, ds, device=cuda)
+    assert hist_cuda.launches > before
+    on_cpu = lgt.train(params, ds, device="cpu")
+    assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+def test_continued_training_on_card(cuda, tmp_path):
+    """``task=train input_model=...`` on the card: the input trees first,
+    the continuation score bitwise the CPU's (a float64 sum in model
+    order), and the same int8 model as the CPU's."""
+    from lightgbm_tpu_torch.cli import main
+    from lightgbm_tpu_torch.models.predictor import continuation_score
+    rng = np.random.RandomState(10)
+    x = rng.randn(20_000, 10)
+    y = (x[:, 0] - x[:, 1] + 0.3 * rng.randn(20_000) > 0).astype(np.float32)
+    train = str(tmp_path / "train.tsv")
+    np.savetxt(train, np.column_stack([y, x]), delimiter="\t", fmt="%.17g")
+    base = ["task=train", "data=" + train, "objective=binary",
+            "num_leaves=31", "num_iterations=2", "hist_dtype=int8"]
+    m1 = str(tmp_path / "m1.txt")
+    assert main(base + ["output_model=" + m1]) == 0
+    outs = {}
+    for name, extra in (("card", []), ("cpu", ["device=cpu"])):
+        outs[name] = str(tmp_path / ("m2_%s.txt" % name))
+        assert main(base + ["input_model=" + m1,
+                            "output_model=" + outs[name]] + extra) == 0
+    text = open(outs["card"]).read()
+    assert text == open(outs["cpu"]).read()
+    assert text.count("Tree=") == 4
+    first = lgt.GBDT.from_model_file(m1, device="cpu").models
+    assert np.array_equal(continuation_score(first, x, cuda),
+                          continuation_score(first, x, torch.device("cpu")))

@@ -101,14 +101,14 @@ def test_default_device_needs_cuda():
 @pytest.mark.parametrize("key,value", [
     ("objective", "huber"), ("grow_policy", "levelwise"),
     ("leafwise_compact", "maybe"), ("tree_learner", "data"),
-    ("num_machines", "4"), ("bagging_fraction", "0.5"),
-    ("feature_fraction", "0.8"), ("goss", "true"),
+    ("num_machines", "4"), ("boosting_type", "dart"),
+    ("predict_leaf_index", "true"), ("is_save_binary_file", "true"),
     ("hist_dtype", "bfloat16"), ("quant_rounding", "stochastic"),
     ("mixed_bin", "true"), ("streaming", "true"),
     ("checkpoint_interval", "5"), ("metrics_out", "m.jsonl"),
-    ("metric", "auc,map"), ("early_stopping_round", "3"),
-    ("input_init_score", "init.txt"), ("group_column", "0"),
-    ("weight_column", "1"), ("label_column", "0"), ("bagging_freq", "1"),
+    ("metric", "auc,map"), ("pipeline", "readback"),
+    ("ignore_column", "2"), ("group_column", "0"),
+    ("weight_column", "1"), ("label_column", "0"), ("checkpoint_dir", "ck"),
 ])
 def test_out_of_slice_config_is_fatal(key, value):
     cfg = lgt.OverallConfig()
@@ -150,6 +150,74 @@ def test_invalid_tuning_knob_is_fatal(key, value):
     cfg = lgt.OverallConfig()
     with pytest.raises(log.Fatal, match=key):
         cfg.set({"objective": "binary", key: value}, require_data=False)
+
+
+SAMPLING_FAULTS = [
+    ({"bagging_fraction": "0"}, "bagging_fraction should be in"),
+    ({"bagging_fraction": "1.5"}, "bagging_fraction should be in"),
+    ({"sub_row": "-0.1"}, "bagging_fraction should be in"),
+    ({"bagging_freq": "-1"}, "bagging_freq should be >= 0"),
+    ({"bagging_freq": "often"}, "bagging_freq should be int"),
+    ({"bagging_seed": "x"}, "bagging_seed should be int"),
+    ({"bagging_device": "gpu"}, "bagging_device must be"),
+    ({"feature_fraction": "0"}, "feature_fraction should be in"),
+    ({"sub_feature": "1.01"}, "feature_fraction should be in"),
+    ({"feature_fraction_seed": "1.5"}, "feature_fraction_seed should be"),
+    ({"goss": "yes"}, "goss should be"),
+    ({"goss": "true", "top_rate": "1.0"}, "top_rate should be in"),
+    ({"goss": "true", "top_rate": "-0.1"}, "top_rate should be in"),
+    ({"goss": "true", "other_rate": "0"}, "other_rate should be in"),
+    ({"goss": "true", "top_rate": "0.6", "other_rate": "0.5"},
+     "top_rate \\+ other_rate"),
+    ({"goss": "true", "bagging_fraction": "0.8", "bagging_freq": "1"},
+     "Cannot use bagging in GOSS mode"),
+    ({"early_stopping_round": "-1"}, "early_stopping_round should be"),
+    ({"early_stopping_rounds": "x"}, "early_stopping_round should be"),
+]
+
+
+@pytest.mark.parametrize("params,message", SAMPLING_FAULTS,
+                         ids=[" ".join("%s=%s" % kv for kv in p.items())
+                              for p, _ in SAMPLING_FAULTS])
+def test_sampling_key_fault_is_jax_fatal(params, message):
+    """Each invalid sampling or early-stopping value is a Fatal, with the
+    JAX package's message (lightgbm_tpu/config.py:640-644, 794-804,
+    830-845)."""
+    from lightgbm_tpu.config import OverallConfig as JConfig
+    from lightgbm_tpu.utils import log as jlog
+    params = dict({"objective": "binary"}, **params)
+    with pytest.raises(jlog.LightGBMError, match=message) as want:
+        JConfig().set(dict(params), require_data=False)
+    with pytest.raises(log.Fatal, match=message) as got:
+        lgt.OverallConfig().set(dict(params), require_data=False)
+    assert str(got.value) == str(want.value)
+
+
+def test_sampling_keys_accepted():
+    """The sampling, early-stopping and init-score keys and their aliases
+    take the JAX package's defaults and values."""
+    from lightgbm_tpu.config import OverallConfig as JConfig
+    for params in ({}, {"sub_feature": "0.8", "sub_row": "0.7",
+                        "bagging_freq": "5", "bagging_seed": "11",
+                        "feature_fraction_seed": "7",
+                        "bagging_device": "TRUE",
+                        "early_stopping_rounds": "4",
+                        "init_score": "train.init"},
+                   {"goss": "true", "top_rate": "0.3", "other_rate": "0.2",
+                    "early_stopping": "2"}):
+        params = dict({"objective": "binary"}, **params)
+        j, t = JConfig(), lgt.OverallConfig()
+        j.set(dict(params), require_data=False)
+        t.set(dict(params), require_data=False)
+        jb, tb = j.boosting_config, t.boosting_config
+        for key in ("bagging_fraction", "bagging_freq", "bagging_seed",
+                    "bagging_device", "early_stopping_round", "goss",
+                    "top_rate", "other_rate"):
+            assert getattr(tb, key) == getattr(jb, key), (params, key)
+        for key in ("feature_fraction", "feature_fraction_seed"):
+            assert getattr(tb.tree_config, key) \
+                == getattr(jb.tree_config, key), (params, key)
+        assert t.io_config.input_init_score == j.io_config.input_init_score
 
 
 def test_cpu_tensor_takes_plain_version_only():
