@@ -46,8 +46,16 @@ CLI (3 + 3 iterations, the input trees first and byte-equal, the score
 starting from the input model's float64 sum); multiclass K = 5 with one
 draw per class tree; and int8 sampled trees (threefry bagging, GOSS,
 feature_fraction) on the card equal to the CPU's for the compacted and
-depth-wise growers.  Every phase must pass; the last line of
-standard output is ``{"ok": true, "device": {...}}``.  Exits nonzero,
+depth-wise growers.  Phase 9 runs the modes of the histogram kernel
+that the mixed-bin slice added, on bench.py's headline table (24 of 28
+columns narrow): the per-class launches (B = 64 and 254) and the pane
+entry over a class's rows against their plain versions, timed; the
+headline configuration (depth-wise int8, 255 leaves, ``mixed_bin=auto``,
+two launches a pass) with the same model text as ``mixed_bin=false``,
+both timed in turns; int8 with stochastic rounding on the card equal to
+the CPU's; and bfloat16 histograms at full width.  Every phase must
+pass; the last line of standard output is ``{"ok": true, "device":
+{...}}``.  Exits nonzero,
 printing no result, when there is no CUDA device or the package is not
 beside this script.
 """
@@ -72,7 +80,8 @@ FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
                         (28, 1_000_000, 256, 64, 0), (200, 250_000, 256, 1, 0),
                         (28, 2047, 256, 1, 0), (28, 300_001, 256, 1, 13)),
         "pane_segment": (12_345, 300_001), "n_f200": 250_000,
-        "int8_cols": (1, 8, 32, 64), "n_es": 40_000, "n_cli": 100_000}
+        "int8_cols": (1, 8, 32, 64), "n_es": 40_000, "n_cli": 100_000,
+        "class_cols": (1, 8, 64)}
 
 
 def make_table(rows: int, features: int, seed: int):
@@ -90,6 +99,26 @@ def make_data(rows: int, features: int, seed: int):
     """make_table's features and binary labels."""
     x, latent = make_table(rows, features, seed)
     return x, (latent > 0).astype(np.float32)
+
+
+def make_mixed(rows: int, features: int, seed: int, narrow_features: int):
+    """bench.py's make_data with ``narrow_features`` > 0 (bench.py:78-121,
+    the headline table), copied: that many columns quantized to 2-61
+    values, the rest continuous."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(rows, features).astype(np.float32)
+    narrow_idx = np.linspace(0, features - 1, narrow_features).astype(int)
+    for j, f in enumerate(narrow_idx):
+        card = (2, 3, 5, 9, 17, 33, 61)[j % 7]
+        q = np.clip(((x[:, f] + 3.0) * (card / 6.0)).astype(np.int32),
+                    0, card - 1)
+        x[:, f] = q.astype(np.float32)
+    w = rng.randn(features) / np.sqrt(features)
+    xs = (x - x.mean(axis=0)) / (x.std(axis=0) + 1e-9)
+    logits = (xs @ w + 0.5 * np.sin(xs[:, 0] * 2)
+              + 0.3 * xs[:, 1] * xs[:, 2])
+    y = (logits + rng.randn(rows) * 0.5 > 0).astype(np.float32)
+    return x.astype(np.float64), y
 
 
 def say(msg: str) -> None:
@@ -282,7 +311,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-7 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-9 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -786,7 +815,337 @@ def run(dev, sizes, timer=None):
                                        sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    # ---- phase 9: mixed-bin packing, bfloat16 and stochastic rounding
+    by_path, records = mixed_phase(dev, sizes, sync, timer)
+    for path, counts in by_path.items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    kernels["hist"].update(records)
     return list(kernels.values())
+
+
+def mixed_phase(dev, sizes, sync, timer):
+    """Phase 9 on bench.py's headline table (``make_mixed``: 24 narrow
+    columns of 2-61 values, 4 continuous; a two-class plan, 24 features
+    at 64 bins and 4 at 254):
+
+    (a) the histogram kernel's per-class launches (F = 24 at B = 64, F = 4
+        at B = 254; float and int8; C = 1, 8, 64) and the pane entry over
+        each class's bin rows, against their plain versions, timed beside
+        their bounds and the library call; a packed pass against the
+        uniform one;
+    (b) bench.py's headline configuration (depth-wise int8, 255 leaves,
+        ``mixed_bin=auto``), 5 iterations: the plan, two launches a pass,
+        held-out AUC, and the same model text as ``mixed_bin=false``;
+        both in turns for seconds per iteration, and the first tree's
+        launches replayed in both layouts (``depthwise_tree_ms``);
+    (c) int8_sr compacted and depth-wise, 63 leaves, 2 trees: the card's
+        model text equals the CPU's;
+    (d) bfloat16 compacted and depth-wise, 255 leaves, 3 iterations:
+        seconds per iteration, falling logloss, held-out AUC.
+
+    Returns (launch counts by path, the records for the kernels line)."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import compact, hist_cuda
+    from lightgbm_tpu_torch.ops.hist_cuda import quantize_values
+    from lightgbm_tpu_torch.ops.histogram import histogram_leafbatch
+    n_train, n_test, F = sizes["n_train"], sizes["n_test"], 28
+    t0 = time.perf_counter()
+    x, y = make_mixed(n_train + n_test, F, SEED, 24)
+    train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
+                                        max_bin=255)
+    spec = train_set.plan_packing("auto")
+    if spec is None or spec.counts != (24, 4) or spec.widths[0] != 64:
+        fail("phase 9: plan %s, expected 24 features at 64 bins and 4 wide"
+             % (spec,))
+    nb_max = spec.widths[1]
+    say("phase 9 headline table: %d x %d (24 narrow columns) binned in "
+        "%.1f s; plan: %d features at %d bins, %d at %d"
+        % (n_train, F, time.perf_counter() - t0, spec.counts[0],
+           spec.widths[0], spec.counts[1], nb_max))
+
+    # ---- 9a: the class launches against their plain versions
+    gen = np.random.RandomState(SEED + 9)
+    N = n_train
+    canon = torch.as_tensor(train_set.bins, device=dev)
+    pbins = canon[torch.as_tensor(spec.perm, device=dev)].contiguous()
+    grad = torch.as_tensor(gen.randn(N).astype(np.float32), device=dev)
+    hess = torch.as_tensor(gen.rand(N).astype(np.float32), device=dev)
+
+    def bound(n, Fc, B, C, side):
+        return (n * Fc + side * n + Fc * B * 3 * C * 4) / HBM_BYTES_PER_S \
+            * 1e3
+
+    def float_err(what, got, bins, grad, hess, cid, C, B):
+        """A float histogram against the plain version summed in float64:
+        a narrow feature's cell holds up to half a million rows here, and
+        the f32 plain version's own atomic sums then stray further than
+        the kernel's block-wise ones.  Each cell is held within 1e-5 of
+        its absolute sum; counts exact."""
+        ones = torch.ones_like(grad, dtype=torch.float64)
+        want = hist_cuda.hist_plain(bins, torch.stack(
+            [grad.double(), hess.double(), ones], 1), cid, C, B)
+        mag = hist_cuda.hist_plain(bins, torch.stack(
+            [grad.double().abs(), hess.double().abs(), ones], 1), cid, C, B)
+        err = (got.double() - want).abs()
+        if not (bool((err <= 1e-5 * mag + 1e-6).all())
+                and torch.equal(got[..., 2::3].double(), want[..., 2::3])):
+            fail("hist float %s: max err %g" % (what, float(err.max())))
+        return float(err.max())
+
+    class_shapes, pass_shapes = [], []
+    for C in sizes["class_cols"]:
+        cid = torch.as_tensor(np.where(gen.rand(N) < 0.9,
+                                       gen.randint(0, C, N), -1)
+                              .astype(np.int32), device=dev)
+        ok = cid >= 0
+        levels, _ = quantize_values(grad, hess, ok)
+        lev32 = levels.t().to(torch.int32)
+        vals3 = torch.stack([grad, hess, torch.ones_like(grad)], 1)
+        for first, cnt, width in spec.ranges:
+            cb = pbins[first:first + cnt]
+            # the library call: a scatter_add_ on a prebuilt index, rows
+            # outside [0, C) into a dropped bucket
+            idx = (torch.arange(cnt, device=dev)[:, None] * width
+                   + cb.long()) * C + cid.long().clamp(0, C - 1)[None, :]
+            idx = torch.where(ok[None, :], idx, cnt * width * C)
+            idx3 = idx.reshape(-1, 1).expand(-1, 3)
+            for mode in ("float32", "int8"):
+                what = "F=%d B=%d C=%d %s" % (cnt, width, C, mode)
+                if mode == "int8":
+                    got = hist_cuda.hist_int8(cb, levels, cid, C, width)
+                    plain = lambda: hist_cuda.hist_plain(cb, lev32, cid, C,
+                                                         width)
+                    if not torch.equal(got, plain()):
+                        fail("phase 9a hist %s not bitwise" % what)
+                    err = 0.0
+                    run_k = lambda: hist_cuda.hist_int8(cb, levels, cid, C,
+                                                        width)
+                    src = lev32
+                else:
+                    got = hist_cuda.hist_float(cb, grad, hess, cid, C, width)
+                    err = float_err("phase 9a " + what, got, cb, grad, hess,
+                                    cid, C, width)
+                    plain = lambda: hist_cuda.hist_plain(cb, vals3, cid, C,
+                                                         width)
+                    run_k = lambda: hist_cuda.hist_float(cb, grad, hess,
+                                                         cid, C, width)
+                    src = vals3
+                src3 = src[None].expand(cnt, N, 3).reshape(-1, 3)
+                acc = torch.zeros((cnt * width * C + 1, 3), dtype=src.dtype,
+                                  device=dev)
+                class_shapes.append({
+                    "F": cnt, "N": N, "B": width, "C": C, "mode": mode,
+                    "max_abs_err": err, "ms": timer(run_k),
+                    "plain_ms": timer(plain),
+                    "bound_ms": bound(N, cnt, width, C,
+                                      7 if mode == "int8" else 12),
+                    "bound_by": "bytes",
+                    "library_ms": timer(lambda: acc.scatter_add_(0, idx3,
+                                                                 src3))})
+                del src3, acc
+            del idx, idx3
+        # a whole pass, packed (two launches, assembled) against uniform
+        for mode in ("float32", "int8"):
+            packed_h = histogram_leafbatch(pbins, grad, hess, cid, ok, C,
+                                           nb_max, mode, packing=spec)
+            uniform_h = histogram_leafbatch(canon, grad, hess, cid, ok, C,
+                                            nb_max, mode)
+            if mode == "int8" and not torch.equal(packed_h, uniform_h):
+                fail("phase 9a packed int8 pass C=%d differs from uniform"
+                     % C)
+            if mode == "float32" and not torch.equal(packed_h[..., 2],
+                                                     uniform_h[..., 2]):
+                fail("phase 9a packed float pass C=%d: counts differ" % C)
+            pass_shapes.append({
+                "C": C, "mode": mode,
+                "packed_ms": timer(lambda: histogram_leafbatch(
+                    pbins, grad, hess, cid, ok, C, nb_max, mode,
+                    packing=spec)),
+                "uniform_ms": timer(lambda: histogram_leafbatch(
+                    canon, grad, hess, cid, ok, C, nb_max, mode)),
+                "packed_bound_ms": (N * F + (7 if mode == "int8" else 12) * N
+                                    + (24 * 64 + 4 * nb_max) * 3 * C * 4)
+                / HBM_BYTES_PER_S * 1e3,
+                "uniform_bound_ms": bound(N, F, nb_max, C,
+                                          7 if mode == "int8" else 12)})
+    for r in class_shapes:
+        say("phase 9a hist %s F=%d N=%d B=%d C=%d: %.4f ms (plain %.4f, "
+            "library %.4f, bound %.4f), max abs err %.3g" % (
+                r["mode"], r["F"], r["N"], r["B"], r["C"], r["ms"],
+                r["plain_ms"], r["library_ms"], r["bound_ms"],
+                r["max_abs_err"]))
+    for r in pass_shapes:
+        say("phase 9a %s pass C=%d: packed %.4f ms (bound %.4f), uniform "
+            "%.4f ms (bound %.4f)" % (r["mode"], r["C"], r["packed_ms"],
+                                      r["packed_bound_ms"], r["uniform_ms"],
+                                      r["uniform_bound_ms"]))
+    # the pane entry over each class's rows, all rows valid, at the root
+    P = compact.bucket_table(N)[0]
+    pane = compact.pack_planes(pbins, grad, hess,
+                               torch.ones(N, dtype=torch.bool, device=dev), P)
+    n = N - 2000
+    pane_shapes = []
+    for first, cnt, width in spec.ranges:
+        got = hist_cuda.hist_pane_float(pane, F, 1001, n, width,
+                                        (first, cnt))
+        pb, pg, ph, pvalid = compact.unpack_values(pane[:, 1001:1001 + n], F)
+        err = float_err("phase 9a pane rows %d-%d" % (first, first + cnt),
+                        got, pb[first:first + cnt], pg, ph,
+                        torch.where(pvalid, 0, -1).to(torch.int32), 1, width)
+        pane_shapes.append({
+            "F": cnt, "N": n, "B": width, "C": 1, "max_abs_err": err,
+            "ms": timer(lambda: hist_cuda.hist_pane_float(
+                pane, F, 1001, n, width, (first, cnt))),
+            "plain_ms": timer(lambda: hist_cuda.pane_plain(
+                pane[:, 1001:1001 + n], F, width, (first, cnt))),
+            "bound_ms": (n * (cnt + 9) + cnt * width * 3 * 4)
+            / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+        say("phase 9a hist pane rows %d-%d (F=%d B=%d) over %d lanes: %.4f "
+            "ms (plain %.4f, bound %.4f), max abs err %.3g" % (
+                first, first + cnt - 1, cnt, width, n,
+                pane_shapes[-1]["ms"], pane_shapes[-1]["plain_ms"],
+                pane_shapes[-1]["bound_ms"], err))
+    del pane, canon
+
+    # ---- 9b: bench.py's headline configuration, packed and uniform in
+    # turns (bench.py:1277-1289)
+    pd = {"objective": "binary", "grow_policy": "depthwise",
+          "hist_dtype": "int8", "num_leaves": 255, "min_data_in_leaf": 100,
+          "min_sum_hessian_in_leaf": 10, "learning_rate": 0.1,
+          "max_bin": 255, "num_iterations": 5}
+    by_path, runs, secs = {}, {}, {"packed": [], "uniform": []}
+    for name, mixed_bin in (("packed", "auto"), ("uniform", "false"),
+                            ("uniform", "false"), ("packed", "auto")):
+        what = "phase 9b headline %s" % name
+        booster, iter_s, counts = drive(dict(pd, mixed_bin=mixed_bin),
+                                        train_set, dev, sync)
+        secs[name].append(iter_s)
+        if (booster._pack_spec is not None) != (name == "packed"):
+            fail("%s: layout %s" % (what, booster._pack_spec))
+        per_pass = 2 if name == "packed" else 1
+        first_tree = None
+        for k, tree in enumerate(booster.models):
+            lo = counts["ends"][k - 1] if k else 0
+            rows = counts["hist_rows"][lo:counts["ends"][k]]
+            cols = counts["hist_cols"][lo:counts["ends"][k]]
+            passes = level_passes(tree, 255)
+            want = [c for c in [1] + [1 << d for d in range(passes)]
+                    for _ in range(per_pass)]
+            if not (cols == want and all(r == n_train for r in rows)
+                    and counts["partition"] == 0):
+                fail("%s tree %d: histogram launches (rows, cols) %s, "
+                     "expected %d a pass over %d rows, passes %d" % (
+                         what, k, list(zip(rows, cols)), per_pass,
+                         n_train, 1 + passes))
+            if k == 0:
+                first_tree = list(zip(rows, cols))
+        if name not in runs:
+            runs[name] = (booster, first_tree)
+            by_path["headline_depthwise_int8_" + name] = counts
+            say("%s: leaves %s, seconds per iteration %s, histogram "
+                "launches per tree %s (%d a pass), 0 partitions" % (
+                    what, [t.num_leaves for t in booster.models],
+                    " ".join("%.3f" % v for v in iter_s),
+                    [b - a for a, b in zip([0] + counts["ends"][:-1],
+                                           counts["ends"])], per_pass))
+            if name == "packed":
+                check_model(what, booster, x, y, n_train, dev)
+        else:
+            say("%s (again): seconds per iteration %s" % (
+                what, " ".join("%.3f" % v for v in iter_s)))
+    if runs["packed"][0].model_to_string() != \
+            runs["uniform"][0].model_to_string():
+        fail("phase 9b: the packed model differs from mixed_bin=false's")
+    say("phase 9b headline: packed and mixed_bin=false model text byte-equal")
+    # the first packed tree's launches replayed in both layouts, on the
+    # table's own bins; a level pass keeps the smaller children, about
+    # half of the rows
+    pbins_d = runs["packed"][0].bins_device
+    ubins_d = runs["uniform"][0].bins_device
+    replay = {"packed": [0.0, 0.0], "uniform": [0.0, 0.0]}
+    passes = runs["packed"][1][::2]
+    for k, (n, C) in enumerate(passes):
+        cid = torch.as_tensor(np.where(gen.rand(n) < (1.0 if k == 0 else 0.5),
+                                       gen.randint(0, C, n), -1)
+                              .astype(np.int32), device=dev)
+        levels, _ = quantize_values(grad[:n], hess[:n], cid >= 0)
+
+        def packed_pass():
+            for first, cnt, width in spec.ranges:
+                hist_cuda.hist_int8(pbins_d[first:first + cnt, :n], levels,
+                                    cid, C, width)
+
+        replay["packed"][0] += timer(packed_pass, reps=5)
+        replay["packed"][1] += (n * F + 7 * n + (24 * 64 + 4 * nb_max) * 3
+                                * C * 4) / HBM_BYTES_PER_S * 1e3
+        replay["uniform"][0] += timer(lambda: hist_cuda.hist_int8(
+            ubins_d[:, :n], levels, cid, C, nb_max), reps=5)
+        replay["uniform"][1] += bound(n, F, nb_max, C, 7)
+    for name in ("packed", "uniform"):
+        say("phase 9b headline %s: first tree's %d passes replayed %.4f ms "
+            "(bound %.4f); seconds per iteration, both runs: %s" % (
+                name, len(passes), replay[name][0], replay[name][1],
+                " / ".join(" ".join("%.3f" % v for v in r)
+                           for r in secs[name])))
+
+    # ---- 9c: int8_sr on the card against the CPU, packed
+    n5 = sizes["n_int8"]
+    small = lgt.Dataset.from_arrays(x[:n5], y[:n5], max_bin=255)
+    for name, extra in (("compacted", {}),
+                        ("depthwise", {"grow_policy": "depthwise"})):
+        what = "phase 9c int8_sr %s" % name
+        p = dict({"objective": "binary", "num_leaves": 63,
+                  "num_iterations": 2, "hist_dtype": "int8",
+                  "quant_rounding": "stochastic", "max_bin": 255}, **extra)
+        on_card, _, counts = drive(p, small, dev, sync)
+        on_cpu = lgt.train(p, small, device="cpu")
+        if on_card._pack_spec is None or counts["hist"] == 0:
+            fail("%s: not packed or no histogram launch" % what)
+        if on_card.model_to_string() != on_cpu.model_to_string():
+            fail("%s: card and CPU models differ" % what)
+        by_path["int8_sr_%s_packed" % name] = counts
+        say("%s %d x %d, 63 leaves %s, 2 trees: model text on the card "
+            "equals the CPU's; %d histogram launches, %d partitions" % (
+                what, n5, F, [t.num_leaves for t in on_card.models],
+                counts["hist"], counts["partition"]))
+
+    # ---- 9d: bfloat16 at full width
+    for name, extra in (("compacted", {}),
+                        ("depthwise", {"grow_policy": "depthwise",
+                                       "min_data_in_leaf": 100,
+                                       "min_sum_hessian_in_leaf": 10})):
+        what = "phase 9d bfloat16 %s" % name
+        p = dict({"objective": "binary", "num_leaves": 255,
+                  "num_iterations": 3, "hist_dtype": "bfloat16",
+                  "learning_rate": 0.1, "max_bin": 255}, **extra)
+        booster, iter_s, counts = drive(p, train_set, dev, sync)
+        leaves = [t.num_leaves for t in booster.models]
+        if name == "compacted":
+            ok_counts = (counts["hist"] == 2 * sum(leaves)
+                         and counts["partition"] == sum(leaves) - 3)
+        else:
+            ok_counts = counts["partition"] == 0 and counts["hist"] == sum(
+                2 * (1 + level_passes(t, 255)) for t in booster.models)
+        if len(leaves) != 3 or not ok_counts:
+            fail("%s: %d trees, launches hist %d partition %d"
+                 % (what, len(leaves), counts["hist"], counts["partition"]))
+        say("%s: leaves %s, seconds per iteration %s; launches per tree: "
+            "hist %.1f, partition %.1f" % (
+                what, leaves, " ".join("%.3f" % v for v in iter_s),
+                counts["hist"] / 3, counts["partition"] / 3))
+        check_model(what, booster, x, y, n_train, dev)
+        by_path["bfloat16_%s_packed" % name] = counts
+        secs["bfloat16_" + name] = [iter_s]
+    records = {"class_shapes": class_shapes, "pass_shapes": pass_shapes,
+               "pane_class_shapes": pane_shapes,
+               "headline_tree_ms": {k: v[0] for k, v in replay.items()},
+               "headline_tree_bound_ms": {k: v[1] for k, v in replay.items()},
+               "headline_tree_launches": runs["packed"][1],
+               "seconds_by_path_phase9": secs}
+    return ({k: {"hist": v["hist"], "partition": v["partition"]}
+             for k, v in by_path.items()}, records)
 
 
 def rank_queries(rows: int, rng) -> np.ndarray:

@@ -7,15 +7,16 @@ objectives regression, binary, multiclass (``num_class``) and lambdarank
 (``label_gain``, ``max_position``) and their eight metrics
 (``ndcg_eval_at``), row and feature sampling (bagging, GOSS,
 ``feature_fraction``), early stopping, continued training
-(``input_model`` under ``task=train``) and ``input_init_score``.  The
-difference is the slice rule: a key the port does not run raises
-``Fatal`` naming it, instead of being parsed and silently ignored.  Keys
-whose JAX-package default is the only value the port runs (serial
-learner, uniform bin layout) are accepted at that value and refused at
-any other.  Growth runs under all three
-policies of the JAX package: compacted leaf-wise (the default), masked
-leaf-wise (``leafwise_compact=false``) and depth-wise
-(``grow_policy=depthwise``).
+(``input_model`` under ``task=train``), ``input_init_score``, the
+mixed-bin layout (``mixed_bin``) and every histogram mode
+(``hist_dtype`` float32, bfloat16 and int8, ``quant_rounding`` nearest
+and stochastic).  The difference is the slice rule: a key the port does
+not run raises ``Fatal`` naming it, instead of being parsed and silently
+ignored.  Keys whose JAX-package default is the only value the port runs
+(serial learner) are accepted at that value and refused at any other.
+Growth runs under all three policies of the JAX package: compacted
+leaf-wise (the default), masked leaf-wise (``leafwise_compact=false``)
+and depth-wise (``grow_policy=depthwise``).
 """
 from __future__ import annotations
 
@@ -83,6 +84,8 @@ SLICE_KEYS = frozenset((
     "bagging_fraction", "bagging_freq", "bagging_seed", "bagging_device",
     "feature_fraction", "feature_fraction_seed", "goss", "top_rate",
     "other_rate", "early_stopping_round", "input_init_score",
+    # the histogram's layout
+    "mixed_bin",
 ))
 
 OBJECTIVES = ("regression", "binary", "multiclass", "lambdarank")
@@ -95,7 +98,6 @@ DEFAULT_ONLY = {
     "boosting_type": ("gbdt", "gbrt"),
     "tree_learner": ("serial",),
     "num_machines": ("1",),
-    "mixed_bin": ("auto", "false"),
     "streaming": ("false",),
     "checkpoint_interval": ("0",),
     "predict_leaf_index": ("false", "-"),
@@ -278,7 +280,13 @@ class TreeConfig:
     feature_fraction: float = 1.0
     max_depth: int = -1
     hist_dtype: str = "float32"
+    # int8 rounding: "nearest", or "stochastic" — unbiased floor(y + u)
+    # with value-keyed uniform bits (ops/hist_cuda.stochastic_bits)
     quant_rounding: str = "nearest"
+    # mixed-bin layout (io/binning.plan_feature_packing): "auto"/"true"
+    # pack narrow and wide features into classes whenever the dataset has
+    # both, "false" keeps the uniform layout; trees are the same
+    mixed_bin: str = "auto"
     # "leafwise": best-first growth; "depthwise": level-batched growth
     # (models/grower_depthwise.py), whatever leafwise_compact says
     grow_policy: str = "leafwise"
@@ -294,6 +302,15 @@ class TreeConfig:
     # it splits one masked tree across several dispatches of the same
     # loop; here the loop is eager Python, so there is nothing to split
     leafwise_segments: int = 1
+
+    @property
+    def compute_dtype(self) -> str:
+        """The histogram mode: "float32", "bfloat16", "int8", or "int8_sr"
+        for int8 with stochastic rounding (lightgbm_tpu/models/
+        gbdt.py::_tuning_kwargs)."""
+        if self.hist_dtype == "int8" and self.quant_rounding == "stochastic":
+            return "int8_sr"
+        return self.hist_dtype
 
     @property
     def policy(self) -> str:
@@ -341,18 +358,23 @@ class TreeConfig:
             self.leafwise_compact = value
         if "hist_dtype" in params:
             value = params["hist_dtype"].lower()
-            if value not in ("float32", "int8"):
-                log.fatal("Parameter hist_dtype=%s is not supported by "
-                          "lightgbm_tpu_torch (the ported slice runs "
-                          "float32/int8)" % value)
+            log.check(value in ("float32", "bfloat16", "int8"),
+                      "hist_dtype must be float32, bfloat16 or int8")
             self.hist_dtype = value
+        if "mixed_bin" in params:
+            value = params["mixed_bin"].lower()
+            log.check(value in ("auto", "true", "false"),
+                      "mixed_bin must be auto, true or false")
+            self.mixed_bin = value
         if "quant_rounding" in params:
             value = params["quant_rounding"].lower()
-            if value != "nearest":
-                log.fatal("Parameter quant_rounding=%s is not supported by "
-                          "lightgbm_tpu_torch (the ported slice runs "
-                          "nearest)" % value)
+            log.check(value in ("nearest", "stochastic"),
+                      "quant_rounding must be nearest or stochastic")
             self.quant_rounding = value
+            if value == "stochastic" and self.hist_dtype != "int8":
+                log.warning("quant_rounding=stochastic only applies to "
+                            "hist_dtype=int8; ignored for %s"
+                            % self.hist_dtype)
 
 
 @dataclasses.dataclass

@@ -3,14 +3,16 @@
 A copy of lightgbm_tpu/io/binning.py's ``BinMapper`` (:26-178) and
 ``find_bins_for_matrix`` (:401-409): the reference's FindBin
 (bin.cpp:42-132) step for step, because the port must bin a dataset
-exactly as the JAX package does for its trees to agree.  The mixed-bin
-packing plans of that module (and their ``hatches`` dependency) are not
-part of this slice.
+exactly as the JAX package does for its trees to agree.  Also its
+serial mixed-bin plan, ``PackSpec`` and ``plan_feature_packing``
+(:180-244, :371-398): the block-local plan of the hybrid and voting
+learners and the ``LGBM_TPU_NO_MIXEDBIN`` hatch (``mixed_bin=false``
+does the same) are not ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
@@ -129,3 +131,68 @@ def find_bins_for_matrix(sample: np.ndarray, max_bin: int) -> List[BinMapper]:
         mapper.find_bin(sample[:, j], max_bin)
         mappers.append(mapper)
     return mappers
+
+
+# Mixed-bin feature packing.  The histogram kernel prices every feature
+# at the pass's bin width B; a 3-value flag column costs what a
+# continuous one does.  The fix is a layout chosen once per booster:
+# features with num_bin <= NARROW_BINS form the narrow class, the rest
+# the wide class at num_bins_max; the booster's bin matrix stores each
+# class as a contiguous block of rows, a histogram pass launches once per
+# class at its width, and the per-class histograms are put back in
+# canonical feature order (zero bins padded) before split search, so
+# trees are those of the uniform layout.
+NARROW_BINS = 64
+
+
+class PackSpec(NamedTuple):
+    """A packed bin-matrix layout.
+
+    widths : per-class histogram width, ascending (e.g. ``(64, 254)``)
+    counts : features per class, same order; ``sum(counts) == F``
+    perm   : packed position -> canonical feature index (stable within
+             each class)
+    """
+    widths: tuple
+    counts: tuple
+    perm: tuple
+
+    @property
+    def ranges(self):
+        """Per-class ``(start, count, width)`` in packed feature order."""
+        out, start = [], 0
+        for cnt, width in zip(self.counts, self.widths):
+            out.append((start, cnt, width))
+            start += cnt
+        return tuple(out)
+
+    @property
+    def c2p(self) -> tuple:
+        """Canonical feature index -> packed position (inverse of
+        ``perm``)."""
+        inv = [0] * len(self.perm)
+        for p, f in enumerate(self.perm):
+            inv[f] = p
+        return tuple(inv)
+
+
+def plan_feature_packing(num_bins, num_bins_max: int, mode: str = "auto",
+                         narrow_bins: int = NARROW_BINS
+                         ) -> Optional[PackSpec]:
+    """The packed layout for a dataset's per-feature bin counts, or None
+    where packing cannot help: ``mode="false"``, or a single class (every
+    feature wide, or ``num_bins_max`` already within the narrow width).
+    "auto" and "true" plan alike."""
+    if mode == "false":
+        return None
+    nb = np.asarray(num_bins)
+    if nb.size == 0 or num_bins_max <= narrow_bins:
+        return None
+    narrow = nb <= narrow_bins
+    if not narrow.any() or narrow.all():
+        return None
+    order = np.concatenate([np.nonzero(narrow)[0], np.nonzero(~narrow)[0]])
+    return PackSpec(
+        widths=(int(narrow_bins), int(num_bins_max)),
+        counts=(int(narrow.sum()), int((~narrow).sum())),
+        perm=tuple(int(i) for i in order))

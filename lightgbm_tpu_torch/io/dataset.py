@@ -8,7 +8,9 @@ Continued training attaches each row's initial score: the raw prediction
 of the input model (``predict_fun``, lightgbm_tpu/io/dataset.py:620-626)
 over the training rows and every validation set's rows, else, for the
 training set, the ``input_init_score`` file.  ``to_device`` places the
-bin matrix, labels and weights as tensors on the training device.  Query boundaries stay on the host (the lambdarank
+bin matrix, labels and weights as tensors on the training device;
+``plan_packing`` plans the mixed-bin layout of a booster's own copy of
+the bin matrix.  Query boundaries stay on the host (the lambdarank
 objective builds its own device tables from them).  Binary caches,
 streaming and distributed sharding are outside the port.
 """
@@ -21,7 +23,7 @@ import torch
 
 from ..utils import log
 from . import parser as parser_mod
-from .binning import BinMapper, find_bins_for_matrix
+from .binning import BinMapper, find_bins_for_matrix, plan_feature_packing
 from .metadata import Metadata
 
 SAMPLE_CNT = 50000  # dataset.cpp:219 — max rows sampled for bin finding
@@ -197,6 +199,16 @@ class Dataset:
     @property
     def num_features(self) -> int:
         return len(self.bin_mappers)
+
+    def plan_packing(self, mode: str = "auto"):
+        """The mixed-bin layout of this dataset's per-feature bin counts
+        (io/binning.plan_feature_packing), or None.  The dataset itself
+        stays in canonical order: a training booster keeps its own packed
+        copy of the bin matrix."""
+        if not len(self.bin_mappers):
+            return None
+        return plan_feature_packing(self.num_bins, int(self.num_bins.max()),
+                                    mode=mode)
 
     def bin_upper_bounds_matrix(self) -> np.ndarray:
         """[F, max_bins] float64 padded with +inf: bin -> real threshold."""

@@ -16,9 +16,14 @@ grow under the policy that ``grow_policy`` and ``leafwise_compact``
 select, as in the JAX package's ``_serial_learner`` (:2945-2984):
 depth-wise, masked leaf-wise, or compacted leaf-wise, which is what
 ``leafwise_compact=auto`` resolves to on an accelerator there
-(models/grower_unified.py).  The fused chunk programs, the
-deferred-readback pipeline, checkpoints and the elastic and health
-monitors are not ported.
+(models/grower_unified.py), with the histogram mode of ``hist_dtype``
+and ``quant_rounding`` (``TreeConfig.compute_dtype``).  Where the
+training set mixes narrow and wide features and ``mixed_bin`` allows
+it, the booster keeps its own copy of the bin matrix packed into
+bin-width classes (``_pack_spec``, gbdt.py:182-219, 455-462); the
+dataset, validation scoring and the trees stay in canonical order.  The
+fused chunk programs, the deferred-readback pipeline, checkpoints and
+the elastic and health monitors are not ported.
 
 The score is a [K, N] f32 tensor on the training device (K = num_class,
 1 unless the objective is multiclass); gradients, histograms, partitions
@@ -36,6 +41,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import sampling
+from ..ops.histogram import is_int8
 from ..ops.scoring import add_tree_score, train_score_update
 from ..utils import log, threefry
 from .grower_unified import grow_tree_unified
@@ -60,6 +66,7 @@ class GBDT:
         self.best_iter = []
         self.early_stopping_round = 0
         self.device = None
+        self._pack_spec = None      # mixed-bin layout of bins_device
         self._saved_model_size = -1
         self._model_file = None
 
@@ -82,15 +89,27 @@ class GBDT:
         self.num_data = train_data.num_data
         self.num_bins_max = int(train_data.num_bins.max())
         self._bin_upper_table = train_data.bin_upper_bounds_matrix()
-        t = train_data.to_device(self.device)
-        self.bins_device = t["bins"]
+        self._pack_spec = train_data.plan_packing(self.tree_config.mixed_bin)
+        if self._pack_spec is None:
+            self.bins_device = train_data.to_device(self.device)["bins"]
+        else:
+            spec = self._pack_spec
+            log.info("mixed-bin packing: %d narrow (<=%d bins) + %d wide "
+                     "features (histogram passes per class: %s)"
+                     % (spec.counts[0], spec.widths[0], spec.counts[1],
+                        "x".join(str(w) for w in spec.widths)))
+            # the booster's own packed copy: the dataset's cached tensor
+            # stays canonical for validation sets and other boosters
+            self.bins_device = torch.from_numpy(np.ascontiguousarray(
+                train_data.bins[np.asarray(spec.perm, np.int64)])).to(
+                    self.device)
         self.num_bins_device = torch.as_tensor(train_data.num_bins,
                                                device=self.device)
         self.early_stopping_round = boosting_config.early_stopping_round
         self.score = torch.as_tensor(
             _start_score(train_data.metadata.init_score, self.num_class,
                          self.num_data), device=self.device)
-        if self.tree_config.hist_dtype == "int8":
+        if is_int8(self.tree_config.compute_dtype):
             # int32 accumulators: 127 x rows must not wrap (gbdt.py:42-54)
             if self.num_data > (1 << 31) // 127:
                 log.fatal("hist_dtype=int8 supports at most %d rows"
@@ -294,7 +313,8 @@ class GBDT:
             num_bins_max=self.num_bins_max,
             min_data_in_leaf=tc.min_data_in_leaf,
             min_sum_hessian_in_leaf=tc.min_sum_hessian_in_leaf,
-            max_depth=tc.max_depth, compute_dtype=tc.hist_dtype)
+            max_depth=tc.max_depth, compute_dtype=tc.compute_dtype,
+            packing=self._pack_spec)
 
     def run_training(self, num_iterations: int, is_eval: bool,
                      save_fn: Optional[Callable] = None,

@@ -10,9 +10,10 @@ small_leaf)``, and derives the sibling from the [L, F, B, 3] cache.  No
 row moves, so the partition kernel is not launched, and the host reads
 back one record per split.
 
-In the int8 mode the pass scale comes from the rows of that mask, the
-same rows the compacted grower quantizes over its pane slice, so on one
-device both policies grow the same trees bit for bit.
+In the int8 modes the pass scale comes from the rows of that mask, the
+same rows the compacted grower quantizes over its pane slice, and each
+pass takes the same salt (the new leaf), so on one device both policies
+grow the same trees bit for bit.
 """
 from __future__ import annotations
 
@@ -23,23 +24,21 @@ from .grower_unified import TreeArrays, grow_best_first
 def grow_tree(bins, grad, hess, row_mask, feature_mask, num_bins, *,
               num_leaves: int, num_bins_max: int, min_data_in_leaf: int,
               min_sum_hessian_in_leaf: float, max_depth: int = -1,
-              compute_dtype: str = "float32") -> TreeArrays:
-    """Grow one tree.  bins [F, N] uint8, grad/hess [N] f32, row_mask [N]
-    bool, feature_mask [F] bool, num_bins [F] int — tensors on one device.
-    ``compute_dtype``: "float32" or "int8" histograms."""
+              compute_dtype: str = "float32", packing=None) -> TreeArrays:
+    """Grow one tree; the arguments are grow_tree_unified's."""
 
     def small_hist(bl, new, feat, thr, left_small, leaf_ids):
         small_leaf = bl if left_small else new
         return build_histogram(bins, grad, hess,
                                row_mask & (leaf_ids == small_leaf),
-                               num_bins_max, compute_dtype)
+                               num_bins_max, compute_dtype, packing, new)
 
     return grow_best_first(
         bins, grad, hess, row_mask, feature_mask, num_bins, small_hist,
         num_leaves=num_leaves, num_bins_max=num_bins_max,
         min_data_in_leaf=min_data_in_leaf,
         min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
-        max_depth=max_depth, compute_dtype=compute_dtype)
+        max_depth=max_depth, compute_dtype=compute_dtype, packing=packing)
 
 
 __all__ = ["grow_tree"]

@@ -16,7 +16,11 @@ s of level d holds one candidate leaf and its children sit at 2s and
    attributes and its own bin on the split feature;
 5. histograms the smaller child of every chosen slot in one
    ``histogram_leafbatch`` pass with C = P columns (grouped at 64, as on
-   the TPU), and derives the siblings by subtraction.
+   the TPU; salted d + 1 at level d, the root 0), and derives the
+   siblings by subtraction.
+
+Under mixed-bin packing step 4 reads each row's bin from the split
+feature's storage row.
 
 All of this runs on the device; the host reads one count per level, to
 stop once no slot was chosen or the budget is spent (later levels could
@@ -29,7 +33,7 @@ import math
 
 import torch
 
-from ..ops.histogram import histogram_leafbatch
+from ..ops.histogram import canonical_index, histogram_leafbatch
 from ..ops.split import find_best_split
 from .grower_unified import TreeArrays, root_stats_of
 
@@ -53,21 +57,24 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
                         *, num_leaves: int, num_bins_max: int,
                         min_data_in_leaf: int,
                         min_sum_hessian_in_leaf: float, max_depth: int = -1,
-                        compute_dtype: str = "float32") -> TreeArrays:
-    """Grow one tree.  bins [F, N] uint8, grad/hess [N] f32, row_mask [N]
-    bool, feature_mask [F] bool, num_bins [F] int — tensors on one device.
-    ``compute_dtype``: "float32" or "int8" histograms."""
+                        compute_dtype: str = "float32",
+                        packing=None) -> TreeArrays:
+    """Grow one tree; the arguments are grow_tree_unified's."""
     F, N = bins.shape
     dev = bins.device
     L, B = num_leaves, num_bins_max
     M = L - 1                                   # node records
     i32, i64, f32 = torch.int32, torch.int64, torch.float32
 
-    def level_hist(col_id, col_ok, C):
+    def level_hist(col_id, col_ok, C, salt):
         return histogram_leafbatch(bins, grad, hess, col_id, col_ok, C, B,
-                                   compute_dtype)
+                                   compute_dtype, packing, salt)
 
-    hists = level_hist(torch.zeros(N, dtype=i64, device=dev), row_mask, 1)
+    # canonical split feature -> storage row
+    c2p = None if packing is None else canonical_index(packing, dev)
+
+    hists = level_hist(torch.zeros(N, dtype=i64, device=dev), row_mask, 1,
+                       0)
     root = root_stats_of(hists[0], compute_dtype, grad, hess, row_mask)
 
     # per-slot state of the current level
@@ -144,7 +151,8 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
         # attributes and its own bin on the split feature
         small_is_right = res.right_count < res.left_count      # ties: left
         in_chosen = chosen[slot_id]
-        row_bin = bins.gather(0, res.feature[slot_id][None])[0]
+        row_feat = res.feature if c2p is None else c2p[res.feature]
+        row_bin = bins.gather(0, row_feat[slot_id][None])[0]
         go_right = in_chosen & (row_bin > res.threshold[slot_id])
         out_leaf = torch.where(go_right, right_leaf[slot_id].to(i32),
                                out_leaf)
@@ -169,7 +177,7 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
         # siblings by subtraction
         sel = (in_chosen & (go_right == small_is_right[slot_id // 2])
                & row_mask)
-        small = level_hist(slot_id // 2, sel, P)
+        small = level_hist(slot_id // 2, sel, P, d + 1)
         large = hists - small
         right = small_is_right[:, None, None, None]
         hists = _interleave(torch.where(right, large, small),

@@ -18,6 +18,12 @@ lane ranges, so neither pane's other lanes are ever read stale, and no
 partitioned segment is copied back.  The partition's left count is read
 by the host once the kernel is queued: with the split record, two small
 synchronisations per split.
+
+Under mixed-bin packing the pane's bin rows are in storage order: the
+partition reads the split feature's storage row, and the float
+histogram launches the pane entry once per bin-width class on that
+class's rows.  Under bfloat16 the pane carries grad and hess already
+rounded to bf16, since the histogram is the only reader of its values.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import torch
 
 from ..ops.compact import BLOCK, pack_planes, partition_pane, unpack_values
 from ..ops.hist_cuda import hist_pane_float
-from ..ops.histogram import build_histogram
+from ..ops.histogram import (assemble, build_histogram, class_ranges,
+                             is_int8, round_bf16)
 from .grower_unified import TreeArrays, grow_best_first
 
 
@@ -34,20 +41,24 @@ class _Pane:
     """The double-buffered plane pane and each leaf's lane range."""
 
     def __init__(self, bins, grad, hess, row_mask, num_leaves: int,
-                 num_bins_max: int, compute_dtype: str):
+                 num_bins_max: int, compute_dtype: str, packing):
         F, N = bins.shape
         P = -(-N // BLOCK) * BLOCK          # pane width: the root bucket
+        if compute_dtype == "bfloat16":
+            grad, hess = round_bf16(grad), round_bf16(hess)
         pane = pack_planes(bins, grad, hess, row_mask, P)
         self.panes = (pane, torch.empty_like(pane))
         self.F, self.B, self.compute_dtype = F, num_bins_max, compute_dtype
+        self.packing = packing
         self.seg_start = np.zeros(num_leaves, np.int64)
         self.seg_cnt = np.zeros(num_leaves, np.int64)
         self.seg_cnt[0] = N
         self.side = np.zeros(num_leaves, np.int64)   # pane holding a leaf
 
     def small_hist(self, bl, new, feat, thr, left_small, leaf_ids):
-        """Partition the parent's lanes into the other pane, then the
-        smaller child's histogram from its lanes there."""
+        """Partition the parent's lanes into the other pane on storage
+        row ``feat``, then the smaller child's histogram from its lanes
+        there, salted with the new leaf."""
         F = self.F
         start, cnt = int(self.seg_start[bl]), int(self.seg_cnt[bl])
         src, dst = self.panes[self.side[bl]], self.panes[1 - self.side[bl]]
@@ -57,12 +68,15 @@ class _Pane:
         self.seg_start[new] = start + plcnt
         self.seg_cnt[bl], self.seg_cnt[new] = plcnt, cnt - plcnt
         self.side[bl] = self.side[new] = 1 - self.side[bl]
-        if self.compute_dtype == "int8":
+        if is_int8(self.compute_dtype):
             # quantization needs the pass maximum first: unpack, then the
             # int8 route
-            return build_histogram(*unpack_values(dst[:, sstart:sstart + scnt],
-                                                  F), self.B, "int8")
-        return hist_pane_float(dst, F, sstart, scnt, self.B)
+            return build_histogram(
+                *unpack_values(dst[:, sstart:sstart + scnt], F), self.B,
+                self.compute_dtype, self.packing, new)
+        return assemble([hist_pane_float(dst, F, sstart, scnt, w, (s, n))
+                         for s, n, w in class_ranges(self.packing, F, self.B)],
+                        self.packing, self.B)
 
 
 def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
@@ -70,18 +84,17 @@ def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
                           min_data_in_leaf: int,
                           min_sum_hessian_in_leaf: float,
                           max_depth: int = -1,
-                          compute_dtype: str = "float32") -> TreeArrays:
-    """Grow one tree.  bins [F, N] uint8, grad/hess [N] f32, row_mask [N]
-    bool, feature_mask [F] bool, num_bins [F] int — tensors on one device.
-    ``compute_dtype``: "float32" or "int8" histograms."""
+                          compute_dtype: str = "float32",
+                          packing=None) -> TreeArrays:
+    """Grow one tree; the arguments are grow_tree_unified's."""
     pane = _Pane(bins, grad, hess, row_mask, num_leaves, num_bins_max,
-                 compute_dtype)
+                 compute_dtype, packing)
     return grow_best_first(
         bins, grad, hess, row_mask, feature_mask, num_bins, pane.small_hist,
         num_leaves=num_leaves, num_bins_max=num_bins_max,
         min_data_in_leaf=min_data_in_leaf,
         min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
-        max_depth=max_depth, compute_dtype=compute_dtype)
+        max_depth=max_depth, compute_dtype=compute_dtype, packing=packing)
 
 
 __all__ = ["grow_tree_leafcompact"]

@@ -2,8 +2,9 @@
 
 Counterpart of lightgbm_tpu/models/grower_unified.py under the serial
 schedule: ``TreeArrays`` (:77-88), the root-stats rule ``_root_stats_of``
-(:203-231), depth gating ``_depth_gated`` (:260-265) and
-``grow_tree_unified`` (:277-358).  The policies:
+(:203-231), the storage-row map ``partition_feature`` (:181-188), depth
+gating ``_depth_gated`` (:260-265) and ``grow_tree_unified``
+(:277-358).  The policies:
 
 - ``leafcompact`` — best-first growth over a plane pane
   (models/grower_leafcompact.py), the default on the card;
@@ -20,6 +21,13 @@ arrays and the candidate table as numpy f32/int32 with the same values
 as the device scalars they come from, so the best-first choice
 (``np.argmax``, first maximum) is the JAX package's ``jnp.argmax``.
 Row leaf ids stay on the device, in original row order.
+
+Under mixed-bin packing (``packing``, io/binning.PackSpec) ``bins``
+holds its features in bin-width-class order; histograms come back in
+canonical order and split records stay canonical, and only the reads of
+a split feature's bin row go through ``partition_feature``.  Histogram
+passes are salted for ``int8_sr``: the root 0, a best-first split its
+new leaf's index, a depth-wise level pass its level + 1.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.histogram import build_histogram
+from ..ops.histogram import build_histogram, is_int8
 from ..ops.split import find_best_split
 
 GROW_POLICIES = ("leafwise", "depthwise", "leafcompact")
@@ -51,17 +59,24 @@ class TreeArrays(NamedTuple):
 def root_stats_of(root_hist, compute_dtype: str, grad, hess, row_mask):
     """[3] f32 device tensor (sum grad, sum hess, count) of the root.
 
-    int8: from the histogram — its cells are exact multiples of the pass
-    scale, and any feature's bins sum to the quantized totals.  float32:
-    from the gradient vectors, as the reference computes root sums once
+    int8 (either rounding): from the histogram — its cells are exact
+    multiples of the pass scale, and any feature's bins sum to the
+    quantized totals.  float32 and bfloat16: from the (unrounded)
+    gradient vectors, as the reference computes root sums once
     (serial_tree_learner.cpp:178-198).  Both sum in f64 and round once,
     so the card and the CPU agree."""
-    if compute_dtype == "int8":
+    if is_int8(compute_dtype):
         return root_hist[0].to(torch.float64).sum(0).to(torch.float32)
     m = row_mask.to(torch.float64)
     return torch.stack([(grad.to(torch.float64) * m).sum(),
                         (hess.to(torch.float64) * m).sum(),
                         m.sum()]).to(torch.float32)
+
+
+def partition_feature(packing, feat: int) -> int:
+    """The storage row of canonical feature ``feat``: its packed position
+    under mixed-bin packing, else itself."""
+    return feat if packing is None else packing.c2p[feat]
 
 
 def depth_gated(gain: np.float32, depth: int, max_depth: int) -> np.float32:
@@ -75,8 +90,8 @@ def depth_gated(gain: np.float32, depth: int, max_depth: int) -> np.float32:
 _F, _T, _LO, _RO, _LC, _RC, _LG, _LH, _RG, _RH = range(1, 11)
 
 # smaller-child histogram of a best-first split:
-# (parent leaf, new leaf, feature, threshold, left is smaller,
-#  row leaf ids after the split) -> [F, B, 3] f32
+# (parent leaf, new leaf, split feature's storage row, threshold,
+#  left is smaller, row leaf ids after the split) -> [F, B, 3] f32
 SmallHist = Callable[[int, int, int, int, bool, torch.Tensor], torch.Tensor]
 
 
@@ -84,13 +99,14 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
                     small_hist: SmallHist, *, num_leaves: int,
                     num_bins_max: int, min_data_in_leaf: int,
                     min_sum_hessian_in_leaf: float, max_depth: int,
-                    compute_dtype: str) -> TreeArrays:
+                    compute_dtype: str, packing=None) -> TreeArrays:
     """The reference's strict best-first growth
     (serial_tree_learner.cpp:119-153): each of ``num_leaves - 1`` splits
     takes the leaf with the largest candidate gain, builds the smaller
     child's histogram with ``small_hist``, derives the sibling by
     subtraction from the parent's and searches both children in one
-    batched call.  The root histogram runs over the original arrays."""
+    batched call.  The root histogram runs over the original arrays
+    (salt 0); ``small_hist`` salts its pass with the new leaf."""
     F, N = bins.shape
     dev = bins.device
     L = num_leaves
@@ -106,7 +122,7 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
         return res.packed().cpu().numpy()
 
     root_hist = build_histogram(bins, grad, hess, row_mask, num_bins_max,
-                                compute_dtype)
+                                compute_dtype, packing)
     root_g, root_h, root_c = root_stats_of(root_hist, compute_dtype, grad,
                                            hess, row_mask).cpu().numpy()
     best = search(root_hist[None], [root_g], [root_h], [root_c])[0]
@@ -141,6 +157,7 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
             break
         node, new = nl - 1, nl
         feat, thr = int(cand[bl, _F]), int(cand[bl, _T])
+        pfeat = partition_feature(packing, feat)
 
         # --- record the node (Tree::Split, tree.cpp:50-83)
         p = leaf_parent[bl]
@@ -153,14 +170,14 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
         right_child[node] = ~new
 
         # --- original-order leaf ids
-        leaf_ids = torch.where((leaf_ids == bl) & (bins[feat] > thr),
+        leaf_ids = torch.where((leaf_ids == bl) & (bins[pfeat] > thr),
                                new, leaf_ids).to(torch.int32)
 
         # --- the smaller child's histogram (smaller by valid count, as in
         # the JAX package); the sibling by subtraction
         lcnt, rcnt = int(cand[bl, _LC]), int(cand[bl, _RC])
         left_small = lcnt <= rcnt
-        small = small_hist(bl, new, feat, thr, left_small, leaf_ids)
+        small = small_hist(bl, new, pfeat, thr, left_small, leaf_ids)
         large = hist_cache[bl] - small
         lhist, rhist = (small, large) if left_small else (large, small)
         depth = int(leaf_depth[bl]) + 1
@@ -192,18 +209,20 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
 def grow_tree_unified(bins, grad, hess, row_mask, feature_mask, num_bins,
                       *, policy: str, num_leaves: int, num_bins_max: int,
                       min_data_in_leaf: int, min_sum_hessian_in_leaf: float,
-                      max_depth: int = -1,
-                      compute_dtype: str = "float32") -> TreeArrays:
-    """Grow one tree under ``policy`` (GROW_POLICIES).  bins [F, N] uint8,
-    grad/hess [N] f32, row_mask [N] bool, feature_mask [F] bool, num_bins
-    [F] int — tensors on one device.  ``compute_dtype``: "float32" or
-    "int8" histograms."""
+                      max_depth: int = -1, compute_dtype: str = "float32",
+                      packing=None) -> TreeArrays:
+    """Grow one tree under ``policy`` (GROW_POLICIES).  bins [F, N] uint8
+    (in ``packing``'s storage order, if any), grad/hess [N] f32, row_mask
+    [N] bool, feature_mask [F] bool, num_bins [F] int — tensors on one
+    device.  ``compute_dtype``: "float32", "bfloat16", "int8" or
+    "int8_sr" histograms."""
     if policy not in GROW_POLICIES:
         raise ValueError("unknown grow policy %r" % (policy,))
     kwargs = dict(num_leaves=num_leaves, num_bins_max=num_bins_max,
                   min_data_in_leaf=min_data_in_leaf,
                   min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
-                  max_depth=max_depth, compute_dtype=compute_dtype)
+                  max_depth=max_depth, compute_dtype=compute_dtype,
+                  packing=packing)
     args = (bins, grad, hess, row_mask, feature_mask, num_bins)
     if policy == "depthwise":
         from .grower_depthwise import grow_tree_depthwise
@@ -216,4 +235,4 @@ def grow_tree_unified(bins, grad, hess, row_mask, feature_mask, num_bins,
 
 
 __all__ = ["GROW_POLICIES", "TreeArrays", "depth_gated", "grow_best_first",
-           "grow_tree_unified", "root_stats_of"]
+           "grow_tree_unified", "partition_feature", "root_stats_of"]

@@ -11,9 +11,10 @@ with val = (grad, hess, 1) in the float mode and the int8 levels of
 ``quantize_values`` in the int8 mode; rows whose cid lies outside
 [0, num_cols) are excluded.  ``hist_pane_float`` computes the float mode
 with one column straight from a slice of the compacted grower's plane
-pane (ops/compact.py), so the grower's per-split histogram needs no
-unpacking.  On a CUDA tensor they launch csrc/hist.cu (its header says
-what bounds it and how it is laid out) with the launch plan of ``plan``;
+pane (ops/compact.py), over all its bin rows or one bin-width class of
+them, so the grower's per-split histogram needs no unpacking.  On a CUDA
+tensor they launch csrc/hist.cu (its header says what bounds it and how
+it is laid out) with the launch plan of ``plan``;
 on a CPU tensor they run the plain version, an ``index_add_`` on
 ``(f*B + bin)*C + cid``.  There is no other route: a CUDA tensor that the
 kernel refuses raises.
@@ -21,8 +22,10 @@ kernel refuses raises.
 The TPU kernel's operand tricks have no counterpart here, because the
 CUDA kernel computes their target directly: the bf16 hi/lo split of the
 float mode (hist_pallas.py:449-460) becomes plain f32 accumulation, the
-``bf16`` int-levels mode is the int8 mode itself, and the 128/192-lane
-padding of the value operand has no meaning for a scatter.
+single-pass bf16 operand mode (:510-522) is the float mode on values
+the caller rounded to bf16 (ops/histogram.py), the ``bf16`` int-levels
+mode is the int8 mode itself, and the 128/192-lane padding of the value
+operand has no meaning for a scatter.
 """
 from __future__ import annotations
 
@@ -51,9 +54,46 @@ BLOCKS_PER_SM = 8        # target resident blocks per SM
 MIN_CHUNK_TILES = 1      # rows per block: at least this many tiles
 
 
-def quantize_values(grad, hess, col_ok):
-    """int8 round-to-nearest quantization with a per-pass global scale —
-    hist_pallas.py:216-269 with ``stochastic=False``, bit for bit.
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2^32`` for x in [0, 2^32) (int64 tensor or int) and a
+    32-bit constant c, exactly: c splits into 16-bit halves so no
+    product passes 2^48."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """hist_pallas.py:186-193: the murmur3 finalizer on uint32 values,
+    carried as int64 in [0, 2^32) (or a Python int)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _f32_bits(x):
+    """The f32 bit pattern of ``x`` as int64 in [0, 2^32)."""
+    return x.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & _M32
+
+
+def stochastic_bits(x, other, salt: int):
+    """hist_pallas.py:196-213, bit for bit: per-element uniform uint32
+    bits (as int64) keyed on the row's value pair and a per-pass
+    ``salt``, so a row rounds alike wherever it sits."""
+    key = _mix32((int(salt) + 0x9E3779B9) & _M32)
+    return _mix32(_f32_bits(x) ^ _mix32(_f32_bits(other)) ^ key)
+
+
+def quantize_values(grad, hess, col_ok, stochastic: bool = False,
+                    salt: int = 0):
+    """int8 quantization with a per-pass global scale — hist_pallas.py:
+    216-269, bit for bit: round to nearest even, or with ``stochastic``
+    unbiased ``floor(y + u)`` with u from ``stochastic_bits`` (salt for
+    grad, salt + 0x51ED for hess).
     Returns (vals [3, N] int8 = (gq*ok, hq*ok, ok), scale [3] f32)."""
     okf = col_ok.to(torch.float32)
     ag = torch.max(grad.abs() * okf)
@@ -64,8 +104,23 @@ def quantize_values(grad, hess, col_ok):
     top = ag.new_tensor(127.0)
     gs = torch.clamp_min(ag, 1e-30) / top
     hs = torch.clamp_min(ah, 1e-30) / top
-    gq = torch.clamp(torch.round(grad / gs), -127, 127)
-    hq = torch.clamp(torch.round(hess / hs), -127, 127)
+
+    def quant(x, s, bits):
+        y = x / s
+        if bits is None:
+            q = torch.round(y)
+        else:
+            # (bits >> 8) < 2^24 and the factor 2^-24 are exact in f32
+            q = torch.floor(y + (bits >> 8).to(torch.float32)
+                            * (1.0 / (1 << 24)))
+        return torch.clamp(q, -127, 127)
+
+    gbits = hbits = None
+    if stochastic:
+        gbits = stochastic_bits(grad, hess, salt)
+        hbits = stochastic_bits(hess, grad, salt + 0x51ED)
+    gq = quant(grad, gs, gbits)
+    hq = quant(hess, hs, hbits)
     vals = torch.stack([gq * okf, hq * okf, okf]).to(torch.int8)
     return vals, torch.stack([gs, hs, torch.ones_like(gs)])
 
@@ -210,36 +265,46 @@ def hist_int8(bins, levels, cid, num_cols: int, B: int):
                    num_cols, B, 1, out)
 
 
-def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int):
-    """[F, B, 3] f32 histogram of (grad, hess, 1) over the valid rows of
+def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
+                    rows=None):
+    """[Fr, B, 3] f32 histogram of (grad, hess, 1) over the valid rows of
     the plane-pane lanes [sstart, sstart + scnt): ``build_histogram`` of
-    ``unpack_values(pane[:, sstart:sstart + scnt], F)``, read in place."""
+    ``unpack_values(pane[:, sstart:sstart + scnt], F)``, read in place.
+    ``rows`` = (first, count) takes the bin rows [first, first + count)
+    of the F (one bin-width class of a packed pane), Fr = count; all F
+    by default."""
     R, P = pane.shape
+    first, Fr = rows if rows is not None else (0, F)
     require(pane.dtype == torch.int8 and pane.stride(1) == 1,
             "pane must be int8 [R, P] with contiguous rows")
     require(R >= F + 9 and 1 <= B <= 256, "pane has too few rows, or B > 256")
+    require(0 <= first and 0 <= Fr and first + Fr <= F,
+            "bin rows out of range")
     require(0 <= sstart and 0 <= scnt and sstart + scnt <= P,
             "segment out of range")
     if scnt == 0:                           # no rows: nothing to launch
-        return torch.zeros((F, B, 3), dtype=torch.float32,
+        return torch.zeros((Fr, B, 3), dtype=torch.float32,
                            device=pane.device)
     seg = pane[:, sstart:sstart + scnt]
     if pane.device.type == "cpu":
-        return pane_plain(seg, F, B)
-    out = torch.empty((F, B, 3), dtype=torch.float32, device=pane.device)
+        return pane_plain(seg, F, B, (first, Fr))
+    out = torch.empty((Fr, B, 3), dtype=torch.float32, device=pane.device)
     lib = cuda_build.load("hist")
     planes = seg[F:F + 9]
-    return _launch(lib.lgbm_hist_pane, seg[:F].view(torch.uint8),
+    return _launch(lib.lgbm_hist_pane,
+                   seg[first:first + Fr].view(torch.uint8),
                    (planes.data_ptr(),), 1, B, 3, out)
 
 
-def pane_plain(seg, F: int, B: int):
+def pane_plain(seg, F: int, B: int, rows=None):
     """Plain version of the pane entry: unpack the slice, then the float
     mode's plain version with column 0 for valid rows."""
+    first, Fr = rows if rows is not None else (0, F)
     bins, grad, hess, valid = unpack_values(seg, F)
     cid = torch.where(valid, 0, -1).to(torch.int32)
-    return hist_plain(bins, torch.stack([grad, hess, torch.ones_like(grad)],
-                                        1), cid, 1, B)
+    return hist_plain(bins[first:first + Fr],
+                      torch.stack([grad, hess, torch.ones_like(grad)], 1),
+                      cid, 1, B)
 
 
 def hist_plain(bins, vals, cid, num_cols: int, B: int):

@@ -2,7 +2,7 @@
 """Where the time goes on lightgbm_tpu_torch's main path, on one CUDA card.
 
     python3 scripts/port_profile.py [--rows 1000000] [--iters 2] [--out FILE]
-        [--set KEY=VALUE ...]
+        [--narrow 24] [--set KEY=VALUE ...]
 
 Trains the chip_smoke.py main-path configuration (Higgs-shaped binary
 table, 28 features, max_bin 255, 255 leaves, float32 histograms), or
@@ -13,7 +13,10 @@ chip_smoke.py's queries of 50-190 documents; the sampling keys too, e.g.
 the reference example's ``--set num_leaves=63 feature_fraction=0.8
 bagging_fraction=0.8 bagging_freq=5``, whose redraws fall on iterations
 0, 5, 10, ... of the run, the warm-up being iteration 0; or ``--set
-goss=true``): one
+goss=true``).  ``--narrow 24`` trains bench.py's headline table
+instead (chip_smoke.make_mixed: 24 of the 28 columns narrow, so
+``mixed_bin=auto`` packs it; ``--set mixed_bin=false`` keeps it
+uniform).  One
 warm-up iteration, ``--iters`` iterations timed on the host clock without
 the profiler, then ``--iters`` more under ``torch.profiler``.  Prints the
 wall time per iteration of both, the device time per kernel name (top
@@ -42,6 +45,9 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--narrow", type=int, default=0,
+                    help="narrow columns of bench.py's headline table "
+                         "(0: the all-continuous main-path table)")
     ap.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
                     help="training keys added to the main-path ones")
     args = ap.parse_args()
@@ -51,11 +57,12 @@ def main() -> int:
         print("port_profile: no CUDA device", file=sys.stderr)
         return 2
     import lightgbm_tpu_torch as lgt
-    from chip_smoke import SEED, make_data, rank_queries
+    from chip_smoke import SEED, make_data, make_mixed, rank_queries
     from lightgbm_tpu_torch.ops import cuda_build
 
     cuda_build.build()
-    x, y = make_data(args.rows, 28, SEED)
+    x, y = (make_mixed(args.rows, 28, SEED, args.narrow) if args.narrow
+            else make_data(args.rows, 28, SEED))
     qb = (rank_queries(args.rows, np.random.RandomState(SEED))
           if extra.get("objective") == "lambdarank" else None)
     ds = lgt.Dataset.from_arrays(x, y, max_bin=255, query_boundaries=qb)
@@ -89,9 +96,10 @@ def main() -> int:
         per_name[evt.name] += us
         calls[evt.name] += 1
     busy_s = sum(per_name.values()) / 1e6
-    lines = ["rows %d, 28 features, %s leaves, %s: %d iterations "
-             "profiled" % (args.rows, extra.get("num_leaves", 255),
-                           " ".join(args.set) or "float32", args.iters),
+    lines = ["rows %d, 28 features (%d narrow), %s leaves, %s: %d "
+             "iterations profiled" % (
+                 args.rows, args.narrow, extra.get("num_leaves", 255),
+                 " ".join(args.set) or "float32", args.iters),
              "wall per iteration without the profiler: %.4f s (%s)" % (
                  sum(plain_s) / args.iters,
                  ", ".join("%.4f" % t for t in plain_s)),

@@ -458,3 +458,106 @@ def test_continued_training_on_card(cuda, tmp_path):
     first = lgt.GBDT.from_model_file(m1, device="cpu").models
     assert np.array_equal(continuation_score(first, x, cuda),
                           continuation_score(first, x, torch.device("cpu")))
+
+
+# ---- mixed-bin packing, bfloat16 and stochastic rounding on the card
+
+
+def _mixed_table(rng, n):
+    """Continuous columns beside narrow ones (5 values, a flag, 40
+    values): a two-class plan (narrow at 64 bins, wide at 254)."""
+    cont = rng.randn(n, 4)
+    x = np.column_stack([cont[:, 0], rng.randint(0, 5, n), cont[:, 1],
+                         rng.randint(0, 40, n), rng.rand(n) < 0.4,
+                         cont[:, 2], cont[:, 3]]).astype(np.float64)
+    y = (cont[:, 0] - 0.6 * cont[:, 1] + 0.3 * (x[:, 1] - 2) + 0.8 * x[:, 4]
+         + 0.03 * (x[:, 3] - 20) + 0.3 * rng.randn(n) > 0)
+    return x, y.astype(np.float32)
+
+
+@pytest.mark.parametrize("C", [1, 8, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int8_sr"])
+def test_hist_b64_class_launches_match_plain(cuda, dtype, C):
+    """The narrow class's launch at B = 64 on its rows of a packed bin
+    matrix, beside the wide class at B = 254, in every mode: the packed
+    pass against its plain version on the CPU."""
+    from lightgbm_tpu_torch.io.binning import plan_feature_packing
+    rng = np.random.RandomState(64 + C)
+    F, N = 28, 100_001
+    num_bins = np.array([5 + (f * 7) % 60 if f % 7 else 254
+                         for f in range(F)], np.int32)
+    spec = plan_feature_packing(num_bins, 254)
+    assert spec.counts == (24, 4)
+    bins = (rng.rand(N, F) * num_bins).astype(np.uint8).T
+    bins = np.ascontiguousarray(bins[np.asarray(spec.perm)])
+    args = [bins, (rng.randn(N) * 0.4).astype(np.float32),
+            (rng.rand(N) * 0.25).astype(np.float32),
+            rng.randint(0, C, N).astype(np.int32), rng.rand(N) < 0.85]
+    t = lambda a, d: torch.as_tensor(a, device=d)
+    before = hist_cuda.launches
+    got = histogram_leafbatch(*[t(a, cuda) for a in args], C, 254, dtype,
+                              packing=spec, salt=3).cpu().numpy()
+    assert hist_cuda.launches == before + 2
+    assert list(hist_cuda.launch_cols)[-2:] == [C, C]
+    want = histogram_leafbatch(*[t(a, "cpu") for a in args], C, 254, dtype,
+                               packing=spec, salt=3).numpy()
+    _assert_hist(got, want, "int8" if dtype.startswith("int8") else dtype)
+
+
+@pytest.mark.parametrize("sstart,scnt", [(0, 60_000), (13, 4097), (1001, 1)])
+def test_hist_pane_class_rows_match_plain(cuda, sstart, scnt):
+    """The pane entry over one class's bin rows, at that class's width."""
+    rng = np.random.RandomState(scnt)
+    F, N, P = 28, 60_000, 61_440
+    bins = torch.as_tensor(rng.randint(0, 64, (F, N)).astype(np.uint8))
+    grad = torch.as_tensor(rng.randn(N).astype(np.float32))
+    hess = torch.as_tensor(rng.rand(N).astype(np.float32))
+    pane = compact.pack_planes(bins, grad, hess,
+                               torch.as_tensor(rng.rand(N) < 0.8), P)
+    for first, cnt, width in ((0, 24, 64), (24, 4, 254)):
+        got = hist_cuda.hist_pane_float(pane.to(cuda), F, sstart, scnt,
+                                        width, (first, cnt)).cpu()
+        want = hist_cuda.hist_pane_float(pane, F, sstart, scnt, width,
+                                         (first, cnt))
+        assert got.shape == (cnt, width, 3)
+        _assert_hist(got.numpy(), want.numpy(), "float32")
+
+
+@pytest.mark.parametrize("policy", [
+    {}, {"leafwise_compact": "false"},
+    {"grow_policy": "depthwise", "num_leaves": 255}],
+    ids=["compacted", "masked", "depthwise"])
+def test_packed_int8_trees_equal_uniform_on_card(cuda, policy):
+    """mixed_bin=auto packs the table and launches twice a pass; the
+    model equals mixed_bin=false's byte for byte."""
+    x, y = _mixed_table(np.random.RandomState(11), 30_000)
+    ds = lgt.Dataset.from_arrays(x, y, max_bin=255)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "num_iterations": 2, "hist_dtype": "int8",
+                   "min_data_in_leaf": 20}, **policy)
+    before = hist_cuda.launches
+    packed = lgt.train(params, ds, device=cuda)
+    n_packed = hist_cuda.launches - before
+    assert packed._pack_spec is not None
+    uniform = lgt.train(dict(params, mixed_bin="false"), ds, device=cuda)
+    n_uniform = hist_cuda.launches - before - n_packed
+    assert n_packed == 2 * n_uniform
+    assert packed.model_to_string() == uniform.model_to_string()
+
+
+@pytest.mark.parametrize("policy", [
+    {}, {"leafwise_compact": "false"},
+    {"grow_policy": "depthwise", "num_leaves": 255}],
+    ids=["compacted", "masked", "depthwise"])
+def test_int8_sr_trees_equal_on_card_and_cpu(cuda, policy):
+    """Stochastic rounding's bits are integer arithmetic on the gradient
+    bits: the card's model equals the CPU's byte for byte, packed."""
+    x, y = _mixed_table(np.random.RandomState(12), 30_000)
+    ds = lgt.Dataset.from_arrays(x, y, max_bin=255)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "num_iterations": 3, "hist_dtype": "int8",
+                   "quant_rounding": "stochastic",
+                   "min_data_in_leaf": 20}, **policy)
+    on_card = lgt.train(params, ds, device=cuda)
+    on_cpu = lgt.train(params, ds, device="cpu")
+    assert on_card.model_to_string() == on_cpu.model_to_string()

@@ -103,8 +103,8 @@ def test_default_device_needs_cuda():
     ("leafwise_compact", "maybe"), ("tree_learner", "data"),
     ("num_machines", "4"), ("boosting_type", "dart"),
     ("predict_leaf_index", "true"), ("is_save_binary_file", "true"),
-    ("hist_dtype", "bfloat16"), ("quant_rounding", "stochastic"),
-    ("mixed_bin", "true"), ("streaming", "true"),
+    ("max_bin", "1024"), ("quant_rounding", "dither"),
+    ("mixed_bin", "sometimes"), ("streaming", "true"),
     ("checkpoint_interval", "5"), ("metrics_out", "m.jsonl"),
     ("metric", "auc,map"), ("pipeline", "readback"),
     ("ignore_column", "2"), ("group_column", "0"),
@@ -140,6 +140,19 @@ def test_slice_defaults_accepted():
         cfg = lgt.OverallConfig()
         cfg.set(dict({"objective": "binary"}, **extra), require_data=False)
         assert cfg.boosting_config.tree_config.policy == policy, extra
+
+
+@pytest.mark.parametrize("key,value,field,want", [
+    ("hist_dtype", "bfloat16", "compute_dtype", "bfloat16"),
+    ("quant_rounding", "stochastic", "compute_dtype", "int8_sr"),
+    ("mixed_bin", "true", "mixed_bin", "true")])
+def test_histogram_mode_keys_accepted(key, value, field, want):
+    """The histogram's modes and layout run since the mixed-bin slice
+    (stochastic rounding with hist_dtype=int8)."""
+    cfg = lgt.OverallConfig()
+    cfg.set({"objective": "binary", "hist_dtype": "int8", key: value},
+            require_data=False)
+    assert getattr(cfg.boosting_config.tree_config, field) == want
 
 
 @pytest.mark.parametrize("key,value", [
