@@ -53,7 +53,17 @@ entry over a class's rows against their plain versions, timed; the
 headline configuration (depth-wise int8, 255 leaves, ``mixed_bin=auto``,
 two launches a pass) with the same model text as ``mixed_bin=false``,
 both timed in turns; int8 with stochastic rounding on the card equal to
-the CPU's; and bfloat16 histograms at full width.  Every phase must
+the CPU's; and bfloat16 histograms at full width.  Phase 10 runs 16-bit
+bins (``max_bin=1023``, 1022 bins a continuous column): the histogram
+kernel's float and int8 modes at C = 1, 8 and 64 (cell slices where an
+accumulator passes shared memory), the pane entry over a 16-bit pane and
+the partition on a 16-bit key, and a B = 50,000 corner
+(``max_bin=65535``), each against its plain version and timed; the main
+path at ``max_bin=1023`` (one histogram launch a leaf, one partition a
+split, held-out AUC, save and reload); int8 compacted and depth-wise
+trees on the card equal to the CPU's and compacted equal to masked; and
+the headline configuration packed (widths 64 and 1022) with the model
+text of ``mixed_bin=false``.  Every phase must
 pass; the last line of standard output is ``{"ok": true, "device":
 {...}}``.  Exits nonzero,
 printing no result, when there is no CUDA device or the package is not
@@ -81,7 +91,7 @@ FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
                         (28, 2047, 256, 1, 0), (28, 300_001, 256, 1, 13)),
         "pane_segment": (12_345, 300_001), "n_f200": 250_000,
         "int8_cols": (1, 8, 32, 64), "n_es": 40_000, "n_cli": 100_000,
-        "class_cols": (1, 8, 64)}
+        "class_cols": (1, 8, 64), "wide_cols": (1, 8, 64)}
 
 
 def make_table(rows: int, features: int, seed: int):
@@ -246,6 +256,26 @@ def same_trees(what, a, b, fields=("split_feature", "threshold_bin",
                 fail("%s tree %d: %s differs" % (what, k, field))
         diff = max(diff, float(np.abs(ta.leaf_value - tb.leaf_value).max()))
     return diff
+
+
+def float64_err(what, got, bins, grad, hess, cid, C, B):
+    """A float histogram against the plain version summed in float64
+    (phases 9 and 10): a cell may hold half a million rows, and the f32
+    plain version's own atomic sums then stray further than the kernel's
+    block-wise ones.  Each cell is held within 1e-5 of its absolute sum;
+    counts exact.  Returns the largest error."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_cuda
+    ones = torch.ones_like(grad, dtype=torch.float64)
+    want = hist_cuda.hist_plain(bins, torch.stack(
+        [grad.double(), hess.double(), ones], 1), cid, C, B)
+    mag = hist_cuda.hist_plain(bins, torch.stack(
+        [grad.double().abs(), hess.double().abs(), ones], 1), cid, C, B)
+    err = (got.double() - want).abs()
+    if not (bool((err <= 1e-5 * mag + 1e-6).all())
+            and torch.equal(got[..., 2::3].double(), want[..., 2::3])):
+        fail("hist float %s: max err %g" % (what, float(err.max())))
+    return float(err.max())
 
 
 def level_passes(tree, num_leaves: int) -> int:
@@ -821,6 +851,8 @@ def run(dev, sizes, timer=None):
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
     kernels["hist"].update(records)
+    # ---- phase 10: 16-bit bins (max_bin = 1023)
+    kernels.update(wide_phase(dev, sizes, x, y, sync, timer))
     return list(kernels.values())
 
 
@@ -877,23 +909,6 @@ def mixed_phase(dev, sizes, sync, timer):
         return (n * Fc + side * n + Fc * B * 3 * C * 4) / HBM_BYTES_PER_S \
             * 1e3
 
-    def float_err(what, got, bins, grad, hess, cid, C, B):
-        """A float histogram against the plain version summed in float64:
-        a narrow feature's cell holds up to half a million rows here, and
-        the f32 plain version's own atomic sums then stray further than
-        the kernel's block-wise ones.  Each cell is held within 1e-5 of
-        its absolute sum; counts exact."""
-        ones = torch.ones_like(grad, dtype=torch.float64)
-        want = hist_cuda.hist_plain(bins, torch.stack(
-            [grad.double(), hess.double(), ones], 1), cid, C, B)
-        mag = hist_cuda.hist_plain(bins, torch.stack(
-            [grad.double().abs(), hess.double().abs(), ones], 1), cid, C, B)
-        err = (got.double() - want).abs()
-        if not (bool((err <= 1e-5 * mag + 1e-6).all())
-                and torch.equal(got[..., 2::3].double(), want[..., 2::3])):
-            fail("hist float %s: max err %g" % (what, float(err.max())))
-        return float(err.max())
-
     class_shapes, pass_shapes = [], []
     for C in sizes["class_cols"]:
         cid = torch.as_tensor(np.where(gen.rand(N) < 0.9,
@@ -925,8 +940,8 @@ def mixed_phase(dev, sizes, sync, timer):
                     src = lev32
                 else:
                     got = hist_cuda.hist_float(cb, grad, hess, cid, C, width)
-                    err = float_err("phase 9a " + what, got, cb, grad, hess,
-                                    cid, C, width)
+                    err = float64_err("phase 9a " + what, got, cb, grad,
+                                      hess, cid, C, width)
                     plain = lambda: hist_cuda.hist_plain(cb, vals3, cid, C,
                                                          width)
                     run_k = lambda: hist_cuda.hist_float(cb, grad, hess,
@@ -991,9 +1006,10 @@ def mixed_phase(dev, sizes, sync, timer):
         got = hist_cuda.hist_pane_float(pane, F, 1001, n, width,
                                         (first, cnt))
         pb, pg, ph, pvalid = compact.unpack_values(pane[:, 1001:1001 + n], F)
-        err = float_err("phase 9a pane rows %d-%d" % (first, first + cnt),
-                        got, pb[first:first + cnt], pg, ph,
-                        torch.where(pvalid, 0, -1).to(torch.int32), 1, width)
+        err = float64_err("phase 9a pane rows %d-%d" % (first, first + cnt),
+                          got, pb[first:first + cnt], pg, ph,
+                          torch.where(pvalid, 0, -1).to(torch.int32), 1,
+                          width)
         pane_shapes.append({
             "F": cnt, "N": n, "B": width, "C": 1, "max_abs_err": err,
             "ms": timer(lambda: hist_cuda.hist_pane_float(
@@ -1686,6 +1702,335 @@ def check_multiclass(what, booster, x, n_train, dev):
         "abs err %g); held-out rows sum to 1 within %g; saved + reloaded "
         "model predicts identically" % (what, len(booster.models), err,
                                         row_err))
+
+
+def wide_phase(dev, sizes, x, y, sync, timer):
+    """Phase 10, 16-bit bins, on the main path's table binned at
+    ``max_bin=1023`` (1022 bins a column):
+
+    (a) the histogram kernel's float and int8 modes at C = 1, 8 and 64
+        on all rows (C = 64 cuts each feature's cells into slices), the
+        pane entry over a full segment of a 16-bit pane and the
+        partition of the root on a 16-bit key, and the B = 50,000 corner
+        (``max_bin=65535``; the 50,000-row bin sample caps num_bin) at
+        C = 1: each against its plain version (int8 and the partition
+        exact; float within 1e-5 of each cell's absolute sum, against a
+        float64 plain sum), timed beside its bound (2 bytes a bin) and
+        the library call (``scatter_add_`` on a prebuilt index; a stable
+        ``torch.sort`` and gather for the partition);
+    (b) the main path at ``max_bin=1023`` (255 leaves, float32,
+        compacted, 5 iterations): one histogram launch a leaf and one
+        partition a split, held-out AUC, falling logloss, save and
+        reload; the first tree's launches replayed (``tree_ms``); then
+        at ``n_int8`` rows int8 compacted and depth-wise trees on the
+        card equal to the CPU's, and compacted equal to masked;
+    (c) bench.py's headline configuration (depth-wise int8, 255 leaves)
+        on its table at ``max_bin=1023``, packed (widths 64 and 1022, two
+        launches a pass) against ``mixed_bin=false``: model text
+        byte-equal.
+
+    Returns the records of the 16-bit modes for the kernels line."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import compact, hist_cuda
+    from lightgbm_tpu_torch.ops.bins import widen
+    from lightgbm_tpu_torch.ops.hist_cuda import quantize_values
+    n_train, n_test, F = sizes["n_train"], sizes["n_test"], x.shape[1]
+    N = n_train
+    t0 = time.perf_counter()
+    train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
+                                        max_bin=1023)
+    B = int(train_set.num_bins.max())
+    bins = train_set.to_device(dev)["bins"]
+    if bins.dtype != torch.int16 or B <= 256:
+        fail("phase 10: %s bins, num_bin max %d; expected 16-bit bins"
+             % (bins.dtype, B))
+    say("phase 10 dataset: %d x %d binned at max_bin=1023 in %.1f s "
+        "(uint16, num_bin max %d)" % (N, F, time.perf_counter() - t0, B))
+    gen = np.random.RandomState(SEED + 10)
+    grad = torch.as_tensor(gen.randn(N).astype(np.float32), device=dev)
+    hess = torch.as_tensor(gen.rand(N).astype(np.float32), device=dev)
+
+    def hbound(n, Fc, Bc, C, side, bin_bytes=2):
+        return (bin_bytes * n * Fc + side * n + Fc * Bc * 3 * C * 4) \
+            / HBM_BYTES_PER_S * 1e3
+
+    def kernel_shape(b, Bc, C, mode):
+        """One launch of a mode at (F, N, B, C) against its plain
+        version, timed; returns its record."""
+        Fc, n = b.shape
+        cid = torch.as_tensor(np.where(gen.rand(n) < 0.9,
+                                       gen.randint(0, C, n), -1)
+                              .astype(np.int32), device=dev)
+        ok = cid >= 0
+        if mode == "int8":
+            levels, _ = quantize_values(grad[:n], hess[:n], ok)
+            src = levels.t().to(torch.int32)
+            run_k = lambda: hist_cuda.hist_int8(b, levels, cid, C, Bc)
+            plain = lambda: hist_cuda.hist_plain(b, src, cid, C, Bc)
+            if not torch.equal(run_k(), plain()):
+                fail("phase 10a hist int8 F=%d B=%d C=%d not bitwise"
+                     % (Fc, Bc, C))
+            err = 0.0
+        else:
+            src = torch.stack([grad[:n], hess[:n], torch.ones_like(grad[:n])],
+                              1)
+            run_k = lambda: hist_cuda.hist_float(b, grad[:n], hess[:n], cid,
+                                                 C, Bc)
+            plain = lambda: hist_cuda.hist_plain(b, src, cid, C, Bc)
+            err = float64_err("phase 10a F=%d B=%d C=%d" % (Fc, Bc, C),
+                              run_k(), b, grad[:n], hess[:n], cid, C, Bc)
+        idx = (torch.arange(Fc, device=dev)[:, None] * Bc
+               + widen(b).long()) * C + cid.long().clamp(0, C - 1)[None, :]
+        idx = torch.where(ok[None, :], idx, Fc * Bc * C)
+        idx3 = idx.reshape(-1, 1).expand(-1, 3)
+        src3 = src[None].expand(Fc, n, 3).reshape(-1, 3)
+        acc = torch.zeros((Fc * Bc * C + 1, 3), dtype=src.dtype, device=dev)
+        rec = {"F": Fc, "N": n, "B": Bc, "C": C, "mode": mode,
+               "slices": -(-Bc * C * 12 // hist_cuda.SLICE_BYTES),
+               "max_abs_err": err, "ms": timer(run_k),
+               "plain_ms": timer(plain),
+               "bound_ms": hbound(n, Fc, Bc, C, 7 if mode == "int8" else 12),
+               "bound_by": "bytes",
+               "library_ms": timer(lambda: acc.scatter_add_(0, idx3, src3))}
+        del idx, idx3, src3, acc
+        say("phase 10a hist %s F=%d N=%d B=%d C=%d (%d slices): %.4f ms "
+            "(plain %.4f, library %.4f, bound %.4f), max abs err %.3g" % (
+                mode, Fc, n, Bc, C, rec["slices"], rec["ms"],
+                rec["plain_ms"], rec["library_ms"], rec["bound_ms"], err))
+        return rec
+
+    # ---- 10a: the kernels at 16-bit widths
+    shapes = [kernel_shape(bins, B, C, mode)
+              for C in sizes["wide_cols"] for mode in ("float32", "int8")]
+    # the pane entry over a full segment of the 16-bit pane (72 rows at
+    # F = 28), all rows valid
+    P = compact.bucket_table(N)[0]
+    pane = compact.pack_planes(bins, grad, hess,
+                               torch.ones(N, dtype=torch.bool, device=dev), P)
+    R = pane.shape[0]
+    if R != compact.pane_rows(F, 2):
+        fail("phase 10a: 16-bit pane of %d rows" % R)
+    n = N - 2000
+    got = hist_cuda.hist_pane_float(pane, F, 1001, n, B, None, 2)
+    pb, pg, ph, pvalid = compact.unpack_values(pane[:, 1001:1001 + n], F, 2)
+    pane_err = float64_err("phase 10a pane", got.reshape(F, B, 3), pb, pg,
+                           ph, torch.where(pvalid, 0, -1).to(torch.int32),
+                           1, B)
+    del pb
+    pane_rec = {
+        "F": F, "N": n, "B": B, "C": 1, "max_abs_err": pane_err,
+        "ms": timer(lambda: hist_cuda.hist_pane_float(pane, F, 1001, n, B,
+                                                      None, 2)),
+        "plain_ms": timer(lambda: hist_cuda.pane_plain(
+            pane[:, 1001:1001 + n], F, B, None, 2)),
+        "bound_ms": (n * (2 * F + 9) + F * B * 3 * 4)
+        / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
+    say("phase 10a hist pane, 16-bit pane of %d rows, %d lanes: %.4f ms "
+        "(plain %.4f, bound %.4f), max abs err %.3g" % (
+            R, n, pane_rec["ms"], pane_rec["plain_ms"], pane_rec["bound_ms"],
+            pane_err))
+    # the partition of the root on a 16-bit key: bins of feature 3 against
+    # a threshold whose low byte alone would split the rows otherwise
+    feat, thr = 3, 511
+    dst0 = torch.as_tensor(gen.randint(-128, 128, (R, P)).astype(np.int8),
+                           device=dev)
+    for what, start, cnt, thr_ in (("root", 0, N, thr),
+                                   ("offset", 1001, N // 2, 700),
+                                   ("one launch", 3,
+                                    compact.ONE_LAUNCH_TILES * compact.TILE
+                                    - 3, 300),
+                                   ("one tile", 13, compact.TILE - 13, 256)):
+        got_d, want_d = dst0.clone(), dst0.clone()
+        left = compact.partition_pane(pane, got_d, F, feat, thr_, start, cnt,
+                                      2)
+        want_left = compact.pane_plain(pane, want_d, feat, thr_, start, cnt,
+                                       F + feat)
+        sync()
+        if not (torch.equal(got_d, want_d)
+                and int(left) == int(want_left)):
+            fail("phase 10a partition 16-bit %s not byte-exact" % what)
+        say("phase 10a partition pane 16-bit %s R=%d start=%d cnt=%d thr=%d:"
+            " byte-exact, left %d, other lanes untouched" % (
+                what, R, start, cnt, thr_, int(left)))
+    keys = (widen(bins[feat]) > thr).to(torch.int8)
+    part_rec = {
+        "name": "partition16", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/partition.cu",
+        "replaces": "lightgbm_tpu/ops/compact.py:393",
+        "max_abs_err": 0,
+        "ms": timer(lambda: compact.partition_pane(pane, dst0, F, feat, thr,
+                                                   0, N, 2)),
+        "plain_ms": timer(lambda: compact.pane_plain(pane, dst0, feat, thr,
+                                                     0, N, F + feat)),
+        "bound_ms": 2 * R * N / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": timer(lambda: pane[:, :N][:, torch.sort(
+            keys, stable=True).indices])}
+    say("phase 10a partition16 root R=%d cnt=%d: %.4f ms (plain %.4f, "
+        "library %.4f, bound %.4f)" % (R, N, part_rec["ms"],
+                                       part_rec["plain_ms"],
+                                       part_rec["library_ms"],
+                                       part_rec["bound_ms"]))
+    del dst0, keys
+    # the B = 50,000 corner: max_bin=65535 on the same columns
+    t0 = time.perf_counter()
+    corner_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
+                                         max_bin=65535)
+    B50 = int(corner_set.num_bins.max())
+    bins50 = corner_set.to_device(dev)["bins"]
+    say("phase 10a corner: max_bin=65535 binned in %.1f s, num_bin max %d"
+        % (time.perf_counter() - t0, B50))
+    if B50 < 40_000:
+        fail("phase 10a corner: num_bin max %d, expected about 50,000" % B50)
+    corner = [kernel_shape(bins50, B50, 1, mode)
+              for mode in ("float32", "int8")]
+    del bins50, corner_set
+
+    # ---- 10b: the main path at max_bin=1023
+    params = {"objective": "binary", "num_leaves": 255, "num_iterations": 5,
+              "learning_rate": 0.1, "hist_dtype": "float32",
+              "max_bin": 1023}
+    booster, main_s, counts = drive(params, train_set, dev, sync)
+    leaves = [t.num_leaves for t in booster.models]
+    splits = sum(leaves) - len(leaves)
+    if len(leaves) != 5 or booster.bins_device.dtype != torch.int16:
+        fail("phase 10b: %d trees on %s bins" % (len(leaves),
+                                                 booster.bins_device.dtype))
+    if not (counts["hist"] == len(counts["hist_rows"]) == sum(leaves)
+            and counts["partition"] == len(counts["part_rows"]) == splits):
+        fail("phase 10b: launches hist %d partition %d, expected %d and %d"
+             % (counts["hist"], counts["partition"], sum(leaves), splits))
+    say("phase 10b main path at max_bin=1023: %d trees, leaves %s, seconds "
+        "per iteration %s; launches: hist %d (one a leaf), partition %d "
+        "(one a split), %d partition kernels" % (
+            len(leaves), leaves, " ".join("%.3f" % v for v in main_s),
+            counts["hist"], counts["partition"],
+            counts["partition_kernels"]))
+    check_model("phase 10b", booster, x, y, n_train, dev)
+    by_path = {"leafcompact_float32_maxbin1023": counts}
+    # the first tree's launches replayed: each histogram through the pane
+    # entry, each partition through the 16-bit key, at their own sizes
+    first_rows = counts["hist_rows"][:leaves[0]]
+    first_parts = counts["part_rows"][:leaves[0] - 1]
+    hist_tree = [0.0, 0.0]
+    for n_ in first_rows:
+        start = min(1001, P - n_)
+        hist_tree[0] += timer(lambda: hist_cuda.hist_pane_float(
+            pane, F, start, n_, B, None, 2), reps=5)
+        hist_tree[1] += (n_ * (2 * F + 9) + F * B * 3 * 4) \
+            / HBM_BYTES_PER_S * 1e3
+    dst = torch.empty_like(pane)
+    part_tree = [0.0, 0.0]
+    for n_ in first_parts:
+        start = min(1001, P - n_)
+        part_tree[0] += timer(lambda: compact.partition_pane(
+            pane, dst, F, feat, thr, start, n_, 2), reps=5)
+        part_tree[1] += 2 * R * n_ / HBM_BYTES_PER_S * 1e3
+    del dst
+    say("phase 10b first tree replayed: hist %d launches %.4f ms (bound "
+        "%.4f), partition %d launches %.4f ms (bound %.4f)" % (
+            len(first_rows), hist_tree[0], hist_tree[1], len(first_parts),
+            part_tree[0], part_tree[1]))
+    # int8 at n_int8 rows: card == CPU (compacted, depth-wise), compacted
+    # == masked on the card
+    n5 = sizes["n_int8"]
+    small = lgt.Dataset.from_arrays(x[:n5], y[:n5], max_bin=1023)
+    p5 = {"objective": "binary", "num_leaves": 63, "num_iterations": 2,
+          "hist_dtype": "int8", "max_bin": 1023}
+    models = {}
+    for name, extra in (("compacted", {}),
+                        ("depthwise", {"grow_policy": "depthwise",
+                                       "num_leaves": 255,
+                                       "min_data_in_leaf": 100,
+                                       "min_sum_hessian_in_leaf": 10}),
+                        ("masked", {"leafwise_compact": "false"})):
+        on_card, _, c = drive(dict(p5, **extra), small, dev, sync)
+        if c["hist"] == 0 or (c["partition"] == 0) != (name != "compacted"):
+            fail("phase 10b int8 %s: launches %s" % (
+                name, {k: c[k] for k in ("hist", "partition")}))
+        by_path["%s_int8_maxbin1023" % name] = c
+        models[name] = on_card.model_to_string()
+        if name != "masked":
+            on_cpu = lgt.train(dict(p5, **extra), small, device="cpu")
+            if models[name] != on_cpu.model_to_string():
+                fail("phase 10b int8 %s: card and CPU models differ" % name)
+            say("phase 10b int8 %s %d x %d, leaves %s, 2 trees: model text "
+                "on the card equals the CPU's; launches hist %d, partition "
+                "%d" % (name, n5, F, [t.num_leaves for t in on_card.models],
+                        c["hist"], c["partition"]))
+    if models["compacted"] != models["masked"]:
+        fail("phase 10b int8: compacted and masked models differ")
+    say("phase 10b int8 compacted and masked: model text equal on the card")
+    del pane, bins, train_set, small
+
+    # ---- 10c: the headline configuration at max_bin=1023
+    xm, ym = make_mixed(n_train + n_test, F, SEED, 24)
+    mixed = lgt.Dataset.from_arrays(xm[:n_train], ym[:n_train],
+                                    max_bin=1023)
+    spec = mixed.plan_packing("auto")
+    if spec is None or spec.widths != (64, int(mixed.num_bins.max())) \
+            or spec.widths[1] <= 256:
+        fail("phase 10c: plan %s, expected widths 64 and about 1022"
+             % (spec,))
+    pd = {"objective": "binary", "grow_policy": "depthwise",
+          "hist_dtype": "int8", "num_leaves": 255, "min_data_in_leaf": 100,
+          "min_sum_hessian_in_leaf": 10, "learning_rate": 0.1,
+          "max_bin": 1023, "num_iterations": 5}
+    texts, secs = {}, {}
+    for name, mixed_bin in (("packed", "auto"), ("uniform", "false")):
+        booster, iter_s, c = drive(dict(pd, mixed_bin=mixed_bin), mixed,
+                                   dev, sync)
+        # per tree: the root, then each level pass in groups of at most
+        # 42 columns, each launched once per bin-width class
+        per_pass = 2 if name == "packed" else 1
+        want = sum(per_pass * (1 + sum(-(-(1 << d) // 42)
+                                       for d in range(level_passes(t, 255))))
+                   for t in booster.models)
+        if c["hist"] != want or c["partition"] != 0:
+            fail("phase 10c %s: launches hist %d partition %d, expected %d "
+                 "and 0" % (name, c["hist"], c["partition"], want))
+        if max(c["hist_cols"]) > 42:
+            fail("phase 10c %s: a pass of %d columns; 16-bit passes group "
+                 "at 42" % (name, max(c["hist_cols"])))
+        texts[name] = booster.model_to_string()
+        secs[name] = iter_s
+        by_path["headline_depthwise_int8_maxbin1023_" + name] = c
+        say("phase 10c headline %s at max_bin=1023 (plan %s): leaves %s, "
+            "seconds per iteration %s, histogram launches %d (widest pass "
+            "%d columns)" % (name, "x".join(map(str, spec.widths))
+                             if name == "packed" else "uniform",
+                             [t.num_leaves for t in booster.models],
+                             " ".join("%.3f" % v for v in iter_s), c["hist"],
+                             max(c["hist_cols"])))
+        if name == "packed":
+            check_model("phase 10c", booster, xm, ym, n_train, dev)
+    if texts["packed"] != texts["uniform"]:
+        fail("phase 10c: the packed model differs from mixed_bin=false's")
+    say("phase 10c headline at max_bin=1023: packed and mixed_bin=false "
+        "model text byte-equal")
+
+    main_rec = next(r for r in shapes if r["C"] == 1 and r["mode"] ==
+                    "float32")
+    launches_by_path = {k: v["hist"] for k, v in by_path.items()}
+    hist16 = dict(
+        {"name": "hist16", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/hist.cu",
+         "replaces": "lightgbm_tpu/ops/hist_pallas.py:86",
+         "launches": by_path["leafcompact_float32_maxbin1023"]["hist"]},
+        **{k: main_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+        shapes=shapes, pane=pane_rec, corner_b50000=corner,
+        tree_ms=hist_tree[0], tree_bound_ms=hist_tree[1],
+        launches_by_path=launches_by_path,
+        seconds_by_path={"leafcompact_float32_maxbin1023": main_s,
+                         **{"headline_" + k: v for k, v in secs.items()}})
+    part_rec.update(
+        launches=by_path["leafcompact_float32_maxbin1023"]["partition"],
+        kernel_launches=by_path["leafcompact_float32_maxbin1023"][
+            "partition_kernels"],
+        tree_ms=part_tree[0], tree_bound_ms=part_tree[1],
+        launches_by_path={k: v["partition"] for k, v in by_path.items()})
+    return {"hist16": hist16, "partition16": part_rec}
 
 
 if __name__ == "__main__":

@@ -179,8 +179,7 @@ class IOConfig:
 
     def set(self, params: Dict[str, str], require_data: bool = True) -> None:
         self.max_bin = _get_int(params, "max_bin", self.max_bin)
-        log.check(0 < self.max_bin <= 256,
-                  "max_bin should be in (0, 256] (uint8 bin matrix)")
+        log.check(self.max_bin > 0, "max_bin should be > 0")
         self.data_random_seed = _get_int(params, "data_random_seed",
                                          self.data_random_seed)
         if "data" in params:

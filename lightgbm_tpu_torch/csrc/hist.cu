@@ -10,8 +10,9 @@
 // a block-private histogram.  Rows with cid outside [0, C) and bins >= B
 // are dropped.
 //
-// Bound on this card: bytes, in principle.  A pass must read the uint8
-// bin matrix (F bytes per row) and the per-row side band once, and write
+// Bound on this card: bytes, in principle.  A pass must read the bin
+// matrix (F bytes per row, 2F with 16-bit bins) and the per-row side band
+// once, and write
 // F*B*3C accumulators: about 40 MB at the root of the main path (F=28,
 // N=1M, C=1), 12 us at 3.35 TB/s.  In practice two things bound it:
 //   - the shared-memory atomics (one per row, feature and value).  The card
@@ -49,7 +50,14 @@
 //     every feature of the group; it is padded one word per vector, so the
 //     32 lanes of a warp, a vector apart, read 32 distinct banks.
 //   - Wide C (one block per SM fits): 512 threads per block, not 256.
-// Three instantiations:
+//   - Accumulators larger than shared memory (16-bit bins: B = 1023 at
+//     C = 42, B = 50,000 at C = 1).  A feature's B*C cells are cut into
+//     `slices` contiguous ranges of at most 192 KB each; blockIdx.x picks a
+//     feature group and a slice, and a block adds only the rows whose
+//     (bin, column) cell falls in its slice.  Each slice re-reads the rows,
+//     so a pass reads its input `slices` times; every accumulator up to
+//     192 KB (B <= 256 at C <= 64, the 8-bit passes) takes one slice.
+// Three modes:
 //   float: f32 grad/hess, count 1.0 per row, f32 accumulation.  Atomic
 //          order varies run to run, so sums agree with a sequential sum to
 //          f32 rounding, not bitwise.
@@ -60,8 +68,13 @@
 //          assembled from their four little-endian byte planes (bit-equal
 //          to Tensor.view(float32)), and the validity plane gives column 0
 //          or "dropped".  C = 1.
-// Bins are read as uint8, so values >= 128 need no masking (the TPU kernel
-// carries them as int8 and masks with & 255, :79).
+// and three bin layouts: uint8 rows, uint16 rows (the 16-bit bin matrix of
+// max_bin > 256, read as 2-byte elements, 16 rows a 32-byte load), and, for
+// the pane entry, 16-bit bins as two byte planes (the low bytes in the
+// pane's bin rows, the high bytes hi_off bytes further on).  Bins are read
+// unsigned, so values >= 128 need no masking (the TPU kernel carries uint8
+// bins as int8 and masks with & 255, :79; it has no 16-bit mode: the JAX
+// package computes B > 256 outside Pallas, ops/histogram.py:34-56).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,10 +85,13 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kMaxSmem = 232448;  // 227 KB per block on sm_90
 constexpr int kFloat = 0, kInt8 = 1, kPane = 2;
+// bin layouts: uint8 rows, uint16 rows, 16-bit bins as lo/hi byte planes
+constexpr int kU8 = 1, kU16 = 2, kPlanes16 = 3;
 
 struct Args {
-  const uint8_t* bins;   // bin row f starts at bins + f * ld
-  long long ld;
+  const uint8_t* bins;   // bin row f starts at element f * ld of bins
+  long long ld;          // in elements (bytes, or 2 bytes for kU16)
+  long long hi_off;      // kPlanes16: high-byte plane of a row, in bytes
   const float* grad;     // float
   const float* hess;
   const int8_t* q;       // int8: [3, qld] levels
@@ -85,6 +101,8 @@ struct Args {
                          // hess at + (4 + k) * ld, validity at + 8 * ld
   int n, num_f, num_b, num_c;
   int g;                 // features per block
+  int slices;            // cell slices per feature (blocks per group)
+  int slice_cells;       // (bin, column) cells per slice, the last fewer
   int copies;            // private accumulator copies per block
   int tile;              // rows per staged tile, a multiple of 16
   int shift;             // rows start at -shift: bins + r is 16-aligned
@@ -98,16 +116,24 @@ struct Args {
 template <int kVec>
 __device__ __forceinline__ int padded(int i) { return i + i / kVec; }
 
-// Bin bytes of rows [0, kVec) at src, packed little-endian into w; bytes
-// of rows outside [lo, hi) are left 0xFF and never read.
-template <int kVec>
-__device__ __forceinline__ void load_bins(const uint8_t* src, int lo, int hi,
-                                          uint32_t (&w)[kVec / 4]) {
-  if (lo <= 0 && hi >= kVec
-      && (reinterpret_cast<uintptr_t>(src) & (kVec - 1)) == 0) {
-    if constexpr (kVec == 16) {
-      const uint4 v = *reinterpret_cast<const uint4*>(src);
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+// kBytes bytes at src, packed little-endian into w; bytes outside [lo, hi)
+// are left 0xFF and never read.
+template <int kBytes>
+__device__ __forceinline__ void load_bytes(const uint8_t* src, int lo, int hi,
+                                           uint32_t (&w)[kBytes / 4]) {
+  constexpr int kAlign = kBytes < 16 ? kBytes : 16;
+  if (lo <= 0 && hi >= kBytes
+      && (reinterpret_cast<uintptr_t>(src) & (kAlign - 1)) == 0) {
+    if constexpr (kBytes >= 16) {
+#pragma unroll
+      for (int q = 0; q < kBytes / 16; ++q) {
+        const uint4 v = reinterpret_cast<const uint4*>(src)[q];
+        w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z;
+        w[4 * q + 3] = v.w;
+      }
+    } else if constexpr (kBytes == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(src);
+      w[0] = v.x; w[1] = v.y;
     } else {
       w[0] = *reinterpret_cast<const uint32_t*>(src);
     }
@@ -115,12 +141,38 @@ __device__ __forceinline__ void load_bins(const uint8_t* src, int lo, int hi,
   }
   // ragged head or tail, or a row stride off the vector boundary
 #pragma unroll
-  for (int k = 0; k < kVec / 4; ++k) w[k] = 0xFFFFFFFFu;
+  for (int k = 0; k < kBytes / 4; ++k) w[k] = 0xFFFFFFFFu;
 #pragma unroll
-  for (int k = 0; k < kVec; ++k) {
+  for (int k = 0; k < kBytes; ++k) {
     if (k >= lo && k < hi) {
       w[k >> 2] = (w[k >> 2] & ~(0xFFu << (8 * (k & 3))))
                   | (uint32_t)src[k] << (8 * (k & 3));
+    }
+  }
+}
+
+// Bins of rows [0, kVec) of a bin row, rows outside [lo, hi) undefined;
+// row is the address of the first row's (low) byte.
+template <int kBin, int kVec>
+__device__ __forceinline__ void load_bins(const Args& a, const uint8_t* row,
+                                          int lo, int hi, int (&b)[kVec]) {
+  if constexpr (kBin == kU16) {
+    uint32_t w[kVec / 2];
+    load_bytes<2 * kVec>(row, 2 * lo, 2 * hi, w);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      b[k] = (int)((w[k >> 1] >> (16 * (k & 1))) & 0xFFFFu);
+  } else {
+    uint32_t w[kVec / 4];
+    load_bytes<kVec>(row, lo, hi, w);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      b[k] = (int)((w[k >> 2] >> (8 * (k & 3))) & 0xFFu);
+    if constexpr (kBin == kPlanes16) {
+      load_bytes<kVec>(row + a.hi_off, lo, hi, w);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        b[k] |= (int)((w[k >> 2] >> (8 * (k & 3))) & 0xFFu) << 8;
     }
   }
 }
@@ -141,13 +193,17 @@ __device__ __forceinline__ void add_pair(unsigned long long* p, float g,
   } while (seen != want);
 }
 
-template <int kMode, int kVec>
+template <int kMode, int kVec, int kBin>
 __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int f0 = blockIdx.x * a.g;
+  const int group = blockIdx.x / a.slices;
+  const int f0 = group * a.g;
   const int nf = min(a.g, a.num_f - f0);
   const int fcells = a.num_b * a.num_c;  // (bin, column) cells per feature
-  const int cells = nf * fcells;         // per copy
+  // this block's slice of each feature's cells: [k0, k0 + kc)
+  const int k0 = (blockIdx.x - group * a.slices) * a.slice_cells;
+  const int kc = min(a.slice_cells, fcells - k0);
+  const int cells = nf * kc;             // per copy
   // accumulator, 3 words per cell and copy.  int8: int [copies][cells][3].
   // float, pane: f32 (grad, hess) pairs [copies][cells], then int counts
   // [copies][cells] (exact, and a native atomic)
@@ -158,7 +214,7 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
   //   float, pane: sc (column or -1), sg, sh;  int8: sc packs
   //   (q0, q1, q2, column or 0xFF) as bytes
   const long long acc_bytes =
-      ((long long)a.copies * a.g * fcells * 12 + 15) / 16 * 16;
+      ((long long)a.copies * a.g * a.slice_cells * 12 + 15) / 16 * 16;
   const int pt = padded<kVec>(a.tile);
   int* sc = reinterpret_cast<int*>(smem_raw + acc_bytes);
   float* sg = reinterpret_cast<float*>(sc + pt);
@@ -212,28 +268,33 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
       const int fi = s / vecs;
       const int j = s - fi * vecs;
       const long long r0 = t0 + kVec * j;
-      uint32_t w[kVec / 4];
-      load_bins<kVec>(a.bins + (long long)(f0 + fi) * a.ld + r0,
-                      (int)max(0LL, -r0), tn - kVec * j, w);
-      const int fbase = copy * cells + fi * fcells;
+      int bv[kVec];
+      const long long e0 = (long long)(f0 + fi) * a.ld + r0;  // element
+      load_bins<kBin, kVec>(a, a.bins + e0 * (kBin == kU16 ? 2 : 1),
+                            (int)max(0LL, -r0), tn - kVec * j, bv);
+      const int fbase = copy * cells + fi * kc;
       const int base = (kVec + 1) * j;
       const int kmax = min(kVec, tn - kVec * j);
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
         if (k >= kmax) break;
-        const int b = (w[k >> 2] >> (8 * (k & 3))) & 0xFF;
+        const int b = bv[k];
         if (b >= a.num_b) continue;
         const int side = sc[base + k];
         if constexpr (kMode == kInt8) {
           const int c = (int)((uint32_t)side >> 24);
           if (c == 0xFF) continue;
-          int* cell = acc + 3 * (fbase + b * a.num_c + c);
+          const int local = b * a.num_c + c - k0;
+          if ((unsigned)local >= (unsigned)kc) continue;  // another slice
+          int* cell = acc + 3 * (fbase + local);
           atomicAdd(cell, (int)(int8_t)(side & 0xFF));
           atomicAdd(cell + 1, (int)(int8_t)((side >> 8) & 0xFF));
           atomicAdd(cell + 2, (int)(int8_t)((side >> 16) & 0xFF));
         } else {
           const bool ok = side >= 0;
-          const int cell = fbase + b * a.num_c + max(side, 0);
+          const int local = b * a.num_c + max(side, 0) - k0;
+          if ((unsigned)local >= (unsigned)kc) continue;  // another slice
+          const int cell = fbase + local;
           if (__all_sync(__activemask(), ok)) {
             add_pair(pairs + cell, sg[base + k], sh[base + k]);
             atomicAdd(counts + cell, 1);
@@ -251,10 +312,12 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
   __syncthreads();
 
   // merge the copies; add each nonzero cell into the output
-  const long long o0 = (long long)f0 * fcells * 3;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int fi = i / kc;
+    const long long o0 =
+        ((long long)(f0 + fi) * fcells + k0 + (i - fi * kc)) * 3;
     if constexpr (kMode == kInt8) {
-      int* o = reinterpret_cast<int*>(a.out) + o0 + 3 * i;
+      int* o = reinterpret_cast<int*>(a.out) + o0;
       for (int k = 0; k < 3; ++k) {
         int v = 0;
         for (int cp = 0; cp < a.copies; ++cp) v += acc[3 * (cp * cells + i) + k];
@@ -270,7 +333,7 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
         h += __uint_as_float((unsigned)(pairs[cell] >> 32));
       }
       if (n == 0) continue;
-      float* o = reinterpret_cast<float*>(a.out) + o0 + 3 * i;
+      float* o = reinterpret_cast<float*>(a.out) + o0;
       atomicAdd(o, g);
       atomicAdd(o + 1, h);
       atomicAdd(o + 2, (float)n);
@@ -280,54 +343,77 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
 
 // The dynamic shared-memory limit is raised once per instantiation and
 // device, not on every launch.
-template <int kMode, int kVec>
+template <int kMode, int kVec, int kBin>
 cudaError_t raise_smem_limit() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(hist_kernel<kMode, kVec>,
+  err = cudaFuncSetAttribute(hist_kernel<kMode, kVec, kBin>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMaxSmem);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
 
-// vec (rows per thread and load: 16 or 4), threads (per block), groups,
-// chunks, smem: the launch plan of ops/hist_cuda.plan.
-template <int kMode, int kVec>
+// vec (rows per thread and load: 16 or 4), threads (per block), groups
+// (feature groups), chunks, smem: the launch plan of ops/hist_cuda.plan.
+template <int kMode, int kVec, int kBin>
 int launch_vec(const Args& a, int threads, int groups, int chunks, int smem,
                cudaStream_t stream) {
-  cudaError_t err = raise_smem_limit<kMode, kVec>();
+  cudaError_t err = raise_smem_limit<kMode, kVec, kBin>();
   if (err != cudaSuccess) return (int)err;
-  hist_kernel<kMode, kVec>
-      <<<dim3(groups, chunks), threads, smem, stream>>>(a);
+  hist_kernel<kMode, kVec, kBin>
+      <<<dim3(groups * a.slices, chunks), threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <int kMode, int kBin>
+int launch_bin(const Args& a, int vec, int threads, int groups, int chunks,
+               int smem, cudaStream_t stream) {
+  if (vec == 16)
+    return launch_vec<kMode, 16, kBin>(a, threads, groups, chunks, smem,
+                                       stream);
+  if (vec == 4)
+    return launch_vec<kMode, 4, kBin>(a, threads, groups, chunks, smem,
+                                      stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// bin: the layout, kU8 or kU16 (float, int8), kU8 or kPlanes16 (pane)
 template <int kMode>
-int launch(Args a, int vec, int threads, int groups, int chunks, int smem,
-           cudaStream_t stream) {
+int launch(Args a, int bin, int vec, int threads, int groups, int chunks,
+           int smem, cudaStream_t stream) {
   const size_t out_bytes = (size_t)a.num_f * a.num_b * 3 * a.num_c * 4;
   cudaError_t err = cudaMemsetAsync(a.out, 0, out_bytes, stream);
   if (err != cudaSuccess) return (int)err;
   if (a.n <= 0 || a.num_f <= 0) return (int)cudaGetLastError();
   if (smem > kMaxSmem || threads % 64 != 0 || threads > kMaxThreads
       || a.tile % 16 != 0 || a.chunk % a.tile != 0
-      || (long long)groups * a.g < a.num_f
+      || (long long)groups * a.g < a.num_f || a.slices < 1
+      || a.slice_cells < 1
+      || (long long)a.slices * a.slice_cells < (long long)a.num_b * a.num_c
       || (long long)chunks * a.chunk < (long long)a.n + a.shift)
     return (int)cudaErrorInvalidValue;
-  if (vec == 16)
-    return launch_vec<kMode, 16>(a, threads, groups, chunks, smem, stream);
-  if (vec == 4)
-    return launch_vec<kMode, 4>(a, threads, groups, chunks, smem, stream);
+  if (bin == kU8)
+    return launch_bin<kMode, kU8>(a, vec, threads, groups, chunks, smem,
+                                  stream);
+  if constexpr (kMode == kPane) {
+    if (bin == kPlanes16)
+      return launch_bin<kMode, kPlanes16>(a, vec, threads, groups, chunks,
+                                          smem, stream);
+  } else {
+    if (bin == kU16)
+      return launch_bin<kMode, kU16>(a, vec, threads, groups, chunks, smem,
+                                     stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 Args make_args(const void* bins, long long ld, int n, int num_f, int num_b,
                int num_c, int g, int copies, int tile, int shift,
-               long long chunk, void* out) {
+               long long chunk, int slices, int slice_cells, void* out) {
   Args a = {};
   a.bins = static_cast<const uint8_t*>(bins);
   a.ld = ld;
@@ -336,6 +422,8 @@ Args make_args(const void* bins, long long ld, int n, int num_f, int num_b,
   a.num_b = num_b;
   a.num_c = num_c;
   a.g = g;
+  a.slices = slices;
+  a.slice_cells = slice_cells;
   a.copies = copies;
   a.tile = tile;
   a.shift = shift;
@@ -348,24 +436,24 @@ Args make_args(const void* bins, long long ld, int n, int num_f, int num_b,
 
 extern "C" {
 
-// Every entry: bins row f starts at bins + f * ld, and bins is shift
-// bytes past a 16-byte boundary; out is [num_f, num_b, 3 * num_c] and is
-// zeroed here.  The arguments vec .. smem are the launch plan of
-// ops/hist_cuda.plan.
+// Every entry: bin row f starts at element f * ld of bins, and bins is
+// shift rows past a 16-byte boundary; out is [num_f, num_b, 3 * num_c] and
+// is zeroed here.  bin is the layout (1: uint8, 2: uint16).  The arguments
+// vec .. slice_cells are the launch plan of ops/hist_cuda.plan.
 
 // float32: rows with cid outside [0, num_c) are skipped.
 int lgbm_hist_f32(const void* bins, long long ld, const void* grad,
                   const void* hess, const void* cid, int n, int num_f,
-                  int num_b, int num_c, int shift, int vec, int threads,
-                  int g, int copies, int tile, long long chunk,
-                  int groups, int chunks, int smem, void* out,
-                  void* stream) {
+                  int num_b, int num_c, int shift, int bin, int vec,
+                  int threads, int g, int copies, int tile, long long chunk,
+                  int groups, int chunks, int smem, int slices,
+                  int slice_cells, void* out, void* stream) {
   Args a = make_args(bins, ld, n, num_f, num_b, num_c, g, copies, tile,
-                     shift, chunk, out);
+                     shift, chunk, slices, slice_cells, out);
   a.grad = static_cast<const float*>(grad);
   a.hess = static_cast<const float*>(hess);
   a.cid = static_cast<const int32_t*>(cid);
-  return launch<kFloat>(a, vec, threads, groups, chunks, smem,
+  return launch<kFloat>(a, bin, vec, threads, groups, chunks, smem,
                         (cudaStream_t)stream);
 }
 
@@ -373,34 +461,38 @@ int lgbm_hist_f32(const void* bins, long long ld, const void* grad,
 // out: int32.
 int lgbm_hist_i8(const void* bins, long long ld, const void* q,
                  long long qld, const void* cid, int n, int num_f,
-                 int num_b, int num_c, int shift, int vec, int threads,
-                 int g, int copies, int tile, long long chunk,
-                 int groups, int chunks, int smem, void* out,
-                 void* stream) {
+                 int num_b, int num_c, int shift, int bin, int vec,
+                 int threads, int g, int copies, int tile, long long chunk,
+                 int groups, int chunks, int smem, int slices,
+                 int slice_cells, void* out, void* stream) {
   // a staged row carries its column id in one byte, 0xFF for "dropped"
   if (num_c > 255) return (int)cudaErrorInvalidValue;
   Args a = make_args(bins, ld, n, num_f, num_b, num_c, g, copies, tile,
-                     shift, chunk, out);
+                     shift, chunk, slices, slice_cells, out);
   a.q = static_cast<const int8_t*>(q);
   a.qld = qld;
   a.cid = static_cast<const int32_t*>(cid);
-  return launch<kInt8>(a, vec, threads, groups, chunks, smem,
+  return launch<kInt8>(a, bin, vec, threads, groups, chunks, smem,
                        (cudaStream_t)stream);
 }
 
-// Plane-pane slice: bins = pane + sstart (row stride ld), planes = the
-// pane's row num_f at the same lane.  float32, num_c must be 1.
-int lgbm_hist_pane(const void* bins, long long ld, const void* planes,
-                   int n, int num_f, int num_b, int num_c, int shift,
-                   int vec, int threads, int g, int copies, int tile,
-                   long long chunk, int groups, int chunks, int smem,
+// Plane-pane slice: bins = the pane's first bin row used, at the segment's
+// first lane (row stride ld bytes); planes = the pane's grad plane 0 at the
+// same lane.  hi_off: 0 for 8-bit bins, else the bytes from a bin row's
+// low-byte plane to its high-byte plane.  float32, num_c must be 1.
+int lgbm_hist_pane(const void* bins, long long ld, long long hi_off,
+                   const void* planes, int n, int num_f, int num_b,
+                   int num_c, int shift, int vec, int threads, int g,
+                   int copies, int tile, long long chunk, int groups,
+                   int chunks, int smem, int slices, int slice_cells,
                    void* out, void* stream) {
   if (num_c != 1) return (int)cudaErrorInvalidValue;
   Args a = make_args(bins, ld, n, num_f, num_b, num_c, g, copies, tile,
-                     shift, chunk, out);
+                     shift, chunk, slices, slice_cells, out);
+  a.hi_off = hi_off;
   a.planes = static_cast<const uint8_t*>(planes);
-  return launch<kPane>(a, vec, threads, groups, chunks, smem,
-                       (cudaStream_t)stream);
+  return launch<kPane>(a, hi_off != 0 ? kPlanes16 : kU8, vec, threads,
+                       groups, chunks, smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -15,6 +15,11 @@
 // One kernel, templated on where a lane's side comes from:
 //   pane:  right when its byte in the pane's row `feat`, read as uint8, is
 //          > thr (the grower's split; the mask is never materialised);
+//   pane16: the same on a 16-bit bin (max_bin > 256): the low byte in row
+//          `feat`, the high byte in row `hi`, thr up to 65535.  The JAX
+//          package's compacted grower keys on the low byte alone there
+//          (lightgbm_tpu/ops/compact.py:463), a fault of its own (ROADMAP
+//          C3); the rows moved are the same byte rows either way;
 //   mask:  left when mask3 == 1 (compact.py's contract; -1 marks lanes
 //          outside the segment, which the caller does not pass).
 // Source and destination are different buffers (the grower double-buffers
@@ -23,8 +28,9 @@
 //
 // Bound on this card: bytes.  Each of the segment's R*cnt bytes is read
 // once and written once, 2*R*cnt bytes: 80 MB at the root of the main
-// path (R = 40, cnt = 1M), 24 us at 3.35 TB/s.  Most splits are parents of
-// a few thousand lanes, where the launch floor bounds instead.  The design:
+// path (R = 40, cnt = 1M; R = 72 with 16-bit bins), 24 us at 3.35 TB/s.
+// Most splits are parents of a few thousand lanes, where the launch floor
+// bounds instead.  The design:
 //   - Tiles of 4096 lanes, 16 per thread, one 16-byte load per pane row.
 //     The tile grid starts at the 16-byte boundary at or below the
 //     segment's first lane; ragged or misaligned vectors are read byte by
@@ -64,7 +70,7 @@ constexpr int kMaxSmem = 232448;          // 227 KB per block on sm_90
 // dynamic shared memory of partition_move: the rest of kMaxSmem after
 // its static part[3][kWarps]
 constexpr int kMaxStage = kMaxSmem - 3 * kWarps * (int)sizeof(int);
-constexpr int kPane = 0, kMask = 1;
+constexpr int kPane = 0, kMask = 1, kPane16 = 2;
 
 struct Args {
   const uint8_t* src;  // the segment's lane 0; row r at src + r * lds
@@ -72,6 +78,7 @@ struct Args {
   uint8_t* dst;        // the same lane of the destination
   long long ldd;
   const uint8_t* key;  // pane: src + feat * lds;  mask: mask3 at lane 0
+  const uint8_t* key_hi;  // pane16: src + hi * lds, the bins' high bytes
   int thr;
   int rows, cnt;
   int shift;           // src % 16: tile 0 starts at lane -shift
@@ -103,13 +110,16 @@ __device__ __forceinline__ void load16(const uint8_t* p, long long l0, int n,
 // Bit k: lane l0 + k lies in the segment and goes left.
 template <int kSrc>
 __device__ __forceinline__ unsigned left_bits(const Args& a, long long l0) {
-  uint32_t w[4];
+  uint32_t w[4], h[4];
   load16(a.key + l0, l0, a.cnt, w);
+  if constexpr (kSrc == kPane16) load16(a.key_hi + l0, l0, a.cnt, h);
   unsigned m = 0;
 #pragma unroll
   for (int k = 0; k < kLanes; ++k) {
-    const unsigned b = (w[k >> 2] >> (8 * (k & 3))) & 0xFFu;
-    const bool left = kSrc == kPane ? (int)b <= a.thr : b == 1u;
+    unsigned b = (w[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+    if constexpr (kSrc == kPane16)
+      b |= ((h[k >> 2] >> (8 * (k & 3))) & 0xFFu) << 8;
+    const bool left = kSrc == kMask ? b == 1u : (int)b <= a.thr;
     if (left && l0 + k >= 0 && l0 + k < a.cnt) m |= 1u << k;
   }
   return m;
@@ -380,18 +390,22 @@ extern "C" {
 // int32 scratch of `tiles` entries for a count pass (a second launch), or
 // null; left receives the segment's left count (int32).
 
-// The grower's split: a lane goes right when its byte in row feat, read as
-// uint8, is > thr.
+// The grower's split: a lane goes right when its bin is > thr: its byte in
+// row feat read as uint8, or, with hi >= 0 (16-bit bins), that byte plus
+// 256 times its byte in row hi.
 int lgbm_partition_pane(const void* src, long long lds, void* dst,
-                        long long ldd, int rows, int cnt, int feat, int thr,
-                        int tiles, int group, void* counts, void* left,
-                        void* stream) {
-  if (feat < 0 || feat >= rows) return (int)cudaErrorInvalidValue;
+                        long long ldd, int rows, int cnt, int feat, int hi,
+                        int thr, int tiles, int group, void* counts,
+                        void* left, void* stream) {
+  if (feat < 0 || feat >= rows || hi >= rows)
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(src, lds, dst, ldd, rows, cnt, tiles, group, counts,
                      left);
   a.key = a.src + (long long)feat * lds;
   a.thr = thr;
-  return launch<kPane>(a, (cudaStream_t)stream);
+  if (hi < 0) return launch<kPane>(a, (cudaStream_t)stream);
+  a.key_hi = a.src + (long long)hi * lds;
+  return launch<kPane16>(a, (cudaStream_t)stream);
 }
 
 // compact.py's contract: a lane goes left when mask[lane] == 1 (mask is

@@ -2,8 +2,9 @@
 
 The slice subset of lightgbm_tpu/io/dataset.py: ``from_arrays`` (:551,
 same signature) and the one-round text loader (:242-302), with the same
-≤50k-row binning sample, trivial-feature removal and uint8 ``[F, N]`` bin
-matrix, so the port bins a dataset exactly as the JAX package does.
+≤50k-row binning sample, trivial-feature removal and ``[F, N]`` bin
+matrix (uint8 up to 256 bins a feature, uint16 up to 65,536; ``_bin_dtype``,
+:32-38), so the port bins a dataset exactly as the JAX package does.
 Continued training attaches each row's initial score: the raw prediction
 of the input model (``predict_fun``, lightgbm_tpu/io/dataset.py:620-626)
 over the training rows and every validation set's rows, else, for the
@@ -21,6 +22,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..ops.bins import to_tensor as bins_to_tensor
 from ..utils import log
 from . import parser as parser_mod
 from .binning import BinMapper, find_bins_for_matrix, plan_feature_packing
@@ -29,10 +31,24 @@ from .metadata import Metadata
 SAMPLE_CNT = 50000  # dataset.cpp:219 — max rows sampled for bin finding
 
 
+def _bin_dtype(max_num_bin: int):
+    """lightgbm_tpu/io/dataset.py:32-38 (Bin::CreateDenseBin): uint8 up
+    to 256 bins, uint16 up to 65,536.  Its uint32 matrices (a feature of
+    more than 65,536 bins: ``sample_cnt`` and ``max_bin`` both above
+    65,536) are not ported, and refused by name."""
+    if max_num_bin <= 256:
+        return np.uint8
+    if max_num_bin <= 65536:
+        return np.uint16
+    log.fatal("a feature has %d bins: bin matrices wider than 16 bits "
+              "(uint32 bins, more than 65536 bins a feature) are not "
+              "ported" % max_num_bin)
+
+
 class Dataset:
     """Binned dataset.
 
-    bins : np.ndarray uint8 [num_features, num_data]
+    bins : np.ndarray uint8 or uint16 [num_features, num_data]
     bin_mappers : per used feature
     num_bins : np.ndarray int32 [num_features]
     real_feature_idx : used feature -> original column (split_feature_real)
@@ -64,8 +80,8 @@ class Dataset:
         ``reference``: a training Dataset whose bin mappers are reused (for
         validation sets).  ``query_boundaries``: [nq + 1] row offsets of
         the queries, for lambdarank and ndcg."""
-        if max_bin > 256:
-            log.fatal("max_bin should be in (0, 256] (uint8 bin matrix)")
+        if max_bin <= 0:
+            log.fatal("max_bin should be > 0")
         self = cls()
         features = np.asarray(features, dtype=np.float64)
         self.max_bin = max_bin
@@ -187,13 +203,15 @@ class Dataset:
                                  dtype=np.int32)
 
     def _binarize(self, features: np.ndarray) -> None:
-        """Quantize the dense value matrix into the uint8 [F, N] matrix."""
+        """Quantize the dense value matrix into the [F, N] bin matrix."""
         self.num_data = features.shape[0]
+        dtype = _bin_dtype(int(self.num_bins.max())
+                           if len(self.bin_mappers) else 256)
         bins = np.empty((len(self.bin_mappers), features.shape[0]),
-                        dtype=np.uint8)
+                        dtype=dtype)
         for j_raw, j_inner in self.used_feature_map.items():
             bins[j_inner] = self.bin_mappers[j_inner].value_to_bin(
-                features[:, j_raw]).astype(np.uint8)
+                features[:, j_raw]).astype(dtype)
         self.bins = bins
 
     @property
@@ -219,13 +237,14 @@ class Dataset:
         return out
 
     def to_device(self, device: torch.device) -> dict:
-        """The bin matrix, labels and weights as tensors on ``device``
-        (cached per device: a dataset uploads once)."""
+        """The bin matrix (16-bit bins as an int16 view, ops/bins.py),
+        labels and weights as tensors on ``device`` (cached per device: a
+        dataset uploads once)."""
         key = str(device)
         if key not in self._device_cache:
             md = self.metadata
             self._device_cache[key] = {
-                "bins": torch.from_numpy(self.bins).to(device),
+                "bins": bins_to_tensor(self.bins, device),
                 "label": torch.from_numpy(md.label).to(device),
                 "weights": (None if md.weights is None else
                             torch.from_numpy(md.weights).to(device)),

@@ -41,6 +41,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import sampling
+from ..ops.bins import to_tensor as bins_to_tensor
 from ..ops.histogram import is_int8
 from ..ops.scoring import add_tree_score, train_score_update
 from ..utils import log, threefry
@@ -100,9 +101,9 @@ class GBDT:
                         "x".join(str(w) for w in spec.widths)))
             # the booster's own packed copy: the dataset's cached tensor
             # stays canonical for validation sets and other boosters
-            self.bins_device = torch.from_numpy(np.ascontiguousarray(
-                train_data.bins[np.asarray(spec.perm, np.int64)])).to(
-                    self.device)
+            self.bins_device = bins_to_tensor(np.ascontiguousarray(
+                train_data.bins[np.asarray(spec.perm, np.int64)]),
+                self.device)
         self.num_bins_device = torch.as_tensor(train_data.num_bins,
                                                device=self.device)
         self.early_stopping_round = boosting_config.early_stopping_round

@@ -16,7 +16,8 @@ s of level d holds one candidate leaf and its children sit at 2s and
    attributes and its own bin on the split feature;
 5. histograms the smaller child of every chosen slot in one
    ``histogram_leafbatch`` pass with C = P columns (grouped at 64, as on
-   the TPU; salted d + 1 at level d, the root 0), and derives the
+   the TPU, or at 42 with 16-bit bins, as the JAX package does there on
+   every backend; salted d + 1 at level d, the root 0), and derives the
    siblings by subtraction.
 
 Under mixed-bin packing step 4 reads each row's bin from the split
@@ -33,6 +34,7 @@ import math
 
 import torch
 
+from ..ops.bins import widen
 from ..ops.histogram import canonical_index, histogram_leafbatch
 from ..ops.split import find_best_split
 from .grower_unified import TreeArrays, root_stats_of
@@ -152,7 +154,7 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
         small_is_right = res.right_count < res.left_count      # ties: left
         in_chosen = chosen[slot_id]
         row_feat = res.feature if c2p is None else c2p[res.feature]
-        row_bin = bins.gather(0, row_feat[slot_id][None])[0]
+        row_bin = widen(bins.gather(0, row_feat[slot_id][None])[0])
         go_right = in_chosen & (row_bin > res.threshold[slot_id])
         out_leaf = torch.where(go_right, right_leaf[slot_id].to(i32),
                                out_leaf)

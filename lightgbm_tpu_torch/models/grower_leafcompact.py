@@ -19,6 +19,11 @@ partitioned segment is copied back.  The partition's left count is read
 by the host once the kernel is queued: with the split record, two small
 synchronisations per split.
 
+With 16-bit bins (max_bin > 256) the pane carries each bin as two byte
+rows, and the partition keys on both (ops/compact.py): the JAX package's
+compacted grower keys on the low byte alone there (ROADMAP C3), so its
+masked grower is this policy's oracle at B > 256.
+
 Under mixed-bin packing the pane's bin rows are in storage order: the
 partition reads the split feature's storage row, and the float
 histogram launches the pane entry once per bin-width class on that
@@ -30,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.bins import bin_bytes
 from ..ops.compact import BLOCK, pack_planes, partition_pane, unpack_values
 from ..ops.hist_cuda import hist_pane_float
 from ..ops.histogram import (assemble, build_histogram, class_ranges,
@@ -49,6 +55,7 @@ class _Pane:
         pane = pack_planes(bins, grad, hess, row_mask, P)
         self.panes = (pane, torch.empty_like(pane))
         self.F, self.B, self.compute_dtype = F, num_bins_max, compute_dtype
+        self.nb = bin_bytes(bins)                    # 2: a 16-bit pane
         self.packing = packing
         self.seg_start = np.zeros(num_leaves, np.int64)
         self.seg_cnt = np.zeros(num_leaves, np.int64)
@@ -62,7 +69,8 @@ class _Pane:
         F = self.F
         start, cnt = int(self.seg_start[bl]), int(self.seg_cnt[bl])
         src, dst = self.panes[self.side[bl]], self.panes[1 - self.side[bl]]
-        plcnt = int(partition_pane(src, dst, F, feat, thr, start, cnt))
+        plcnt = int(partition_pane(src, dst, F, feat, thr, start, cnt,
+                                   self.nb))
         sstart = start if left_small else start + plcnt
         scnt = plcnt if left_small else cnt - plcnt
         self.seg_start[new] = start + plcnt
@@ -72,9 +80,10 @@ class _Pane:
             # quantization needs the pass maximum first: unpack, then the
             # int8 route
             return build_histogram(
-                *unpack_values(dst[:, sstart:sstart + scnt], F), self.B,
-                self.compute_dtype, self.packing, new)
-        return assemble([hist_pane_float(dst, F, sstart, scnt, w, (s, n))
+                *unpack_values(dst[:, sstart:sstart + scnt], F, self.nb),
+                self.B, self.compute_dtype, self.packing, new)
+        return assemble([hist_pane_float(dst, F, sstart, scnt, w, (s, n),
+                                         self.nb)
                          for s, n, w in class_ranges(self.packing, F, self.B)],
                         self.packing, self.B)
 

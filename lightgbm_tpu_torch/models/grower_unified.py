@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..ops.bins import widen
 from ..ops.histogram import build_histogram, is_int8
 from ..ops.split import find_best_split
 
@@ -170,7 +171,8 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
         right_child[node] = ~new
 
         # --- original-order leaf ids
-        leaf_ids = torch.where((leaf_ids == bl) & (bins[pfeat] > thr),
+        leaf_ids = torch.where((leaf_ids == bl)
+                               & (widen(bins[pfeat]) > thr),
                                new, leaf_ids).to(torch.int32)
 
         # --- the smaller child's histogram (smaller by valid count, as in
@@ -211,8 +213,9 @@ def grow_tree_unified(bins, grad, hess, row_mask, feature_mask, num_bins,
                       min_data_in_leaf: int, min_sum_hessian_in_leaf: float,
                       max_depth: int = -1, compute_dtype: str = "float32",
                       packing=None) -> TreeArrays:
-    """Grow one tree under ``policy`` (GROW_POLICIES).  bins [F, N] uint8
-    (in ``packing``'s storage order, if any), grad/hess [N] f32, row_mask
+    """Grow one tree under ``policy`` (GROW_POLICIES).  bins [F, N] uint8,
+    or int16 carrying 16-bit bins (ops/bins.py), in ``packing``'s storage
+    order, if any; grad/hess [N] f32, row_mask
     [N] bool, feature_mask [F] bool, num_bins [F] int — tensors on one
     device.  ``compute_dtype``: "float32", "bfloat16", "int8" or
     "int8_sr" histograms."""

@@ -3,9 +3,12 @@ grower's core op.  Counterpart of lightgbm_tpu/ops/compact.py.
 
 Every leaf's rows stay contiguous in an ``[R, P]`` int8 pane: F bin rows,
 the f32 grad and hess as four byte planes each, a validity row, zero rows
-up to a multiple of 8 (``pack_planes``).  Each split stably partitions the
-parent's lane range, so the smaller child's histogram reads only that
-child's rows.  Two entries:
+up to a multiple of 8 (``pack_planes``).  With 16-bit bins (max_bin > 256)
+the F bin rows hold the bins' low bytes and F more rows after them their
+high bytes (``bin_bytes`` 2), so a split keys on the whole bin; the JAX
+package keeps only the low byte there (compact.py:463, ROADMAP C3).  Each
+split stably partitions the parent's lane range, so the smaller child's
+histogram reads only that child's rows.  Two entries:
 
 - ``partition_pane``, the grower's: decides each lane from the pane's own
   bin row and writes the partitioned lanes into a second pane;
@@ -16,7 +19,8 @@ On a CUDA tensor both launch csrc/partition.cu (its header says what
 bounds it and how it works) with the launch plan of ``plan``; on a CPU
 tensor they run the plain version, the stable-sort formulation of the JAX
 package's oracle (compact.py:438-444).  The byte planes go through
-``Tensor.view(dtype)``, so a pane is bit-exact with the JAX package's.
+``Tensor.view(dtype)``, so an 8-bit pane is bit-exact with the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import collections
 import torch
 
 from . import cuda_build
+from .bins import bin_bytes as bins_bytes
 from .cuda_build import require
 
 BLOCK = 2048  # lane block of the bucket table (compact.py:54)
@@ -41,35 +46,52 @@ kernel_launches = 0
 launch_rows = collections.deque(maxlen=1 << 16)
 
 
-def pane_rows(num_features: int) -> int:
-    """F bin rows + 8 grad/hess byte planes + validity, padded to 8."""
-    r = num_features + 9
+def pane_rows(num_features: int, bin_bytes: int = 1) -> int:
+    """F bin rows (2F with 16-bit bins) + 8 grad/hess byte planes +
+    validity, padded to 8."""
+    r = bin_bytes * num_features + 9
     return -(-r // 8) * 8
 
 
 def pack_planes(bins, grad, hess, row_mask, width: int) -> torch.Tensor:
-    """[pane_rows(F), width] int8 pane (compact.py:455-472).  Lanes past
-    N are zero; every consumer masks by segment extent."""
+    """[pane_rows(F, bin_bytes), width] int8 pane (compact.py:455-472)
+    of uint8 or 16-bit (int16) bins.  Lanes past N are zero; every
+    consumer masks by segment extent."""
     F, N = bins.shape
-    pane = torch.zeros((pane_rows(F), width), dtype=torch.int8,
+    nb = bins_bytes(bins)
+    pane = torch.zeros((pane_rows(F, nb), width), dtype=torch.int8,
                        device=bins.device)
-    pane[:F, :N] = bins.view(torch.int8)
-    pane[F:F + 4, :N] = grad.to(torch.float32).contiguous().view(
+    if nb == 1:
+        pane[:F, :N] = bins.view(torch.int8)
+    else:
+        # little-endian: byte 0 of each bin is its low byte
+        lohi = bins.contiguous().view(torch.int8).reshape(F, N, 2)
+        pane[:F, :N] = lohi[..., 0]
+        pane[F:2 * F, :N] = lohi[..., 1]
+    v = nb * F
+    pane[v:v + 4, :N] = grad.to(torch.float32).contiguous().view(
         torch.int8).reshape(N, 4).t()
-    pane[F + 4:F + 8, :N] = hess.to(torch.float32).contiguous().view(
+    pane[v + 4:v + 8, :N] = hess.to(torch.float32).contiguous().view(
         torch.int8).reshape(N, 4).t()
-    pane[F + 8, :N] = row_mask.to(torch.int8)
+    pane[v + 8, :N] = row_mask.to(torch.int8)
     return pane
 
 
-def unpack_values(pane_slice, F: int):
-    """(bins uint8 [F, W] view, grad f32 [W], hess f32 [W], valid bool [W])
-    from a pane slice (compact.py:475-490); byte k of a value sits in
-    plane k, little-endian, as ``pack_planes`` put it."""
-    bins = pane_slice[:F].view(torch.uint8)
-    grad = pane_slice[F:F + 4].t().contiguous().view(torch.float32)[:, 0]
-    hess = pane_slice[F + 4:F + 8].t().contiguous().view(torch.float32)[:, 0]
-    valid = pane_slice[F + 8] == 1
+def unpack_values(pane_slice, F: int, bin_bytes: int = 1):
+    """(bins [F, W], grad f32 [W], hess f32 [W], valid bool [W]) from a
+    pane slice (compact.py:475-490); byte k of a value sits in plane k,
+    little-endian, as ``pack_planes`` put it.  The bins are a uint8 view,
+    or with ``bin_bytes`` 2 an int16 copy of the 16-bit bins."""
+    if bin_bytes == 1:
+        bins = pane_slice[:F].view(torch.uint8)
+    else:
+        bins = torch.stack([pane_slice[:F], pane_slice[F:2 * F]],
+                           -1).view(torch.int16)[..., 0]
+    v = bin_bytes * F
+    grad = pane_slice[v:v + 4].t().contiguous().view(torch.float32)[:, 0]
+    hess = pane_slice[v + 4:v + 8].t().contiguous().view(
+        torch.float32)[:, 0]
+    valid = pane_slice[v + 8] == 1
     return bins, grad, hess, valid
 
 
@@ -124,11 +146,13 @@ def _launch(entry, src, dst, args, cnt: int, left):
 
 
 def partition_pane(src, dst, F: int, feat: int, thr: int, start: int,
-                   cnt: int):
+                   cnt: int, bin_bytes: int = 1):
     """Stable partition of the lanes [start, start + cnt) of the [R, P]
     pane ``src`` into the same lanes of ``dst``: first the lanes whose bin
-    in row ``feat`` (read as uint8) is <= ``thr``, in order, then the
-    others, in order.  No other lane of either pane is written.
+    of feature ``feat`` is <= ``thr``, in order, then the others, in
+    order.  The bin is row ``feat`` read as uint8, or with ``bin_bytes`` 2
+    (a 16-bit pane) that byte plus 256 times row ``F + feat``.  No other
+    lane of either pane is written.
 
     Returns the left count as a 0-dim int32 tensor on the panes' device;
     reading it on the host is the caller's synchronisation."""
@@ -141,27 +165,36 @@ def partition_pane(src, dst, F: int, feat: int, thr: int, start: int,
     require(src.untyped_storage().data_ptr()
             != dst.untyped_storage().data_ptr(),
             "src and dst must be different buffers")
-    require(0 <= feat < F <= R and 0 <= thr <= 255,
-            "need 0 <= feat < F <= R and 0 <= thr <= 255")
+    top = 255 if bin_bytes == 1 else 65535
+    require(bin_bytes in (1, 2) and 0 <= feat < F and bin_bytes * F <= R
+            and 0 <= thr <= top,
+            "need 0 <= feat < F, %d*F <= R and 0 <= thr <= %d"
+            % (bin_bytes, top))
     require(0 <= start and 0 <= cnt and start + cnt <= P,
             "segment out of range")
+    hi = F + feat if bin_bytes == 2 else -1
     if src.device.type == "cpu":
-        return pane_plain(src, dst, feat, thr, start, cnt)
+        return pane_plain(src, dst, feat, thr, start, cnt, hi)
     if cnt == 0:                            # no lanes: nothing to launch
         return torch.zeros((), dtype=torch.int32, device=src.device)
     left = torch.empty((), dtype=torch.int32, device=src.device)
     lib = cuda_build.load("partition")
     _launch(lib.lgbm_partition_pane, src[:, start:], dst[:, start:],
-            (R, cnt, feat, thr), cnt, left)
+            (R, cnt, feat, hi, thr), cnt, left)
     launch_rows.append(cnt)
     return left
 
 
-def pane_plain(src, dst, feat: int, thr: int, start: int, cnt: int):
-    """Plain version of the pane entry: ``mask3`` from the bin row, then
-    ``partition_plain`` on the segment alone."""
+def pane_plain(src, dst, feat: int, thr: int, start: int, cnt: int,
+               hi: int = -1):
+    """Plain version of the pane entry: ``mask3`` from the bin row (and
+    the high-byte row ``hi`` of a 16-bit pane), then ``partition_plain``
+    on the segment alone."""
     seg = src[:, start:start + cnt]
-    go_left = seg[feat].view(torch.uint8) <= thr
+    key = seg[feat].view(torch.uint8).to(torch.int32)
+    if hi >= 0:
+        key = key | seg[hi].view(torch.uint8).to(torch.int32) << 8
+    go_left = key <= thr
     if cnt:
         mask3 = go_left.to(torch.int8)
         dst[:, start:start + cnt] = partition_plain(seg, mask3, 0, cnt)

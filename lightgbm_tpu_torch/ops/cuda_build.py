@@ -98,19 +98,21 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "hist":
-        # ..., n, num_f, num_b, num_c, shift, then the plan (vec, threads,
-        # g, copies, tile, chunk, groups, chunks, smem), out, stream
-        tail = [i, i, i, i, i, i, ll, i, i, i, p, p]
-        lib.lgbm_hist_f32.argtypes = [p, ll, p, p, p, i, i, i, i] + tail
-        lib.lgbm_hist_i8.argtypes = [p, ll, p, ll, p, i, i, i, i] + tail
-        lib.lgbm_hist_pane.argtypes = [p, ll, p, i, i, i, i] + tail
+        # ..., n, num_f, num_b, num_c, shift, [bin layout,] then the plan
+        # (vec, threads, g, copies, tile, chunk, groups, chunks, smem,
+        # slices, slice_cells), out, stream
+        tail = [i, i, i, i, i, ll, i, i, i, i, i, p, p]
+        lib.lgbm_hist_f32.argtypes = [p, ll, p, p, p, i, i, i, i, i, i] + tail
+        lib.lgbm_hist_i8.argtypes = [p, ll, p, ll, p, i, i, i, i, i, i] + tail
+        lib.lgbm_hist_pane.argtypes = [p, ll, ll, p, i, i, i, i, i] + tail
         for fn in (lib.lgbm_hist_f32, lib.lgbm_hist_i8, lib.lgbm_hist_pane):
             fn.restype = i
     elif name == "partition":
         # src, lds, dst, ldd, then the entry's own arguments, then the
         # plan (tiles, group), counts, left, stream
         tail = [i, i, p, p, p]
-        lib.lgbm_partition_pane.argtypes = [p, ll, p, ll, i, i, i, i] + tail
+        lib.lgbm_partition_pane.argtypes = [p, ll, p, ll, i, i, i, i,
+                                            i] + tail
         lib.lgbm_partition_mask.argtypes = [p, ll, p, ll, p, i, i] + tail
         for fn in (lib.lgbm_partition_pane, lib.lgbm_partition_mask):
             fn.restype = i

@@ -12,7 +12,9 @@ with val = (grad, hess, 1) in the float mode and the int8 levels of
 [0, num_cols) are excluded.  ``hist_pane_float`` computes the float mode
 with one column straight from a slice of the compacted grower's plane
 pane (ops/compact.py), over all its bin rows or one bin-width class of
-them, so the grower's per-split histogram needs no unpacking.  On a CUDA
+them, so the grower's per-split histogram needs no unpacking.  Bins are
+uint8 (B <= 256) or 16-bit (B <= 65,536, int16 views, ops/bins.py; in
+the pane, two byte planes a feature).  On a CUDA
 tensor they launch csrc/hist.cu (its header says what bounds it and how
 it is laid out) with the launch plan of ``plan``;
 on a CPU tensor they run the plain version, an ``index_add_`` on
@@ -35,6 +37,7 @@ import functools
 import torch
 
 from . import cuda_build
+from .bins import bin_bytes, widen
 from .compact import unpack_values
 from .cuda_build import require
 
@@ -49,6 +52,8 @@ MAX_SMEM = 232448        # dynamic shared memory a block may use on sm_90
 SM_SMEM = 233472         # shared memory of one SM
 SM_THREADS = 2048        # resident threads of one SM
 GROUP_BYTES = 12288      # accumulator bytes per feature group
+SLICE_BYTES = 196608     # most accumulator bytes of one feature a block
+                         # holds; a larger one is cut into cell slices
 COPIES_BYTES = 49152     # two accumulator copies where they fit this
 BLOCKS_PER_SM = 8        # target resident blocks per SM
 MIN_CHUNK_TILES = 1      # rows per block: at least this many tiles
@@ -125,12 +130,21 @@ def quantize_values(grad, hess, col_ok, stochastic: bool = False,
     return vals, torch.stack([gs, hs, torch.ones_like(gs)])
 
 
+def group_width(num_bins_max: int) -> int:
+    """Columns a histogram pass takes at most: 64 where the JAX package
+    takes its Pallas kernel on the TPU (8-bit bins), 42 where it never
+    does (B > 256: ``hist_quant_xla`` and ``_leafbatch_einsum`` group at
+    42 on every backend, hist_pallas.py:307-323, histogram.py:403-420)."""
+    return 64 if num_bins_max <= 256 else 42
+
+
 def grouped(fn, bins, grad, hess, col_id, col_ok, num_cols, B,
             group_width=64):
     """Split levels wider than ``group_width`` columns into balanced
     groups (hist_pallas.py:307-323): ceil-split so the last group is
     never a nearly-empty pass.  Each group masks its own rows, so in the
-    int8 mode each group quantizes with its own scale, as on the TPU."""
+    int8 mode each group quantizes with its own scale, as in the JAX
+    package."""
     if num_cols <= group_width:
         return fn(bins, grad, hess, col_id, col_ok, num_cols, B)
     n_groups = -(-num_cols // group_width)
@@ -145,8 +159,11 @@ def grouped(fn, bins, grad, hess, col_id, col_ok, num_cols, B,
 
 def _check(bins, cid, values, num_cols, B):
     F, N = bins.shape
-    require(bins.dtype == torch.uint8 and bins.stride(1) == 1,
-            "bins must be uint8 [F, N] with contiguous rows")
+    require(bins.dtype in (torch.uint8, torch.int16) and bins.stride(1) == 1,
+            "bins must be uint8 or int16 (16-bit bins) [F, N] with "
+            "contiguous rows")
+    require(1 <= B <= (256 if bins.dtype == torch.uint8 else 65536),
+            "need B <= 256 for uint8 bins, B <= 65536 for 16-bit bins")
     require(cid.dtype == torch.int32 and cid.shape == (N,)
             and cid.is_contiguous(), "cid must be contiguous int32 [N]")
     for v in values:
@@ -154,14 +171,18 @@ def _check(bins, cid, values, num_cols, B):
                 "all inputs must be on one device")
         require(v.shape[-1] == N and v.is_contiguous(),
                 "values must be contiguous [..., N]")
-    require(1 <= num_cols and 1 <= B <= 256, "need num_cols >= 1, B <= 256")
+    require(1 <= num_cols, "need num_cols >= 1")
 
 
 @functools.lru_cache(maxsize=None)
 def _shape_plan(F: int, B: int, C: int, side_words: int, sms: int):
     """The part of ``plan`` that does not depend on the row count:
-    (threads, g, copies, groups, {vec: (tile, smem, blocks per SM)})."""
-    per_f = B * 3 * C * 4
+    (threads, g, copies, groups, slices, slice_cells, {vec: (tile, smem,
+    blocks per SM)})."""
+    # a feature's B*C cells in slices of at most SLICE_BYTES of accumulator
+    slices = -(-B * C * 12 // SLICE_BYTES)
+    slice_cells = -(-B * C // slices)
+    per_f = slice_cells * 12
     g = max(1, min(8, F, GROUP_BYTES // per_f))
     groups = -(-F // g)
     g = -(-F // groups)
@@ -178,15 +199,18 @@ def _shape_plan(F: int, B: int, C: int, side_words: int, sms: int):
         by_vec[vec] = (tile, smem, min(SM_THREADS // threads,
                                        SM_SMEM // (smem + 1024),
                                        BLOCKS_PER_SM))
-    return threads, g, copies, groups, by_vec
+    return threads, g, copies, groups, slices, slice_cells, by_vec
 
 
 def plan(n: int, F: int, B: int, C: int, side_words: int, shift: int,
          sms: int):
-    """Launch plan of csrc/hist.cu for ``n`` rows starting ``shift``
-    bytes past a 16-byte boundary: (vec, threads, g, copies, tile, chunk,
-    groups, chunks, smem).  Blocks take g features (about GROUP_BYTES of
-    accumulator) and ``chunk`` rows (a multiple of the staged ``tile``),
+    """Launch plan of csrc/hist.cu for ``n`` rows starting ``shift`` rows
+    past a 16-byte boundary: (vec, threads, g, copies, tile, chunk,
+    groups, chunks, smem, slices, slice_cells).  Blocks take g features
+    (about GROUP_BYTES of accumulator) and ``chunk`` rows (a multiple of
+    the staged ``tile``); a feature whose accumulator passes SLICE_BYTES
+    (16-bit bins at wide B or C) is cut into ``slices`` ranges of
+    ``slice_cells`` (bin, column) cells, one block each.  Chunks are
     sized for BLOCKS_PER_SM resident blocks on each of ``sms`` SMs;
     ``side_words`` is the side band's 4-byte words per row (3 float, 1
     int8).  Each thread takes ``vec`` rows of one feature per load: 16
@@ -196,31 +220,33 @@ def plan(n: int, F: int, B: int, C: int, side_words: int, shift: int,
     accumulator leaves room for one block per SM (wide C), the block has
     512 threads instead of 256.  All but the row split is cached per
     shape, so a launch pays a few integer operations."""
-    threads, g, copies, groups, by_vec = _shape_plan(F, B, C, side_words,
-                                                     sms)
+    threads, g, copies, groups, slices, slice_cells, by_vec = _shape_plan(
+        F, B, C, side_words, sms)
     rows = max(n + shift, 1)
     vec = 16 if (F * rows >= 16 * SM_THREADS * sms
                  and by_vec[16][0] * g >= 12 * threads) else 4
     tile, smem, per_sm = by_vec[vec]
     require(tile >= 16, "histogram accumulator does not fit shared memory "
             "(B=%d, num_cols=%d)" % (B, C))
-    chunks = -(-per_sm * sms // groups)
+    chunks = -(-per_sm * sms // (groups * slices))
     chunk = max(MIN_CHUNK_TILES * tile, -(-rows // chunks))
     chunk = -(-chunk // tile) * tile
     chunks = -(-rows // chunk)
-    return vec, threads, g, copies, tile, chunk, groups, chunks, smem
+    return (vec, threads, g, copies, tile, chunk, groups, chunks, smem,
+            slices, slice_cells)
 
 
-def _launch(entry, bins, args, num_cols, B, side_words, out):
+def _launch(entry, bins, args, num_cols, B, side_words, out, layout=()):
+    """``layout``: the entry's bin-layout argument, if it takes one."""
     global launches
     F, N = bins.shape
     if N == 0 or F == 0:
         return out.zero_()                  # no rows: nothing to launch
-    shift = bins.data_ptr() % 16
+    shift = bins.data_ptr() % 16 // bins.element_size()
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     rc = entry(bins.data_ptr(), bins.stride(0), *args, N, F, B, num_cols,
-               shift, *plan(N, F, B, num_cols, side_words, shift,
-                            cuda_build.num_sms(bins.device)),
+               shift, *layout, *plan(N, F, B, num_cols, side_words, shift,
+                                     cuda_build.num_sms(bins.device)),
                out.data_ptr(), stream)
     cuda_build.check(rc, "hist kernel")
     launches += 1
@@ -244,7 +270,7 @@ def hist_float(bins, grad, hess, cid, num_cols: int, B: int):
     lib = cuda_build.load("hist")
     return _launch(lib.lgbm_hist_f32, bins,
                    (grad.data_ptr(), hess.data_ptr(), cid.data_ptr()),
-                   num_cols, B, 3, out)
+                   num_cols, B, 3, out, (bin_bytes(bins),))
 
 
 def hist_int8(bins, levels, cid, num_cols: int, B: int):
@@ -262,22 +288,24 @@ def hist_int8(bins, levels, cid, num_cols: int, B: int):
     lib = cuda_build.load("hist")
     return _launch(lib.lgbm_hist_i8, bins,
                    (levels.data_ptr(), levels.stride(0), cid.data_ptr()),
-                   num_cols, B, 1, out)
+                   num_cols, B, 1, out, (bin_bytes(bins),))
 
 
 def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
-                    rows=None):
+                    rows=None, bin_bytes: int = 1):
     """[Fr, B, 3] f32 histogram of (grad, hess, 1) over the valid rows of
     the plane-pane lanes [sstart, sstart + scnt): ``build_histogram`` of
-    ``unpack_values(pane[:, sstart:sstart + scnt], F)``, read in place.
-    ``rows`` = (first, count) takes the bin rows [first, first + count)
-    of the F (one bin-width class of a packed pane), Fr = count; all F
-    by default."""
+    ``unpack_values(pane[:, sstart:sstart + scnt], F, bin_bytes)``, read
+    in place.  ``rows`` = (first, count) takes the bin rows [first, first
+    + count) of the F (one bin-width class of a packed pane), Fr = count;
+    all F by default.  ``bin_bytes`` 2: a 16-bit pane (ops/compact.py)."""
     R, P = pane.shape
     first, Fr = rows if rows is not None else (0, F)
     require(pane.dtype == torch.int8 and pane.stride(1) == 1,
             "pane must be int8 [R, P] with contiguous rows")
-    require(R >= F + 9 and 1 <= B <= 256, "pane has too few rows, or B > 256")
+    require(bin_bytes in (1, 2) and R >= bin_bytes * F + 9
+            and 1 <= B <= (256 if bin_bytes == 1 else 65536),
+            "pane has too few rows, or B > 256 (65536 for 16-bit bins)")
     require(0 <= first and 0 <= Fr and first + Fr <= F,
             "bin rows out of range")
     require(0 <= sstart and 0 <= scnt and sstart + scnt <= P,
@@ -287,20 +315,21 @@ def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
                            device=pane.device)
     seg = pane[:, sstart:sstart + scnt]
     if pane.device.type == "cpu":
-        return pane_plain(seg, F, B, (first, Fr))
+        return pane_plain(seg, F, B, (first, Fr), bin_bytes)
     out = torch.empty((Fr, B, 3), dtype=torch.float32, device=pane.device)
     lib = cuda_build.load("hist")
-    planes = seg[F:F + 9]
+    planes = seg[bin_bytes * F:bin_bytes * F + 9]
+    hi_off = F * seg.stride(0) if bin_bytes == 2 else 0
     return _launch(lib.lgbm_hist_pane,
                    seg[first:first + Fr].view(torch.uint8),
-                   (planes.data_ptr(),), 1, B, 3, out)
+                   (hi_off, planes.data_ptr()), 1, B, 3, out)
 
 
-def pane_plain(seg, F: int, B: int, rows=None):
+def pane_plain(seg, F: int, B: int, rows=None, bin_bytes: int = 1):
     """Plain version of the pane entry: unpack the slice, then the float
     mode's plain version with column 0 for valid rows."""
     first, Fr = rows if rows is not None else (0, F)
-    bins, grad, hess, valid = unpack_values(seg, F)
+    bins, grad, hess, valid = unpack_values(seg, F, bin_bytes)
     cid = torch.where(valid, 0, -1).to(torch.int32)
     return hist_plain(bins[first:first + Fr],
                       torch.stack([grad, hess, torch.ones_like(grad)], 1),
@@ -313,7 +342,7 @@ def hist_plain(bins, vals, cid, num_cols: int, B: int):
     >= B land in a dropped bucket."""
     F, N = bins.shape
     C = num_cols
-    b = bins.long()
+    b = widen(bins).long()
     keep = ((cid >= 0) & (cid < C))[None, :] & (b < B)
     f_idx = torch.arange(F, device=bins.device)[:, None]
     idx = (f_idx * B + b) * C + cid.long().clamp(0, C - 1)[None, :]

@@ -32,7 +32,8 @@ import functools
 import torch
 import torch.nn.functional as nnf
 
-from .hist_cuda import grouped, hist_float, hist_int8, quantize_values
+from .hist_cuda import (group_width, grouped, hist_float, hist_int8,
+                        quantize_values)
 
 
 def is_int8(compute_dtype: str) -> bool:
@@ -101,8 +102,9 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
                         num_bins_max: int, compute_dtype: str = "float32",
                         packing=None, salt: int = 0):
     """[C, F, B, 3] f32 histograms of C leaf columns in one pass per
-    64-column group (one launch per bin-width class under ``packing``).
-    ``bins`` [F, N] uint8 in storage order (rows may be strided),
+    group of 64 columns, 42 with 16-bit bins (``group_width``; one launch
+    per bin-width class under ``packing``).  ``bins`` [F, N] uint8, or
+    int16 carrying 16-bit bins, in storage order (rows may be strided),
     ``col_id`` [N] leaf column per row, ``col_ok`` [N] bool; ``salt``
     keys ``int8_sr``'s rounding bits.  The result is in canonical
     feature order."""
@@ -117,7 +119,7 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
         return _float_one(*args, packing)
 
     return grouped(one, bins, grad, hess, col_id, col_ok, num_cols,
-                   num_bins_max)
+                   num_bins_max, group_width(num_bins_max))
 
 
 def build_histogram(bins, grad, hess, mask, num_bins_max: int,

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .bins import widen
+
 
 def split_leaf_sequence(left_child: np.ndarray,
                         right_child: np.ndarray) -> np.ndarray:
@@ -36,12 +38,13 @@ def split_leaf_sequence(left_child: np.ndarray,
 
 def leaf_ids_by_replay(bins, split_feature, threshold_bin, left_child,
                        right_child) -> torch.Tensor:
-    """[N] int64 leaf of every row of a binned [F, N] matrix."""
+    """[N] int64 leaf of every row of a binned [F, N] matrix (uint8, or
+    int16 carrying 16-bit bins)."""
     leaf = torch.zeros(bins.shape[1], dtype=torch.int64, device=bins.device)
     split_leaf = split_leaf_sequence(np.asarray(left_child),
                                      np.asarray(right_child))
     for k in range(len(split_leaf)):
-        go_right = bins[int(split_feature[k])] > int(threshold_bin[k])
+        go_right = widen(bins[int(split_feature[k])]) > int(threshold_bin[k])
         leaf = torch.where((leaf == int(split_leaf[k])) & go_right, k + 1,
                            leaf)
     return leaf

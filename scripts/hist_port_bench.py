@@ -54,7 +54,9 @@ def bench_plan(n, F, B, C, side_words, shift, sms, hc, group_bytes=None,
     copies_bytes = hc.COPIES_BYTES if copies_bytes is None else copies_bytes
     blocks_per_sm = blocks_per_sm or hc.BLOCKS_PER_SM
     min_chunk_tiles = min_chunk_tiles or hc.MIN_CHUNK_TILES
-    per_f = B * 3 * C * 4
+    slices = -(-B * C * 12 // hc.SLICE_BYTES)
+    slice_cells = -(-B * C // slices)
+    per_f = slice_cells * 12
     g = max(1, min(8, F, group_bytes // per_f))
     groups = -(-F // g)
     g = -(-F // groups)
@@ -74,11 +76,12 @@ def bench_plan(n, F, B, C, side_words, shift, sms, hc, group_bytes=None,
     smem = acc + side_words * 4 * (tile + tile // vec)
     per_sm = min(hc.SM_THREADS // threads, hc.SM_SMEM // (smem + 1024),
                  blocks_per_sm)
-    chunks = -(-per_sm * sms // groups)
+    chunks = -(-per_sm * sms // (groups * slices))
     chunk = max(min_chunk_tiles * tile, -(-rows // chunks))
     chunk = -(-chunk // tile) * tile
     chunks = -(-rows // chunk)
-    return vec, threads, g, copies, tile, chunk, groups, chunks, smem
+    return (vec, threads, g, copies, tile, chunk, groups, chunks, smem,
+            slices, slice_cells)
 
 
 def main() -> int:
@@ -119,14 +122,17 @@ def main() -> int:
     wide = {C: arrays(F, N, C) for C in (42, 64)}
     f200 = arrays(200, 250_000, 1)
 
+    # (entry, bins, pointer arguments, bin layout argument, C, side band
+    # words, out dtype); the uint8 layout throughout
     def float_call(b, g, h, c, C):
         return (lib.lgbm_hist_f32, b, (g.data_ptr(), h.data_ptr(),
-                                       c.data_ptr()), C, 3, torch.float32)
+                                       c.data_ptr()), (1,), C, 3,
+                torch.float32)
 
     def pane_call(p, sstart, n):
         seg = p[:, sstart:sstart + n]
         return (lib.lgbm_hist_pane, seg[:F].view(torch.uint8),
-                (seg[F].data_ptr(),), 1, 3, torch.float32)
+                (0, seg[F].data_ptr()), (), 1, 3, torch.float32)
 
     def bound(n, f, c, row_bytes):
         return (n * (f + row_bytes) + f * B * 3 * c * 4) / HBM_BYTES_PER_S \
@@ -137,7 +143,8 @@ def main() -> int:
          float_call(bins, grad, hess, cid1, 1)),
         ("root int8 F=28 N=1M C=1", bound(N, F, 1, 7),
          (lib.lgbm_hist_i8, bins, (levels.data_ptr(), levels.stride(0),
-                                   cid1.data_ptr()), 1, 1, torch.int32)),
+                                   cid1.data_ptr()), (1,), 1, 1,
+          torch.int32)),
         ("root pane F=28 N=1M", bound(N, F, 1, 9), pane_call(pane, 1001, N)),
         ("root pane 84% valid", bound(N, F, 1, 9),
          pane_call(pane84, 1001, N)),
@@ -151,7 +158,7 @@ def main() -> int:
          float_call(*f200, 1)),
     ]
 
-    def launcher(entry, b, ptrs, C, side, dtype, over):
+    def launcher(entry, b, ptrs, layout, C, side, dtype, over):
         nf, n = b.shape
         shift = b.data_ptr() % 16
         pl = bench_plan(n, nf, B, C, side, shift, sms, hc, **over)
@@ -162,8 +169,8 @@ def main() -> int:
 
         def call():
             cuda_build.check(entry(b.data_ptr(), b.stride(0), *ptrs, n, nf,
-                                   B, C, shift, *pl, out.data_ptr(), stream),
-                             "hist kernel")
+                                   B, C, shift, *layout, *pl, out.data_ptr(),
+                                   stream), "hist kernel")
         return call
 
     lines = []

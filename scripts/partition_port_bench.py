@@ -71,8 +71,8 @@ def main() -> int:
             def run(g=g):
                 rc = lib.lgbm_partition_pane(
                     s.data_ptr(), s.stride(0), d.data_ptr(), d.stride(0), R,
-                    cnt, feat, thr, tiles, g, counts_ptr, left.data_ptr(),
-                    stream)
+                    cnt, feat, -1, thr, tiles, g, counts_ptr,
+                    left.data_ptr(), stream)
                 cuda_build.check(rc, "partition kernel")
             times.append(cuda_ms(run))
         entry = cuda_ms(lambda: compact.partition_pane(src, dst, F, feat, thr,
@@ -96,7 +96,7 @@ def main() -> int:
                 def run(g=g, ptr=ptr):
                     rc = lib.lgbm_partition_pane(
                         s.data_ptr(), s.stride(0), d.data_ptr(), d.stride(0),
-                        R, cnt, 0, 127, tiles, g, ptr, left.data_ptr(),
+                        R, cnt, 0, -1, 127, tiles, g, ptr, left.data_ptr(),
                         stream)
                     cuda_build.check(rc, "partition kernel")
                 row.append(cuda_ms(run))

@@ -2,7 +2,7 @@
 """Where the time goes on lightgbm_tpu_torch's main path, on one CUDA card.
 
     python3 scripts/port_profile.py [--rows 1000000] [--iters 2] [--out FILE]
-        [--narrow 24] [--set KEY=VALUE ...]
+        [--narrow 24] [--max-bin 1023] [--set KEY=VALUE ...]
 
 Trains the chip_smoke.py main-path configuration (Higgs-shaped binary
 table, 28 features, max_bin 255, 255 leaves, float32 histograms), or
@@ -16,7 +16,8 @@ bagging_fraction=0.8 bagging_freq=5``, whose redraws fall on iterations
 goss=true``).  ``--narrow 24`` trains bench.py's headline table
 instead (chip_smoke.make_mixed: 24 of the 28 columns narrow, so
 ``mixed_bin=auto`` packs it; ``--set mixed_bin=false`` keeps it
-uniform).  One
+uniform).  ``--max-bin 1023`` bins the table with 16-bit bins (1022 a
+continuous column; default 255).  One
 warm-up iteration, ``--iters`` iterations timed on the host clock without
 the profiler, then ``--iters`` more under ``torch.profiler``.  Prints the
 wall time per iteration of both, the device time per kernel name (top
@@ -48,6 +49,8 @@ def main() -> int:
     ap.add_argument("--narrow", type=int, default=0,
                     help="narrow columns of bench.py's headline table "
                          "(0: the all-continuous main-path table)")
+    ap.add_argument("--max-bin", type=int, default=255,
+                    help="max_bin of the table (above 256: 16-bit bins)")
     ap.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
                     help="training keys added to the main-path ones")
     args = ap.parse_args()
@@ -65,10 +68,11 @@ def main() -> int:
             else make_data(args.rows, 28, SEED))
     qb = (rank_queries(args.rows, np.random.RandomState(SEED))
           if extra.get("objective") == "lambdarank" else None)
-    ds = lgt.Dataset.from_arrays(x, y, max_bin=255, query_boundaries=qb)
+    ds = lgt.Dataset.from_arrays(x, y, max_bin=args.max_bin,
+                                 query_boundaries=qb)
     booster = lgt.train(dict({"objective": "binary", "num_leaves": 255,
-                              "num_iterations": 1, "max_bin": 255}, **extra),
-                        ds)
+                              "num_iterations": 1, "max_bin": args.max_bin},
+                             **extra), ds)
     torch.cuda.synchronize()
     plain_s = []
     for _ in range(args.iters):
@@ -96,9 +100,10 @@ def main() -> int:
         per_name[evt.name] += us
         calls[evt.name] += 1
     busy_s = sum(per_name.values()) / 1e6
-    lines = ["rows %d, 28 features (%d narrow), %s leaves, %s: %d "
-             "iterations profiled" % (
-                 args.rows, args.narrow, extra.get("num_leaves", 255),
+    lines = ["rows %d, 28 features (%d narrow), max_bin %d (num_bin max "
+             "%d), %s leaves, %s: %d iterations profiled" % (
+                 args.rows, args.narrow, args.max_bin,
+                 int(ds.num_bins.max()), extra.get("num_leaves", 255),
                  " ".join(args.set) or "float32", args.iters),
              "wall per iteration without the profiler: %.4f s (%s)" % (
                  sum(plain_s) / args.iters,

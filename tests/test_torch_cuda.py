@@ -561,3 +561,124 @@ def test_int8_sr_trees_equal_on_card_and_cpu(cuda, policy):
     on_card = lgt.train(params, ds, device=cuda)
     on_cpu = lgt.train(params, ds, device="cpu")
     assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+# ------------------------------------------------- 16-bit bins (max_bin > 256)
+
+
+def _bins16(rng, F, N, B, offset=0):
+    """[F, N] 16-bit bins (an int16 view) over 0..B-1, sliced ``offset``
+    lanes into wider rows, so rows start off the 16-byte boundary."""
+    from lightgbm_tpu_torch.ops.bins import to_tensor
+    rows = rng.randint(0, B, (F, N + 2 * offset)).astype(np.uint16)
+    rows[:, offset:offset + 5] = B - 1
+    return to_tensor(rows, "cpu")[:, offset:offset + N]
+
+
+@pytest.mark.parametrize("B,C,offset", [
+    (1023, 1, 0), (1023, 8, 3), (1023, 42, 0), (1023, 64, 7),
+    (50_000, 1, 0), (50_000, 1, 5), (300, 3, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_hist16_kernel_matches_plain(cuda, dtype, B, C, offset):
+    """16-bit bins through the float and int8 modes, accumulators cut
+    into cell slices where they pass SLICE_BYTES (B = 1023 at C = 42 and
+    64, B = 50,000), rows at unaligned lanes."""
+    rng = np.random.RandomState(B + C + offset)
+    F, N = 28, 60_001
+    bins = _bins16(rng, F, N, B, offset)
+    grad = torch.as_tensor((rng.randn(N) * 0.4).astype(np.float32))
+    hess = torch.as_tensor((rng.rand(N) * 0.25).astype(np.float32))
+    cid = torch.as_tensor(np.where(rng.rand(N) < 0.85,
+                                   rng.randint(0, C, N), -1).astype(np.int32))
+    if dtype == "int8":
+        levels, _ = hist_cuda.quantize_values(grad, hess, cid >= 0)
+        got = hist_cuda.hist_int8(bins.to(cuda), levels.to(cuda),
+                                  cid.to(cuda), C, B).cpu()
+        want = hist_cuda.hist_int8(bins, levels, cid, C, B)
+        assert torch.equal(got, want)
+    else:
+        got = hist_cuda.hist_float(bins.to(cuda), grad.to(cuda),
+                                   hess.to(cuda), cid.to(cuda), C, B).cpu()
+        want = hist_cuda.hist_float(bins, grad, hess, cid, C, B)
+        _assert_hist(got.numpy(), want.numpy(), "float32")
+
+
+@pytest.mark.parametrize("sstart,scnt,rows", [
+    (0, 60_000, None), (13, 4097, None), (1001, 1, None),
+    (777, 30_000, (2, 5))])
+def test_hist16_pane_matches_plain(cuda, sstart, scnt, rows):
+    """The pane entry on a 16-bit pane (low-byte rows, then high-byte
+    rows), all bin rows or a class of them."""
+    rng = np.random.RandomState(scnt + 16)
+    F, N, P, B = 8, 60_000, 61_440, 1023
+    bins = _bins16(rng, F, N, B)
+    grad = torch.as_tensor(rng.randn(N).astype(np.float32))
+    hess = torch.as_tensor(rng.rand(N).astype(np.float32))
+    pane = compact.pack_planes(bins, grad, hess,
+                               torch.as_tensor(rng.rand(N) < 0.8), P)
+    got = hist_cuda.hist_pane_float(pane.to(cuda), F, sstart, scnt, B, rows,
+                                    2).cpu()
+    want = hist_cuda.hist_pane_float(pane, F, sstart, scnt, B, rows, 2)
+    _assert_hist(got.numpy(), want.numpy(), "float32")
+
+
+@pytest.mark.parametrize("start,cnt,feat,thr", [
+    (0, 60_000, 0, 511), (1001, 30_000, 3, 255), (13, 4083, 5, 256),
+    (3, 6 * 4096 - 2, 7, 700), (7, 1, 2, 100), (2048, 20_000, 1, 1022),
+    (777, 0, 0, 0)])
+def test_partition16_pane_matches_plain(cuda, start, cnt, feat, thr):
+    """The partition on a 16-bit key (its low byte in row feat, its high
+    byte in row F + feat): byte-exact, every other lane untouched."""
+    rng = np.random.RandomState(start + cnt)
+    F, N, P = 8, 60_000, 61_440
+    bins = _bins16(rng, F, N, 1023)
+    pane = compact.pack_planes(bins, torch.as_tensor(
+        rng.randn(N).astype(np.float32)), torch.ones(N), torch.ones(
+            N, dtype=torch.bool), P)
+    dst0 = torch.as_tensor(rng.randint(-128, 128, tuple(pane.shape))
+                           .astype(np.int8))
+    got, want = dst0.to(cuda), dst0.clone()
+    left = compact.partition_pane(pane.to(cuda), got, F, feat, thr, start,
+                                  cnt, 2)
+    want_left = compact.partition_pane(pane, want, F, feat, thr, start, cnt,
+                                       2)
+    assert int(left) == int(want_left)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("policy", [
+    {}, {"leafwise_compact": "false"},
+    {"grow_policy": "depthwise", "num_leaves": 255}],
+    ids=["compacted", "masked", "depthwise"])
+def test_maxbin_int8_trees_equal_on_card_and_cpu(cuda, policy):
+    """max_bin=1023, packed (widths 64 and 1022): the card's int8 model
+    equals the CPU's byte for byte, through 16-bit histogram and
+    partition launches."""
+    x, y = _mixed_table(np.random.RandomState(13), 30_000)
+    ds = lgt.Dataset.from_arrays(x, y, max_bin=1023)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "num_iterations": 2, "hist_dtype": "int8",
+                   "min_data_in_leaf": 20, "max_bin": 1023}, **policy)
+    before = hist_cuda.launches
+    on_card = lgt.train(params, ds, device=cuda)
+    assert hist_cuda.launches > before
+    assert on_card._pack_spec.widths == (64, 1022)
+    assert on_card.bins_device.dtype == torch.int16
+    on_cpu = lgt.train(params, ds, device="cpu")
+    assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+def test_maxbin_compacted_equals_masked_on_card(cuda):
+    """The compacted grower's 16-bit partition keys on the whole bin: at
+    max_bin=1023 it grows the masked grower's int8 trees on the card."""
+    x, y = _mixed_table(np.random.RandomState(14), 30_000)
+    ds = lgt.Dataset.from_arrays(x, y, max_bin=1023)
+    params = {"objective": "binary", "num_leaves": 31, "num_iterations": 2,
+              "hist_dtype": "int8", "max_bin": 1023}
+    before = compact.launches
+    compacted = lgt.train(params, ds, device=cuda)
+    assert compact.launches - before == sum(t.num_leaves - 1
+                                            for t in compacted.models)
+    masked = lgt.train(dict(params, leafwise_compact="false"), ds,
+                       device=cuda)
+    assert compacted.model_to_string() == masked.model_to_string()

@@ -118,10 +118,12 @@ def test_launch_plan_fits_and_covers(n, F, C, side):
     csrc/hist.cu refuses a plan that does not, and its layout of the
     accumulator and side band is the one sized here."""
     for shift in (0, 9):
-        vec, threads, g, copies, tile, chunk, groups, chunks, smem = \
-            hist_cuda.plan(n, F, B, C, side, shift, 132)
+        (vec, threads, g, copies, tile, chunk, groups, chunks, smem, slices,
+         slice_cells) = hist_cuda.plan(n, F, B, C, side, shift, 132)
         assert vec in (4, 16) and threads in (256, 512)
         assert smem <= hist_cuda.MAX_SMEM
+        # every 8-bit accumulator fits one slice
+        assert slices == 1 and slice_cells == B * C
         acc = -(-copies * g * B * 3 * C * 4 // 16) * 16
         assert smem == acc + side * 4 * (tile + tile // vec)
         assert tile % 16 == 0 and chunk % tile == 0

@@ -186,16 +186,20 @@ def test_pane_entry_wide_pane_and_strided_dst():
 @pytest.mark.parametrize("kw,match", [
     (dict(same=True), "different buffers"),
     (dict(thr=256), "thr"), (dict(feat=5), "feat"),
+    (dict(thr=65536, bin_bytes=2), "thr"),
     (dict(start=8000, cnt=200), "out of range"),
     (dict(dst_dtype=torch.uint8), "int8"),
 ])
 def test_pane_entry_refuses(kw, match):
+    """thr=256 on an 8-bit pane; a 16-bit pane (``bin_bytes`` 2) takes
+    thr up to 65535."""
     src = torch.zeros((16, 8192), dtype=torch.int8)
     dst = src if kw.get("same") else torch.zeros(
         (16, 8192), dtype=kw.get("dst_dtype", torch.int8))
     with pytest.raises(ValueError, match=match):
         tc.partition_pane(src, dst, 5, kw.get("feat", 0), kw.get("thr", 3),
-                          kw.get("start", 0), kw.get("cnt", 10))
+                          kw.get("start", 0), kw.get("cnt", 10),
+                          kw.get("bin_bytes", 1))
 
 
 @pytest.mark.parametrize("cnt,shift,tiles,group,count_pass", [
