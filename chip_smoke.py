@@ -63,7 +63,15 @@ path at ``max_bin=1023`` (one histogram launch a leaf, one partition a
 split, held-out AUC, save and reload); int8 compacted and depth-wise
 trees on the card equal to the CPU's and compacted equal to masked; and
 the headline configuration packed (widths 64 and 1022) with the model
-text of ``mixed_bin=false``.  Every phase must
+text of ``mixed_bin=false``.  Phase 11 serves three models through
+``lightgbm_tpu_torch.serving`` on the card (phase 4's, a depth-wise int8
+model of 200 trees trained there, and phase 7's multiclass one): scores
+and leaf indices at every bucket of the default ladder, float32 and
+int8, bitwise the CPU engine's; latency per bucket and the walk's device
+time beside its bound; a coalescing front with 8 clients and a hot swap,
+no request lost or misrouted; and ``task=predict`` result files on the
+card byte-equal to ``device=cpu``'s; it launches neither kernel (see
+``serving_phase``).  Every phase must
 pass; the last line of standard output is ``{"ok": true, "device":
 {...}}``.  Exits nonzero,
 printing no result, when there is no CUDA device or the package is not
@@ -86,6 +94,7 @@ SEED = 42
 # hist_shapes: (F, N, B, C, offset); offset > 0 slices the bins out of
 # wider rows at that lane, as the grower slices the pane
 FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
+        "serve_iters": 200, "serve_cpu_rows": 10_000, "front_s": 5.0,
         "hist_shapes": ((28, 1_000_000, 256, 1, 0), (28, 1_000_000, 256, 42, 0),
                         (28, 1_000_000, 256, 64, 0), (200, 250_000, 256, 1, 0),
                         (28, 2047, 256, 1, 0), (28, 300_001, 256, 1, 13)),
@@ -140,16 +149,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+def cuda_ms(fn, reps: int = 20, sleep: int = 200_000) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, after a warm-up.
-    The stream first sleeps while the host enqueues the calls, so a call
-    shorter than its own enqueue is timed by its device work alone."""
+    The stream first sleeps ``sleep`` cycles a call (200,000: about 0.1
+    ms) while the host enqueues the calls, so a call shorter than its own
+    enqueue is timed by its device work alone."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000 * reps)       # about 0.1 ms per call
+    torch.cuda._sleep(sleep * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -341,7 +351,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-9 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-11 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -551,6 +561,8 @@ def run(dev, sizes, timer=None):
             sum(n <= compact.TILE - 15 for n in part_rows), first_parts[0],
             q[0], q[1], sum(first_parts)))
     check_model("phase 4", booster, x, y, n_train, dev)
+    # phase 11 serves this model, and phase 7's multiclass one
+    served = {"a": booster.model_to_string()}
 
     # ---- phase 5: int8 end to end, kernels on the card vs plain on the CPU
     n5 = sizes["n_int8"]
@@ -837,7 +849,7 @@ def run(dev, sizes, timer=None):
 
     # ---- phase 7: the other objectives through the same kernels
     for path, counts in objectives_phase(dev, sizes, x, latent, train_set,
-                                         sync, timer).items():
+                                         sync, timer, served).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
     # ---- phase 8: sampling, early stopping and continued training
@@ -853,6 +865,14 @@ def run(dev, sizes, timer=None):
     kernels["hist"].update(records)
     # ---- phase 10: 16-bit bins (max_bin = 1023)
     kernels.update(wide_phase(dev, sizes, x, y, sync, timer))
+    # ---- phase 11: serving, which launches neither kernel; (b)'s training
+    # is an 8-bit path
+    for path, counts in serving_phase(dev, sizes, x, train_set, served, sync,
+                                      timer).items():
+        for name, k in kernels.items():
+            if path == "serving" or not name.endswith("16"):
+                k["launches_by_path"][path] = counts[
+                    "hist" if name.startswith("hist") else "partition"]
     return list(kernels.values())
 
 
@@ -1182,13 +1202,15 @@ def held_out(metric, booster, x_test, iterations):
     return out
 
 
-def objectives_phase(dev, sizes, x, latent, train_set, sync, timer):
+def objectives_phase(dev, sizes, x, latent, train_set, sync, timer,
+                     served):
     """Phase 7: regression, multiclass (K = 5) and lambdarank at the main
     path's settings (compacted leaf-wise, float32, 255 leaves) on the
     main path's features, each driven with every count set to 0 just
     before it; then the int8 trees of regression and multiclass on the
     card against the CPU, and the lambdarank gradients on both devices.
-    Returns the launch counts of each objective's run."""
+    Returns the launch counts of each objective's run; the multiclass
+    model's text goes into ``served["c"]``."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.config import OverallConfig
@@ -1289,6 +1311,7 @@ def objectives_phase(dev, sizes, x, latent, train_set, sync, timer):
                  % (what, metric_name))
         if name == "multiclass":
             check_multiclass(what, booster, x, n_train, dev)
+            served["c"] = booster.model_to_string()
         score = booster.score if per_iter > 1 else booster.score[0]
         grad_ms = timer(lambda: booster.objective.get_gradients(score),
                         reps=5)
@@ -2031,6 +2054,398 @@ def wide_phase(dev, sizes, x, y, sync, timer):
         tree_ms=part_tree[0], tree_bound_ms=part_tree[1],
         launches_by_path={k: v["partition"] for k, v in by_path.items()})
     return {"hist16": hist16, "partition16": part_rec}
+
+
+def scan_vs_bfs(flat, codes, tables):
+    """The JAX package's ``predict_algo=scan`` walk
+    (lightgbm_tpu/ops/scoring.py:89-117), rebuilt from the port's
+    ``leaf_ids_by_replay``: each tree's splits replayed in turn, its leaf
+    values added into its class row in tree order.  The port refuses
+    ``scan``; this records why.  On all of ``codes``' rows the replay
+    must give the breadth-first walk's float32 scores bitwise; then both
+    are timed at 1, 1,024 and all the rows on the host clock with a
+    device synchronize (the better of 2 calls: one replay call launches
+    ~5 small operations a split)."""
+    import torch
+    from lightgbm_tpu_torch.ops import scoring
+
+    def replay(c):
+        out = torch.zeros((flat.num_class, c.shape[1]), dtype=torch.float32,
+                          device=c.device)
+        for t in range(flat.num_trees):
+            n = int(flat.num_leaves[t]) - 1
+            leaf = scoring.leaf_ids_by_replay(
+                c, flat.split_feature[t, :n], flat.threshold_rank[t, :n],
+                flat.left_child[t, :n], flat.right_child[t, :n])
+            out[int(flat.tree_class[t])].add_(tables["lv"][t][leaf])
+        return out
+
+    def bfs(c):
+        return scoring.bfs_scores(
+            c, tables["sf"], tables["tr"], tables["lc"], tables["rc"],
+            tables["lv"], tables["root"], flat.tree_class,
+            max_depth=flat.max_depth, num_class=flat.num_class)
+
+    def wall_ms(fn, c):
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(c)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    if not torch.equal(replay(codes), bfs(codes)):
+        fail("phase 11 (b): the per-tree replay's scores differ from the "
+             "breadth-first walk's")
+    rec = {}
+    for n in (1, 1024, codes.shape[1]):
+        c = codes[:, :n].contiguous()
+        rec[str(n)] = {"scan_ms": wall_ms(replay, c),
+                       "bfs_ms": wall_ms(bfs, c)}
+    say("phase 11 (b) float32, the walk alone on the host clock, per-tree "
+        "replay (predict_algo=scan, refused) against breadth-first, equal "
+        "bitwise: %s" % " ".join(
+            "%s rows %.3f / %.3f ms" % (n, v["scan_ms"], v["bfs_ms"])
+            for n, v in rec.items()))
+    return rec
+
+
+def serving_phase(dev, sizes, x, train_set, served, sync, timer):
+    """Phase 11: the serving engine on the card, over three models at
+    full width (28 features, 255 leaves): (a) phase 4's compacted model,
+    the deepest trees; (b) a depth-wise int8 model of ``serve_iters``
+    iterations (bench.py's headline configuration on the main-path
+    table), trained here; (c) phase 7's multiclass K = 5 model.
+
+    For each model and leaf table (float32, int8), the held-out rows go
+    through ``ServingEngine`` on the card at every bucket of the default
+    ladder (1, 32, 1024 and 65,536 rows, the last in two chunks);
+    scores and leaf indices must be bitwise the CPU engine's on the same
+    rows (for (b) on ``serve_cpu_rows`` of them), and float32 scores
+    within rtol 1e-5 / atol 1e-5 of the float64 raw-feature walk
+    (``GBDT.predict_raw``).  ``scores()`` is timed per bucket on the
+    host clock, encode and read-back included (p50 and p99 of 50 calls,
+    10 at 65,536), and the walk alone on the device at 65,536 rows
+    beside its bound, the least it must move (the codes and node tables
+    read once, the [K, N] scores written once) over the card's memory
+    rate, and beside this implementation's own traffic (max_depth x 6
+    [T, N] int32 intermediates and the codes).  On (b) float32 the JAX
+    package's per-tree replay (``predict_algo=scan``, which the port
+    refuses) is timed beside the breadth-first walk at 1, 1,024 and
+    65,536 rows, and must give its scores bitwise.  Then a ServingFront
+    over (b) float32 with 8 client threads for ``front_s`` seconds, each
+    submitting 1-32 rows and waiting for them, swaps to (b) int8 half
+    way: every request must resolve, on float32 before the swap began
+    and on int8 after it ended, never back, and equal to its rows scored
+    on that engine: every request within one batch of all requests'
+    rows, and 1,000 of them alone.  Last, ``python -m lightgbm_tpu_torch
+    task=predict`` on the held-out rows with (b), with
+    ``predict_leaf_index=true`` and with ``predict_quantize=int8``: the
+    card's result files byte-equal to ``device=cpu``'s.  Neither kernel
+    may launch in this process while it serves: the counts cover the
+    engines and the front; the ``task=predict`` runs are subprocesses,
+    whose launches these counts cannot see.  Prints a ``{"serving": ...}``
+    line; returns the launch counts of (b)'s training and of serving."""
+    import threading
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import serving
+    from lightgbm_tpu_torch.ops import compact, hist_cuda, scoring
+    n_train, n_test = sizes["n_train"], sizes["n_test"]
+    x_test = x[n_train:]
+    t_phase = time.perf_counter()
+    by_path = {}
+    # (b): bench.py's headline configuration (bench.py:1277-1289) on the
+    # main-path table, at a realistic ensemble size
+    pd = {"objective": "binary", "grow_policy": "depthwise",
+          "hist_dtype": "int8", "num_leaves": 255, "min_data_in_leaf": 100,
+          "min_sum_hessian_in_leaf": 10, "learning_rate": 0.1,
+          "max_bin": 255, "num_iterations": sizes["serve_iters"]}
+    booster, iter_s, counts = drive(pd, train_set, dev, sync)
+    if len(booster.models) != sizes["serve_iters"] or counts["hist"] == 0 \
+            or counts["partition"] != 0:
+        fail("phase 11 (b): %d trees, launches hist %d partition %d"
+             % (len(booster.models), counts["hist"], counts["partition"]))
+    by_path["depthwise_int8_serving_model"] = counts
+    served["b"] = booster.model_to_string()
+    say("phase 11 (b) depthwise int8 %d x 28, 255 leaves, %d trees trained "
+        "in %.1f s (median %.4f s an iteration), histogram launches %d"
+        % (n_train, len(booster.models), sum(iter_s), np.median(iter_s),
+           counts["hist"]))
+    del booster
+
+    def rows_per_bucket(eng):
+        return [(b, x_test[:min(b, n_test)]) for b in eng.buckets[:-1]] \
+            + [(eng.buckets[-1], x_test)]
+
+    rec = {"models": {}}
+    tmp = tempfile.mkdtemp()
+    paths, boosters = {}, {}
+    reset_counts()
+    for name in ("a", "b", "c"):
+        paths[name] = os.path.join(tmp, "model_%s.txt" % name)
+        with open(paths[name], "w") as f:
+            f.write(served[name])
+        booster = lgt.GBDT.from_model_file(paths[name], device=dev)
+        boosters[name] = booster
+        flat = booster.export_flat()
+        T, K, F_used = flat.num_trees, flat.num_class, len(flat.used)
+        cpu_rows = n_test if name != "b" else sizes["serve_cpu_rows"]
+        mrec = {"trees": T, "num_class": K, "max_depth": flat.max_depth,
+                "max_leaves": int(flat.num_leaves.max()),
+                "features_used": F_used, "tables": {}}
+        raw = booster.predict_raw(x_test).reshape(K, -1)
+        for quantize in ("float32", "int8"):
+            card = serving.ServingEngine(flat, quantize=quantize, device=dev)
+            cpu = serving.ServingEngine(flat, quantize=quantize,
+                                        device="cpu")
+            what = "phase 11 (%s) %s" % (name, quantize)
+            for b, rows in rows_per_bucket(card):
+                got = card.scores(rows)
+                if not (got.shape == (K, len(rows))
+                        and np.isfinite(got).all()):
+                    fail("%s bucket %d: scores not finite [K, N]" % (what, b))
+                n_cmp = min(len(rows), cpu_rows)
+                if not np.array_equal(got[:, :n_cmp],
+                                      cpu.scores(rows[:n_cmp])):
+                    fail("%s bucket %d: card scores differ from the CPU "
+                         "engine's" % (what, b))
+                if quantize == "float32":
+                    leaves = card.leaf_indices(rows)
+                    if not np.array_equal(leaves[:n_cmp],
+                                          cpu.leaf_indices(rows[:n_cmp])):
+                        fail("%s bucket %d: card leaf indices differ from "
+                             "the CPU engine's" % (what, b))
+                    if not ((leaves >= 0).all() and (leaves < flat.num_leaves[
+                            None, :]).all()):
+                        fail("%s: a leaf index out of range" % what)
+            if quantize == "float32":
+                err = np.abs(got - raw)
+                if not (err <= 1e-5 * np.abs(raw) + 1e-5).all():
+                    fail("%s: scores off the float64 walk by %g" % (
+                        what, float(err.max())))
+                mrec["f64_max_abs_err"] = float(err.max())
+            # latency per bucket, encode and read-back included
+            lat = {}
+            for b, reps in zip(card.buckets, (50, 50, 50, 10)):
+                rows = x_test[:b]
+                card.scores(rows)
+                times = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    card.scores(rows)
+                    times.append(time.perf_counter() - t0)
+                p50, p99 = np.percentile(times, [50, 99]) * 1e3
+                lat[str(b)] = {"rows": len(rows), "calls": reps,
+                               "p50_ms": p50, "p99_ms": p99,
+                               "rows_per_s": len(rows) / p50 * 1e3}
+            # the walk alone on the device at the top bucket
+            N = card.buckets[-1]
+            codes = torch.as_tensor(flat.encode(x_test[:N]), device=dev)
+            t = card._device_tables()
+            if quantize == "int8":
+                walk = lambda: scoring.bfs_scores_int8(  # noqa: E731
+                    codes, t["sf"], t["tr"], t["lc"], t["rc"], t["lv_q"],
+                    t["lv_scale"], t["root"], flat.tree_class,
+                    max_depth=flat.max_depth, num_class=K)
+            else:
+                walk = lambda: scoring.bfs_scores(  # noqa: E731
+                    codes, t["sf"], t["tr"], t["lc"], t["rc"], t["lv"],
+                    t["root"], flat.tree_class, max_depth=flat.max_depth,
+                    num_class=K)
+            # one call at a time behind a 10 ms stream sleep, which
+            # outlasts the host's enqueue of the walk's few hundred
+            # launches; the median of 5
+            walk_ms = float(np.median([timer(walk, reps=1,
+                                             sleep=20_000_000)
+                                       for _ in range(5)]))
+            table_bytes = sum(v.numel() * v.element_size()
+                              for v in t.values())
+            bound_ms = (codes.numel() * 4 + K * codes.shape[1] * 4
+                        + table_bytes) / HBM_BYTES_PER_S * 1e3
+            traffic_ms = (flat.max_depth * 6 * T * codes.shape[1] * 4
+                          + codes.numel() * 4) / HBM_BYTES_PER_S * 1e3
+            mrec["tables"][quantize] = {
+                "latency": lat, "walk_rows": int(codes.shape[1]),
+                "walk_cuda_ms": walk_ms, "walk_bound_ms": bound_ms,
+                "walk_bound_by": "bytes", "walk_traffic_ms": traffic_ms}
+            say("%s: card == CPU bitwise at buckets %s (CPU on %d rows)%s; "
+                "scores() p50/p99 ms %s; walk at %d rows %.4f ms (bound "
+                "%.4f, this implementation's traffic %.4f)" % (
+                    what, list(card.buckets), cpu_rows,
+                    ", leaf indices too" if quantize == "float32" else "",
+                    " ".join("%s: %.3f/%.3f" % (b, v["p50_ms"], v["p99_ms"])
+                             for b, v in lat.items()),
+                    codes.shape[1], walk_ms, bound_ms, traffic_ms))
+            if name == "b" and quantize == "float32":
+                rec["scan_vs_bfs"] = scan_vs_bfs(flat, codes, t)
+            del codes, t
+        rec["models"][name] = mrec
+        say("phase 11 (%s): %d trees, K = %d, max_depth %d, %d features "
+            "used; float32 scores within %.3g of the float64 walk"
+            % (name, T, K, flat.max_depth, F_used, mrec["f64_max_abs_err"]))
+
+    # the front over (b), 8 clients, one swap half way
+    flat_b = boosters["b"].export_flat()
+    f32 = serving.ServingEngine(flat_b, device=dev).warmup()
+    i8 = serving.ServingEngine(flat_b, quantize="int8", device=dev)
+    front = serving.ServingFront(f32)
+    logs = [[] for _ in range(8)]
+    errors = []
+    stop = threading.Event()
+
+    def client(i):
+        r = np.random.RandomState(SEED + 100 + i)
+        try:
+            while not stop.is_set():
+                n = r.randint(1, 33)
+                s0 = r.randint(0, n_test - n)
+                t0 = time.perf_counter()
+                got = front.submit(x_test[s0:s0 + n]).result(60)
+                logs[i].append((s0, n, t0, time.perf_counter(), got))
+        except Exception as e:  # reported and failed on below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(8)]
+    t_start = time.perf_counter()
+    for th in threads:
+        th.start()
+    time.sleep(sizes["front_s"] / 2)
+    t_swap0 = time.perf_counter()
+    drain_s = front.swap_engine(i8, timeout=60)
+    t_swap1 = time.perf_counter()
+    time.sleep(sizes["front_s"] / 2)
+    stop.set()
+    for th in threads:
+        th.join(120)
+    elapsed = time.perf_counter() - t_start
+    front.close()
+    if errors or any(th.is_alive() for th in threads):
+        fail("phase 11 front: a client failed or hung: %r" % errors[:3])
+    reqs = [q for lg in logs for q in lg]
+    if front.stats["requests"] != len(reqs) or front.stats["swaps"] != 1:
+        fail("phase 11 front: %d submitted, %d resolved, %d swaps"
+             % (front.stats["requests"], len(reqs), front.stats["swaps"]))
+    allrows = np.concatenate([x_test[s0:s0 + n] for s0, n, _, _, _ in reqs])
+    whole = {"float32": f32.scores(allrows), "int8": i8.scores(allrows)}
+    ofs, routed = 0, []
+    for s0, n, t0, t1, got in reqs:
+        on = [k for k, v in whole.items()
+              if np.array_equal(got, v[:, ofs:ofs + n])]
+        if not on:
+            fail("phase 11 front: a request's scores match neither engine")
+        routed.append(on)
+        ofs += n
+    k = 0
+    for lg in logs:
+        seen_int8 = False
+        for s0, n, t0, t1, got in lg:
+            on = routed[k]
+            k += 1
+            if on == ["int8"]:
+                seen_int8 = True
+            if (t1 < t_swap0 and "float32" not in on) \
+                    or (t0 > t_swap1 and "int8" not in on) \
+                    or (seen_int8 and "int8" not in on):
+                fail("phase 11 front: a request scored on the wrong engine")
+    pick = np.random.RandomState(SEED).choice(len(reqs),
+                                              min(1000, len(reqs)), False)
+    for j in pick:
+        s0, n, _, _, got = reqs[j]
+        eng = f32 if routed[j][0] == "float32" else i8
+        if not np.array_equal(got, eng.scores(x_test[s0:s0 + n])):
+            fail("phase 11 front: request %d differs from its rows scored "
+                 "alone" % j)
+    lat_ms = np.array([t1 - t0 for _, _, t0, t1, _ in reqs]) * 1e3
+    on_f32 = sum(r == ["float32"] for r in routed)
+    rec["front"] = {
+        "clients": 8, "seconds": elapsed, "requests": len(reqs),
+        "rows": int(sum(n for _, n, _, _, _ in reqs)),
+        "requests_per_s": len(reqs) / elapsed,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "batches": front.stats["batches"], "swap_drain_ms": drain_s * 1e3,
+        "on_float32": on_f32, "on_int8": len(reqs) - on_f32,
+        "checked_alone": len(pick)}
+    fr = rec["front"]
+    say("phase 11 front over (b), 8 clients, %.1f s: %d requests (%d rows) "
+        "in %d batches, %.1f requests/s, latency p50 %.3f ms p99 %.3f ms; "
+        "swap float32 -> int8 drained in %.3f ms, %d requests on float32 "
+        "and %d on int8, none lost or routed back; every request equal to "
+        "its rows in one batch, %d scored alone" % (
+            elapsed, fr["requests"], fr["rows"], fr["batches"],
+            fr["requests_per_s"], fr["p50_ms"], fr["p99_ms"],
+            fr["swap_drain_ms"], fr["on_float32"], fr["on_int8"],
+            fr["checked_alone"]))
+
+    # task=predict through the CLI, on the card and on the CPU at once
+    data = os.path.join(tmp, "held_out.tsv")
+    np.savetxt(data, np.column_stack([np.zeros(n_test), x_test]),
+               delimiter="\t", fmt="%.17g")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs, logs_out = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for mode in ("predict_leaf_index=true", "predict_quantize=int8"):
+            for where, device in (("card", dev.type), ("cpu", "cpu")):
+                out = os.path.join(tmp, "%s_%s.txt" % (mode.split("=")[0],
+                                                       where))
+                runs[(mode, where)] = (out, subprocess.Popen(
+                    [sys.executable, "-m", "lightgbm_tpu_torch",
+                     "task=predict", "data=" + data,
+                     "input_model=" + paths["b"], "output_result=" + out,
+                     mode, "device=" + device],
+                    env=env, cwd=tmp, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT))
+        for key, (out, proc) in runs.items():
+            logs_out[key] = proc.communicate(timeout=600)[0].decode()
+    finally:
+        for _out, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cli_s = time.perf_counter() - t0
+    texts = {}
+    for key, (out, proc) in runs.items():
+        if proc.returncode != 0:
+            fail("phase 11 task=predict %s on the %s exited %d: %s" % (
+                key + (proc.returncode, logs_out[key][-2000:])))
+        with open(out, "rb") as f:
+            texts[key] = f.read()
+    for mode in ("predict_leaf_index=true", "predict_quantize=int8"):
+        card_text, cpu_text = texts[(mode, "card")], texts[(mode, "cpu")]
+        if card_text != cpu_text or card_text.count(b"\n") != n_test:
+            fail("phase 11 task=predict %s: the card's result file differs "
+                 "from device=cpu's" % mode)
+        say("phase 11 task=predict %s, (b) on %d rows: the card's result "
+            "file (%d bytes) byte-equal to device=cpu's" % (
+                mode, n_test, len(card_text)))
+    rec["cli_s"] = cli_s
+    # the engines and the front in this process; the CLI runs are not
+    # counted here
+    by_path["serving"] = {"hist": hist_cuda.launches,
+                          "partition": compact.launches}
+    if hist_cuda.launches or compact.launches:
+        fail("phase 11: a kernel launched while serving: %s"
+             % by_path["serving"])
+    for path in paths.values():
+        os.unlink(path)
+    os.unlink(data)
+    for key in runs:
+        os.unlink(runs[key][0])
+    os.rmdir(tmp)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say("phase 11 serving: %.1f s (task=predict runs %.1f s), no kernel "
+        "launch by the engines and the front in this process (the "
+        "task=predict subprocesses are not counted)" % (rec["phase_s"],
+                                                        cli_s))
+    say(json.dumps({"serving": rec}))
+    return by_path
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ the default, raises without one) unless the caller passes
 ``device="cpu"``, which runs the kernels' plain versions.
 
 - CLI: ``python -m lightgbm_tpu_torch task=train data=... [device=cpu]``
-- Python: :class:`Dataset`, :func:`train`, :class:`GBDT`.
+  (``task=predict`` scores through the serving engine)
+- Python: :class:`Dataset`, :func:`train`, :class:`GBDT`; serving:
+  :class:`FlatEnsemble`, :class:`ServingEngine`, :class:`ServingFront`
+  (``serving``, or ``GBDT.serving_engine``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from .config import OverallConfig
 from .io.dataset import Dataset
 from .models.gbdt import GBDT
 from .models.tree import Tree
+from . import serving
+from .serving import FlatEnsemble, ServingEngine, ServingFront
 
 __version__ = "0.1.0"
 
@@ -53,4 +58,5 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
     return booster
 
 
-__all__ = ["Dataset", "GBDT", "OverallConfig", "Tree", "train"]
+__all__ = ["Dataset", "FlatEnsemble", "GBDT", "OverallConfig",
+           "ServingEngine", "ServingFront", "Tree", "serving", "train"]

@@ -16,6 +16,7 @@ from .metrics import create_metrics
 from .models.gbdt import GBDT
 from .models.predictor import Predictor, continuation_score
 from .objectives import create_objective
+from .serving import engine_options_from_config
 from .utils import log
 
 
@@ -80,8 +81,11 @@ class Application:
             log.fatal("Please provide a model file for prediction")
         booster = GBDT.from_model_file(io.input_model,
                                        device=self.config.device or None)
-        Predictor(booster, io.is_sigmoid, io.num_model_predict).predict_file(
-            io.data_filename, io.output_result, io.has_header)
+        Predictor(booster, io.is_sigmoid, self.config.predict_leaf_index,
+                  io.num_model_predict,
+                  serving_options=engine_options_from_config(io)
+                  ).predict_file(io.data_filename, io.output_result,
+                                 io.has_header)
         log.info("Finished prediction")
 
 

@@ -10,10 +10,12 @@ objectives regression, binary, multiclass (``num_class``) and lambdarank
 (``input_model`` under ``task=train``), ``input_init_score``, the
 mixed-bin layout (``mixed_bin``) and every histogram mode
 (``hist_dtype`` float32, bfloat16 and int8, ``quant_rounding`` nearest
-and stochastic).  The difference is the slice rule: a key the port does
+and stochastic), and the serving engine's ``predict_*`` keys with
+``predict_leaf_index``.  The difference is the slice rule: a key the port does
 not run raises ``Fatal`` naming it, instead of being parsed and silently
 ignored.  Keys whose JAX-package default is the only value the port runs
-(serial learner) are accepted at that value and refused at any other.
+(serial learner, one serving device) are accepted at that value and
+refused at any other.
 Growth runs under all three policies of the JAX package: compacted
 leaf-wise (the default), masked leaf-wise (``leafwise_compact=false``)
 and depth-wise (``grow_policy=depthwise``).
@@ -86,9 +88,18 @@ SLICE_KEYS = frozenset((
     "other_rate", "early_stopping_round", "input_init_score",
     # the histogram's layout
     "mixed_bin",
+    # the serving engine (serving.py)
+    "predict_leaf_index", "predict_buckets", "predict_quantize",
+    "predict_donate", "predict_algo", "predict_linger_us", "predict_queue",
 ))
 
 OBJECTIVES = ("regression", "binary", "multiclass", "lambdarank")
+
+# the JAX package's per-tree replay walk, refused by the config and the
+# engine alike (PERF.md section 5 times it against the breadth-first walk)
+SCAN_REFUSED = ("predict_algo=scan is not served by lightgbm_tpu_torch: the "
+                "per-tree replay is the JAX package's A/B lane, and on the "
+                "H100 it is slower than predict_algo=bfs at every bucket")
 # metric.cpp:9-28
 METRICS = ("l1", "l2", "binary_logloss", "binary_error", "auc", "ndcg",
            "multi_logloss", "multi_error")
@@ -100,7 +111,8 @@ DEFAULT_ONLY = {
     "num_machines": ("1",),
     "streaming": ("false",),
     "checkpoint_interval": ("0",),
-    "predict_leaf_index": ("false", "-"),
+    # one device serves every tree: tree-axis sharding is ROADMAP A9
+    "serve_shards": ("0", "1"),
 }
 
 
@@ -176,6 +188,33 @@ class IOConfig:
     has_header: bool = False
     is_sigmoid: bool = True
     num_model_predict: int = -1
+    # the serving engine (serving.py; lightgbm_tpu/config.py:209-255):
+    # the ladder of batch shapes a batch is padded to, the leaf table
+    # ("float32", or "int8" with a per-tree scale), buffer donation
+    # (checked; no torch counterpart), the walk (only "bfs", breadth-first:
+    # "scan" is SCAN_REFUSED), one device (serve_shards 0 or 1), and the
+    # ServingFront's coalescing wait and queue bound in top-bucket batches
+    # (also predict_file's chunks parsed ahead)
+    predict_buckets: str = "1,32,1024,65536"
+    predict_quantize: str = "float32"
+    predict_donate: str = "auto"
+    predict_algo: str = "bfs"
+    serve_shards: int = 0
+    predict_linger_us: int = 200
+    predict_queue: int = 4
+
+    def predict_bucket_list(self) -> tuple:
+        """The ``predict_buckets=`` ladder: sorted unique positive ints
+        (lightgbm_tpu/config.py:287-298)."""
+        try:
+            buckets = tuple(sorted({int(b) for b in
+                                    self.predict_buckets.split(",") if b}))
+        except ValueError:
+            log.fatal("predict_buckets should be comma-separated ints, "
+                      "passed is [%s]" % self.predict_buckets)
+        log.check(bool(buckets) and buckets[0] >= 1,
+                  "predict_buckets must contain positive ints")
+        return buckets
 
     def set(self, params: Dict[str, str], require_data: bool = True) -> None:
         self.max_bin = _get_int(params, "max_bin", self.max_bin)
@@ -199,6 +238,37 @@ class IOConfig:
         self.is_sigmoid = _get_bool(params, "is_sigmoid", self.is_sigmoid)
         self.num_model_predict = _get_int(params, "num_model_predict",
                                           self.num_model_predict)
+        # lightgbm_tpu/config.py:406-438
+        self.predict_buckets = params.get("predict_buckets",
+                                          self.predict_buckets)
+        self.predict_bucket_list()  # validate eagerly: fail at parse time
+        if "predict_quantize" in params:
+            value = params["predict_quantize"].lower()
+            log.check(value in ("float32", "int8"),
+                      "predict_quantize must be float32 or int8")
+            self.predict_quantize = value
+        if "predict_donate" in params:
+            value = params["predict_donate"].lower()
+            log.check(value in ("auto", "true", "false"),
+                      "predict_donate must be auto, true or false")
+            self.predict_donate = value
+        if "predict_algo" in params:
+            value = params["predict_algo"].lower()
+            log.check(value in ("bfs", "scan"),
+                      "predict_algo must be bfs or scan")
+            if value == "scan":
+                log.fatal(SCAN_REFUSED)
+            self.predict_algo = value
+        self.serve_shards = _get_int(params, "serve_shards",
+                                     self.serve_shards)
+        self.predict_linger_us = _get_int(params, "predict_linger_us",
+                                          self.predict_linger_us)
+        log.check(self.predict_linger_us >= 0,
+                  "predict_linger_us should be >= 0")
+        self.predict_queue = _get_int(params, "predict_queue",
+                                      self.predict_queue)
+        log.check(self.predict_queue >= 1,
+                  "predict_queue should be >= 1 (in-flight batches)")
 
 
 def _get_num_class(params, default):
@@ -448,6 +518,7 @@ class BoostingConfig:
 @dataclasses.dataclass
 class OverallConfig:
     task_type: str = "train"
+    predict_leaf_index: bool = False
     objective_type: str = "regression"
     metric_types: List[str] = dataclasses.field(default_factory=list)
     # "cuda" (default: the card, or a Fatal without one) or "cpu" (the
@@ -472,6 +543,8 @@ class OverallConfig:
                 self.task_type = "predict"
             else:
                 log.fatal("Task type error")
+        self.predict_leaf_index = _get_bool(params, "predict_leaf_index",
+                                            self.predict_leaf_index)
         if "objective" in params:
             self.objective_type = params["objective"].lower()
         if self.task_type == "train" \

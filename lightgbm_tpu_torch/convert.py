@@ -11,6 +11,10 @@ Two carriers:
 - the model text file, in both directions: both packages write and read
   the same format (``GBDT.save_model_to_file`` / ``from_model_file``);
   ``booster_from_trees`` wraps trees into a port booster that can save it.
+
+``flat_from_numpy`` builds the port's ``serving.FlatEnsemble`` from the
+arrays of the JAX package's (its attribute names, ``FLAT_FIELDS``), so
+the port can serve the very tables the JAX package flattened.
 """
 from __future__ import annotations
 
@@ -21,10 +25,15 @@ import numpy as np
 from .device import resolve_device
 from .models.gbdt import GBDT
 from .models.tree import Tree
+from .serving import FlatEnsemble
 
 FIELDS = ("split_feature", "split_feature_real", "threshold_bin",
           "threshold", "split_gain", "left_child", "right_child",
           "leaf_parent", "leaf_value")
+FLAT_FIELDS = ("used", "thresholds", "split_feature", "threshold_rank",
+               "left_child", "right_child", "leaf_value", "num_leaves",
+               "root_state", "tree_class", "max_nodes", "max_depth",
+               "num_class")
 
 
 def trees_from_numpy(trees: List[Dict[str, np.ndarray]]) -> List[Tree]:
@@ -65,3 +74,18 @@ def booster_from_trees(trees: List[Tree], max_feature_idx: int,
     b.sigmoid = float(sigmoid)
     b.device = resolve_device(device)
     return b
+
+
+def flat_from_numpy(d: Dict) -> FlatEnsemble:
+    """A port FlatEnsemble from a JAX FlatEnsemble's arrays, keyed by
+    ``FLAT_FIELDS``: numpy node and leaf tables, the sorted used columns
+    and their float64 threshold tables."""
+    arr = lambda k, dt: np.array(d[k], dtype=dt)  # noqa: E731
+    return FlatEnsemble(
+        [int(f) for f in d["used"]],
+        {int(f): np.array(v, np.float64) for f, v in d["thresholds"].items()},
+        arr("split_feature", np.int32), arr("threshold_rank", np.int32),
+        arr("left_child", np.int32), arr("right_child", np.int32),
+        arr("leaf_value", np.float32), arr("num_leaves", np.int32),
+        arr("root_state", np.int32), arr("tree_class", np.int32),
+        int(d["max_nodes"]), int(d["max_depth"]), int(d["num_class"]))

@@ -4,16 +4,21 @@ A copy of the exact tier of lightgbm_tpu/io/parser.py (format sniffing
 :217-270, the per-token loop :137-146, LibSVM :159-197): values with
 ``|v| <= 1e-10`` are zero, ``na``/``nan``/unparseable tokens parse as 0
 (utils/common.h:177-178).  The JAX package's native and pandas tiers are
-speedups of the same semantics and are not ported.
+speedups of the same semantics and are not ported.  ``read_line_chunks``
+and ``prefetch_chunks`` stream a file in bounded chunks, for
+``task=predict``.
 """
 from __future__ import annotations
 
 import math
+import queue
+import threading
 from dataclasses import dataclass
 from typing import List, Tuple
 
 import numpy as np
 
+from .. import lifecycle
 from ..utils import log
 
 ZERO_THRESHOLD = 1e-10  # parser.hpp:32
@@ -111,11 +116,96 @@ class LibSVMParser:
 
 
 def read_lines(filename: str, skip_header: bool = False) -> List[str]:
-    """All non-empty data lines (lightgbm_tpu/io/parser.py:426-473)."""
+    """All non-empty data lines (lightgbm_tpu/io/parser.py:426-473), read
+    through ``read_line_chunks`` so a resident and a streamed read see
+    the same rows."""
+    out: List[str] = []
+    for chunk in read_line_chunks(filename, skip_header=skip_header):
+        out.extend(chunk)
+    return out
+
+
+def read_line_chunks(filename: str, skip_header: bool = False,
+                     chunk_lines: int = 200_000):
+    """Non-empty data lines in chunks of at most ``chunk_lines``
+    (lightgbm_tpu/io/parser.py:456-479)."""
     with open(filename, "r") as f:
         if skip_header:
             f.readline()
-        return [ln for ln in (line.rstrip("\n") for line in f) if ln]
+        buf: List[str] = []
+        for line in f:
+            line = line.rstrip("\n")
+            if line:
+                buf.append(line)
+                if len(buf) >= chunk_lines:
+                    yield buf
+                    buf = []
+        if buf:
+            yield buf
+
+
+def prefetch_chunks(iterable, depth: int = 2):
+    """Yield the items of ``iterable`` while a background thread produces
+    up to ``depth`` of them ahead (lightgbm_tpu/io/parser.py:354-423):
+    the next chunk is read and parsed while the caller scores this one.
+    The thread registers with ``lifecycle`` while it lives; an exception
+    it raises surfaces here, after the items before it."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    err: List[BaseException] = []
+    stop = threading.Event()
+
+    def put_blocking(item) -> bool:
+        """Stop-aware blocking put; False when the consumer went away."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterable:
+                if not put_blocking(item):
+                    return
+        except BaseException as e:  # surfaced on the consumer side
+            err.append(e)
+        finally:
+            # the sentinel goes through the same stop-aware loop: dropped
+            # on a momentarily full queue, it would strand the consumer
+            # in q.get() and swallow a stored exception
+            put_blocking(sentinel)
+            # a thread that outlives _close's bounded join still clears
+            # its entry when it exits
+            lifecycle.untrack(thread)
+
+    thread = threading.Thread(target=worker, name="lgbm-torch-prefetch",
+                              daemon=True)
+
+    def _close() -> None:
+        """Stop and join: the generator's own finally and a leak guard
+        both call it."""
+        stop.set()
+        thread.join(1.0)
+        if not thread.is_alive():
+            lifecycle.untrack(thread)
+
+    lifecycle.track("prefetch", thread, _close)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        # the consumer stopped early or drained fully: unblock the worker
+        # so it exits and releases the file
+        _close()
 
 
 def create_parser(filename: str, has_header: bool, num_features: int,

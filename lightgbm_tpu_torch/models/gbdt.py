@@ -6,7 +6,9 @@ without health, telemetry or pipelining), ``run_training``'s
 per-iteration loop, ``output_metric`` with early stopping,
 ``save_model_to_file`` (withholding the early-stopping window),
 ``models_from_string``, ``from_model_file``, ``predict_raw``,
-``predict``, ``predict_multiclass`` and ``feature_importance``; and the
+``predict``, ``predict_multiclass``, ``feature_importance``, and
+``export_flat`` / ``serving_engine`` / ``predict_leaf_index`` over the
+serving engine (serving.py); and the
 sampling state: bagging (a numpy draw per record or per query, or the
 threefry device draw, ops/sampling.py), ``feature_fraction`` (one numpy
 stream per class) and GOSS, each feeding the growers' row and feature
@@ -44,6 +46,7 @@ from ..ops import sampling
 from ..ops.bins import to_tensor as bins_to_tensor
 from ..ops.histogram import is_int8
 from ..ops.scoring import add_tree_score, train_score_update
+from ..serving import FlatEnsemble, ServingEngine
 from ..utils import log, threefry
 from .grower_unified import grow_tree_unified
 from .predictor import predict_raw_scores, softmax_rows
@@ -70,6 +73,7 @@ class GBDT:
         self._pack_spec = None      # mixed-bin layout of bins_device
         self._saved_model_size = -1
         self._model_file = None
+        self._serve_cache = None    # (key, ServingEngine)
 
     # ------------------------------------------------------------------ init
 
@@ -436,6 +440,42 @@ class GBDT:
         """[N, K] softmax probabilities (gbdt.cpp:496-508)."""
         out = self.predict_raw(features, num_used_model)
         return softmax_rows(out.reshape(self.num_class, -1).T)
+
+    def export_flat(self, num_models: int = -1) -> FlatEnsemble:
+        """The first ``num_models`` trees (all when < 0) flattened for
+        the serving engine (lightgbm_tpu/models/gbdt.py:2494-2505)."""
+        models = self.models if num_models < 0 else self.models[:num_models]
+        return FlatEnsemble.from_models(models, self.num_class)
+
+    def serving_engine(self, num_models: int = -1,
+                       **options) -> ServingEngine:
+        """The cached serving engine over the first ``num_models`` trees,
+        on this booster's device (lightgbm_tpu/models/gbdt.py:2507-2522).
+        The cache key holds the model count, so more trees (continued
+        training) flatten anew."""
+        if num_models < 0:
+            num_models = len(self.models)
+        key = (len(self.models), num_models, tuple(sorted(options.items())))
+        if self._serve_cache is not None and self._serve_cache[0] == key:
+            return self._serve_cache[1]
+        device = self.device if self.device is not None \
+            else resolve_device(None)
+        engine = ServingEngine(self.export_flat(num_models), device=device,
+                               **options)
+        self._serve_cache = (key, engine)
+        return engine
+
+    def predict_leaf_index(self, features: np.ndarray,
+                           num_used_model: int = -1) -> np.ndarray:
+        """[N, num_models] int32 leaf indices (gbdt.cpp:510-519);
+        ``num_used_model`` counts trees, as the JAX package's does.  The
+        ids are exact integers, so the engine answers at every size what
+        the JAX package's host replay answers below its device
+        threshold."""
+        if num_used_model < 0:
+            num_used_model = len(self.models)
+        return self.serving_engine(
+            len(self.models[:num_used_model])).leaf_indices(features)
 
     # -------------------------------------------------------------- model IO
 

@@ -1,17 +1,19 @@
 """Prediction: a plain-torch tree walk over raw feature values, and the
-batch predictor of ``task=predict``.
+batch predictor of ``task=predict`` over the serving engine.
 
-Counterpart of lightgbm_tpu/models/predictor.py.  Each tree replays its
-splits in creation order over the rows (node k moves the rows of leaf
-``split_leaf[k]`` whose value exceeds the real threshold to leaf k+1) in
-float64, and the leaf values are summed tree by tree in the model's
-order — the same comparisons and, in float64, the same sum as the JAX
-package's host walk (models/tree.py ``Tree.predict``), on the chosen
-device.  The JAX package's serving engine (bucket ladder, int8 tables,
-sharding) is not ported; the batch predictor sums in f32 as that engine
-does.
+Counterpart of lightgbm_tpu/models/predictor.py.  ``predict_raw_scores``
+replays each tree's splits in creation order over the rows (node k moves
+the rows of leaf ``split_leaf[k]`` whose value exceeds the real threshold
+to leaf k+1) in float64, and sums the leaf values tree by tree in the
+model's order — the same comparisons and, in float64, the same sum as the
+JAX package's host walk (models/tree.py ``Tree.predict``), on the chosen
+device; ``GBDT.predict*`` and continued training use it.  ``Predictor``
+scores through the booster's serving engine (serving.py), in float32 as
+the JAX package's Predictor does, so both write the same result file.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -20,16 +22,20 @@ from ..io import parser as parser_mod
 from ..ops.scoring import split_leaf_sequence
 from ..utils import log
 
+# the first bytes of a JAX-package dataset cache (its io/dataset.py)
+_BINARY_MAGIC = b"LGBM_TPU_BIN_V1"
+
 
 def predict_raw_scores(models, features: np.ndarray, device: torch.device,
-                       num_class: int = 1,
-                       dtype: torch.dtype = torch.float64) -> np.ndarray:
+                       num_class: int = 1) -> np.ndarray:
     """[K, N] float64 sums of the trees' outputs on raw ``features``: tree
-    i adds to class i % K, in model order, accumulated in ``dtype``."""
+    i adds to class i % K, in model order."""
     x = torch.as_tensor(np.asarray(features, np.float64), device=device)
-    out = torch.zeros((num_class, x.shape[0]), dtype=dtype, device=device)
+    out = torch.zeros((num_class, x.shape[0]), dtype=torch.float64,
+                      device=device)
     for i, tree in enumerate(models):
-        values = torch.as_tensor(tree.leaf_value, dtype=dtype, device=device)
+        values = torch.as_tensor(tree.leaf_value, dtype=torch.float64,
+                                 device=device)
         if tree.num_leaves == 1:
             out[i % num_class] += values[0]
             continue
@@ -41,7 +47,7 @@ def predict_raw_scores(models, features: np.ndarray, device: torch.device,
             leaf = torch.where((leaf == int(split_leaf[k])) & go_right,
                                k + 1, leaf)
         out[i % num_class] += values[leaf]
-    return out.to(torch.float64).cpu().numpy()
+    return out.cpu().numpy()
 
 
 def continuation_score(models, features: np.ndarray,
@@ -67,33 +73,39 @@ def softmax_rows(raw: np.ndarray) -> np.ndarray:
 class Predictor:
     """Predictor::Predict (predictor.hpp:109-197): parse, predict, write
     one line per row: the softmax probabilities tab-joined when K > 1,
-    else the sigmoid probability or the raw score.
+    the leaf index of every tree, the sigmoid probability, or the raw
+    score (lightgbm_tpu/models/predictor.py:22-113, 159-173).
 
-    The scores are summed per class in f32, tree by tree, as the JAX
-    package's batch predictor sums them (its serving engine,
-    lightgbm_tpu/ops/scoring.py ``_accumulate_tree_scores``), so both
-    write the same result file; ``GBDT.predict`` sums in float64 as the
-    JAX package's ``GBDT.predict`` does."""
+    The serving engine is built once, here; ``num_used_model`` counts
+    iterations, K trees each."""
 
-    def __init__(self, boosting, is_sigmoid: bool, num_used_model: int):
+    def __init__(self, boosting, is_sigmoid: bool,
+                 is_predict_leaf_index: bool, num_used_model: int,
+                 serving_options: dict = None):
         self.boosting = boosting
         self.is_sigmoid = is_sigmoid
+        self.is_predict_leaf_index = is_predict_leaf_index
         self.num_features = boosting.max_feature_idx + 1
         self.num_class = boosting.num_class
-        # num_used_model counts iterations, K trees each
-        self.models = boosting.models if num_used_model < 0 else \
-            boosting.models[:num_used_model * self.num_class]
+        num_models = (len(boosting.models) if num_used_model < 0
+                      else num_used_model * max(self.num_class, 1))
+        self.engine = boosting.serving_engine(num_models,
+                                              **(serving_options or {}))
 
     def predict_matrix(self, features: np.ndarray) -> np.ndarray:
-        """[N] predictions, or [N, K] probabilities when K > 1."""
+        """Dense [N, cols] raw features → the rows of the result file:
+        [N] scores, or [N, K] probabilities, or [N, T] leaf indices."""
         if features.shape[1] < self.num_features:
+            # pad in the input dtype: a float64 pad would upcast a
+            # float32 matrix on concatenate
             pad = np.zeros((features.shape[0],
                             self.num_features - features.shape[1]),
                            dtype=features.dtype)
             features = np.concatenate([features, pad], axis=1)
-        scores = predict_raw_scores(self.models, features,
-                                    self.boosting.device, self.num_class,
-                                    dtype=torch.float32)
+        features = features[:, :max(self.num_features, 1)]
+        if self.is_predict_leaf_index:
+            return self.engine.leaf_indices(features)
+        scores = self.engine.scores(features)
         if self.num_class > 1:
             return softmax_rows(scores.T)
         raw = scores[0]
@@ -102,15 +114,45 @@ class Predictor:
         return raw
 
     def predict_file(self, data_filename: str, result_filename: str,
-                     has_header: bool) -> None:
+                     has_header: bool, chunk_lines: int = 500_000) -> None:
+        """Score a text file in chunks of ``chunk_lines`` rows: a
+        background thread reads and parses up to ``engine.queue`` chunks
+        ahead of the one being scored, so neither the features nor the
+        scores of the whole file are held at once.  Rows are independent
+        through the engine, so the file is byte-equal at any chunk
+        length."""
+        if os.path.isfile(data_filename):
+            with open(data_filename, "rb") as f:
+                if f.read(len(_BINARY_MAGIC)) == _BINARY_MAGIC:
+                    log.fatal("Data file %s is a binary dataset cache; "
+                              "scoring one is not ported to "
+                              "lightgbm_tpu_torch yet (ROADMAP A6)"
+                              % data_filename)
         parser = parser_mod.create_parser(data_filename, has_header,
                                           self.num_features,
                                           self.boosting.label_idx)
-        features = parser.parse(parser_mod.read_lines(
-            data_filename, skip_header=has_header)).features
-        result = self.predict_matrix(features)
+        chunks = (parser.parse(lines).features
+                  for lines in parser_mod.read_line_chunks(
+                      data_filename, skip_header=has_header,
+                      chunk_lines=chunk_lines))
         with open(result_filename, "w") as f:
-            # std::to_string(double) prints 6 decimals
-            for row in result.reshape(result.shape[0], -1):
-                f.write("\t".join("%.6f" % float(v) for v in row) + "\n")
+            for features in parser_mod.prefetch_chunks(
+                    chunks, depth=max(int(self.engine.queue), 1)):
+                self._write_chunk(f, self.predict_matrix(features))
         log.info("Finished prediction, result saved to %s" % result_filename)
+
+    @staticmethod
+    def _write_chunk(f, result: np.ndarray) -> None:
+        if result.ndim == 1:
+            for v in result:
+                f.write(_fmt(v) + "\n")
+        else:
+            for row in result:
+                f.write("\t".join(_fmt(v) for v in row) + "\n")
+
+
+def _fmt(v) -> str:
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    # std::to_string(double) prints 6 decimals
+    return "%.6f" % float(v)

@@ -1,12 +1,29 @@
-"""Score updates from a grown tree, in torch.
+"""Tree application in torch: score updates from a grown tree, and the
+serving engine's walks.
 
 ``add_tree_score`` is the counterpart of lightgbm_tpu/ops/scoring.py:341
 (Tree::AddPredictionToScore on a binned matrix): replay the tree's splits
 in creation order to assign every row its leaf, then add that leaf's
 value.  The training score needs no replay — the grower returns each
-row's leaf id — and is a plain gather (``train_score_update``).  The JAX
-package's byte-split lookups (ops/lookup.py) work around slow TPU gathers
-and have no counterpart here.
+row's leaf id — and is a plain gather (``train_score_update``).
+
+The serving walks (lightgbm_tpu/ops/scoring.py:89-232) run over the
+integer rank codes of ``serving.FlatEnsemble.encode`` ([F, N] int32) and
+the ensemble's stacked node tables ([T, max_nodes] int32):
+
+- ``bfs_leaf_state`` walks all trees breadth-first in lockstep: the
+  [T, N] frontier holds node ids in the tree encoding (>= 0 internal,
+  ``~leaf`` once a row has reached a leaf), and each of ``max_depth``
+  steps gathers every (tree, row) pair's next node;
+- ``accumulate_tree_scores`` sums the per-tree values into their class
+  rows one tree after another, in tree order — the f32 add sequence of
+  the JAX package's scorers, so the scores are bitwise theirs.  A
+  ``cumsum``, ``sum(dim=0)`` or ``index_add_`` over trees would regroup
+  the sum.
+
+The JAX package's byte-split one-hot lookups (ops/lookup.py) work around
+slow TPU gathers; their CPU route is the plain gather used here, for
+f32 and int8 leaf tables alike.
 """
 from __future__ import annotations
 
@@ -39,7 +56,7 @@ def split_leaf_sequence(left_child: np.ndarray,
 def leaf_ids_by_replay(bins, split_feature, threshold_bin, left_child,
                        right_child) -> torch.Tensor:
     """[N] int64 leaf of every row of a binned [F, N] matrix (uint8, or
-    int16 carrying 16-bit bins)."""
+    int16 carrying 16-bit bins, or int32 rank codes)."""
     leaf = torch.zeros(bins.shape[1], dtype=torch.int64, device=bins.device)
     split_leaf = split_leaf_sequence(np.asarray(left_child),
                                      np.asarray(right_child))
@@ -63,3 +80,72 @@ def train_score_update(score, leaf_value, leaf_ids) -> torch.Tensor:
     """score + leaf_value[leaf_ids] — the training rows' leaves come from
     the grower, so the update is one gather."""
     return score + leaf_value[leaf_ids.long()]
+
+
+# ------------------------------------------------------------ serving walks
+
+
+def bfs_leaf_state(codes, split_feature, threshold_rank, left_child,
+                   right_child, root_state, max_depth: int) -> torch.Tensor:
+    """[T, N] int32 leaf ids by the lockstep breadth-first walk
+    (lightgbm_tpu/ops/scoring.py:155-178).  ``codes`` [F, N] int32; the
+    node tables [T, max_nodes] int32 and ``root_state`` [T] int32 (0, or
+    ~0 for a stump) on the same device.  Every row has reached a leaf
+    after ``max_depth`` steps."""
+    T, N = split_feature.shape[0], codes.shape[1]
+    state = root_state[:, None].expand(T, N).contiguous()
+    for _ in range(max_depth):
+        node = state.clamp(min=0).long()
+        sf = torch.gather(split_feature, 1, node)
+        tr = torch.gather(threshold_rank, 1, node)
+        lc = torch.gather(left_child, 1, node)
+        rc = torch.gather(right_child, 1, node)
+        code = torch.gather(codes, 0, sf.long())
+        nxt = torch.where(code > tr, rc, lc)
+        state = torch.where(state >= 0, nxt, state)
+    return ~state
+
+
+def accumulate_tree_scores(vals, tree_class, num_class: int) -> torch.Tensor:
+    """[num_class, N] f32: tree t's values ``vals[t]`` added to row
+    ``tree_class[t]`` (a host array), one tree after another in tree
+    order (lightgbm_tpu/ops/scoring.py:181-192)."""
+    out = torch.zeros((num_class, vals.shape[1]), dtype=torch.float32,
+                      device=vals.device)
+    for t in range(vals.shape[0]):
+        out[int(tree_class[t])].add_(vals[t])
+    return out
+
+
+def bfs_scores(codes, split_feature, threshold_rank, left_child, right_child,
+               leaf_value, root_state, tree_class, *, max_depth: int,
+               num_class: int) -> torch.Tensor:
+    """[num_class, N] f32 ensemble sums, breadth-first, over the [T, L]
+    f32 leaf table (lightgbm_tpu/ops/scoring.py:195-208)."""
+    leaf = bfs_leaf_state(codes, split_feature, threshold_rank, left_child,
+                          right_child, root_state, max_depth)
+    vals = torch.gather(leaf_value, 1, leaf.long())
+    return accumulate_tree_scores(vals, tree_class, num_class)
+
+
+def bfs_scores_int8(codes, split_feature, threshold_rank, left_child,
+                    right_child, leaf_q, leaf_scale, root_state, tree_class,
+                    *, max_depth: int, num_class: int) -> torch.Tensor:
+    """The int8 ensemble (lightgbm_tpu/ops/scoring.py:211-225): each leaf
+    reads back as ``float(q) * scale[t]``, ``leaf_q`` [T, L] int8 and
+    ``leaf_scale`` [T] f32; the read is exact, and the sums are the f32
+    path's."""
+    leaf = bfs_leaf_state(codes, split_feature, threshold_rank, left_child,
+                          right_child, root_state, max_depth)
+    qvals = torch.gather(leaf_q.float(), 1, leaf.long())
+    vals = qvals * leaf_scale[:, None]
+    return accumulate_tree_scores(vals, tree_class, num_class)
+
+
+def bfs_leaf_indices(codes, split_feature, threshold_rank, left_child,
+                     right_child, root_state, *,
+                     max_depth: int) -> torch.Tensor:
+    """[T, N] int32 leaf index per tree, breadth-first (PredictLeafIndex;
+    lightgbm_tpu/ops/scoring.py:228-231)."""
+    return bfs_leaf_state(codes, split_feature, threshold_rank, left_child,
+                          right_child, root_state, max_depth)

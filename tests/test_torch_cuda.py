@@ -11,7 +11,8 @@ run-dependent order, so it agrees with the plain ``index_add_`` to f32
 reordering (rtol 1e-5, atol 1e-4 for cells that cancel to near zero; on
 a root-sized segment, 1e-5 of each cell's absolute sum); counts, the int8
 histogram, both partition entries (with every lane outside the segment
-untouched) and the int8 trees are exact.
+untouched) and the int8 trees are exact, and so are the serving engine's
+scores and leaf indices against the CPU engine's.
 """
 import numpy as np
 import pytest
@@ -682,3 +683,60 @@ def test_maxbin_compacted_equals_masked_on_card(cuda):
     masked = lgt.train(dict(params, leafwise_compact="false"), ds,
                        device=cuda)
     assert compacted.model_to_string() == masked.model_to_string()
+
+
+@pytest.fixture(scope="module")
+def serving_model():
+    """A multiclass (K = 3) port booster trained on the CPU: 2,000 rows,
+    8 features, 31 leaves, 6 iterations; and held-out rows with NaN."""
+    rng = np.random.RandomState(21)
+    x = rng.randn(3_000, 8)
+    y = np.digitize(x[:, 0] + 0.5 * x[:, 1], [-0.5, 0.5]).astype(np.float32)
+    booster = lgt.train({"objective": "multiclass", "num_class": 3,
+                         "num_leaves": 31, "num_iterations": 6},
+                        lgt.Dataset.from_arrays(x[:2000], y[:2000]),
+                        device="cpu")
+    held = x[2000:].copy()
+    held[::17, 0] = np.nan
+    return booster, held
+
+
+@pytest.mark.parametrize("quantize", ["float32", "int8"])
+def test_serving_engine_on_card_equals_cpu(cuda, serving_model, quantize):
+    """Scores and leaf indices on the card are bitwise the CPU engine's:
+    the gathers are exact and the f32 adds run in the same order.  A
+    small ladder sends the 1,000 rows through several buckets."""
+    from lightgbm_tpu_torch import serving
+    booster, x = serving_model
+    flat = booster.export_flat()
+    for buckets in ((1, 32, 1024, 65536), (1, 16, 64)):
+        kw = dict(buckets=buckets, quantize=quantize)
+        card = serving.ServingEngine(flat, device=cuda, **kw)
+        cpu = serving.ServingEngine(flat, device="cpu", **kw)
+        for n in (1, 31, 1000):
+            np.testing.assert_array_equal(card.scores(x[:n]),
+                                          cpu.scores(x[:n]))
+            np.testing.assert_array_equal(card.leaf_indices(x[:n]),
+                                          cpu.leaf_indices(x[:n]))
+
+
+def test_serving_front_round_trip_on_card(cuda, serving_model):
+    """Requests through a front on the card, a swap to the int8 engine
+    in the middle: every request resolves, each bitwise its rows scored
+    alone on the engine it met."""
+    from lightgbm_tpu_torch import lifecycle, serving
+    booster, x = serving_model
+    flat = booster.export_flat()
+    f32 = serving.ServingEngine(flat, device=cuda, linger_us=500)
+    i8 = serving.ServingEngine(flat, device=cuda, quantize="int8")
+    with serving.ServingFront(f32) as front:
+        before = [front.submit(x[i:i + 7]) for i in range(0, 350, 7)]
+        front.swap_engine(i8, timeout=60)
+        after = [front.submit(x[i:i + 7]) for i in range(350, 700, 7)]
+        got_before = [f.result(60) for f in before]
+        got_after = [f.result(60) for f in after]
+    assert not lifecycle.tracked(front)
+    for i, got in zip(range(0, 350, 7), got_before):
+        np.testing.assert_array_equal(got, f32.scores(x[i:i + 7]))
+    for i, got in zip(range(350, 700, 7), got_after):
+        np.testing.assert_array_equal(got, i8.scores(x[i:i + 7]))

@@ -102,7 +102,7 @@ def test_default_device_needs_cuda():
     ("objective", "huber"), ("grow_policy", "levelwise"),
     ("leafwise_compact", "maybe"), ("tree_learner", "data"),
     ("num_machines", "4"), ("boosting_type", "dart"),
-    ("predict_leaf_index", "true"), ("is_save_binary_file", "true"),
+    ("predict_leaf_index", "maybe"), ("is_save_binary_file", "true"),
     ("max_bin", "0"), ("quant_rounding", "dither"),
     ("mixed_bin", "sometimes"), ("streaming", "true"),
     ("checkpoint_interval", "5"), ("metrics_out", "m.jsonl"),
