@@ -71,7 +71,16 @@ int8, bitwise the CPU engine's; latency per bucket and the walk's device
 time beside its bound; a coalescing front with 8 clients and a hot swap,
 no request lost or misrouted; and ``task=predict`` result files on the
 card byte-equal to ``device=cpu``'s; it launches neither kernel (see
-``serving_phase``).  Every phase must
+``serving_phase``).  Phase 12 runs the ingest layer on a 2M-row CSV
+file of make_data's table over 256 MB (a header, the label mid-file, a
+weight and an ignored column): resident, ``streaming=auto``, four parse
+workers, two-round, the native cache direct and as a sibling, a
+reference-format cache; every route's bin matrix, read back from the
+card, equal to the resident one; the streamed cache byte-equal to the
+resident cache; the native parser tier only; one histogram launch a
+leaf and one partition a split from four routes, one int8 model text;
+``task=predict`` on the cache equal to the text's (see
+``ingest_phase``).  Every phase must
 pass; the last line of standard output is ``{"ok": true, "device":
 {...}}``.  Exits nonzero,
 printing no result, when there is no CUDA device or the package is not
@@ -100,7 +109,8 @@ FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
                         (28, 2047, 256, 1, 0), (28, 300_001, 256, 1, 13)),
         "pane_segment": (12_345, 300_001), "n_f200": 250_000,
         "int8_cols": (1, 8, 32, 64), "n_es": 40_000, "n_cli": 100_000,
-        "class_cols": (1, 8, 64), "wide_cols": (1, 8, 64)}
+        "class_cols": (1, 8, 64), "wide_cols": (1, 8, 64),
+        "n_ingest": 2_000_000, "ingest_parse_rows": 200_000}
 
 
 def make_table(rows: int, features: int, seed: int):
@@ -351,7 +361,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-11 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-12 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -873,6 +883,10 @@ def run(dev, sizes, timer=None):
             if path == "serving" or not name.endswith("16"):
                 k["launches_by_path"][path] = counts[
                     "hist" if name.startswith("hist") else "partition"]
+    # ---- phase 12: the ingest layer, every load route onto the card
+    for path, counts in ingest_phase(dev, sizes, sync).items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
     return list(kernels.values())
 
 
@@ -2445,6 +2459,347 @@ def serving_phase(dev, sizes, x, train_set, served, sync, timer):
         "task=predict subprocesses are not counted)" % (rec["phase_s"],
                                                         cli_s))
     say(json.dumps({"serving": rec}))
+    return by_path
+
+
+def card_name() -> str:
+    """``nvidia-smi``'s name and power limit of the card, or a note
+    where it does not answer."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        return smi.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "nvidia-smi did not answer"
+
+
+INGEST_LABEL_COL = 3   # the label's column in the phase-12 file
+
+
+def write_ingest_csv(path: str, rows: int, seed: int) -> None:
+    """make_data's table as CSV text with a header: 28 features named
+    f0-f27, the label as column 3 (``label``), then a weight column
+    (``weight``, 0.5-1.5) and a column to ignore (``skip``)."""
+    x, y = make_data(rows, 28, seed)
+    rng = np.random.RandomState(seed + 1)
+    w = 0.5 + rng.rand(rows)
+    skip = rng.randn(rows)
+    names = ["f%d" % i for i in range(28)]
+    names.insert(INGEST_LABEL_COL, "label")
+    fmt = ["%.6f"] * 28
+    fmt.insert(INGEST_LABEL_COL, "%d")
+    block = 2000
+    row_fmt = ",".join(fmt + ["%.4f", "%.3f"]) + "\n"
+    with open(path, "w") as f:
+        f.write(",".join(names + ["weight", "skip"]) + "\n")
+        for s in range(0, rows, block):
+            e = min(s + block, rows)
+            cols = np.column_stack([x[s:e, :INGEST_LABEL_COL], y[s:e],
+                                    x[s:e, INGEST_LABEL_COL:], w[s:e],
+                                    skip[s:e]])
+            f.write((row_fmt * (e - s)) % tuple(cols.ravel()))
+
+
+def streamed_load(io, dev, depth: int):
+    """A streamed load whose DeviceRowWriter this script builds at
+    ``depth``: Dataset.load_train's own steps for a text file, with the
+    depth passed to io/streaming.load_train_streaming."""
+    from lightgbm_tpu_torch.io import dataset as dataset_mod
+    from lightgbm_tpu_torch.io import parser as parser_mod
+    from lightgbm_tpu_torch.io import streaming
+    ds = dataset_mod.Dataset()
+    ds.data_filename = io.data_filename
+    ds.max_bin = io.max_bin
+    label_idx, weight_idx, group_idx, ignore_set, header = \
+        dataset_mod._resolve_columns(io)
+    ds.label_idx = label_idx
+    ds.metadata.init_from_files(io.data_filename)
+    parser = parser_mod.create_parser(io.data_filename, io.has_header, 0,
+                                      label_idx)
+    streaming.load_train_streaming(ds, io, parser, None, weight_idx,
+                                   group_idx, ignore_set, header, dev,
+                                   depth=depth)
+    ds.metadata.finalize(ds.num_data)
+    return ds
+
+
+def ingest_phase(dev, sizes, sync):
+    """Phase 12: the ingest layer on the card.  make_data's table of
+    ``n_ingest`` rows (2M, cut from the Higgs file's 11M to fit this
+    script's time limit) written as CSV text over 256 MB with a header,
+    the label as column 3, a weight column and an ignored column, so
+    ``streaming=auto`` streams it by itself; loaded through (a) resident,
+    (b) ``streaming=auto`` serial, (c) ``streaming=true ingest_workers=4``,
+    (d) two-round, (e) (a)'s native cache as ``data=``, streamed, (f) the
+    same cache as a ``<data>.bin`` sibling, (g) a reference-format cache
+    sibling.  Each bin matrix, read back from where it lives, must be
+    (a)'s, with the same mappers, labels, weights and names; (b)'s
+    streamed cache must be (a)'s byte for byte; (a)-(d) must parse in the
+    native tier only; the main-path configuration (255 leaves, float32,
+    compacted, 5 iterations) from (a), (b), (c) and (e) must launch the
+    histogram once a leaf and the partition once a split, and in int8
+    (order-free sums) give one model text; the float32 models are held
+    against (a)'s tree by tree, beside a second float32 run of (a) (the
+    float histogram's f32 atomics add in a run-dependent order);
+    ``task=predict`` on (e)'s cache must write the text file's result.
+    Recorded: each route's seconds and rows/s, the feed's h2d_bytes /
+    wait_s / hidden_s for (b) and for (b) again at depth 0 and 2 in
+    turns, the native and the exact tier on one chunk, and the card
+    beside them."""
+    import filecmp
+    import shutil
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.cli import main as cli_main
+    from lightgbm_tpu_torch.config import IOConfig
+    from lightgbm_tpu_torch.io import parallel_ingest, streaming
+    from lightgbm_tpu_torch.io import parser as parser_mod
+    from lightgbm_tpu_torch.native import lib as native_lib
+
+    t_phase = time.perf_counter()
+    card = card_name()
+    if not native_lib.available():
+        fail("phase 12: the native parser did not build: %s"
+             % native_lib.build_error)
+    n = sizes["n_ingest"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    rec = {"card": card, "rows": n, "routes": {}}
+    by_path = {}
+    try:
+        data = os.path.join(tmp, "higgs.csv")
+        t0 = time.perf_counter()
+        write_ingest_csv(data, n, SEED + 12)
+        rec["write_s"] = time.perf_counter() - t0
+        rec["file_bytes"] = os.path.getsize(data)
+        say("phase 12 ingest: %d rows x 31 columns written as CSV, %d bytes "
+            "in %.1f s [%s]" % (n, rec["file_bytes"], rec["write_s"], card))
+        if rec["file_bytes"] < streaming.AUTO_MIN_BYTES:
+            fail("phase 12: the file is %d bytes, under streaming=auto's "
+                 "%d" % (rec["file_bytes"], streaming.AUTO_MIN_BYTES))
+        cols = dict(data_filename=data, has_header=True, max_bin=255,
+                    label_column="name:label", weight_column="name:weight",
+                    ignore_column="name:skip")
+
+        def load(route, io_kw, text=True):
+            for tier in parser_mod.tier_calls:
+                parser_mod.tier_calls[tier] = 0
+            sync()
+            t0 = time.perf_counter()
+            ds = lgt.Dataset.load_train(IOConfig(**dict(cols, **io_kw)),
+                                        device=dev)
+            sync()
+            secs = time.perf_counter() - t0
+            r = {"s": secs, "rows_per_s": ds.num_data / secs}
+            if text:
+                r["tiers"] = dict(parser_mod.tier_calls)
+                if (r["tiers"]["native"] == 0
+                        or r["tiers"]["pandas"] or r["tiers"]["exact"]):
+                    fail("phase 12 (%s): parsed outside the native tier: "
+                         "%s" % (route, r["tiers"]))
+            w = ds.ingest_writer
+            if w is not None:
+                r.update(h2d_bytes=w.h2d_bytes, wait_s=w.wait_s,
+                         hidden_s=w.hidden_s, depth=w.depth)
+            rec["routes"][route] = r
+            say("phase 12 (%s): %d rows in %.3f s, %.0f rows/s%s%s [%s]" % (
+                route, ds.num_data, secs, r["rows_per_s"],
+                "" if w is None else ", h2d %d bytes, wait %.3f s, hidden "
+                "%.3f s (depth %d)" % (w.h2d_bytes, w.wait_s, w.hidden_s,
+                                        w.depth),
+                ", tiers %s" % r["tiers"] if text else "", card))
+            return ds
+
+        # (b) first: its pass 2 streams the cache out before (a) writes one
+        b = load("b_streamed_auto", {"is_save_binary_file": True})
+        if b.bins is not None or b.device_bins.device.type != dev.type:
+            fail("phase 12 (b): streaming=auto did not stream onto the card")
+        os.replace(data + ".bin", os.path.join(tmp, "streamed.bin"))
+        a = load("a_resident", {"streaming": "false",
+                                "is_save_binary_file": True})
+        native_cache = os.path.join(tmp, "native.bin")
+        os.replace(data + ".bin", native_cache)
+        if not filecmp.cmp(native_cache, os.path.join(tmp, "streamed.bin"),
+                           shallow=False):
+            fail("phase 12: (b)'s streamed cache differs from (a)'s")
+        os.unlink(os.path.join(tmp, "streamed.bin"))
+        say("phase 12: (b)'s streamed cache byte-equal to (a)'s (%d bytes)"
+            % os.path.getsize(native_cache))
+        want = a.read_bins()
+
+        def same(route, ds):
+            got = ds.read_bins()
+            ok = (got.dtype == want.dtype and np.array_equal(got, want)
+                  and [m.to_bytes() for m in ds.bin_mappers]
+                  == [m.to_bytes() for m in a.bin_mappers]
+                  and ds.feature_names == a.feature_names
+                  and np.array_equal(ds.metadata.label, a.metadata.label)
+                  and np.array_equal(ds.metadata.weights,
+                                     a.metadata.weights))
+            if not ok:
+                fail("phase 12 (%s): the dataset differs from (a)'s" % route)
+
+        same("b", b)
+        c = load("c_workers4", {"streaming": "true", "ingest_workers": 4})
+        same("c", c)
+        d = load("d_two_round", {"streaming": "false",
+                                 "use_two_round_loading": True})
+        same("d", d)
+        del d
+        # (b) again with the feed built by this script, at depth 0 and at
+        # depth 2 in turns (no cache written)
+        for depth in (0, 2):
+            sync()
+            t0 = time.perf_counter()
+            bd = streamed_load(IOConfig(**dict(cols, streaming="true")), dev,
+                               depth)
+            sync()
+            secs = time.perf_counter() - t0
+            w = bd.ingest_writer
+            rec["routes"]["b_depth%d" % depth] = {
+                "s": secs, "rows_per_s": n / secs, "h2d_bytes": w.h2d_bytes,
+                "wait_s": w.wait_s, "hidden_s": w.hidden_s, "depth": depth}
+            same("b depth %d" % depth, bd)
+            say("phase 12 (b, depth %d): %d rows in %.3f s, %.0f rows/s, "
+                "h2d %d bytes, wait %.4f s, hidden %.3f s [%s]" % (
+                    depth, n, secs, n / secs, w.h2d_bytes, w.wait_s,
+                    w.hidden_s, card))
+            del bd
+        e = load("e_cache_direct_streamed",
+                 {"data_filename": native_cache, "streaming": "true"},
+                 text=False)
+        same("e", e)
+        shutil.copyfile(native_cache, data + ".bin")
+        f_ = load("f_cache_sibling", {}, text=False)
+        same("f", f_)
+        del f_
+        os.unlink(data + ".bin")
+        a.save_binary_reference(data + ".bin")
+        g = load("g_reference_sibling", {}, text=False)
+        same("g", g)
+        del g
+        os.unlink(data + ".bin")
+        say("phase 12: routes (b)-(g) give (a)'s bin matrix, mappers, "
+            "labels, weights and names")
+
+        # the main path from (a), (b), (c) and (e).  The float histogram
+        # adds f32 values with atomics in a run-dependent order, so its
+        # model text is not byte-stable from run to run even on one route
+        # ((a) trains twice to show it): each float32 model is compared
+        # with (a)'s tree by tree.  The int8 histogram's int32 sums are
+        # order-free, so the same configuration in int8 must give one
+        # model text from every route.
+        params = {"objective": "binary", "num_leaves": 255,
+                  "num_iterations": 5, "learning_rate": 0.1,
+                  "hist_dtype": "float32", "max_bin": 255}
+        models, texts8 = {}, {}
+        for dtype in ("float32", "int8"):
+            runs = (("a", a), ("a_again", a), ("b", b), ("c", c),
+                    ("e", e)) if dtype == "float32" else \
+                (("a", a), ("b", b), ("c", c), ("e", e))
+            for route, ds in runs:
+                booster, iter_s, counts = drive(
+                    dict(params, hist_dtype=dtype), ds, dev, sync)
+                leaves = sum(t.num_leaves for t in booster.models)
+                splits = leaves - len(booster.models)
+                if not (len(booster.models) == 5
+                        and counts["hist"] == leaves
+                        and counts["partition"] == splits):
+                    fail("phase 12 (%s, %s): %d trees, %d histogram "
+                         "launches for %d leaves, %d partitions for %d "
+                         "splits" % (route, dtype, len(booster.models),
+                                     counts["hist"], leaves,
+                                     counts["partition"], splits))
+                if dtype == "float32":
+                    models[route] = booster
+                    if route != "a_again":
+                        by_path["ingest_" + route] = {
+                            "hist": counts["hist"],
+                            "partition": counts["partition"]}
+                else:
+                    texts8[route] = booster.model_to_string()
+                say("phase 12 (%s) main path %s: %d histogram launches (one "
+                    "a leaf), %d partitions (one a split), seconds per "
+                    "iteration %s [%s]" % (
+                        route, dtype, counts["hist"], counts["partition"],
+                        " ".join("%.3f" % v for v in iter_s), card))
+                del booster
+        rec["float32_vs_a"] = {}
+        fields = ("split_feature_real", "threshold", "left_child",
+                  "right_child")
+        text_a = models["a"].model_to_string()
+        for route, booster in models.items():
+            same_trees = [all(np.array_equal(getattr(ta, k), getattr(tb, k))
+                              for k in fields)
+                          for ta, tb in zip(models["a"].models,
+                                            booster.models)]
+            diff = max([float(np.abs(ta.leaf_value - tb.leaf_value).max())
+                        for ta, tb, eq in zip(models["a"].models,
+                                              booster.models, same_trees)
+                        if eq] or [0.0])
+            rec["float32_vs_a"][route] = {
+                "text_equal": booster.model_to_string() == text_a,
+                "trees_same_structure": int(sum(same_trees)),
+                "max_leaf_diff": diff}
+        say("phase 12 float32 against (a): %s [%s]" % (
+            ", ".join("%s: text %s, %d of 5 trees of the same structure, "
+                      "leaf values within %.3g" % (
+                          r, "equal" if v["text_equal"] else "differs",
+                          v["trees_same_structure"], v["max_leaf_diff"])
+                      for r, v in rec["float32_vs_a"].items() if r != "a"),
+            card))
+        if len(set(texts8.values())) != 1:
+            fail("phase 12: int8 model text differs between routes: %s" % [
+                r for r in texts8 if texts8[r] != texts8["a"]])
+        say("phase 12: (a), (b), (c) and (e) train byte-equal int8 model "
+            "text (%d bytes)" % len(texts8["a"]))
+        model = os.path.join(tmp, "model.txt")
+        with open(model, "w") as fm:
+            fm.write(text_a)
+        del a, b, c, e, models
+
+        # task=predict on the cache and on the text: one result file
+        outs = {}
+        t0 = time.perf_counter()
+        for what, args in (("cache", ["data=" + native_cache]),
+                           ("text", ["data=" + data, "has_header=true"])):
+            out = os.path.join(tmp, "%s.out" % what)
+            if cli_main(["task=predict", "input_model=" + model,
+                         "output_result=" + out, "device=" + dev.type]
+                        + args) != 0:
+                fail("phase 12: task=predict on the %s failed" % what)
+            with open(out, "rb") as fo:
+                outs[what] = fo.read()
+        rec["predict_s"] = time.perf_counter() - t0
+        if outs["cache"] != outs["text"] or outs["text"].count(b"\n") != n:
+            fail("phase 12: task=predict on the cache differs from the "
+                 "text file's result")
+        say("phase 12: task=predict on (e)'s cache byte-equal to the text "
+            "file's (%d rows, %d bytes; both in %.1f s) [%s]" % (
+                n, len(outs["text"]), rec["predict_s"], card))
+
+        # the native tier against the exact tier on one chunk
+        lines = next(iter(parser_mod.read_line_chunks(
+            data, skip_header=True, chunk_lines=sizes["ingest_parse_rows"])))
+        t0 = time.perf_counter()
+        fast = native_lib.parse_delimited(lines, ",")
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exact = parser_mod._parse_delimited_exact(lines, ",")
+        exact_s = time.perf_counter() - t0
+        if fast is None or not np.array_equal(fast, exact):
+            fail("phase 12: the native and exact tiers parse the chunk "
+                 "differently")
+        rec["parse"] = {"rows": len(lines), "native_s": native_s,
+                        "exact_s": exact_s}
+        say("phase 12 parse of %d rows x 31 columns: native %.3f s, exact "
+            "%.3f s (%.1fx), equal values [%s]" % (
+                len(lines), native_s, exact_s, exact_s / native_s, card))
+    finally:
+        parallel_ingest.shutdown_workers()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say("phase 12 ingest: %.1f s [%s]" % (rec["phase_s"], card))
+    say(json.dumps({"ingest": rec}))
     return by_path
 
 

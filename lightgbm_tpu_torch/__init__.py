@@ -9,20 +9,27 @@ the default, raises without one) unless the caller passes
 
 - CLI: ``python -m lightgbm_tpu_torch task=train data=... [device=cpu]``
   (``task=predict`` scores through the serving engine)
-- Python: :class:`Dataset`, :func:`train`, :class:`GBDT`; serving:
-  :class:`FlatEnsemble`, :class:`ServingEngine`, :class:`ServingFront`
-  (``serving``, or ``GBDT.serving_engine``).
+- Python: :class:`Dataset` (``Dataset.load_train(io_config)`` loads a
+  text file or a dataset cache, ``from_arrays`` arrays), :func:`train`,
+  :class:`GBDT`; serving: :class:`FlatEnsemble`, :class:`ServingEngine`,
+  :class:`ServingFront` (``serving``, or ``GBDT.serving_engine``).
+
+An exec'd parse worker of io/parallel_ingest.py (``WORKER_ENV`` there
+set to 1) imports only the numpy parse stack: the package skips torch.
 """
 from __future__ import annotations
 
-from .config import OverallConfig
-from .io.dataset import Dataset
-from .models.gbdt import GBDT
-from .models.tree import Tree
-from . import serving
-from .serving import FlatEnsemble, ServingEngine, ServingFront
+import os as _os
 
 __version__ = "0.1.0"
+
+if _os.environ.get("LIGHTGBM_TPU_TORCH_INGEST_WORKER") != "1":
+    from .config import OverallConfig
+    from .io.dataset import Dataset
+    from .models.gbdt import GBDT
+    from .models.tree import Tree
+    from . import serving
+    from .serving import FlatEnsemble, ServingEngine, ServingFront
 
 
 def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,

@@ -2,7 +2,10 @@
 
 Counterpart of lightgbm_tpu/cli.py for ``task=train`` and
 ``task=predict`` (application.cpp:28-302).  It runs on the card unless
-the command line says ``device=cpu``.
+the command line says ``device=cpu``.  ``num_threads`` caps the native
+parser's OpenMP pool; the training and validation loads take the
+command line's ingest keys (columns, header, caches, streaming), and a
+load with ``is_save_binary_file`` writes the cache.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from .io.dataset import Dataset
 from .metrics import create_metrics
 from .models.gbdt import GBDT
 from .models.predictor import Predictor, continuation_score
+from .native import lib as native_lib
 from .objectives import create_objective
 from .serving import engine_options_from_config
 from .utils import log
@@ -23,6 +27,8 @@ from .utils import log
 class Application:
     def __init__(self, argv: List[str]):
         self.config = config_mod.load_config(argv)
+        if self.config.num_threads > 0:
+            native_lib.set_num_threads(self.config.num_threads)
 
     def run(self) -> None:
         if self.config.task_type == "train":
@@ -47,7 +53,8 @@ class Application:
             predict_fun = lambda feats: continuation_score(  # noqa: E731
                 cont.models, feats, cont.device)
             booster.models = cont.models
-        train_data = Dataset.load_train(io, predict_fun)
+        train_data = Dataset.load_train(io, predict_fun,
+                                        device=cfg.device or None)
         train_metrics = (create_metrics(cfg)
                          if cfg.boosting_config.is_provide_training_metric
                          else [])
@@ -57,8 +64,8 @@ class Application:
                      train_metrics, device=cfg.device or None)
         for filename in io.valid_data_filenames:
             booster.add_valid_dataset(
-                Dataset.load_valid(train_data, filename, io.has_header,
-                                   predict_fun),
+                Dataset.load_valid(train_data, filename, predict_fun,
+                                   io_config=io),
                 create_metrics(cfg), name=filename)
         log.info("Finish loading data, use %f seconds"
                  % (time.perf_counter() - start))

@@ -10,12 +10,14 @@ objectives regression, binary, multiclass (``num_class``) and lambdarank
 (``input_model`` under ``task=train``), ``input_init_score``, the
 mixed-bin layout (``mixed_bin``) and every histogram mode
 (``hist_dtype`` float32, bfloat16 and int8, ``quant_rounding`` nearest
-and stochastic), and the serving engine's ``predict_*`` keys with
-``predict_leaf_index``.  The difference is the slice rule: a key the port does
-not run raises ``Fatal`` naming it, instead of being parsed and silently
-ignored.  Keys whose JAX-package default is the only value the port runs
-(serial learner, one serving device) are accepted at that value and
-refused at any other.
+and stochastic), the serving engine's ``predict_*`` keys with
+``predict_leaf_index``, and the ingest keys: the column selectors,
+caches, two-round and streamed loads, parse workers, ``num_threads``.
+The difference is the slice rule: a key the port does not run raises
+``Fatal`` naming it, instead of being parsed and silently ignored.
+Keys whose JAX-package default is the only value the port runs (serial
+learner, one serving device, files not pre-split per machine) are
+accepted at that value and refused at any other.
 Growth runs under all three policies of the JAX package: compacted
 leaf-wise (the default), masked leaf-wise (``leafwise_compact=false``)
 and depth-wise (``grow_policy=depthwise``).
@@ -23,6 +25,7 @@ and depth-wise (``grow_policy=depthwise``).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List
 
 from .utils import log
@@ -30,6 +33,8 @@ from .utils import log
 # lightgbm_tpu/config.py:26-84, restricted to the keys of this slice
 ALIAS_TABLE: Dict[str, str] = {
     "config": "config_file",
+    "nthread": "num_threads",
+    "num_thread": "num_threads",
     "boosting": "boosting_type",
     "boost": "boosting_type",
     "application": "objective",
@@ -46,6 +51,7 @@ ALIAS_TABLE: Dict[str, str] = {
     "valid": "valid_data",
     "test_data": "valid_data",
     "test": "valid_data",
+    "is_sparse": "is_enable_sparse",
     "tranining_metric": "is_training_metric",
     "train_metric": "is_training_metric",
     "ndcg_at": "ndcg_eval_at",
@@ -65,10 +71,21 @@ ALIAS_TABLE: Dict[str, str] = {
     "shrinkage_rate": "learning_rate",
     "tree": "tree_learner",
     "num_machine": "num_machines",
+    "two_round_loading": "use_two_round_loading",
+    "two_round": "use_two_round_loading",
+    "is_save_binary": "is_save_binary_file",
+    "save_binary": "is_save_binary_file",
     "early_stopping_rounds": "early_stopping_round",
     "early_stopping": "early_stopping_round",
     "verbosity": "verbose",
     "header": "has_header",
+    "label": "label_column",
+    "weight": "weight_column",
+    "group": "group_column",
+    "query": "group_column",
+    "query_column": "group_column",
+    "ignore_feature": "ignore_column",
+    "blacklist": "ignore_column",
 }
 
 # keys this slice runs at any valid value
@@ -91,6 +108,12 @@ SLICE_KEYS = frozenset((
     # the serving engine (serving.py)
     "predict_leaf_index", "predict_buckets", "predict_quantize",
     "predict_donate", "predict_algo", "predict_linger_us", "predict_queue",
+    # the ingest layer (io/): column selectors, caches, two-round and
+    # streamed loads, the native parser's thread cap
+    "label_column", "weight_column", "group_column", "ignore_column",
+    "use_two_round_loading", "is_save_binary_file", "save_binary_format",
+    "streaming", "ingest_chunk_rows", "ingest_workers", "num_threads",
+    "is_enable_sparse",
 ))
 
 OBJECTIVES = ("regression", "binary", "multiclass", "lambdarank")
@@ -109,7 +132,8 @@ DEFAULT_ONLY = {
     "boosting_type": ("gbdt", "gbrt"),
     "tree_learner": ("serial",),
     "num_machines": ("1",),
-    "streaming": ("false",),
+    # files pre-split per machine belong to the parallel learners (A9)
+    "is_pre_partition": ("false",),
     "checkpoint_interval": ("0",),
     # one device serves every tree: tree-axis sharding is ROADMAP A9
     "serve_shards": ("0", "1"),
@@ -202,6 +226,22 @@ class IOConfig:
     serve_shards: int = 0
     predict_linger_us: int = 200
     predict_queue: int = 4
+    # the ingest layer (lightgbm_tpu/config.py:256-285): "auto" streams a
+    # data or cache file of at least 256 MB (io/streaming.py), chunks of
+    # ingest_chunk_rows rows, parsed by ingest_workers byte-range worker
+    # processes when > 1 ("auto" = cpu_count); the cache format written by
+    # is_save_binary_file; the column selectors, by index or "name:"
+    is_enable_sparse: bool = True
+    streaming: str = "auto"
+    ingest_chunk_rows: int = 200_000
+    ingest_workers: int = 1
+    use_two_round_loading: bool = False
+    is_save_binary_file: bool = False
+    save_binary_format: str = "native"
+    label_column: str = ""
+    weight_column: str = ""
+    group_column: str = ""
+    ignore_column: str = ""
 
     def predict_bucket_list(self) -> tuple:
         """The ``predict_buckets=`` ladder: sorted unique positive ints
@@ -269,6 +309,37 @@ class IOConfig:
                                       self.predict_queue)
         log.check(self.predict_queue >= 1,
                   "predict_queue should be >= 1 (in-flight batches)")
+        # lightgbm_tpu/config.py:439-477
+        self.is_enable_sparse = _get_bool(params, "is_enable_sparse",
+                                          self.is_enable_sparse)
+        if "streaming" in params:
+            value = params["streaming"].lower()
+            log.check(value in ("auto", "true", "false"),
+                      "streaming must be auto, true or false")
+            self.streaming = value
+        self.ingest_chunk_rows = _get_int(params, "ingest_chunk_rows",
+                                          self.ingest_chunk_rows)
+        log.check(self.ingest_chunk_rows > 0,
+                  "ingest_chunk_rows should be > 0")
+        if str(params.get("ingest_workers", "")).lower() == "auto":
+            self.ingest_workers = os.cpu_count() or 1
+        else:
+            self.ingest_workers = _get_int(params, "ingest_workers",
+                                           self.ingest_workers)
+        log.check(self.ingest_workers > 0,
+                  "ingest_workers should be > 0 (or auto = cpu_count)")
+        self.use_two_round_loading = _get_bool(
+            params, "use_two_round_loading", self.use_two_round_loading)
+        self.is_save_binary_file = _get_bool(params, "is_save_binary_file",
+                                             self.is_save_binary_file)
+        if "save_binary_format" in params:
+            value = params["save_binary_format"].lower()
+            log.check(value in ("native", "reference"),
+                      "save_binary_format must be native or reference")
+            self.save_binary_format = value
+        for key in ("label_column", "weight_column", "group_column",
+                    "ignore_column"):
+            setattr(self, key, params.get(key, getattr(self, key)))
 
 
 def _get_num_class(params, default):
@@ -518,6 +589,9 @@ class BoostingConfig:
 @dataclasses.dataclass
 class OverallConfig:
     task_type: str = "train"
+    # the native parser's OpenMP pool (native/lib.set_num_threads); 0
+    # leaves OpenMP's default
+    num_threads: int = 0
     predict_leaf_index: bool = False
     objective_type: str = "regression"
     metric_types: List[str] = dataclasses.field(default_factory=list)
@@ -535,6 +609,7 @@ class OverallConfig:
     def set(self, params: Dict[str, str], require_data: bool = True) -> None:
         params = apply_aliases({k: str(v) for k, v in params.items()})
         check_slice(params)
+        self.num_threads = _get_int(params, "num_threads", self.num_threads)
         if "task" in params:
             value = params["task"].lower()
             if value in ("train", "training"):

@@ -3,14 +3,19 @@
 A copy of lightgbm_tpu/io/binning.py's ``BinMapper`` (:26-178) and
 ``find_bins_for_matrix`` (:401-409): the reference's FindBin
 (bin.cpp:42-132) step for step, because the port must bin a dataset
-exactly as the JAX package does for its trees to agree.  Also its
-serial mixed-bin plan, ``PackSpec`` and ``plan_feature_packing``
+exactly as the JAX package does for its trees to agree; with its
+``sparse_rate``, its byte layout (``to_bytes``/``from_bytes``, bin.cpp:
+144-175, so either package reads the other's dataset cache), the
+``bin_representatives`` that decode a cache's bins for prediction and
+``bin_features``, the quantization of a value matrix.  Also its serial
+mixed-bin plan, ``PackSpec`` and ``plan_feature_packing``
 (:180-244, :371-398): the block-local plan of the hybrid and voting
 learners and the ``LGBM_TPU_NO_MIXEDBIN`` hatch (``mixed_bin=false``
 does the same) are not ported.
 """
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional
 
@@ -22,6 +27,8 @@ class BinMapper:
     """Quantization map for one feature (bin.h:47-119)."""
     num_bin: int = 0
     is_trivial: bool = False
+    # the sample's share in bin 0 (bin.cpp:128); written to the caches
+    sparse_rate: float = 0.0
     # bin i covers values <= bin_upper_bound[i]; last entry is +inf
     bin_upper_bound: np.ndarray = field(default_factory=lambda: np.zeros(0))
 
@@ -37,6 +44,7 @@ class BinMapper:
         distinct_values = list(distinct_values)
         counts = [int(c) for c in counts]
         num_values = len(distinct_values)
+        cnt_in_bin0 = 0
 
         if num_values <= max_bin:
             # distinct values are enough: midpoints as boundaries
@@ -45,6 +53,7 @@ class BinMapper:
             for i in range(num_values - 1):
                 upper[i] = (distinct_values[i] + distinct_values[i + 1]) / 2.0
             if num_values > 0:
+                cnt_in_bin0 = counts[0]
                 upper[num_values - 1] = np.inf
             self.bin_upper_bound = upper
         else:
@@ -95,6 +104,8 @@ class BinMapper:
                     cur_cnt_inbin += counts[i]
                     if cur_cnt_inbin >= mean_bin_size:
                         upper_bounds[bin_cnt] = distinct_values[i]
+                        if bin_cnt == 0:
+                            cnt_in_bin0 = cur_cnt_inbin
                         bin_cnt += 1
                         lower_bounds[bin_cnt] = distinct_values[i + 1]
                         if bin_cnt >= max_bin - 1:
@@ -114,12 +125,52 @@ class BinMapper:
             self.bin_upper_bound = upper
 
         self.is_trivial = self.num_bin <= 1
+        self.sparse_rate = (cnt_in_bin0 / float(sample_size)
+                            if sample_size > 0 else 0.0)
 
     def value_to_bin(self, value):
         """ValueToBin binary search (bin.h:296-309): first bin whose upper
         bound >= value.  Vectorized: accepts scalars or arrays."""
         bounds = self.bin_upper_bound[:-1]  # last is +inf
         return np.searchsorted(bounds, np.asarray(value), side="left").astype(np.int32)
+
+    def bin_representatives(self) -> np.ndarray:
+        """One finite value per bin that ``value_to_bin`` maps back to it
+        (lightgbm_tpu/io/binning.py:141-160), to score a dataset cache:
+        bin b < num_bin - 1 its own upper bound (side="left"), the last
+        bin the previous bound + 1 (0.0 for a single-bin mapper)."""
+        vals = self.bin_upper_bound.astype(np.float64).copy()
+        if vals.size and not np.isfinite(vals[-1]):
+            vals[-1] = vals[-2] + 1.0 if vals.size > 1 else 0.0
+        return vals
+
+    # bin.cpp:144-175's fixed layout: int num_bin, bool is_trivial, 7
+    # bytes of padding, double sparse_rate, then the upper bounds
+    def to_bytes(self) -> bytes:
+        head = struct.pack("<i?7x d", self.num_bin, self.is_trivial,
+                           self.sparse_rate)
+        return head + np.asarray(self.bin_upper_bound,
+                                 dtype=np.float64).tobytes()
+
+    @classmethod
+    def from_bytes(cls, buffer: bytes) -> "BinMapper":
+        num_bin, is_trivial, sparse_rate = struct.unpack_from("<i?7x d",
+                                                              buffer, 0)
+        upper = np.frombuffer(buffer, dtype=np.float64, count=num_bin,
+                              offset=struct.calcsize("<i?7x d")).copy()
+        return cls(num_bin=num_bin, is_trivial=bool(is_trivial),
+                   sparse_rate=sparse_rate, bin_upper_bound=upper)
+
+
+def bin_features(mappers: List[BinMapper], used_feature_map,
+                 features: np.ndarray, dtype) -> np.ndarray:
+    """[n, raw features] values -> the [F, n] bins of the used features
+    (``used_feature_map``: raw column -> used feature)."""
+    out = np.empty((len(mappers), features.shape[0]), dtype=dtype)
+    for j_raw, j_inner in used_feature_map.items():
+        out[j_inner] = mappers[j_inner].value_to_bin(
+            features[:, j_raw]).astype(dtype)
+    return out
 
 
 def find_bins_for_matrix(sample: np.ndarray, max_bin: int) -> List[BinMapper]:

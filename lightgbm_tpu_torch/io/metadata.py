@@ -3,9 +3,12 @@
 The port's subset of lightgbm_tpu/io/metadata.py: labels, per-row
 weights, the ``<data>.weight`` and ``<data>.query`` side files
 (metadata.cpp:228-299), query weights (the per-query mean of the row
-weights), the initial scores of an ``input_init_score`` file (one value
-per line) and the ``finalize`` size checks.  Query-id columns and
-distributed partitioning belong to features outside the port.
+weights, recomputed by a cache reader whose file carries weights and
+queries), the initial scores of an ``input_init_score`` file (one value
+per line), an in-file query-id column (``set_queries_from_column``,
+turned into boundaries by ``finalize``) and the ``finalize`` size
+checks.  Distributed partitioning belongs to the parallel learners,
+outside the port.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ class Metadata:
         self.query_boundaries: Optional[np.ndarray] = None  # int32 [nq+1]
         self.query_weights: Optional[np.ndarray] = None     # float32 [nq]
         self.init_score: Optional[np.ndarray] = None        # float32 [N]
+        self.queries: Optional[np.ndarray] = None           # raw query ids
 
     def init_from_files(self, data_filename: str,
                         init_score_filename: str = "") -> None:
@@ -69,8 +73,20 @@ class Metadata:
         self.label = np.asarray(label, dtype=np.float32)
         self.num_data = self.label.size
 
+    def set_queries_from_column(self, queries: np.ndarray) -> None:
+        """An in-file query-id column (metadata.cpp:81-106): ``finalize``
+        starts a new query wherever the id changes."""
+        self.queries = np.asarray(queries)
+
     def finalize(self, num_data: int) -> None:
         self.num_data = num_data
+        if self.queries is not None:
+            q = self.queries
+            change = np.nonzero(q[1:] != q[:-1])[0] + 1
+            starts = np.concatenate(([0], change, [q.size]))
+            self.query_boundaries = starts.astype(np.int32)
+            self.load_query_weights()
+            self.queries = None
         if self.weights is not None and self.weights.size != num_data:
             log.fatal("Initial weight size doesn't equal to data")
         if (self.query_boundaries is not None

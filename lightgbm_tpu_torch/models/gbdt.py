@@ -103,11 +103,30 @@ class GBDT:
                      "features (histogram passes per class: %s)"
                      % (spec.counts[0], spec.widths[0], spec.counts[1],
                         "x".join(str(w) for w in spec.widths)))
-            # the booster's own packed copy: the dataset's cached tensor
-            # stays canonical for validation sets and other boosters
-            self.bins_device = bins_to_tensor(np.ascontiguousarray(
-                train_data.bins[np.asarray(spec.perm, np.int64)]),
-                self.device)
+            perm = np.asarray(spec.perm, np.int64)
+            if train_data.bins is not None:
+                # the booster's own packed copy: the dataset's cached
+                # tensor stays canonical for validation sets and other
+                # boosters
+                self.bins_device = bins_to_tensor(np.ascontiguousarray(
+                    train_data.bins[perm]), self.device)
+            else:
+                # a streamed dataset's matrix lives on the device alone:
+                # gather its feature rows there (lightgbm_tpu/models/
+                # gbdt.py:290-307), then release the canonical original,
+                # which would double the matrix's device memory for the
+                # whole run; the dataset is consumed
+                log.check(not train_data.device_bins_consumed,
+                          "this streamed dataset's device bin matrix was "
+                          "consumed by a previous mixed-bin GBDT.init — "
+                          "reload the dataset to train another booster "
+                          "on it")
+                src = train_data.device_bins.to(self.device)
+                self.bins_device = src.index_select(
+                    0, torch.as_tensor(perm, device=self.device))
+                train_data.device_bins = None
+                train_data.device_bins_consumed = True
+                train_data._device_cache.clear()
         self.num_bins_device = torch.as_tensor(train_data.num_bins,
                                                device=self.device)
         self.early_stopping_round = boosting_config.early_stopping_round

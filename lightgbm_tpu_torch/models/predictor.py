@@ -9,7 +9,9 @@ model's order — the same comparisons and, in float64, the same sum as the
 JAX package's host walk (models/tree.py ``Tree.predict``), on the chosen
 device; ``GBDT.predict*`` and continued training use it.  ``Predictor``
 scores through the booster's serving engine (serving.py), in float32 as
-the JAX package's Predictor does, so both write the same result file.
+the JAX package's Predictor does, so both write the same result file;
+a native dataset cache given as ``data=`` is scored from its bins
+(``_predict_binary_file``), to the same file as its text.
 """
 from __future__ import annotations
 
@@ -19,11 +21,10 @@ import numpy as np
 import torch
 
 from ..io import parser as parser_mod
+from ..io.binning import BinMapper
+from ..io.dataset import Dataset, read_cache_header
 from ..ops.scoring import split_leaf_sequence
 from ..utils import log
-
-# the first bytes of a JAX-package dataset cache (its io/dataset.py)
-_BINARY_MAGIC = b"LGBM_TPU_BIN_V1"
 
 
 def predict_raw_scores(models, features: np.ndarray, device: torch.device,
@@ -121,13 +122,10 @@ class Predictor:
         scores of the whole file are held at once.  Rows are independent
         through the engine, so the file is byte-equal at any chunk
         length."""
-        if os.path.isfile(data_filename):
-            with open(data_filename, "rb") as f:
-                if f.read(len(_BINARY_MAGIC)) == _BINARY_MAGIC:
-                    log.fatal("Data file %s is a binary dataset cache; "
-                              "scoring one is not ported to "
-                              "lightgbm_tpu_torch yet (ROADMAP A6)"
-                              % data_filename)
+        if (os.path.isfile(data_filename)
+                and Dataset._classify_binary_cache(data_filename) == "ours"):
+            return self._predict_binary_file(data_filename, result_filename,
+                                             chunk_lines)
         parser = parser_mod.create_parser(data_filename, has_header,
                                           self.num_features,
                                           self.boosting.label_idx)
@@ -138,6 +136,39 @@ class Predictor:
         with open(result_filename, "w") as f:
             for features in parser_mod.prefetch_chunks(
                     chunks, depth=max(int(self.engine.queue), 1)):
+                self._write_chunk(f, self.predict_matrix(features))
+        log.info("Finished prediction, result saved to %s" % result_filename)
+
+    def _predict_binary_file(self, data_filename: str, result_filename: str,
+                             chunk_lines: int) -> None:
+        """Score a native dataset cache (lightgbm_tpu/models/predictor.py:
+        115-157): its memmapped [F, N] bins, in row chunks, decoded to
+        each mapper's ``bin_representatives`` in the raw column space,
+        which put every row in the bins of its original values, so the
+        trees, whose thresholds are bin upper bounds, go the same way;
+        then the text path's writes."""
+        try:
+            header, offset = read_cache_header(data_filename)
+        except Exception as e:   # any damage: name the file
+            log.fatal("Binary file %s is a damaged lightgbm_tpu cache "
+                      "(%s) — delete it to regenerate"
+                      % (data_filename, e))
+        reps = [BinMapper.from_bytes(b).bin_representatives()
+                for b in header["mappers"]]
+        used_map = header["used_feature_map"]
+        num_total = int(header["num_total_features"])
+        shape = tuple(header["bins_shape"])
+        mm = (np.memmap(data_filename, dtype=np.dtype(header["bins_dtype"]),
+                        mode="r", offset=offset, shape=shape)
+              if shape[0] * shape[1] else None)
+        with open(result_filename, "w") as f:
+            for s in range(0, shape[1], chunk_lines):
+                e = min(s + chunk_lines, shape[1])
+                features = np.zeros((e - s, num_total), dtype=np.float64)
+                if mm is not None:
+                    for j_raw, j_inner in used_map.items():
+                        features[:, j_raw] = \
+                            reps[j_inner][np.asarray(mm[j_inner, s:e])]
                 self._write_chunk(f, self.predict_matrix(features))
         log.info("Finished prediction, result saved to %s" % result_filename)
 

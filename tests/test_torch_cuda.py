@@ -740,3 +740,84 @@ def test_serving_front_round_trip_on_card(cuda, serving_model):
         np.testing.assert_array_equal(got, f32.scores(x[i:i + 7]))
     for i, got in zip(range(350, 700, 7), got_after):
         np.testing.assert_array_equal(got, i8.scores(x[i:i + 7]))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("depth", [0, 2])
+def test_device_row_writer_on_card(cuda, depth, dtype):
+    """The streamed feed on the card: chunks of 4,099 columns and an odd
+    tail through ``depth`` pinned staging buffers, 8- and 16-bit bins;
+    the matrix equals the host one once ``finish`` orders the training
+    stream after the copies (no host synchronize before the read)."""
+    from lightgbm_tpu_torch.io.streaming import DeviceRowWriter
+    rng = np.random.RandomState(depth + 7)
+    F, N = 28, 50_001
+    hi = 256 if dtype == np.uint8 else 65536
+    want = rng.randint(0, hi, (F, N)).astype(dtype)
+    w = DeviceRowWriter(F, N, dtype, cuda, depth=depth)
+    for s in range(0, N, 4_099):
+        w.append(np.ascontiguousarray(want[:, s:s + 4_099]), s)
+    got = w.finish()
+    # a kernel on the training stream sees every chunk
+    total = int(got.to(torch.int64).sum().item()) if dtype == np.uint8 \
+        else int((got.to(torch.int64) & 0xFFFF).sum().item())
+    assert total == int(want.astype(np.int64).sum())
+    host = got.cpu().numpy()
+    if dtype == np.uint16:
+        host = host.view(np.uint16)
+    np.testing.assert_array_equal(host, want)
+    assert w.h2d_bytes == want.nbytes
+    assert w.wait_s >= 0.0 and w.hidden_s >= 0.0
+
+
+def test_streamed_load_on_card_equals_resident(cuda, tmp_path):
+    """A text file streamed onto the card (serial and with 2 workers):
+    the resident dataset; the packed device gather equals the host
+    gather of the resident booster; and under mixed_bin=auto a streamed
+    load trains the resident model text in int8 (order-free int32 sums:
+    the float mode's f32 atomics make its text differ from run to run
+    on the card)."""
+    from lightgbm_tpu_torch.config import IOConfig
+    from lightgbm_tpu_torch.io import parallel_ingest
+    rng = np.random.RandomState(3)
+    n = 60_000
+    x = rng.randn(n, 6)
+    x[:, 4] = rng.randint(0, 5, n)
+    y = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(int)
+    path = str(tmp_path / "s.csv")
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write("%d,%s\n" % (y[i], ",".join("%.6f" % v for v in x[i])))
+    resident = lgt.Dataset.load_train(IOConfig(data_filename=path,
+                                               streaming="false"))
+    try:
+        for workers in (1, 2):
+            ds = lgt.Dataset.load_train(
+                IOConfig(data_filename=path, streaming="true",
+                         ingest_chunk_rows=7_001, ingest_workers=workers),
+                device=cuda)
+            assert ds.device_bins.is_cuda and ds.bins is None
+            np.testing.assert_array_equal(ds.read_bins(), resident.bins)
+    finally:
+        parallel_ingest.shutdown_workers()
+    from lightgbm_tpu_torch.config import OverallConfig
+    from lightgbm_tpu_torch.objectives import create_objective
+    params = {"objective": "binary", "num_leaves": 31, "num_iterations": 2,
+              "mixed_bin": "auto", "hist_dtype": "int8"}
+    packed_host = lgt.GBDT()
+    cfg = OverallConfig()
+    cfg.set({k: str(v) for k, v in params.items()}, require_data=False)
+    packed_host.init(cfg.boosting_config, resident,
+                     create_objective(cfg.objective_type,
+                                      cfg.objective_config), device=cuda)
+    assert packed_host._pack_spec is not None
+    packed_dev = lgt.GBDT()
+    packed_dev.init(cfg.boosting_config, ds,
+                    create_objective(cfg.objective_type,
+                                     cfg.objective_config), device=cuda)
+    assert torch.equal(packed_dev.bins_device, packed_host.bins_device)
+    assert ds.device_bins_consumed
+    want = lgt.train(params, resident, device=cuda).model_to_string()
+    again = lgt.Dataset.load_train(IOConfig(data_filename=path,
+                                            streaming="true"), device=cuda)
+    assert lgt.train(params, again, device=cuda).model_to_string() == want

@@ -102,18 +102,106 @@ def test_default_device_needs_cuda():
     ("objective", "huber"), ("grow_policy", "levelwise"),
     ("leafwise_compact", "maybe"), ("tree_learner", "data"),
     ("num_machines", "4"), ("boosting_type", "dart"),
-    ("predict_leaf_index", "maybe"), ("is_save_binary_file", "true"),
+    ("predict_leaf_index", "maybe"), ("is_save_binary_file", "maybe"),
     ("max_bin", "0"), ("quant_rounding", "dither"),
-    ("mixed_bin", "sometimes"), ("streaming", "true"),
+    ("mixed_bin", "sometimes"), ("streaming", "sometimes"),
     ("checkpoint_interval", "5"), ("metrics_out", "m.jsonl"),
     ("metric", "auc,map"), ("pipeline", "readback"),
-    ("ignore_column", "2"), ("group_column", "0"),
-    ("weight_column", "1"), ("label_column", "0"), ("checkpoint_dir", "ck"),
+    ("is_pre_partition", "true"), ("save_binary_format", "parquet"),
+    ("ingest_workers", "0"), ("ingest_chunk_rows", "0"),
+    ("use_two_round_loading", "often"), ("checkpoint_dir", "ck"),
 ])
 def test_out_of_slice_config_is_fatal(key, value):
     cfg = lgt.OverallConfig()
     with pytest.raises(log.Fatal, match=key):
         cfg.set({"objective": "binary", key: value}, require_data=False)
+
+
+INGEST_KEYS = [
+    {},
+    {"label_column": "name:y", "weight_column": "3",
+     "group_column": "name:q", "ignore_column": "name:a,b",
+     "use_two_round_loading": "true", "is_save_binary_file": "true",
+     "save_binary_format": "Reference", "streaming": "TRUE",
+     "ingest_chunk_rows": "5000", "ingest_workers": "3",
+     "num_threads": "4", "is_enable_sparse": "false",
+     "is_pre_partition": "false"},
+    {"label": "0", "weight": "1", "query": "2", "blacklist": "4,5",
+     "two_round": "true", "save_binary": "true", "nthread": "2",
+     "is_sparse": "true", "streaming": "auto", "ingest_workers": "auto"},
+    {"group": "name:g", "ignore_feature": "1", "query_column": "7",
+     "two_round_loading": "false", "is_save_binary": "false",
+     "num_thread": "0", "streaming": "false"},
+]
+
+
+@pytest.mark.parametrize("params", INGEST_KEYS,
+                         ids=["defaults", "canonical", "aliases",
+                              "more-aliases"])
+def test_ingest_keys_take_jax_values(params):
+    """The ingest keys and their aliases take the JAX package's defaults
+    and values (lightgbm_tpu/config.py:67-82, 256-285, 439-477)."""
+    from lightgbm_tpu.config import OverallConfig as JConfig
+    params = dict({"objective": "binary"}, **params)
+    j, t = JConfig(), lgt.OverallConfig()
+    j.set(dict(params), require_data=False)
+    t.set(dict(params), require_data=False)
+    assert t.num_threads == j.num_threads
+    for key in ("label_column", "weight_column", "group_column",
+                "ignore_column", "use_two_round_loading",
+                "is_save_binary_file", "save_binary_format", "streaming",
+                "ingest_chunk_rows", "ingest_workers", "is_enable_sparse"):
+        assert getattr(t.io_config, key) == getattr(j.io_config, key), key
+
+
+@pytest.mark.parametrize("params,message", [
+    ({"ingest_workers": "-2"}, "ingest_workers should be > 0"),
+    ({"ingest_chunk_rows": "-1"}, "ingest_chunk_rows should be > 0"),
+    ({"streaming": "yes"}, "streaming must be auto, true or false"),
+    ({"save_binary_format": "csv"}, "save_binary_format must be"),
+    ({"two_round": "x"}, "use_two_round_loading should be"),
+    ({"num_threads": "many"}, "num_threads should be int"),
+], ids=["workers", "chunk", "streaming", "format", "two-round", "threads"])
+def test_ingest_key_fault_is_jax_fatal(params, message):
+    from lightgbm_tpu.config import OverallConfig as JConfig
+    from lightgbm_tpu.utils import log as jlog
+    params = dict({"objective": "binary"}, **params)
+    with pytest.raises(jlog.LightGBMError, match=message) as want:
+        JConfig().set(dict(params), require_data=False)
+    with pytest.raises(log.Fatal, match=message) as got:
+        lgt.OverallConfig().set(dict(params), require_data=False)
+    assert str(got.value) == str(want.value)
+
+
+def test_ingest_modules_scanned_and_worker_imports_no_torch():
+    """The ingest layer's modules are among the scanned sources (no JAX,
+    no JAX package), and an exec'd parse worker's imports leave torch
+    out."""
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for name in ("native/lib.py", "native/__init__.py", "io/streaming.py",
+                 "io/parallel_ingest.py", "io/parser.py", "io/dataset.py"):
+        assert os.path.join("lightgbm_tpu_torch", name) in rel, name
+    with open(os.path.join(PKG, "native", "lgbm_native.cpp")) as f:
+        assert "lightgbm_tpu/native/lib.py" not in f.read()
+    from lightgbm_tpu_torch.io import parallel_ingest
+    code = ("import sys\n"
+            "import lightgbm_tpu_torch.io.parallel_ingest as pi\n"
+            "import lightgbm_tpu_torch.native.lib\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'lightgbm_tpu')]\n"
+            "print('clean' if not bad else bad)\n")
+    env = dict(os.environ, **{parallel_ingest.WORKER_ENV: "1"})
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "clean", (
+        out.stdout, out.stderr)
+
+
+def test_native_build_goes_to_ignored_dir():
+    from lightgbm_tpu_torch.native import lib as native_lib
+    assert os.path.dirname(native_lib.library_path()) == \
+        cuda_build.BUILD_DIR
+    assert native_lib.FLAGS[:4] == ["-O3", "-fopenmp", "-shared", "-fPIC"]
 
 
 def test_slice_defaults_accepted():

@@ -479,13 +479,20 @@ def test_predict_matrix_pads_and_truncates(models):
 
 
 def test_binary_cache_is_a_named_fatal(models, tmp_path):
+    """A dataset cache is scored since the ingest slice
+    (tests/test_torch_ingest_cache.py); a damaged one is the JAX
+    Predictor's named Fatal."""
     path, _ = models["binary"]
     cache = tmp_path / "data.bin"
     cache.write_bytes(b"LGBM_TPU_BIN_V1" + bytes(16))
     pred = Predictor(GBDT.from_model_file(path, device="cpu"), True, False,
                      -1)
-    with pytest.raises(log.Fatal, match="binary dataset cache.*A6"):
+    with pytest.raises(log.Fatal, match="damaged lightgbm_tpu cache") as got:
         pred.predict_file(str(cache), str(tmp_path / "out.txt"), False)
+    jpred = JPredictor(JGBDT.from_model_file(path), True, False, -1)
+    with pytest.raises(jlgb.utils.log.LightGBMError) as want:
+        jpred.predict_file(str(cache), str(tmp_path / "jout.txt"), False)
+    assert str(got.value).split(" (")[0] == str(want.value).split(" (")[0]
 
 
 def test_read_line_chunks_and_prefetch(tmp_path):
