@@ -78,9 +78,17 @@ workers, two-round, the native cache direct and as a sibling, a
 reference-format cache; every route's bin matrix, read back from the
 card, equal to the resident one; the streamed cache byte-equal to the
 resident cache; the native parser tier only; one histogram launch a
-leaf and one partition a split from four routes, one int8 model text;
+leaf and one partition a split from four routes, one float32 model text
+(from the resident route trained twice too) and one int8 model text;
 ``task=predict`` on the cache equal to the text's (see
-``ingest_phase``).  Every phase must
+``ingest_phase``).  The float histogram sums in 64-bit fixed point, so
+every float launch of phases 2, 6, 9 and 10 runs twice and must give
+the same bits.  Phase 13 checkpoints and resumes the main path
+(float32) and the sampled path (int8, threefry bagging) on phase 4's
+table: stopped by a raise at iteration 6 and resumed to the unbroken
+model text, launching the kernels for the remaining trees only, and a
+CLI run SIGKILLed at iteration 6 and rerun to the unbroken model file
+(see ``checkpoint_phase``).  Every phase must
 pass; the last line of standard output is ``{"ok": true, "device":
 {...}}``.  Exits nonzero,
 printing no result, when there is no CUDA device or the package is not
@@ -98,6 +106,10 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+# the float histogram's root and first-tree times when it added f32 values
+# with atomics, before its fixed-point sums (PERF.md section 6: NVIDIA
+# H100 80GB HBM3, 700 W); phase 6 prints the fixed-point times beside them
+F32_ATOMICS_MS = {"root": 0.1414, "tree": 3.3380}
 SEED = 42
 # the main path's sizes; a rehearsal on the CPU may pass smaller ones.
 # hist_shapes: (F, N, B, C, offset); offset > 0 slices the bins out of
@@ -298,6 +310,40 @@ def float64_err(what, got, bins, grad, hess, cid, C, B):
     return float(err.max())
 
 
+def twice(what, fn):
+    """The float histogram's result, launched twice: its fixed-point sums
+    do not depend on the order of the atomics, so the two launches must
+    be bitwise equal."""
+    import torch
+    got = fn()
+    if not torch.equal(got, fn()):
+        fail("hist float %s: two launches on the same inputs differ" % what)
+    return got
+
+
+def pane_library_ms(timer, seg, F, B, rows=None, bin_bytes=1):
+    """The library call beside a pane-entry launch: ``scatter_add_`` of
+    the segment's valid rows' (grad, hess, 1) on an index prebuilt from
+    its bin rows (``rows`` = (first, count) of the F), the same function
+    as ``hist_cuda.pane_plain``."""
+    import torch
+    from lightgbm_tpu_torch.ops import compact
+    from lightgbm_tpu_torch.ops.bins import widen
+    first, Fr = rows if rows is not None else (0, F)
+    pb, pg, ph, valid = compact.unpack_values(seg, F, bin_bytes)
+    pb = pb[first:first + Fr]
+    n = pb.shape[1]
+    idx = torch.arange(Fr, device=seg.device)[:, None] * B \
+        + widen(pb).long()
+    idx = torch.where(valid[None, :], idx, Fr * B).reshape(-1, 1) \
+        .expand(-1, 3)
+    src = torch.stack([pg, ph, torch.ones_like(pg)], 1)[None] \
+        .expand(Fr, n, 3).reshape(-1, 3)
+    acc = torch.zeros((Fr * B + 1, 3), dtype=torch.float32,
+                      device=seg.device)
+    return timer(lambda: acc.scatter_add_(0, idx, src))
+
+
 def level_passes(tree, num_leaves: int) -> int:
     """The level passes the depth-wise grower runs for ``tree``: one
     after each level that chose a slot, unless it was the last level or
@@ -361,7 +407,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-12 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-13 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -391,9 +437,11 @@ def run(dev, sizes, timer=None):
             bins, torch.stack([grad.abs(), hess.abs(),
                                torch.ones_like(grad)], 1), cid, C, B)
         err = (got - want).abs()
-        # f32 atomics add in a run-dependent order: each cell may differ
-        # from the plain sum by the rounding of its terms, bounded here by
-        # 1e-5 of the cell's absolute sum; counts are sums of 1.0, exact
+        # the kernel's fixed-point sums are exact on a grid far finer than
+        # f32 (the same bits on every run, which twice() checks); the
+        # plain version's f32 index_add_ rounds in its own order: each cell
+        # may differ by that rounding, bounded here by 1e-5 of the cell's
+        # absolute sum; counts are exact
         tol = 1e-5 * mag + 1e-6
         counts_exact = torch.equal(got[..., 2::3], want[..., 2::3])
         if not (bool((err <= tol).all()) and counts_exact):
@@ -405,8 +453,9 @@ def run(dev, sizes, timer=None):
     for F, N, B, C, offset in sizes["hist_shapes"]:
         bins, grad, hess, cid = hist_inputs(F, N, B, C, offset)
         shape_inputs[(F, N, B, C, offset)] = (bins, grad, hess, cid)
-        got = hist_cuda.hist_float(bins, grad, hess, cid, C, B)
         what = "F=%d N=%d B=%d C=%d offset=%d" % (F, N, B, C, offset)
+        got = twice(what, lambda: hist_cuda.hist_float(bins, grad, hess, cid,
+                                                       C, B))
         err = float_err(what, got, bins, grad, hess, cid, C, B)
         ok = cid >= 0
         levels, _ = quantize_values(grad, hess, ok)
@@ -417,7 +466,8 @@ def run(dev, sizes, timer=None):
             fail("hist int8 %s not bitwise" % what)
         hist_err[(F, N, B, C, offset)] = err
         say("phase 2 hist %s: float max abs err %.3g (tol 1e-5 x cell "
-            "|sum|), counts exact, int8 bitwise" % (what, err))
+            "|sum|), two launches bitwise equal, counts exact, int8 bitwise"
+            % (what, err))
 
     # the pane entry on a segment at an unaligned lane of a 28-feature pane
     F = 28
@@ -425,14 +475,16 @@ def run(dev, sizes, timer=None):
     P = compact.bucket_table(bins.shape[1])[0]
     pane = compact.pack_planes(bins, grad, hess, grad > -1.0, P)
     sstart, scnt = sizes["pane_segment"]
-    got = hist_cuda.hist_pane_float(pane, F, sstart, scnt, 256)
+    got = twice("pane", lambda: hist_cuda.hist_pane_float(pane, F, sstart,
+                                                          scnt, 256))
     pb, pg, ph, pvalid = compact.unpack_values(
         pane[:, sstart:sstart + scnt], F)
     pane_err = float_err("pane sstart=%d scnt=%d" % (sstart, scnt),
                          got.reshape(F, 256, 3), pb, pg, ph,
                          torch.where(pvalid, 0, -1).to(torch.int32), 1, 256)
     say("phase 2 hist pane F=%d P=%d sstart=%d scnt=%d: float max abs err "
-        "%.3g, counts exact" % (F, P, sstart, scnt, pane_err))
+        "%.3g, two launches bitwise equal, counts exact" % (
+            F, P, sstart, scnt, pane_err))
 
     # ---- phase 3: partition kernel vs its plain version, both entries
     n_train, n_test, F = sizes["n_train"], sizes["n_test"], 28
@@ -695,6 +747,12 @@ def run(dev, sizes, timer=None):
     idx3 = idx[:, None].expand(-1, 3)
     src3 = vals3[None].expand(F, N, 3).reshape(-1, 3)
     acc = torch.zeros((F * B, 3), dtype=torch.float32, device=dev)
+    twice("phase 6 root", lambda: hist_cuda.hist_float(bins, grad, hess, cid,
+                                                       1, B))
+    # timed as the main path launches it: with the tree's fixed-point
+    # exponent, computed once a tree (the wrapper's default computes it
+    # on every call)
+    tree_e = hist_cuda.fixed_exponent(grad, hess, N)
     kernels["hist"] = {
         "name": "hist", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/hist.cu",
@@ -702,7 +760,7 @@ def run(dev, sizes, timer=None):
         "launches": launches["hist"],
         "max_abs_err": hist_err[sizes["hist_shapes"][0]],
         "ms": timer(lambda: hist_cuda.hist_float(bins, grad, hess, cid,
-                                                 1, B)),
+                                                 1, B, tree_e)),
         "plain_ms": timer(lambda: hist_cuda.hist_plain(bins, vals3, cid,
                                                        1, B)),
         "bound_ms": (N * F + 12 * N + F * B * 3 * 4) / HBM_BYTES_PER_S * 1e3,
@@ -753,19 +811,21 @@ def run(dev, sizes, timer=None):
                     ("median child", children[len(children) // 2]),
                     ("p90 child", children[len(children) * 9 // 10])):
         start = min(1001, P - n)
-        got = hist_cuda.hist_pane_float(pane, F, start, n, B)
+        got = twice("pane " + what, lambda: hist_cuda.hist_pane_float(
+            pane, F, start, n, B))
         pb, pg, ph, pvalid = compact.unpack_values(
             pane[:, start:start + n], F)
         err = float_err("pane %s sstart=%d scnt=%d" % (what, start, n), got,
                         pb, pg, ph, torch.where(pvalid, 0, -1)
                         .to(torch.int32), 1, B)
         say("phase 6 hist pane, rows all valid, %s sstart=%d scnt=%d: float "
-            "max abs err %.3g, counts exact" % (what, start, n, err))
+            "max abs err %.3g, two launches bitwise equal, counts exact"
+            % (what, start, n, err))
     tree_ms = tree_bound_ms = 0.0
     for n in first_tree:
         start = min(1001, P - n)
-        tree_ms += timer(lambda: hist_cuda.hist_pane_float(pane, F, start, n,
-                                                           B), reps=5)
+        tree_ms += timer(lambda: hist_cuda.hist_pane_float(
+            pane, F, start, n, B, None, 1, tree_e), reps=5)
         tree_bound_ms += (n * (F + 9) + F * B * 3 * 4) / HBM_BYTES_PER_S * 1e3
     kernels["hist"]["tree_ms"] = tree_ms
     kernels["hist"]["tree_bound_ms"] = tree_bound_ms
@@ -773,10 +833,11 @@ def run(dev, sizes, timer=None):
     for (F_, N_, B_, C_, off), (sb, sg, sh, sc) in shape_inputs.items():
         if off or N_ < 100_000:
             continue
+        shape_e = hist_cuda.fixed_exponent(sg, sh, N_)
         shapes.append({
             "F": F_, "N": N_, "B": B_, "C": C_,
-            "ms": timer(lambda: hist_cuda.hist_float(sb, sg, sh, sc, C_,
-                                                     B_)),
+            "ms": timer(lambda: hist_cuda.hist_float(sb, sg, sh, sc, C_, B_,
+                                                     shape_e)),
             "bound_ms": (N_ * F_ + 12 * N_ + F_ * B_ * 3 * C_ * 4)
             / HBM_BYTES_PER_S * 1e3})
     kernels["hist"]["shapes"] = shapes
@@ -845,6 +906,12 @@ def run(dev, sizes, timer=None):
     for k in kernels.values():
         say("phase 6 %s first tree replayed: %.4f ms, bound %.4f ms"
             % (k["name"], k["tree_ms"], k["tree_bound_ms"]))
+    say("phase 6 hist float (fixed point) root %.4f ms (f32 atomics %.4f, "
+        "bound %.4f), first tree replayed %.4f ms (f32 atomics %.4f, bound "
+        "%.4f) [%s]" % (kernels["hist"]["ms"], F32_ATOMICS_MS["root"],
+                        kernels["hist"]["bound_ms"],
+                        kernels["hist"]["tree_ms"], F32_ATOMICS_MS["tree"],
+                        kernels["hist"]["tree_bound_ms"], card_name()))
     for sh_ in shapes:
         say("phase 6 hist F=%d N=%d B=%d C=%d: %.4f ms (bound %.4f)" % (
             sh_["F"], sh_["N"], sh_["B"], sh_["C"], sh_["ms"],
@@ -885,6 +952,11 @@ def run(dev, sizes, timer=None):
                     "hist" if name.startswith("hist") else "partition"]
     # ---- phase 12: the ingest layer, every load route onto the card
     for path, counts in ingest_phase(dev, sizes, sync).items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    # ---- phase 13: checkpoints and resume on phase 4's table
+    for path, counts in checkpoint_phase(dev, sizes, train_set,
+                                         sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
     return list(kernels.values())
@@ -938,6 +1010,8 @@ def mixed_phase(dev, sizes, sync, timer):
     pbins = canon[torch.as_tensor(spec.perm, device=dev)].contiguous()
     grad = torch.as_tensor(gen.randn(N).astype(np.float32), device=dev)
     hess = torch.as_tensor(gen.rand(N).astype(np.float32), device=dev)
+    # the float launches are timed with one exponent, as a tree's are
+    tree_e = hist_cuda.fixed_exponent(grad, hess, N)
 
     def bound(n, Fc, B, C, side):
         return (n * Fc + side * n + Fc * B * 3 * C * 4) / HBM_BYTES_PER_S \
@@ -973,13 +1047,15 @@ def mixed_phase(dev, sizes, sync, timer):
                                                         width)
                     src = lev32
                 else:
-                    got = hist_cuda.hist_float(cb, grad, hess, cid, C, width)
+                    got = twice("phase 9a " + what, lambda: hist_cuda
+                                .hist_float(cb, grad, hess, cid, C, width))
                     err = float64_err("phase 9a " + what, got, cb, grad,
                                       hess, cid, C, width)
                     plain = lambda: hist_cuda.hist_plain(cb, vals3, cid, C,
                                                          width)
                     run_k = lambda: hist_cuda.hist_float(cb, grad, hess,
-                                                         cid, C, width)
+                                                         cid, C, width,
+                                                         tree_e)
                     src = vals3
                 src3 = src[None].expand(cnt, N, 3).reshape(-1, 3)
                 acc = torch.zeros((cnt * width * C + 1, 3), dtype=src.dtype,
@@ -1004,16 +1080,19 @@ def mixed_phase(dev, sizes, sync, timer):
             if mode == "int8" and not torch.equal(packed_h, uniform_h):
                 fail("phase 9a packed int8 pass C=%d differs from uniform"
                      % C)
-            if mode == "float32" and not torch.equal(packed_h[..., 2],
-                                                     uniform_h[..., 2]):
-                fail("phase 9a packed float pass C=%d: counts differ" % C)
+            # the float mode too: every launch of both layouts sums the
+            # same rows' values at the same exponent, in fixed point
+            if mode == "float32" and not torch.equal(packed_h, uniform_h):
+                fail("phase 9a packed float pass C=%d differs from uniform"
+                     % C)
             pass_shapes.append({
                 "C": C, "mode": mode,
                 "packed_ms": timer(lambda: histogram_leafbatch(
                     pbins, grad, hess, cid, ok, C, nb_max, mode,
-                    packing=spec)),
+                    packing=spec, exponent=tree_e)),
                 "uniform_ms": timer(lambda: histogram_leafbatch(
-                    canon, grad, hess, cid, ok, C, nb_max, mode)),
+                    canon, grad, hess, cid, ok, C, nb_max, mode,
+                    exponent=tree_e)),
                 "packed_bound_ms": (N * F + (7 if mode == "int8" else 12) * N
                                     + (24 * 64 + 4 * nb_max) * 3 * C * 4)
                 / HBM_BYTES_PER_S * 1e3,
@@ -1037,8 +1116,9 @@ def mixed_phase(dev, sizes, sync, timer):
     n = N - 2000
     pane_shapes = []
     for first, cnt, width in spec.ranges:
-        got = hist_cuda.hist_pane_float(pane, F, 1001, n, width,
-                                        (first, cnt))
+        got = twice("phase 9a pane rows %d-%d" % (first, first + cnt),
+                    lambda: hist_cuda.hist_pane_float(pane, F, 1001, n, width,
+                                                      (first, cnt)))
         pb, pg, ph, pvalid = compact.unpack_values(pane[:, 1001:1001 + n], F)
         err = float64_err("phase 9a pane rows %d-%d" % (first, first + cnt),
                           got, pb[first:first + cnt], pg, ph,
@@ -1047,16 +1127,19 @@ def mixed_phase(dev, sizes, sync, timer):
         pane_shapes.append({
             "F": cnt, "N": n, "B": width, "C": 1, "max_abs_err": err,
             "ms": timer(lambda: hist_cuda.hist_pane_float(
-                pane, F, 1001, n, width, (first, cnt))),
+                pane, F, 1001, n, width, (first, cnt), 1, tree_e)),
             "plain_ms": timer(lambda: hist_cuda.pane_plain(
                 pane[:, 1001:1001 + n], F, width, (first, cnt))),
             "bound_ms": (n * (cnt + 9) + cnt * width * 3 * 4)
-            / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+            / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": pane_library_ms(timer, pane[:, 1001:1001 + n], F,
+                                          width, (first, cnt))})
         say("phase 9a hist pane rows %d-%d (F=%d B=%d) over %d lanes: %.4f "
-            "ms (plain %.4f, bound %.4f), max abs err %.3g" % (
+            "ms (plain %.4f, library %.4f, bound %.4f), max abs err %.3g" % (
                 first, first + cnt - 1, cnt, width, n,
                 pane_shapes[-1]["ms"], pane_shapes[-1]["plain_ms"],
-                pane_shapes[-1]["bound_ms"], err))
+                pane_shapes[-1]["library_ms"], pane_shapes[-1]["bound_ms"],
+                err))
     del pane, canon
 
     # ---- 9b: bench.py's headline configuration, packed and uniform in
@@ -1787,6 +1870,8 @@ def wide_phase(dev, sizes, x, y, sync, timer):
     gen = np.random.RandomState(SEED + 10)
     grad = torch.as_tensor(gen.randn(N).astype(np.float32), device=dev)
     hess = torch.as_tensor(gen.rand(N).astype(np.float32), device=dev)
+    # the pane's float launches are timed with one exponent, as a tree's
+    tree_e = hist_cuda.fixed_exponent(grad, hess, N)
 
     def hbound(n, Fc, Bc, C, side, bin_bytes=2):
         return (bin_bytes * n * Fc + side * n + Fc * Bc * 3 * C * 4) \
@@ -1812,11 +1897,13 @@ def wide_phase(dev, sizes, x, y, sync, timer):
         else:
             src = torch.stack([grad[:n], hess[:n], torch.ones_like(grad[:n])],
                               1)
+            shape_e = hist_cuda.fixed_exponent(grad[:n], hess[:n], n)
             run_k = lambda: hist_cuda.hist_float(b, grad[:n], hess[:n], cid,
-                                                 C, Bc)
+                                                 C, Bc, shape_e)
             plain = lambda: hist_cuda.hist_plain(b, src, cid, C, Bc)
-            err = float64_err("phase 10a F=%d B=%d C=%d" % (Fc, Bc, C),
-                              run_k(), b, grad[:n], hess[:n], cid, C, Bc)
+            what = "phase 10a F=%d B=%d C=%d" % (Fc, Bc, C)
+            err = float64_err(what, twice(what, run_k), b, grad[:n],
+                              hess[:n], cid, C, Bc)
         idx = (torch.arange(Fc, device=dev)[:, None] * Bc
                + widen(b).long()) * C + cid.long().clamp(0, C - 1)[None, :]
         idx = torch.where(ok[None, :], idx, Fc * Bc * C)
@@ -1824,7 +1911,9 @@ def wide_phase(dev, sizes, x, y, sync, timer):
         src3 = src[None].expand(Fc, n, 3).reshape(-1, 3)
         acc = torch.zeros((Fc * Bc * C + 1, 3), dtype=src.dtype, device=dev)
         rec = {"F": Fc, "N": n, "B": Bc, "C": C, "mode": mode,
-               "slices": -(-Bc * C * 12 // hist_cuda.SLICE_BYTES),
+               "slices": -(-Bc * C * hist_cuda.CELL_BYTES[
+                   "int8" if mode == "int8" else "float"]
+                   // hist_cuda.SLICE_BYTES),
                "max_abs_err": err, "ms": timer(run_k),
                "plain_ms": timer(plain),
                "bound_ms": hbound(n, Fc, Bc, C, 7 if mode == "int8" else 12),
@@ -1849,7 +1938,8 @@ def wide_phase(dev, sizes, x, y, sync, timer):
     if R != compact.pane_rows(F, 2):
         fail("phase 10a: 16-bit pane of %d rows" % R)
     n = N - 2000
-    got = hist_cuda.hist_pane_float(pane, F, 1001, n, B, None, 2)
+    got = twice("phase 10a pane", lambda: hist_cuda.hist_pane_float(
+        pane, F, 1001, n, B, None, 2))
     pb, pg, ph, pvalid = compact.unpack_values(pane[:, 1001:1001 + n], F, 2)
     pane_err = float64_err("phase 10a pane", got.reshape(F, B, 3), pb, pg,
                            ph, torch.where(pvalid, 0, -1).to(torch.int32),
@@ -1858,15 +1948,17 @@ def wide_phase(dev, sizes, x, y, sync, timer):
     pane_rec = {
         "F": F, "N": n, "B": B, "C": 1, "max_abs_err": pane_err,
         "ms": timer(lambda: hist_cuda.hist_pane_float(pane, F, 1001, n, B,
-                                                      None, 2)),
+                                                      None, 2, tree_e)),
         "plain_ms": timer(lambda: hist_cuda.pane_plain(
             pane[:, 1001:1001 + n], F, B, None, 2)),
         "bound_ms": (n * (2 * F + 9) + F * B * 3 * 4)
-        / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
+        / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": pane_library_ms(timer, pane[:, 1001:1001 + n], F, B,
+                                      None, 2)}
     say("phase 10a hist pane, 16-bit pane of %d rows, %d lanes: %.4f ms "
-        "(plain %.4f, bound %.4f), max abs err %.3g" % (
-            R, n, pane_rec["ms"], pane_rec["plain_ms"], pane_rec["bound_ms"],
-            pane_err))
+        "(plain %.4f, library %.4f, bound %.4f), max abs err %.3g" % (
+            R, n, pane_rec["ms"], pane_rec["plain_ms"],
+            pane_rec["library_ms"], pane_rec["bound_ms"], pane_err))
     # the partition of the root on a 16-bit key: bins of feature 3 against
     # a threshold whose low byte alone would split the rows otherwise
     feat, thr = 3, 511
@@ -1953,7 +2045,7 @@ def wide_phase(dev, sizes, x, y, sync, timer):
     for n_ in first_rows:
         start = min(1001, P - n_)
         hist_tree[0] += timer(lambda: hist_cuda.hist_pane_float(
-            pane, F, start, n_, B, None, 2), reps=5)
+            pane, F, start, n_, B, None, 2, tree_e), reps=5)
         hist_tree[1] += (n_ * (2 * F + 9) + F * B * 3 * 4) \
             / HBM_BYTES_PER_S * 1e3
     dst = torch.empty_like(pane)
@@ -2681,17 +2773,14 @@ def ingest_phase(dev, sizes, sync):
         say("phase 12: routes (b)-(g) give (a)'s bin matrix, mappers, "
             "labels, weights and names")
 
-        # the main path from (a), (b), (c) and (e).  The float histogram
-        # adds f32 values with atomics in a run-dependent order, so its
-        # model text is not byte-stable from run to run even on one route
-        # ((a) trains twice to show it): each float32 model is compared
-        # with (a)'s tree by tree.  The int8 histogram's int32 sums are
-        # order-free, so the same configuration in int8 must give one
-        # model text from every route.
+        # the main path from (a), (b), (c) and (e), in float32 and in
+        # int8.  Both histogram modes sum in integers (the float mode in
+        # fixed point), in an order-free way, so each mode must give one
+        # model text from every route, and from (a) trained twice.
         params = {"objective": "binary", "num_leaves": 255,
                   "num_iterations": 5, "learning_rate": 0.1,
                   "hist_dtype": "float32", "max_bin": 255}
-        models, texts8 = {}, {}
+        texts = {"float32": {}, "int8": {}}
         for dtype in ("float32", "int8"):
             runs = (("a", a), ("a_again", a), ("b", b), ("c", c),
                     ("e", e)) if dtype == "float32" else \
@@ -2709,53 +2798,32 @@ def ingest_phase(dev, sizes, sync):
                          "splits" % (route, dtype, len(booster.models),
                                      counts["hist"], leaves,
                                      counts["partition"], splits))
-                if dtype == "float32":
-                    models[route] = booster
-                    if route != "a_again":
-                        by_path["ingest_" + route] = {
-                            "hist": counts["hist"],
-                            "partition": counts["partition"]}
-                else:
-                    texts8[route] = booster.model_to_string()
+                if dtype == "float32" and route != "a_again":
+                    by_path["ingest_" + route] = {
+                        "hist": counts["hist"],
+                        "partition": counts["partition"]}
+                texts[dtype][route] = booster.model_to_string()
                 say("phase 12 (%s) main path %s: %d histogram launches (one "
                     "a leaf), %d partitions (one a split), seconds per "
                     "iteration %s [%s]" % (
                         route, dtype, counts["hist"], counts["partition"],
                         " ".join("%.3f" % v for v in iter_s), card))
                 del booster
-        rec["float32_vs_a"] = {}
-        fields = ("split_feature_real", "threshold", "left_child",
-                  "right_child")
-        text_a = models["a"].model_to_string()
-        for route, booster in models.items():
-            same_trees = [all(np.array_equal(getattr(ta, k), getattr(tb, k))
-                              for k in fields)
-                          for ta, tb in zip(models["a"].models,
-                                            booster.models)]
-            diff = max([float(np.abs(ta.leaf_value - tb.leaf_value).max())
-                        for ta, tb, eq in zip(models["a"].models,
-                                              booster.models, same_trees)
-                        if eq] or [0.0])
-            rec["float32_vs_a"][route] = {
-                "text_equal": booster.model_to_string() == text_a,
-                "trees_same_structure": int(sum(same_trees)),
-                "max_leaf_diff": diff}
-        say("phase 12 float32 against (a): %s [%s]" % (
-            ", ".join("%s: text %s, %d of 5 trees of the same structure, "
-                      "leaf values within %.3g" % (
-                          r, "equal" if v["text_equal"] else "differs",
-                          v["trees_same_structure"], v["max_leaf_diff"])
-                      for r, v in rec["float32_vs_a"].items() if r != "a"),
-            card))
-        if len(set(texts8.values())) != 1:
-            fail("phase 12: int8 model text differs between routes: %s" % [
-                r for r in texts8 if texts8[r] != texts8["a"]])
-        say("phase 12: (a), (b), (c) and (e) train byte-equal int8 model "
-            "text (%d bytes)" % len(texts8["a"]))
+        for dtype, by_route in texts.items():
+            rec[dtype + "_text_equal"] = {
+                r: t == by_route["a"] for r, t in by_route.items()}
+            if len(set(by_route.values())) != 1:
+                fail("phase 12: %s model text differs from (a)'s on %s" % (
+                    dtype, [r for r in by_route
+                            if by_route[r] != by_route["a"]]))
+            say("phase 12: %s trains byte-equal %s model text (%d bytes)"
+                % (", ".join("(%s)" % r for r in by_route), dtype,
+                   len(by_route["a"])))
+        text_a = texts["float32"]["a"]
         model = os.path.join(tmp, "model.txt")
         with open(model, "w") as fm:
             fm.write(text_a)
-        del a, b, c, e, models
+        del a, b, c, e
 
         # task=predict on the cache and on the text: one result file
         outs = {}
@@ -2800,6 +2868,196 @@ def ingest_phase(dev, sizes, sync):
     rec["phase_s"] = time.perf_counter() - t_phase
     say("phase 12 ingest: %.1f s [%s]" % (rec["phase_s"], card))
     say(json.dumps({"ingest": rec}))
+    return by_path
+
+
+def checkpoint_phase(dev, sizes, train_set, sync):
+    """Phase 13: checkpoints and resume on phase 4's table, through
+    ``lightgbm_tpu_torch.train`` and the CLI.  Two paths in process: the
+    main path (float32, compacted, 255 leaves) and the reference
+    example's sampled path in int8 (63 leaves, bagging 0.8 every 5 with
+    the threefry draw on the card, feature_fraction 0.8), 10 iterations
+    each.  Each trains unbroken twice, the second time writing a
+    checkpoint every iteration: one model text (the float histogram's
+    sums are the same on every run).  Then a run with
+    ``checkpoint_interval=1`` is stopped by ``faults.arm(6, "raise")`` and
+    the same call resumes it: the unbroken run's model text, with one
+    histogram launch a leaf and one partition a split of the four
+    remaining trees and no more.  Then a CLI run on the table's native
+    cache, SIGKILLed at iteration 6 (rc -9), and the same command again:
+    the unbroken CLI run's model file, byte for byte.  Recorded, not
+    gated: checkpoint bytes, seconds per iteration with a checkpoint
+    every iteration against none, restore seconds, the writer's written
+    and dropped counts.  Returns the kernel launches of each resumed
+    run."""
+    import shutil
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import checkpoint, faults
+    from lightgbm_tpu_torch.objectives import create_objective
+    card = card_name()
+    t_phase = time.perf_counter()
+    rec, by_path = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    iters, stop = sizes.get("ckpt_iters", 10), 6
+    main_path = {"objective": "binary", "num_leaves": 255,
+                 "num_iterations": iters, "learning_rate": 0.1,
+                 "hist_dtype": "float32", "max_bin": 255}
+    sampled = {"objective": "binary", "num_leaves": 63,
+               "num_iterations": iters, "learning_rate": 0.1,
+               "hist_dtype": "int8", "max_bin": 255,
+               "bagging_fraction": 0.8, "bagging_freq": 5,
+               "feature_fraction": 0.8}
+    try:
+        for name, params in (("float32_main", main_path),
+                             ("int8_sampled", sampled)):
+            what = "phase 13 %s" % name
+            whole, whole_s, _ = drive(params, train_set, dev, sync)
+            text = whole.model_to_string()
+            every = dict(params, checkpoint_interval=1,
+                         checkpoint_dir=os.path.join(tmp, name + "_whole"))
+            again, every_s, _ = drive(every, train_set, dev, sync)
+            if again.model_to_string() != text:
+                fail("%s: two unbroken runs (the second writing "
+                     "checkpoints) give different model text" % what)
+            writer = again.checkpoint_writer
+            del again
+            ck = dict(params, checkpoint_interval=1,
+                      checkpoint_dir=os.path.join(tmp, name))
+            faults.arm(stop, "raise")
+            try:
+                drive(ck, train_set, dev, sync)
+            except RuntimeError as e:
+                if "injected fault" not in str(e):
+                    raise
+            else:
+                fail("%s: the armed raise did not stop training" % what)
+            finally:
+                faults.disarm()
+            latest = checkpoint.latest_checkpoint(ck["checkpoint_dir"])
+            ckpt_bytes = os.path.getsize(latest)
+            payload = checkpoint.load_checkpoint(latest)
+            if payload["iteration"] != stop:
+                fail("%s: latest checkpoint at iteration %d, expected %d"
+                     % (what, payload["iteration"], stop))
+            # the restore alone, on a fresh booster
+            cfg = lgt.OverallConfig()
+            cfg.set({k: str(v) for k, v in params.items()},
+                    require_data=False)
+            fresh = lgt.GBDT()
+            fresh.init(cfg.boosting_config, train_set,
+                       create_objective(cfg.objective_type,
+                                        cfg.objective_config), device=dev)
+            sync()
+            t0 = time.perf_counter()
+            fresh.restore_checkpoint(latest)
+            sync()
+            restore_s = time.perf_counter() - t0
+            del fresh
+            resumed, resumed_s, counts = drive(ck, train_set, dev, sync)
+            rest = whole.models[stop:]
+            leaves = sum(t.num_leaves for t in rest)
+            if resumed.model_to_string() != text:
+                fail("%s: the resumed model text differs from the "
+                     "unbroken run's" % what)
+            if not (len(resumed_s) == iters - stop
+                    and counts["hist"] == leaves
+                    and counts["partition"] == leaves - len(rest)):
+                fail("%s: resumed run of %d iterations launched hist %d, "
+                     "partition %d; the %d remaining trees have %d leaves"
+                     % (what, len(resumed_s), counts["hist"],
+                        counts["partition"], len(rest), leaves))
+            # (a CPU rehearsal draws on the host stream: "auto" there)
+            if name == "int8_sampled" and dev.type == "cuda" and not (
+                    resumed._bag_device
+                    and resumed._bag_draw_idx == whole._bag_draw_idx > 1):
+                fail("%s: the threefry draw counter was not restored "
+                     "(%d draws, unbroken %d)" % (
+                         what, resumed._bag_draw_idx, whole._bag_draw_idx))
+            by_path["checkpoint_resume_" + name] = {
+                "hist": counts["hist"], "partition": counts["partition"]}
+            rec[name] = {
+                "ckpt_bytes": ckpt_bytes,
+                "s_per_iter_interval0": float(np.median(whole_s)),
+                "s_per_iter_interval1": float(np.median(every_s)),
+                "restore_s": restore_s,
+                "written": writer.written, "dropped": writer.dropped,
+                "resumed_launches": {"hist": counts["hist"],
+                                     "partition": counts["partition"]},
+                "model_bytes": len(text)}
+            say("%s: resumed at iteration %d to the unbroken model text "
+                "(%d bytes); resumed run launched hist %d, partition %d "
+                "for the %d remaining trees; checkpoint %d bytes, restore "
+                "%.3f s; s/iteration %s without checkpoints, %s with one "
+                "every iteration (writer: %d written, %d dropped) [%s]" % (
+                    what, stop, len(text), counts["hist"],
+                    counts["partition"], len(rest),
+                    rec[name]["ckpt_bytes"], restore_s,
+                    " ".join("%.3f" % v for v in whole_s),
+                    " ".join("%.3f" % v for v in every_s), writer.written,
+                    writer.dropped, card))
+            del whole, resumed
+
+        # the CLI on the table's native cache: SIGKILLed at iteration 6,
+        # then the same command again
+        cache = os.path.join(tmp, "train.bin")
+        train_set.save_binary(cache)
+
+        def cli_args(out, ckdir):
+            return (["task=train", "data=" + cache, "objective=binary",
+                     "num_leaves=255", "num_iterations=%d" % iters,
+                     "learning_rate=0.1", "max_bin=255",
+                     "device=" + dev.type, "output_model=" + out,
+                     "checkpoint_interval=1", "checkpoint_dir=" + ckdir])
+
+        def run_cli(args, arm=None):
+            code = ("import sys\n"
+                    "from lightgbm_tpu_torch import cli, faults\n"
+                    + ("faults.arm(%d, 'kill')\n" % arm if arm else "")
+                    + "sys.exit(cli.main(%r))\n" % (args,))
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-c", code],
+                                 cwd=os.path.dirname(os.path.abspath(
+                                     __file__)), capture_output=True,
+                                 text=True, timeout=600)
+            return out, time.perf_counter() - t0
+
+        whole_out = os.path.join(tmp, "whole.txt")
+        out, whole_cli_s = run_cli(cli_args(whole_out,
+                                            os.path.join(tmp, "cli0")))
+        if out.returncode != 0:
+            fail("phase 13 CLI unbroken run exited %d: %s"
+                 % (out.returncode, out.stderr[-2000:]))
+        model, ckdir = os.path.join(tmp, "model.txt"), os.path.join(tmp,
+                                                                    "cli1")
+        out, killed_s = run_cli(cli_args(model, ckdir), arm=stop)
+        if out.returncode != -9:
+            fail("phase 13 CLI run armed to kill at %d exited %d: %s"
+                 % (stop, out.returncode, out.stderr[-2000:]))
+        at_kill = checkpoint.load_checkpoint(
+            checkpoint.latest_checkpoint(ckdir))["iteration"]
+        out, resumed_cli_s = run_cli(cli_args(model, ckdir))
+        if out.returncode != 0 or "resuming from checkpoint" not in \
+                out.stdout + out.stderr:
+            fail("phase 13 CLI rerun exited %d without resuming: %s"
+                 % (out.returncode, out.stderr[-2000:]))
+        with open(model, "rb") as f1, open(whole_out, "rb") as f2:
+            if f1.read() != f2.read():
+                fail("phase 13 CLI: the resumed model file differs from "
+                     "the unbroken run's")
+        rec["cli"] = {"killed_rc": -9, "latest_at_kill": at_kill,
+                      "unbroken_s": whole_cli_s, "killed_s": killed_s,
+                      "resumed_s": resumed_cli_s}
+        say("phase 13 CLI: SIGKILLed at iteration %d (rc -9, latest "
+            "checkpoint %d), rerun resumed to the unbroken run's model "
+            "file byte for byte; subprocess seconds unbroken %.1f, killed "
+            "%.1f, resumed %.1f [%s]" % (stop, at_kill, whole_cli_s,
+                                         killed_s, resumed_cli_s, card))
+    finally:
+        faults.disarm()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say("phase 13 checkpoints: %.1f s [%s]" % (rec["phase_s"], card))
+    say(json.dumps({"checkpoint": rec}))
     return by_path
 
 

@@ -12,7 +12,10 @@ the default, raises without one) unless the caller passes
 - Python: :class:`Dataset` (``Dataset.load_train(io_config)`` loads a
   text file or a dataset cache, ``from_arrays`` arrays), :func:`train`,
   :class:`GBDT`; serving: :class:`FlatEnsemble`, :class:`ServingEngine`,
-  :class:`ServingFront` (``serving``, or ``GBDT.serving_engine``).
+  :class:`ServingFront` (``serving``, or ``GBDT.serving_engine``);
+  checkpoints: ``checkpoint`` (the file format, the background writer)
+  and ``faults`` (a one-shot kill, raise or stall at an iteration
+  boundary, for tests).
 
 An exec'd parse worker of io/parallel_ingest.py (``WORKER_ENV`` there
 set to 1) imports only the numpy parse stack: the package skips torch.
@@ -28,7 +31,7 @@ if _os.environ.get("LIGHTGBM_TPU_TORCH_INGEST_WORKER") != "1":
     from .io.dataset import Dataset
     from .models.gbdt import GBDT
     from .models.tree import Tree
-    from . import serving
+    from . import checkpoint, faults, serving
     from .serving import FlatEnsemble, ServingEngine, ServingFront
 
 
@@ -40,7 +43,10 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
     ``early_stopping_round`` in ``params``, the metrics of ``valid_sets``
     stop the run and the last ``early_stopping_round`` iterations' trees
     are dropped; a dataset whose metadata carries ``init_score`` starts
-    from it (tiled over the classes)."""
+    from it (tiled over the classes).  The checkpoint keys act as on the
+    command line: ``checkpoint_interval`` writes checkpoints into
+    ``checkpoint_dir``, and a ``checkpoint_dir`` that holds one resumes
+    from the latest and trains what is left of ``num_iterations``."""
     from .metrics import create_metrics
     from .objectives import create_objective
 
@@ -59,11 +65,13 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
     for i, valid in enumerate(valid_sets):
         name = valid_names[i] if valid_names else "valid_%d" % (i + 1)
         booster.add_valid_dataset(valid, create_metrics(config), name=name)
+    booster.resume_latest(bc.checkpoint_dir)
     is_eval = bool(train_metrics) or bool(valid_sets)
-    booster.run_training(bc.num_iterations, is_eval,
-                         progress_fn=progress_fn)
+    booster.run_training(booster.remaining_iterations(bc.num_iterations),
+                         is_eval, progress_fn=progress_fn)
     return booster
 
 
 __all__ = ["Dataset", "FlatEnsemble", "GBDT", "OverallConfig",
-           "ServingEngine", "ServingFront", "Tree", "serving", "train"]
+           "ServingEngine", "ServingFront", "Tree", "checkpoint", "faults",
+           "serving", "train"]

@@ -5,7 +5,9 @@ Counterpart of lightgbm_tpu/cli.py for ``task=train`` and
 the command line says ``device=cpu``.  ``num_threads`` caps the native
 parser's OpenMP pool; the training and validation loads take the
 command line's ingest keys (columns, header, caches, streaming), and a
-load with ``is_save_binary_file`` writes the cache.
+load with ``is_save_binary_file`` writes the cache.  A ``checkpoint_dir``
+that holds a checkpoint resumes training from the latest one, and the
+run trains what is left of ``num_iterations``.
 """
 from __future__ import annotations
 
@@ -69,11 +71,15 @@ class Application:
                 create_metrics(cfg), name=filename)
         log.info("Finish loading data, use %f seconds"
                  % (time.perf_counter() - start))
+        # a checkpoint to resume (with input_model too: a Fatal, the two
+        # are mutually exclusive)
+        booster.resume_latest(cfg.boosting_config.checkpoint_dir)
         log.info("Start train ...")
         is_eval = bool(train_metrics) or any(booster.valid_metrics)
         start = time.perf_counter()
         booster.run_training(
-            cfg.boosting_config.num_iterations, is_eval,
+            booster.remaining_iterations(cfg.boosting_config.num_iterations),
+            is_eval,
             save_fn=lambda: booster.save_model_to_file(False,
                                                        io.output_model),
             progress_fn=lambda it: log.info(

@@ -12,7 +12,9 @@ mixed-bin layout (``mixed_bin``) and every histogram mode
 (``hist_dtype`` float32, bfloat16 and int8, ``quant_rounding`` nearest
 and stochastic), the serving engine's ``predict_*`` keys with
 ``predict_leaf_index``, and the ingest keys: the column selectors,
-caches, two-round and streamed loads, parse workers, ``num_threads``.
+caches, two-round and streamed loads, parse workers, ``num_threads``;
+checkpoints (``checkpoint_interval``, ``checkpoint_dir``,
+``checkpoint_keep``), ``device_type`` and ``histogram_pool_size``.
 The difference is the slice rule: a key the port does not run raises
 ``Fatal`` naming it, instead of being parsed and silently ignored.
 Keys whose JAX-package default is the only value the port runs (serial
@@ -114,7 +116,15 @@ SLICE_KEYS = frozenset((
     "use_two_round_loading", "is_save_binary_file", "save_binary_format",
     "streaming", "ingest_chunk_rows", "ingest_workers", "num_threads",
     "is_enable_sparse",
+    # checkpoints and resume (checkpoint.py)
+    "checkpoint_interval", "checkpoint_dir", "checkpoint_keep",
+    # the device (cpu, or the card as gpu/cuda) and the JAX package's
+    # histogram pool key (checked, no effect)
+    "device_type", "histogram_pool_size",
 ))
+
+# device_type values and the device each names (device.py's rule)
+DEVICE_TYPES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 OBJECTIVES = ("regression", "binary", "multiclass", "lambdarank")
 
@@ -134,7 +144,6 @@ DEFAULT_ONLY = {
     "num_machines": ("1",),
     # files pre-split per machine belong to the parallel learners (A9)
     "is_pre_partition": ("false",),
-    "checkpoint_interval": ("0",),
     # one device serves every tree: tree-axis sharding is ROADMAP A9
     "serve_shards": ("0", "1"),
 }
@@ -442,6 +451,10 @@ class TreeConfig:
     # it splits one masked tree across several dispatches of the same
     # loop; here the loop is eager Python, so there is nothing to split
     leafwise_segments: int = 1
+    # parsed as in the JAX package, with no effect: the JAX package reads
+    # it only to warn under its parallel learners (config.py:1011-1016),
+    # which the port does not run; every leaf's histogram is kept
+    histogram_pool_size: float = -1.0
 
     @property
     def compute_dtype(self) -> str:
@@ -477,6 +490,8 @@ class TreeConfig:
                                            self.feature_fraction)
         log.check(0.0 < self.feature_fraction <= 1.0,
                   "feature_fraction should be in (0, 1]")
+        self.histogram_pool_size = _get_float(params, "histogram_pool_size",
+                                              self.histogram_pool_size)
         self.max_depth = _get_int(params, "max_depth", self.max_depth)
         log.check(self.max_depth > 1 or self.max_depth < 0,
                   "max_depth should be > 1 or < 0")
@@ -538,6 +553,14 @@ class BoostingConfig:
     goss: bool = False
     top_rate: float = 0.2
     other_rate: float = 0.1
+    # checkpoints (checkpoint.py; lightgbm_tpu/config.py:762-778): every
+    # checkpoint_interval iterations run_training hands a snapshot to a
+    # background writer, plus one final checkpoint; 0 disables.  A
+    # task=train restart with the same checkpoint_dir resumes from the
+    # latest one.  checkpoint_keep (>= 1) finished files are kept
+    checkpoint_interval: int = 0
+    checkpoint_dir: str = ""
+    checkpoint_keep: int = 2
     tree_config: TreeConfig = dataclasses.field(default_factory=TreeConfig)
 
     def set(self, params: Dict[str, str]) -> None:
@@ -584,6 +607,21 @@ class BoostingConfig:
             if self.bagging_fraction < 1.0 and self.bagging_freq > 0:
                 log.fatal("Cannot use bagging in GOSS mode "
                           "(goss=true with bagging_fraction < 1)")
+        # lightgbm_tpu/config.py:848-861
+        self.checkpoint_interval = _get_int(params, "checkpoint_interval",
+                                            self.checkpoint_interval)
+        log.check(self.checkpoint_interval >= 0,
+                  "checkpoint_interval should be >= 0 (0 disables)")
+        self.checkpoint_dir = params.get("checkpoint_dir",
+                                         self.checkpoint_dir)
+        if self.checkpoint_interval > 0 and not self.checkpoint_dir:
+            log.fatal("checkpoint_interval > 0 requires checkpoint_dir "
+                      "(where should the checkpoints go?)")
+        self.checkpoint_keep = _get_int(params, "checkpoint_keep",
+                                        self.checkpoint_keep)
+        log.check(self.checkpoint_keep >= 1,
+                  "checkpoint_keep should be >= 1 (the latest checkpoint "
+                  "must survive)")
 
 
 @dataclasses.dataclass
@@ -598,6 +636,10 @@ class OverallConfig:
     # "cuda" (default: the card, or a Fatal without one) or "cpu" (the
     # kernels' plain versions; tests and reference runs)
     device: str = ""
+    # the JAX package's device key, as given: "cpu" runs the plain
+    # versions, "gpu" or "cuda" the card (DEVICE_TYPES); it sets
+    # ``device`` and must agree with a ``device`` also given
+    device_type: str = ""
     io_config: IOConfig = dataclasses.field(default_factory=IOConfig)
     boosting_config: BoostingConfig = dataclasses.field(
         default_factory=BoostingConfig)
@@ -639,12 +681,33 @@ class OverallConfig:
                     seen.append(m)
             self.metric_types = seen
         self.device = params.get("device", self.device)
+        self.device_type = params.get("device_type", self.device_type)
+        self._resolve_device_type()
         self.io_config.set(params, require_data=require_data)
         self.boosting_config.set(params)
         self.objective_config.set(params)
         self.metric_config.set(params)
         self._check_param_conflict()
         log.set_level_from_verbosity(self.io_config.verbosity)
+
+    def _resolve_device_type(self) -> None:
+        """``device_type`` under the port's device rule (device.py):
+        cpu -> the CPU, gpu or cuda -> the card; any other value (tpu
+        included) and a ``device`` that names the other one are Fatal."""
+        if not self.device_type:
+            return
+        want = DEVICE_TYPES.get(self.device_type.strip().lower())
+        if want is None:
+            log.fatal("Parameter device_type=%s is not supported by "
+                      "lightgbm_tpu_torch (it runs cpu, gpu or cuda)"
+                      % self.device_type)
+        if self.device:
+            have = self.device.strip().lower()
+            if (have == "cpu") != (want == "cpu"):
+                log.fatal("Parameters device=%s and device_type=%s "
+                          "disagree" % (self.device, self.device_type))
+        else:
+            self.device = want
 
     def _check_param_conflict(self) -> None:
         """The objective, num_class and metric rules of

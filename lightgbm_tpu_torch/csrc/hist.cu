@@ -15,33 +15,47 @@
 // once, and write
 // F*B*3C accumulators: about 40 MB at the root of the main path (F=28,
 // N=1M, C=1), 12 us at 3.35 TB/s.  In practice two things bound it:
-//   - the shared-memory atomics (one per row, feature and value).  The card
-//     has a native shared add for integers but not for f32, which compiles
-//     to a compare-and-swap loop; the int8 mode runs about twice as fast as
-//     the float mode at the same shape for that reason;
+//   - the shared-memory atomics, all native 32-bit integer adds: three
+//     per row and feature in the int8 mode, five in the float mode (two
+//     of them wait on the value another returns);
 //   - the main path launches the kernel once per leaf, mostly on children
 //     of a few thousand rows, so what bounds a tree is how much of the card
 //     each small launch fills and what each block pays around its rows.
 // The design, per cost:
 //   - Fill the card at every size.  blockIdx.x picks a small group of g
-//     features (about 12 KB of accumulator: 4 features at C=1, one feature
-//     at wide C), blockIdx.y a chunk of rows; the wrapper
+//     features (about 1,024 cells of accumulator: 4 features at C=1, one
+//     feature at wide C), blockIdx.y a chunk of rows; the wrapper
 //     (ops/hist_cuda.plan) sizes chunks for up to 8 resident blocks per SM
 //     with a floor of one row tile, and gives each thread 16 rows of a
 //     feature only where that still fills every SM, else 4, so a child of
 //     4,000 rows runs on 112 blocks and short per-thread atomic chains.
 //   - Small per-block overhead.  Each block zeroes and flushes only its
-//     group's [g, B, 3C] cells, adding nonzero cells into the global
-//     output with one atomic each.
-//   - Fewer and cheaper atomics in the float mode.  A row adds its f32
-//     (grad, hess) pair with one 64-bit compare-and-swap loop and its
-//     count with a native integer increment (counts are kept as int32 and
-//     converted at the flush).  Where shared memory allows (narrow C) a
-//     block keeps two copies of its accumulator, one per warp parity, so
-//     no two warps contend for the same cells; the copies are summed in
-//     shared memory before the flush.  A warp whose rows are all kept
-//     takes a branch-free path; one with dropped rows lets them add zeros
-//     rather than diverge around the atomics.
+//     group's [g, B, C] cells, adding nonzero cells into the global
+//     output (the float mode: its fixed-point sums) with one atomic each.
+//   - Order-free integer atomics in the float mode.  Each staged row's
+//     f32 (grad, hess) becomes a 64-bit fixed-point integer,
+//     round(v * 2^e), with one exponent e per tree (ops/hist_cuda.
+//     fixed_exponent: 62 - ceil(log2(N * max |v|)), so no cell of N rows
+//     can pass 2^62).  Integer sums do not depend on the order of their
+//     terms, so every run gives the same bits, as the TPU kernel's fixed
+//     grid order does.  The card has no native 64-bit add on shared
+//     memory (it compiles to a compare-and-swap loop, ATOMS.CAST.SPIN.64),
+//     so a shared cell keeps each 64-bit sum as two 32-bit words, added
+//     with native 32-bit atomics: the low word first, whose returned old
+//     value shows whether it wrapped, then the high word with that carry
+//     (add_fixed); the words' sums are exact whatever the order.  Blocks
+//     add their cells into 64-bit global sums (a native global atomic),
+//     and each cell becomes f32 once, at write-out (a second small
+//     kernel, as blocks add into the global sums in no fixed order).  The
+//     grid step is 2^-62 * N * max|v|: 2^-42 of the largest term at N =
+//     1M, finer than an f32 sum's own rounding.  A cell is 20 bytes (two
+//     sums of two words and a 4-byte count), not the 12 of f32 sums, and
+//     a row adds five 32-bit atomics, not one 64-bit compare-and-swap
+//     loop and one 32-bit atomic.  Where shared memory
+//     allows (narrow C) a block keeps two copies of its accumulator, one
+//     per warp parity, so no two warps contend for the same cells; the
+//     copies are summed in shared memory before the flush.  A dropped row
+//     adds zeros rather than diverge around the atomics.
 //   - Wide loads, side band once.  Each thread reads its rows of one
 //     feature as one 16- or 4-byte load (rows start at an arbitrary lane,
 //     so the tile origin is shifted to the 16-byte boundary and unaligned
@@ -56,18 +70,19 @@
 //     feature group and a slice, and a block adds only the rows whose
 //     (bin, column) cell falls in its slice.  Each slice re-reads the rows,
 //     so a pass reads its input `slices` times; every accumulator up to
-//     192 KB (B <= 256 at C <= 64, the 8-bit passes) takes one slice.
+//     192 KB takes one slice (B <= 256 at C <= 64 in the int8 mode; in the
+//     float mode at C <= 38, and two slices at the depth-wise widths).
 // Three modes:
-//   float: f32 grad/hess, count 1.0 per row, f32 accumulation.  Atomic
-//          order varies run to run, so sums agree with a sequential sum to
-//          f32 rounding, not bitwise.
+//   float: f32 grad/hess, count 1 per row, 64-bit fixed-point
+//          accumulation at the caller's exponent: bitwise the same on
+//          every run, and within the grid step per row of an exact sum.
 //   int8:  int8 quantized levels (ops/hist_cuda.quantize_values), int32
 //          accumulation: order-free and bitwise.
 //   pane:  the float mode read straight from a slice of the compacted
 //          grower's plane pane (ops/compact.py): f32 grad and hess are
 //          assembled from their four little-endian byte planes (bit-equal
 //          to Tensor.view(float32)), and the validity plane gives column 0
-//          or "dropped".  C = 1.
+//          or "dropped".  C = 1.  Fixed point as the float mode.
 // and three bin layouts: uint8 rows, uint16 rows (the 16-bit bin matrix of
 // max_bin > 256, read as 2-byte elements, 16 rows a 32-byte load), and, for
 // the pane entry, 16-bit bins as two byte planes (the low bytes in the
@@ -108,8 +123,19 @@ struct Args {
   int shift;             // rows start at -shift: bins + r is 16-aligned
                          // at every tile start
   long long chunk;       // rows per block, a multiple of tile
-  void* out;
+  void* out;             // int8: the int32 output
+  const int* exponent;   // float, pane: the fixed-point exponent e
+  unsigned long long* fsum;  // float, pane: [cells][2] fixed-point sums
+  int* fcnt;                 //   and [cells] counts, cells = F * B * C
 };
+
+// The accumulator's bytes per (bin, column) cell and copy: int8 three
+// int32; float and pane two 64-bit fixed-point sums (as two 32-bit words
+// each) and an int32 count.
+template <int kMode>
+__host__ __device__ constexpr int cell_bytes() {
+  return kMode == kInt8 ? 12 : 20;
+}
 
 // Side-band index of tile row i: one pad word per kVec rows, so lanes
 // kVec rows apart read words kVec + 1 apart, in 32 distinct banks.
@@ -177,20 +203,36 @@ __device__ __forceinline__ void load_bins(const Args& a, const uint8_t* row,
   }
 }
 
-// Adds (g, h) to an f32 pair with one 64-bit compare-and-swap loop: the
-// card has no native f32 add on shared memory, so this halves the loops
-// of two separate f32 atomics.  Each component still takes one f32 add.
-__device__ __forceinline__ void add_pair(unsigned long long* p, float g,
-                                         float h) {
-  unsigned long long seen = *p, want;
-  do {
-    want = seen;
-    const float x = __uint_as_float((unsigned)want) + g;
-    const float y = __uint_as_float((unsigned)(want >> 32)) + h;
-    seen = atomicCAS(p, want,
-                     (unsigned long long)__float_as_uint(x)
-                         | (unsigned long long)__float_as_uint(y) << 32);
-  } while (seen != want);
+// round(v * 2^e) as a two's-complement 64-bit integer, scale = 2^e: the
+// product of an f32 and a power of two is exact in f64, and the rounding
+// to an integer (to nearest even) is the only one.
+__device__ __forceinline__ unsigned long long to_fixed(float v,
+                                                       double scale) {
+  return (unsigned long long)__double2ll_rn((double)v * scale);
+}
+
+// Adds the 64-bit v to the sum held as words lohi[0] (low, unsigned) and
+// lohi[1] (high) with two native 32-bit atomics: the low word's old value
+// shows whether this add wrapped it, and the high word takes v's high
+// word plus that carry.  Once every add is in, lohi[1] * 2^32 + lohi[0]
+// is the exact sum (it stays within 2^62), in whatever order they came.
+__device__ __forceinline__ void add_fixed(unsigned* lohi,
+                                          unsigned long long v) {
+  const unsigned lo = (unsigned)v;
+  const unsigned old = atomicAdd(lohi, lo);
+  atomicAdd(lohi + 1, (unsigned)(v >> 32) + (old + lo < old ? 1u : 0u));
+}
+
+// The 64-bit value of a sum held as two words (add_fixed).
+__device__ __forceinline__ unsigned long long join_fixed(const unsigned* w) {
+  return (unsigned long long)w[1] << 32 | w[0];
+}
+
+// A fixed-point sum back to f32, inv = 2^-e: one rounding, to 24 bits,
+// then an exact scaling (f32 denormals aside).
+__device__ __forceinline__ float from_fixed(unsigned long long s,
+                                            double inv) {
+  return (float)((double)__ll2float_rn((long long)s) * inv);
 }
 
 template <int kMode, int kVec, int kBin>
@@ -204,24 +246,30 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
   const int k0 = (blockIdx.x - group * a.slices) * a.slice_cells;
   const int kc = min(a.slice_cells, fcells - k0);
   const int cells = nf * kc;             // per copy
-  // accumulator, 3 words per cell and copy.  int8: int [copies][cells][3].
-  // float, pane: f32 (grad, hess) pairs [copies][cells], then int counts
-  // [copies][cells] (exact, and a native atomic)
+  // accumulator, cell_bytes per cell and copy.  int8: int
+  // [copies][cells][3].  float, pane: fixed-point (grad, hess) sums as
+  // (low, high) words [copies][cells][4], then int counts [copies][cells]
   int* acc = reinterpret_cast<int*>(smem_raw);
-  unsigned long long* pairs = reinterpret_cast<unsigned long long*>(smem_raw);
-  int* counts = reinterpret_cast<int*>(pairs + a.copies * cells);
-  // side band, structure of arrays of padded(tile) words each:
-  //   float, pane: sc (column or -1), sg, sh;  int8: sc packs
-  //   (q0, q1, q2, column or 0xFF) as bytes
+  unsigned* sums = reinterpret_cast<unsigned*>(smem_raw);
+  int* counts = reinterpret_cast<int*>(sums + 4 * a.copies * cells);
+  // side band, structure of arrays of padded(tile) elements each:
+  //   float, pane: sg, sh (fixed point, 8 bytes), then sc (column or -1);
+  //   int8: sc packs (q0, q1, q2, column or 0xFF) as bytes
   const long long acc_bytes =
-      ((long long)a.copies * a.g * a.slice_cells * 12 + 15) / 16 * 16;
+      ((long long)a.copies * a.g * a.slice_cells * cell_bytes<kMode>() + 15)
+      / 16 * 16;
   const int pt = padded<kVec>(a.tile);
-  int* sc = reinterpret_cast<int*>(smem_raw + acc_bytes);
-  float* sg = reinterpret_cast<float*>(sc + pt);
-  float* sh = sg + pt;
-  for (int i = threadIdx.x; i < 3 * a.copies * cells; i += blockDim.x)
+  unsigned long long* sg =
+      reinterpret_cast<unsigned long long*>(smem_raw + acc_bytes);
+  unsigned long long* sh = sg + pt;
+  int* sc = kMode == kInt8 ? reinterpret_cast<int*>(sg)
+                           : reinterpret_cast<int*>(sh + pt);
+  for (int i = threadIdx.x; i < a.copies * cells * cell_bytes<kMode>() / 4;
+       i += blockDim.x)
     acc[i] = 0;
   const int copy = (threadIdx.x >> 5) % a.copies;
+  double scale = 0.0;  // 2^e
+  if constexpr (kMode != kInt8) scale = ldexp(1.0, *a.exponent);
 
   const long long c0 = -(long long)a.shift + (long long)blockIdx.y * a.chunk;
   const long long c1 = min((long long)a.n, c0 + a.chunk);
@@ -232,7 +280,8 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
       const long long r = t0 + i;
       const int p = padded<kVec>(i);
       if (r < 0) {
-        sc[p] = -1;  // before the segment: dropped
+        sc[p] = -1;  // before the segment: dropped, adds zeros
+        if constexpr (kMode != kInt8) sg[p] = sh[p] = 0;
         continue;
       }
       if constexpr (kMode == kPane) {
@@ -243,9 +292,10 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
           ug |= (uint32_t)pl[k * a.ld] << (8 * k);
           uh |= (uint32_t)pl[(4 + k) * a.ld] << (8 * k);
         }
-        sg[p] = __uint_as_float(ug);
-        sh[p] = __uint_as_float(uh);
-        sc[p] = pl[8 * a.ld] == 1 ? 0 : -1;
+        const bool ok = pl[8 * a.ld] == 1;
+        sg[p] = ok ? to_fixed(__uint_as_float(ug), scale) : 0;
+        sh[p] = ok ? to_fixed(__uint_as_float(uh), scale) : 0;
+        sc[p] = ok ? 0 : -1;
       } else {
         const int c = a.cid[r];
         const bool ok = c >= 0 && c < a.num_c;
@@ -255,8 +305,8 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
                         | (uint32_t)(uint8_t)a.q[2 * a.qld + r] << 16
                         | (uint32_t)(ok ? c : 0xFF) << 24);
         } else {
-          sg[p] = a.grad[r];
-          sh[p] = a.hess[r];
+          sg[p] = ok ? to_fixed(a.grad[r], scale) : 0;
+          sh[p] = ok ? to_fixed(a.hess[r], scale) : 0;
           sc[p] = ok ? c : -1;
         }
       }
@@ -291,20 +341,14 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
           atomicAdd(cell + 1, (int)(int8_t)((side >> 8) & 0xFF));
           atomicAdd(cell + 2, (int)(int8_t)((side >> 16) & 0xFF));
         } else {
-          const bool ok = side >= 0;
+          // a dropped row (side -1) adds its staged zeros to column 0, as
+          // a branch around the atomics costs more than the atomics
           const int local = b * a.num_c + max(side, 0) - k0;
           if ((unsigned)local >= (unsigned)kc) continue;  // another slice
           const int cell = fbase + local;
-          if (__all_sync(__activemask(), ok)) {
-            add_pair(pairs + cell, sg[base + k], sh[base + k]);
-            atomicAdd(counts + cell, 1);
-          } else {
-            // some of the warp's rows are dropped: they add zeros, as a
-            // branch around the atomics costs more than the atomics
-            atomicAdd(counts + cell, ok ? 1 : 0);
-            add_pair(pairs + cell, ok ? sg[base + k] : 0.0f,
-                     ok ? sh[base + k] : 0.0f);
-          }
+          add_fixed(sums + 4 * cell, sg[base + k]);
+          add_fixed(sums + 4 * cell + 2, sh[base + k]);
+          atomicAdd(counts + cell, side >= 0 ? 1 : 0);
         }
       }
     }
@@ -325,19 +369,33 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
       }
     } else {
       int n = 0;
-      float g = 0.0f, h = 0.0f;
+      unsigned long long g = 0, h = 0;
       for (int cp = 0; cp < a.copies; ++cp) {
         const int cell = cp * cells + i;
         n += counts[cell];
-        g += __uint_as_float((unsigned)pairs[cell]);
-        h += __uint_as_float((unsigned)(pairs[cell] >> 32));
+        g += join_fixed(sums + 4 * cell);
+        h += join_fixed(sums + 4 * cell + 2);
       }
-      if (n == 0) continue;
-      float* o = reinterpret_cast<float*>(a.out) + o0;
-      atomicAdd(o, g);
-      atomicAdd(o + 1, h);
-      atomicAdd(o + 2, (float)n);
+      if (n == 0) continue;  // no kept row: the sums are 0 too
+      const long long o = o0 / 3;
+      atomicAdd(a.fsum + 2 * o, g);
+      atomicAdd(a.fsum + 2 * o + 1, h);
+      atomicAdd(a.fcnt + o, n);
     }
+  }
+}
+
+// The float modes' write-out: each cell's fixed-point sums to f32 once,
+// counts to f32, into out [cells][3].
+__global__ void fixed_to_f32(const unsigned long long* fsum,
+                             const int* fcnt, const int* exponent,
+                             long long cells, float* out) {
+  const double inv = ldexp(1.0, -*exponent);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < cells; i += (long long)gridDim.x * blockDim.x) {
+    out[3 * i] = from_fixed(fsum[2 * i], inv);
+    out[3 * i + 1] = from_fixed(fsum[2 * i + 1], inv);
+    out[3 * i + 2] = (float)fcnt[i];
   }
 }
 
@@ -383,11 +441,8 @@ int launch_bin(const Args& a, int vec, int threads, int groups, int chunks,
 
 // bin: the layout, kU8 or kU16 (float, int8), kU8 or kPlanes16 (pane)
 template <int kMode>
-int launch(Args a, int bin, int vec, int threads, int groups, int chunks,
-           int smem, cudaStream_t stream) {
-  const size_t out_bytes = (size_t)a.num_f * a.num_b * 3 * a.num_c * 4;
-  cudaError_t err = cudaMemsetAsync(a.out, 0, out_bytes, stream);
-  if (err != cudaSuccess) return (int)err;
+int scatter(const Args& a, int bin, int vec, int threads, int groups,
+            int chunks, int smem, cudaStream_t stream) {
   if (a.n <= 0 || a.num_f <= 0) return (int)cudaGetLastError();
   if (smem > kMaxSmem || threads % 64 != 0 || threads > kMaxThreads
       || a.tile % 16 != 0 || a.chunk % a.tile != 0
@@ -409,6 +464,35 @@ int launch(Args a, int bin, int vec, int threads, int groups, int chunks,
                                      stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Zeroes the sums, scatters, and (float, pane) writes the f32 output.
+template <int kMode>
+int launch(Args a, int bin, int vec, int threads, int groups, int chunks,
+           int smem, cudaStream_t stream) {
+  const long long cells = (long long)a.num_f * a.num_b * a.num_c;
+  cudaError_t err = kMode == kInt8
+      ? cudaMemsetAsync(a.out, 0, (size_t)cells * 12, stream)
+      : cudaMemsetAsync(a.fsum, 0, (size_t)cells * 20, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int rc = scatter<kMode>(a, bin, vec, threads, groups, chunks, smem,
+                                stream);
+  if (rc != 0 || kMode == kInt8) return rc;
+  const long long want = (cells + 255) / 256;
+  const int blocks = want < 1 ? 1 : want > 4096 ? 4096 : (int)want;
+  fixed_to_f32<<<blocks, 256, 0, stream>>>(
+      a.fsum, a.fcnt, a.exponent, cells, static_cast<float*>(a.out));
+  return (int)cudaGetLastError();
+}
+
+// float, pane: scratch holds the fixed-point sums [cells][2] (8 bytes
+// each), then the counts [cells] (4 bytes each), cells = num_f * num_b *
+// num_c; exponent is one int32 on the device.
+void set_fixed(Args& a, const void* exponent, void* scratch) {
+  a.exponent = static_cast<const int*>(exponent);
+  a.fsum = static_cast<unsigned long long*>(scratch);
+  a.fcnt = reinterpret_cast<int*>(
+      a.fsum + 2 * (long long)a.num_f * a.num_b * a.num_c);
 }
 
 Args make_args(const void* bins, long long ld, int n, int num_f, int num_b,
@@ -437,19 +521,22 @@ Args make_args(const void* bins, long long ld, int n, int num_f, int num_b,
 extern "C" {
 
 // Every entry: bin row f starts at element f * ld of bins, and bins is
-// shift rows past a 16-byte boundary; out is [num_f, num_b, 3 * num_c] and
-// is zeroed here.  bin is the layout (1: uint8, 2: uint16).  The arguments
+// shift rows past a 16-byte boundary; out is [num_f, num_b, 3 * num_c],
+// every cell written here.  bin is the layout (1: uint8, 2: uint16).  The arguments
 // vec .. slice_cells are the launch plan of ops/hist_cuda.plan.
 
-// float32: rows with cid outside [0, num_c) are skipped.
+// float32: rows with cid outside [0, num_c) are skipped.  exponent and
+// scratch: set_fixed's; out: f32.
 int lgbm_hist_f32(const void* bins, long long ld, const void* grad,
                   const void* hess, const void* cid, int n, int num_f,
                   int num_b, int num_c, int shift, int bin, int vec,
                   int threads, int g, int copies, int tile, long long chunk,
                   int groups, int chunks, int smem, int slices,
-                  int slice_cells, void* out, void* stream) {
+                  int slice_cells, const void* exponent, void* scratch,
+                  void* out, void* stream) {
   Args a = make_args(bins, ld, n, num_f, num_b, num_c, g, copies, tile,
                      shift, chunk, slices, slice_cells, out);
+  set_fixed(a, exponent, scratch);
   a.grad = static_cast<const float*>(grad);
   a.hess = static_cast<const float*>(hess);
   a.cid = static_cast<const int32_t*>(cid);
@@ -479,16 +566,19 @@ int lgbm_hist_i8(const void* bins, long long ld, const void* q,
 // Plane-pane slice: bins = the pane's first bin row used, at the segment's
 // first lane (row stride ld bytes); planes = the pane's grad plane 0 at the
 // same lane.  hi_off: 0 for 8-bit bins, else the bytes from a bin row's
-// low-byte plane to its high-byte plane.  float32, num_c must be 1.
+// low-byte plane to its high-byte plane.  float32, num_c must be 1;
+// exponent and scratch as lgbm_hist_f32's.
 int lgbm_hist_pane(const void* bins, long long ld, long long hi_off,
                    const void* planes, int n, int num_f, int num_b,
                    int num_c, int shift, int vec, int threads, int g,
                    int copies, int tile, long long chunk, int groups,
                    int chunks, int smem, int slices, int slice_cells,
-                   void* out, void* stream) {
+                   const void* exponent, void* scratch, void* out,
+                   void* stream) {
   if (num_c != 1) return (int)cudaErrorInvalidValue;
   Args a = make_args(bins, ld, n, num_f, num_b, num_c, g, copies, tile,
                      shift, chunk, slices, slice_cells, out);
+  set_fixed(a, exponent, scratch);
   a.hi_off = hi_off;
   a.planes = static_cast<const uint8_t*>(planes);
   return launch<kPane>(a, hi_off != 0 ? kPlanes16 : kU8, vec, threads,

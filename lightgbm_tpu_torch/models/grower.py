@@ -24,21 +24,24 @@ from .grower_unified import TreeArrays, grow_best_first
 def grow_tree(bins, grad, hess, row_mask, feature_mask, num_bins, *,
               num_leaves: int, num_bins_max: int, min_data_in_leaf: int,
               min_sum_hessian_in_leaf: float, max_depth: int = -1,
-              compute_dtype: str = "float32", packing=None) -> TreeArrays:
+              compute_dtype: str = "float32", packing=None,
+              exponent=None) -> TreeArrays:
     """Grow one tree; the arguments are grow_tree_unified's."""
 
     def small_hist(bl, new, feat, thr, left_small, leaf_ids):
         small_leaf = bl if left_small else new
         return build_histogram(bins, grad, hess,
                                row_mask & (leaf_ids == small_leaf),
-                               num_bins_max, compute_dtype, packing, new)
+                               num_bins_max, compute_dtype, packing, new,
+                               exponent)
 
     return grow_best_first(
         bins, grad, hess, row_mask, feature_mask, num_bins, small_hist,
         num_leaves=num_leaves, num_bins_max=num_bins_max,
         min_data_in_leaf=min_data_in_leaf,
         min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
-        max_depth=max_depth, compute_dtype=compute_dtype, packing=packing)
+        max_depth=max_depth, compute_dtype=compute_dtype, packing=packing,
+        exponent=exponent)
 
 
 __all__ = ["grow_tree"]

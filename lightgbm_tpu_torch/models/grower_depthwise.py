@@ -60,7 +60,7 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
                         min_data_in_leaf: int,
                         min_sum_hessian_in_leaf: float, max_depth: int = -1,
                         compute_dtype: str = "float32",
-                        packing=None) -> TreeArrays:
+                        packing=None, exponent=None) -> TreeArrays:
     """Grow one tree; the arguments are grow_tree_unified's."""
     F, N = bins.shape
     dev = bins.device
@@ -70,7 +70,7 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
 
     def level_hist(col_id, col_ok, C, salt):
         return histogram_leafbatch(bins, grad, hess, col_id, col_ok, C, B,
-                                   compute_dtype, packing, salt)
+                                   compute_dtype, packing, salt, exponent)
 
     # canonical split feature -> storage row
     c2p = None if packing is None else canonical_index(packing, dev)

@@ -47,7 +47,7 @@ class _Pane:
     """The double-buffered plane pane and each leaf's lane range."""
 
     def __init__(self, bins, grad, hess, row_mask, num_leaves: int,
-                 num_bins_max: int, compute_dtype: str, packing):
+                 num_bins_max: int, compute_dtype: str, packing, exponent):
         F, N = bins.shape
         P = -(-N // BLOCK) * BLOCK          # pane width: the root bucket
         if compute_dtype == "bfloat16":
@@ -57,6 +57,7 @@ class _Pane:
         self.F, self.B, self.compute_dtype = F, num_bins_max, compute_dtype
         self.nb = bin_bytes(bins)                    # 2: a 16-bit pane
         self.packing = packing
+        self.exponent = exponent                     # the tree's, float
         self.seg_start = np.zeros(num_leaves, np.int64)
         self.seg_cnt = np.zeros(num_leaves, np.int64)
         self.seg_cnt[0] = N
@@ -83,7 +84,7 @@ class _Pane:
                 *unpack_values(dst[:, sstart:sstart + scnt], F, self.nb),
                 self.B, self.compute_dtype, self.packing, new)
         return assemble([hist_pane_float(dst, F, sstart, scnt, w, (s, n),
-                                         self.nb)
+                                         self.nb, self.exponent)
                          for s, n, w in class_ranges(self.packing, F, self.B)],
                         self.packing, self.B)
 
@@ -94,16 +95,17 @@ def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
                           min_sum_hessian_in_leaf: float,
                           max_depth: int = -1,
                           compute_dtype: str = "float32",
-                          packing=None) -> TreeArrays:
+                          packing=None, exponent=None) -> TreeArrays:
     """Grow one tree; the arguments are grow_tree_unified's."""
     pane = _Pane(bins, grad, hess, row_mask, num_leaves, num_bins_max,
-                 compute_dtype, packing)
+                 compute_dtype, packing, exponent)
     return grow_best_first(
         bins, grad, hess, row_mask, feature_mask, num_bins, pane.small_hist,
         num_leaves=num_leaves, num_bins_max=num_bins_max,
         min_data_in_leaf=min_data_in_leaf,
         min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
-        max_depth=max_depth, compute_dtype=compute_dtype, packing=packing)
+        max_depth=max_depth, compute_dtype=compute_dtype, packing=packing,
+        exponent=exponent)
 
 
 __all__ = ["grow_tree_leafcompact"]

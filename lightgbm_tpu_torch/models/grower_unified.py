@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..ops.bins import widen
+from ..ops.hist_cuda import fixed_exponent
 from ..ops.histogram import build_histogram, is_int8
 from ..ops.split import find_best_split
 
@@ -100,14 +101,16 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
                     small_hist: SmallHist, *, num_leaves: int,
                     num_bins_max: int, min_data_in_leaf: int,
                     min_sum_hessian_in_leaf: float, max_depth: int,
-                    compute_dtype: str, packing=None) -> TreeArrays:
+                    compute_dtype: str, packing=None,
+                    exponent=None) -> TreeArrays:
     """The reference's strict best-first growth
     (serial_tree_learner.cpp:119-153): each of ``num_leaves - 1`` splits
     takes the leaf with the largest candidate gain, builds the smaller
     child's histogram with ``small_hist``, derives the sibling by
     subtraction from the parent's and searches both children in one
     batched call.  The root histogram runs over the original arrays
-    (salt 0); ``small_hist`` salts its pass with the new leaf."""
+    (salt 0, the tree's fixed-point ``exponent``); ``small_hist`` salts
+    its pass with the new leaf."""
     F, N = bins.shape
     dev = bins.device
     L = num_leaves
@@ -123,7 +126,7 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
         return res.packed().cpu().numpy()
 
     root_hist = build_histogram(bins, grad, hess, row_mask, num_bins_max,
-                                compute_dtype, packing)
+                                compute_dtype, packing, 0, exponent)
     root_g, root_h, root_c = root_stats_of(root_hist, compute_dtype, grad,
                                            hess, row_mask).cpu().numpy()
     best = search(root_hist[None], [root_g], [root_h], [root_c])[0]
@@ -218,14 +221,18 @@ def grow_tree_unified(bins, grad, hess, row_mask, feature_mask, num_bins,
     order, if any; grad/hess [N] f32, row_mask
     [N] bool, feature_mask [F] bool, num_bins [F] int — tensors on one
     device.  ``compute_dtype``: "float32", "bfloat16", "int8" or
-    "int8_sr" histograms."""
+    "int8_sr" histograms.  The float modes' histograms share one
+    fixed-point exponent over the tree's gradients
+    (ops/hist_cuda.fixed_exponent)."""
     if policy not in GROW_POLICIES:
         raise ValueError("unknown grow policy %r" % (policy,))
+    exponent = None if is_int8(compute_dtype) else \
+        fixed_exponent(grad, hess, bins.shape[1])
     kwargs = dict(num_leaves=num_leaves, num_bins_max=num_bins_max,
                   min_data_in_leaf=min_data_in_leaf,
                   min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
                   max_depth=max_depth, compute_dtype=compute_dtype,
-                  packing=packing)
+                  packing=packing, exponent=exponent)
     args = (bins, grad, hess, row_mask, feature_mask, num_bins)
     if policy == "depthwise":
         from .grower_depthwise import grow_tree_depthwise

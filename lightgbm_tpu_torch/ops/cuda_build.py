@@ -100,11 +100,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "hist":
         # ..., n, num_f, num_b, num_c, shift, [bin layout,] then the plan
         # (vec, threads, g, copies, tile, chunk, groups, chunks, smem,
-        # slices, slice_cells), out, stream
+        # slices, slice_cells), [the float modes' exponent, scratch,] out,
+        # stream
         tail = [i, i, i, i, i, ll, i, i, i, i, i, p, p]
-        lib.lgbm_hist_f32.argtypes = [p, ll, p, p, p, i, i, i, i, i, i] + tail
+        fixed = [i, i, i, i, i, ll, i, i, i, i, i, p, p, p, p]
+        lib.lgbm_hist_f32.argtypes = [p, ll, p, p, p, i, i, i, i, i,
+                                      i] + fixed
         lib.lgbm_hist_i8.argtypes = [p, ll, p, ll, p, i, i, i, i, i, i] + tail
-        lib.lgbm_hist_pane.argtypes = [p, ll, ll, p, i, i, i, i, i] + tail
+        lib.lgbm_hist_pane.argtypes = [p, ll, ll, p, i, i, i, i, i] + fixed
         for fn in (lib.lgbm_hist_f32, lib.lgbm_hist_i8, lib.lgbm_hist_pane):
             fn.restype = i
     elif name == "partition":

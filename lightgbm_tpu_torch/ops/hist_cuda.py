@@ -23,7 +23,10 @@ kernel refuses raises.
 
 The TPU kernel's operand tricks have no counterpart here, because the
 CUDA kernel computes their target directly: the bf16 hi/lo split of the
-float mode (hist_pallas.py:449-460) becomes plain f32 accumulation, the
+float mode (hist_pallas.py:449-460) becomes 64-bit fixed-point
+accumulation at one exponent per tree (``fixed_exponent``), whose sums
+do not depend on the order of the atomics and so are the same on every
+run, as the TPU grid's fixed order makes them there; the
 single-pass bf16 operand mode (:510-522) is the float mode on values
 the caller rounded to bf16 (ops/histogram.py), the ``bf16`` int-levels
 mode is the int8 mode itself, and the 128/192-lane padding of the value
@@ -51,12 +54,21 @@ launch_cols = collections.deque(maxlen=1 << 16)
 MAX_SMEM = 232448        # dynamic shared memory a block may use on sm_90
 SM_SMEM = 233472         # shared memory of one SM
 SM_THREADS = 2048        # resident threads of one SM
-GROUP_BYTES = 12288      # accumulator bytes per feature group
+GROUP_CELLS = 1024       # accumulator (bin, column) cells per feature group
 SLICE_BYTES = 196608     # most accumulator bytes of one feature a block
                          # holds; a larger one is cut into cell slices
-COPIES_BYTES = 49152     # two accumulator copies where they fit this
+COPIES_CELLS = 4096      # two accumulator copies where they fit this
 BLOCKS_PER_SM = 8        # target resident blocks per SM
+MIN_RESIDENT = 3         # the side band's tile leaves room for this many
+                         # blocks on an SM where the accumulator allows
 MIN_CHUNK_TILES = 1      # rows per block: at least this many tiles
+# per mode: accumulator bytes per cell (int8: three int32; float and pane:
+# two 64-bit fixed-point sums and an int32 count) and side-band words per
+# row (int8: levels and column packed in one; float and pane: the two
+# 8-byte fixed-point values and the column)
+CELL_BYTES = {"float": 20, "int8": 12}
+SIDE_WORDS = {"float": 5, "int8": 1}
+FIXED_BITS = 62          # a fixed-point sum of N rows stays below 2^62
 
 
 _M32 = 0xFFFFFFFF
@@ -174,27 +186,47 @@ def _check(bins, cid, values, num_cols, B):
     require(1 <= num_cols, "need num_cols >= 1")
 
 
+def fixed_exponent(grad, hess, n: int):
+    """The float mode's fixed-point exponent for sums of at most ``n``
+    rows of ``grad`` and ``hess``, as an int32 [1] tensor on their device:
+    ``e = FIXED_BITS - ceil(log2(n * max(|grad|, |hess|)))``, so that
+    every row's ``round(v * 2^e)`` and every sum of ``n`` of them stays
+    below 2^62 (csrc/hist.cu).  Computed on the device with no host read;
+    a tree computes it once over its (GOSS-amplified) gradients and every
+    launch of the tree shares it."""
+    top = torch.maximum(grad.abs().max(), hess.abs().max())
+    mant, ex = torch.frexp(top.to(torch.float64) * max(int(n), 1))
+    ceil_log2 = ex - (mant == 0.5).to(ex.dtype)     # 0 when all are 0
+    return (FIXED_BITS - ceil_log2).clamp(-1000, 1000).to(
+        torch.int32).reshape(1)
+
+
 @functools.lru_cache(maxsize=None)
-def _shape_plan(F: int, B: int, C: int, side_words: int, sms: int):
+def _shape_plan(F: int, B: int, C: int, mode: str, sms: int):
     """The part of ``plan`` that does not depend on the row count:
     (threads, g, copies, groups, slices, slice_cells, {vec: (tile, smem,
     blocks per SM)})."""
+    cell, side_words = CELL_BYTES[mode], SIDE_WORDS[mode]
     # a feature's B*C cells in slices of at most SLICE_BYTES of accumulator
-    slices = -(-B * C * 12 // SLICE_BYTES)
+    slices = -(-B * C * cell // SLICE_BYTES)
     slice_cells = -(-B * C // slices)
-    per_f = slice_cells * 12
-    g = max(1, min(8, F, GROUP_BYTES // per_f))
+    g = max(1, min(8, F, GROUP_CELLS // slice_cells))
     groups = -(-F // g)
     g = -(-F // groups)
-    copies = 2 if 2 * g * per_f <= COPIES_BYTES else 1
-    acc = -(-copies * g * per_f // 16) * 16
+    copies = 2 if 2 * g * slice_cells <= COPIES_CELLS else 1
+    acc = -(-copies * g * slice_cells * cell // 16) * 16
     threads = 512 if 2 * (acc + 1024) > SM_SMEM else 256
+    # side-band bytes that keep MIN_RESIDENT blocks on an SM, where the
+    # accumulator leaves any (a float feature of 1022 bins would otherwise
+    # stage 4,096 rows of 20-byte side band and hold one block an SM)
+    room = SM_SMEM // MIN_RESIDENT - 1024 - acc
     by_vec = {}
     for vec in (16, 4):
         # one pad word per vec rows of the side band
         row_bytes = side_words * 4 * (vec + 1) / vec
-        tile = min(threads * vec // g,
-                   int((MAX_SMEM - acc) // row_bytes)) // 16 * 16
+        cap = int(room // row_bytes) if room >= 16 * row_bytes else 1 << 30
+        tile = min(threads * vec // g, int((MAX_SMEM - acc) // row_bytes),
+                   cap) // 16 * 16
         smem = acc + side_words * 4 * (tile + tile // vec)
         by_vec[vec] = (tile, smem, min(SM_THREADS // threads,
                                        SM_SMEM // (smem + 1024),
@@ -202,18 +234,21 @@ def _shape_plan(F: int, B: int, C: int, side_words: int, sms: int):
     return threads, g, copies, groups, slices, slice_cells, by_vec
 
 
-def plan(n: int, F: int, B: int, C: int, side_words: int, shift: int,
+def plan(n: int, F: int, B: int, C: int, mode: str, shift: int,
          sms: int):
     """Launch plan of csrc/hist.cu for ``n`` rows starting ``shift`` rows
     past a 16-byte boundary: (vec, threads, g, copies, tile, chunk,
     groups, chunks, smem, slices, slice_cells).  Blocks take g features
-    (about GROUP_BYTES of accumulator) and ``chunk`` rows (a multiple of
-    the staged ``tile``); a feature whose accumulator passes SLICE_BYTES
-    (16-bit bins at wide B or C) is cut into ``slices`` ranges of
+    (about GROUP_CELLS cells of accumulator) and ``chunk`` rows (a
+    multiple of the staged ``tile``, which leaves room for MIN_RESIDENT
+    blocks an SM where the accumulator allows); a feature whose
+    accumulator passes SLICE_BYTES (16-bit bins at wide B or C, or the
+    float mode at C > 38) is cut into ``slices`` ranges of
     ``slice_cells`` (bin, column) cells, one block each.  Chunks are
     sized for BLOCKS_PER_SM resident blocks on each of ``sms`` SMs;
-    ``side_words`` is the side band's 4-byte words per row (3 float, 1
-    int8).  Each thread takes ``vec`` rows of one feature per load: 16
+    ``mode`` ("float", which the pane entry shares, or "int8") sets the
+    cell and side-band sizes.  Each thread takes ``vec`` rows of one
+    feature per load: 16
     where that still gives every SM its full complement of threads and
     keeps at least three quarters of a block's threads busy, else 4, so
     a small segment spreads over more threads.  Where a block's
@@ -221,7 +256,7 @@ def plan(n: int, F: int, B: int, C: int, side_words: int, shift: int,
     512 threads instead of 256.  All but the row split is cached per
     shape, so a launch pays a few integer operations."""
     threads, g, copies, groups, slices, slice_cells, by_vec = _shape_plan(
-        F, B, C, side_words, sms)
+        F, B, C, mode, sms)
     rows = max(n + shift, 1)
     vec = 16 if (F * rows >= 16 * SM_THREADS * sms
                  and by_vec[16][0] * g >= 12 * threads) else 4
@@ -236,8 +271,10 @@ def plan(n: int, F: int, B: int, C: int, side_words: int, shift: int,
             slices, slice_cells)
 
 
-def _launch(entry, bins, args, num_cols, B, side_words, out, layout=()):
-    """``layout``: the entry's bin-layout argument, if it takes one."""
+def _launch(entry, bins, args, num_cols, B, mode, out, layout=(),
+            fixed=()):
+    """``layout``: the entry's bin-layout argument, if it takes one;
+    ``fixed``: the float modes' (exponent, scratch) pointers."""
     global launches
     F, N = bins.shape
     if N == 0 or F == 0:
@@ -245,9 +282,9 @@ def _launch(entry, bins, args, num_cols, B, side_words, out, layout=()):
     shift = bins.data_ptr() % 16 // bins.element_size()
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     rc = entry(bins.data_ptr(), bins.stride(0), *args, N, F, B, num_cols,
-               shift, *layout, *plan(N, F, B, num_cols, side_words, shift,
+               shift, *layout, *plan(N, F, B, num_cols, mode, shift,
                                      cuda_build.num_sms(bins.device)),
-               out.data_ptr(), stream)
+               *fixed, out.data_ptr(), stream)
     cuda_build.check(rc, "hist kernel")
     launches += 1
     launch_rows.append(N)
@@ -255,8 +292,26 @@ def _launch(entry, bins, args, num_cols, B, side_words, out, layout=()):
     return out
 
 
-def hist_float(bins, grad, hess, cid, num_cols: int, B: int):
-    """[F, B, 3*num_cols] f32 accumulator of (grad, hess, 1)."""
+def _fixed_args(exponent, device, cells: int, grad, hess, n: int):
+    """(exponent, scratch) of a float-mode launch, which the caller holds
+    until the launch is queued, and the pointers the entry takes:
+    ``exponent`` as given (a tree's, from ``fixed_exponent``) or this
+    launch's own; scratch for the fixed-point sums and counts, 20 bytes a
+    cell."""
+    if exponent is None:
+        exponent = fixed_exponent(grad, hess, n)
+    require(exponent.dtype == torch.int32 and exponent.numel() == 1
+            and exponent.device == device,
+            "exponent must be one int32 on the histogram's device")
+    scratch = torch.empty(cells * 5, dtype=torch.int32, device=device)
+    return (exponent, scratch), (exponent.data_ptr(), scratch.data_ptr())
+
+
+def hist_float(bins, grad, hess, cid, num_cols: int, B: int,
+               exponent=None):
+    """[F, B, 3*num_cols] f32 accumulator of (grad, hess, 1).  On the
+    card the sums are fixed point at ``exponent`` (``fixed_exponent``;
+    by default this call's own), so they are the same on every run."""
     _check(bins, cid, (grad, hess), num_cols, B)
     if bins.device.type == "cpu":
         ones = torch.ones_like(grad)
@@ -264,13 +319,15 @@ def hist_float(bins, grad, hess, cid, num_cols: int, B: int):
                           num_cols, B)
     require(grad.dtype == torch.float32 and hess.dtype == torch.float32,
             "grad and hess must be float32")
-    F = bins.shape[0]
+    F, N = bins.shape
     out = torch.empty((F, B, 3 * num_cols), dtype=torch.float32,
                       device=bins.device)
     lib = cuda_build.load("hist")
+    _held, fixed = _fixed_args(exponent, bins.device, F * B * num_cols, grad,
+                              hess, N)
     return _launch(lib.lgbm_hist_f32, bins,
                    (grad.data_ptr(), hess.data_ptr(), cid.data_ptr()),
-                   num_cols, B, 3, out, (bin_bytes(bins),))
+                   num_cols, B, "float", out, (bin_bytes(bins),), fixed)
 
 
 def hist_int8(bins, levels, cid, num_cols: int, B: int):
@@ -288,17 +345,19 @@ def hist_int8(bins, levels, cid, num_cols: int, B: int):
     lib = cuda_build.load("hist")
     return _launch(lib.lgbm_hist_i8, bins,
                    (levels.data_ptr(), levels.stride(0), cid.data_ptr()),
-                   num_cols, B, 1, out, (bin_bytes(bins),))
+                   num_cols, B, "int8", out, (bin_bytes(bins),))
 
 
 def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
-                    rows=None, bin_bytes: int = 1):
+                    rows=None, bin_bytes: int = 1, exponent=None):
     """[Fr, B, 3] f32 histogram of (grad, hess, 1) over the valid rows of
     the plane-pane lanes [sstart, sstart + scnt): ``build_histogram`` of
     ``unpack_values(pane[:, sstart:sstart + scnt], F, bin_bytes)``, read
     in place.  ``rows`` = (first, count) takes the bin rows [first, first
     + count) of the F (one bin-width class of a packed pane), Fr = count;
-    all F by default.  ``bin_bytes`` 2: a 16-bit pane (ops/compact.py)."""
+    all F by default.  ``bin_bytes`` 2: a 16-bit pane (ops/compact.py).
+    ``exponent``: as ``hist_float``'s; by default from the segment's
+    values."""
     R, P = pane.shape
     first, Fr = rows if rows is not None else (0, F)
     require(pane.dtype == torch.int8 and pane.stride(1) == 1,
@@ -320,9 +379,15 @@ def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
     lib = cuda_build.load("hist")
     planes = seg[bin_bytes * F:bin_bytes * F + 9]
     hi_off = F * seg.stride(0) if bin_bytes == 2 else 0
+    grad = hess = None
+    if exponent is None:
+        _, grad, hess, _ = unpack_values(seg, F, bin_bytes)
+    _held, fixed = _fixed_args(exponent, pane.device, Fr * B, grad, hess,
+                              scnt)
     return _launch(lib.lgbm_hist_pane,
                    seg[first:first + Fr].view(torch.uint8),
-                   (hi_off, planes.data_ptr()), 1, B, 3, out)
+                   (hi_off, planes.data_ptr()), 1, B, "float", out,
+                   fixed=fixed)
 
 
 def pane_plain(seg, F: int, B: int, rows=None, bin_bytes: int = 1):

@@ -7,7 +7,9 @@ histogram kernel (ops/hist_cuda.py), as every mode reaches the Pallas
 kernel on the TPU:
 
 - ``float32``: f32 grad/hess accumulate as they are (the TPU's
-  ``precision="f32"`` hi/lo split approximates exactly this);
+  ``precision="f32"`` hi/lo split approximates exactly this); on the card
+  in 64-bit fixed point at the tree's ``exponent``
+  (``hist_cuda.fixed_exponent``), the same bits on every run;
 - ``bfloat16``: grad/hess rounded to bf16 (to nearest even), then the
   float mode's f32 accumulation, as the TPU's single-pass bf16 operand
   (hist_pallas.py:510-522; on the CPU, histogram.py:236-239, :430);
@@ -71,11 +73,13 @@ def assemble(parts, packing, B: int):
     return out.index_select(0, canonical_index(packing, out.device))
 
 
-def _float_one(bins, grad, hess, col_id, col_ok, num_cols, B, packing):
+def _float_one(bins, grad, hess, col_id, col_ok, num_cols, B, packing,
+               exponent):
     F = bins.shape[0]
     cid = torch.where(col_ok, col_id, -1).to(torch.int32)
     grad, hess = grad.contiguous(), hess.contiguous()
-    acc = assemble([hist_float(bins[s:s + n], grad, hess, cid, num_cols, w)
+    acc = assemble([hist_float(bins[s:s + n], grad, hess, cid, num_cols, w,
+                               exponent)
                     for s, n, w in class_ranges(packing, F, B)], packing, B)
     return acc.reshape(F, B, num_cols, 3).permute(2, 0, 1, 3)
 
@@ -100,14 +104,16 @@ def round_bf16(x):
 
 def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
                         num_bins_max: int, compute_dtype: str = "float32",
-                        packing=None, salt: int = 0):
+                        packing=None, salt: int = 0, exponent=None):
     """[C, F, B, 3] f32 histograms of C leaf columns in one pass per
     group of 64 columns, 42 with 16-bit bins (``group_width``; one launch
     per bin-width class under ``packing``).  ``bins`` [F, N] uint8, or
     int16 carrying 16-bit bins, in storage order (rows may be strided),
     ``col_id`` [N] leaf column per row, ``col_ok`` [N] bool; ``salt``
-    keys ``int8_sr``'s rounding bits.  The result is in canonical
-    feature order."""
+    keys ``int8_sr``'s rounding bits; ``exponent``: the float modes'
+    fixed-point exponent (``hist_cuda.fixed_exponent``, one per tree;
+    by default each launch's own).  The result is in canonical feature
+    order."""
     int8 = is_int8(compute_dtype)
     if compute_dtype == "bfloat16":
         grad, hess = round_bf16(grad), round_bf16(hess)
@@ -116,7 +122,7 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
         if int8:
             return _int8_one(*args, packing, salt,
                              compute_dtype == "int8_sr")
-        return _float_one(*args, packing)
+        return _float_one(*args, packing, exponent)
 
     return grouped(one, bins, grad, hess, col_id, col_ok, num_cols,
                    num_bins_max, group_width(num_bins_max))
@@ -124,9 +130,10 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
 
 def build_histogram(bins, grad, hess, mask, num_bins_max: int,
                     compute_dtype: str = "float32", packing=None,
-                    salt: int = 0):
+                    salt: int = 0, exponent=None):
     """[F, B, 3] histogram of the rows where ``mask`` holds: the
     one-column leaf batch, as on the TPU (histogram.py:541-564)."""
     cid = torch.zeros(bins.shape[1], dtype=torch.int32, device=bins.device)
     return histogram_leafbatch(bins, grad, hess, cid, mask, 1,
-                               num_bins_max, compute_dtype, packing, salt)[0]
+                               num_bins_max, compute_dtype, packing, salt,
+                               exponent)[0]

@@ -35,40 +35,44 @@ HBM_BYTES_PER_S = 3.35e12
 # variant name -> arguments of bench_plan that undo one step of the design
 VARIANTS = {
     "final plan": {},
-    "one accumulator copy": {"copies_bytes": 0},
+    "one accumulator copy": {"copies_cells": 0},
     "always 16 rows per thread": {"vec": 16},
     "always 4 rows per thread": {"vec": 4},
     "256 threads at wide C": {"threads": 256},
     "4 blocks per SM": {"blocks_per_sm": 4},
     "8-tile chunk floor": {"min_chunk_tiles": 8},
-    "8 features per block": {"group_bytes": 8 * 3 * 256 * 4},
+    "8 features per block": {"group_cells": 8 * 256},
+    "no resident-block floor": {"min_resident": 1},
 }
 
 
-def bench_plan(n, F, B, C, side_words, shift, sms, hc, group_bytes=None,
-               copies_bytes=None, blocks_per_sm=None, min_chunk_tiles=None,
-               vec=None, threads=None):
+def bench_plan(n, F, B, C, mode, shift, sms, hc, group_cells=None,
+               copies_cells=None, blocks_per_sm=None, min_chunk_tiles=None,
+               vec=None, threads=None, min_resident=None):
     """``hist_cuda.plan`` (module ``hc``) written out, with each of its
     choices open to an override."""
-    group_bytes = group_bytes or hc.GROUP_BYTES
-    copies_bytes = hc.COPIES_BYTES if copies_bytes is None else copies_bytes
+    group_cells = group_cells or hc.GROUP_CELLS
+    copies_cells = hc.COPIES_CELLS if copies_cells is None else copies_cells
     blocks_per_sm = blocks_per_sm or hc.BLOCKS_PER_SM
     min_chunk_tiles = min_chunk_tiles or hc.MIN_CHUNK_TILES
-    slices = -(-B * C * 12 // hc.SLICE_BYTES)
+    min_resident = min_resident or hc.MIN_RESIDENT
+    cell, side_words = hc.CELL_BYTES[mode], hc.SIDE_WORDS[mode]
+    slices = -(-B * C * cell // hc.SLICE_BYTES)
     slice_cells = -(-B * C // slices)
-    per_f = slice_cells * 12
-    g = max(1, min(8, F, group_bytes // per_f))
+    g = max(1, min(8, F, group_cells // slice_cells))
     groups = -(-F // g)
     g = -(-F // groups)
-    copies = 2 if 2 * g * per_f <= copies_bytes else 1
-    acc = -(-copies * g * per_f // 16) * 16
+    copies = 2 if 2 * g * slice_cells <= copies_cells else 1
+    acc = -(-copies * g * slice_cells * cell // 16) * 16
     threads = threads or (512 if 2 * (acc + 1024) > hc.SM_SMEM else 256)
     rows = max(n + shift, 1)
+    room = hc.SM_SMEM // min_resident - 1024 - acc
 
     def tile_of(v):
         row_bytes = side_words * 4 * (v + 1) / v
-        return min(threads * v // g,
-                   int((hc.MAX_SMEM - acc) // row_bytes)) // 16 * 16
+        cap = int(room // row_bytes) if room >= 16 * row_bytes else 1 << 30
+        return min(threads * v // g, int((hc.MAX_SMEM - acc) // row_bytes),
+                   cap) // 16 * 16
 
     vec = vec or (16 if F * rows >= 16 * hc.SM_THREADS * sms
                   and tile_of(16) * g >= 12 * threads else 4)
@@ -121,29 +125,41 @@ def main() -> int:
     pane84 = compact.pack_planes(bins, grad, hess, grad > -1.0, P)
     wide = {C: arrays(F, N, C) for C in (42, 64)}
     f200 = arrays(200, 250_000, 1)
+    # 16-bit bins (max_bin=1023: 1022 bins), as int16 views
+    B16 = 1022
+    bins16 = torch.as_tensor(rng.randint(0, B16, (F, N)).astype(np.int16),
+                             device=dev)
 
-    # (entry, bins, pointer arguments, bin layout argument, C, side band
-    # words, out dtype); the uint8 layout throughout
+    # (entry, bins, pointer arguments, bin layout argument, C, mode, out
+    # dtype); the uint8 layout throughout.  The float modes share one
+    # exponent, the root's, as a tree's launches do
+    exponent = hc.fixed_exponent(grad, hess, N)
+
     def float_call(b, g, h, c, C):
         return (lib.lgbm_hist_f32, b, (g.data_ptr(), h.data_ptr(),
-                                       c.data_ptr()), (1,), C, 3,
+                                       c.data_ptr()), (1,), C, "float",
                 torch.float32)
 
     def pane_call(p, sstart, n):
         seg = p[:, sstart:sstart + n]
         return (lib.lgbm_hist_pane, seg[:F].view(torch.uint8),
-                (0, seg[F].data_ptr()), (), 1, 3, torch.float32)
+                (0, seg[F].data_ptr()), (), 1, "float", torch.float32)
 
     def bound(n, f, c, row_bytes):
         return (n * (f + row_bytes) + f * B * 3 * c * 4) / HBM_BYTES_PER_S \
             * 1e3
+
+    def float16_call(C):
+        return (lib.lgbm_hist_f32, bins16, (grad.data_ptr(), hess.data_ptr(),
+                                            cid1.data_ptr()), (2,), C,
+                "float", torch.float32, B16)
 
     shapes = [
         ("root float F=28 N=1M C=1", bound(N, F, 1, 12),
          float_call(bins, grad, hess, cid1, 1)),
         ("root int8 F=28 N=1M C=1", bound(N, F, 1, 7),
          (lib.lgbm_hist_i8, bins, (levels.data_ptr(), levels.stride(0),
-                                   cid1.data_ptr()), (1,), 1, 1,
+                                   cid1.data_ptr()), (1,), 1, "int8",
           torch.int32)),
         ("root pane F=28 N=1M", bound(N, F, 1, 9), pane_call(pane, 1001, N)),
         ("root pane 84% valid", bound(N, F, 1, 9),
@@ -156,28 +172,34 @@ def main() -> int:
          float_call(*wide[64], 64)),
         ("float F=200 N=250K C=1", bound(250_000, 200, 1, 12),
          float_call(*f200, 1)),
+        ("float16 F=28 N=1M B=1022 C=1",
+         (N * (2 * F + 12) + F * B16 * 3 * 4) / HBM_BYTES_PER_S * 1e3,
+         float16_call(1)),
     ]
 
-    def launcher(entry, b, ptrs, layout, C, side, dtype, over):
+    def launcher(entry, b, ptrs, layout, C, mode, dtype, nb=B, over=None):
         nf, n = b.shape
-        shift = b.data_ptr() % 16
-        pl = bench_plan(n, nf, B, C, side, shift, sms, hc, **over)
-        if not over and pl != hc.plan(n, nf, B, C, side, shift, sms):
+        shift = b.data_ptr() % 16 // b.element_size()
+        pl = bench_plan(n, nf, nb, C, mode, shift, sms, hc, **over)
+        if not over and pl != hc.plan(n, nf, nb, C, mode, shift, sms):
             raise SystemExit("bench_plan differs from hist_cuda.plan at "
                              "F=%d n=%d C=%d: update this script" % (nf, n, C))
-        out = torch.empty((nf, B, 3 * C), dtype=dtype, device=dev)
+        out = torch.empty((nf, nb, 3 * C), dtype=dtype, device=dev)
+        scratch = torch.empty(nf * nb * C * 5, dtype=torch.int32, device=dev)
+        fixed = (exponent.data_ptr(), scratch.data_ptr()) \
+            if mode == "float" else ()
 
         def call():
             cuda_build.check(entry(b.data_ptr(), b.stride(0), *ptrs, n, nf,
-                                   B, C, shift, *layout, *pl, out.data_ptr(),
-                                   stream), "hist kernel")
+                                   nb, C, shift, *layout, *pl, *fixed,
+                                   out.data_ptr(), stream), "hist kernel")
         return call
 
     lines = []
     for name, over in VARIANTS.items():
         for label, bnd, call in shapes:
             lines.append("%-26s %-26s %8.4f ms  (bound %.4f)" % (
-                name, label, cuda_ms(launcher(*call, over)), bnd))
+                name, label, cuda_ms(launcher(*call, over=over)), bnd))
             print(lines[-1], flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -6,10 +6,11 @@ package, so it runs where only PyTorch for CUDA is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the float histogram adds f32 values with atomics in a
-run-dependent order, so it agrees with the plain ``index_add_`` to f32
-reordering (rtol 1e-5, atol 1e-4 for cells that cancel to near zero; on
-a root-sized segment, 1e-5 of each cell's absolute sum); counts, the int8
+Tolerances: the float histogram sums in 64-bit fixed point, the same
+bits on every run, and agrees with the plain ``index_add_`` (f32 sums in
+another order) to f32 rounding (rtol 1e-5, atol 1e-4 for cells that
+cancel to near zero; on a root-sized segment, 1e-5 of each cell's
+absolute sum); counts, the int8
 histogram, both partition entries (with every lane outside the segment
 untouched) and the int8 trees are exact, and so are the serving engine's
 scores and leaf indices against the CPU engine's.
@@ -461,6 +462,38 @@ def test_continued_training_on_card(cuda, tmp_path):
                           continuation_score(first, x, torch.device("cpu")))
 
 
+@pytest.mark.parametrize("extra", [
+    {"hist_dtype": "float32"},
+    {"hist_dtype": "float32", "grow_policy": "depthwise"},
+    {"hist_dtype": "int8", "bagging_fraction": 0.8, "bagging_freq": 2,
+     "feature_fraction": 0.8},
+], ids=["float32", "float32_depthwise", "int8_sampled"])
+def test_raise_and_resume_on_card(cuda, tmp_path, extra):
+    """On the card, float32 and int8 training stopped by a raise at
+    iteration 3 and resumed from its checkpoints writes the unbroken
+    run's model text byte for byte; the float histogram's sums are the
+    same on every run, so two unbroken float32 runs agree first."""
+    from lightgbm_tpu_torch import faults
+    rng = np.random.RandomState(13)
+    x = rng.randn(50_000, 12)
+    y = (x[:, 0] - x[:, 1] + 0.4 * rng.randn(50_000) > 0).astype(np.float32)
+    ds = lgt.Dataset.from_arrays(x, y, max_bin=255)
+    params = dict({"objective": "binary", "num_leaves": 63,
+                   "num_iterations": 6, "verbose": -1}, **extra)
+    whole = lgt.train(params, ds, device=cuda).model_to_string()
+    assert lgt.train(params, ds, device=cuda).model_to_string() == whole
+    ck = dict(params, checkpoint_interval=1,
+              checkpoint_dir=str(tmp_path / "ck"))
+    faults.arm(3, "raise")
+    try:
+        with pytest.raises(RuntimeError, match="injected fault"):
+            lgt.train(ck, ds, device=cuda)
+    finally:
+        faults.disarm()
+    resumed = lgt.train(ck, ds, device=cuda)
+    assert resumed.model_to_string() == whole
+
+
 # ---- mixed-bin packing, bfloat16 and stochastic rounding on the card
 
 
@@ -621,6 +654,43 @@ def test_hist16_pane_matches_plain(cuda, sstart, scnt, rows):
                                     2).cpu()
     want = hist_cuda.hist_pane_float(pane, F, sstart, scnt, B, rows, 2)
     _assert_hist(got.numpy(), want.numpy(), "float32")
+
+
+@pytest.mark.parametrize("entry", ["hist_float", "hist_pane_float"])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_float_hist_bitwise_equal_run_to_run(cuda, entry, bits):
+    """The float mode's fixed-point sums do not depend on the order of
+    the atomics: the same inputs give the same bits on every launch, at
+    8- and 16-bit bins, through both float entries, under the tree's
+    shared exponent and under each launch's own."""
+    rng = np.random.RandomState(bits)
+    F, N, C = 28, 200_001, 8
+    B = 256 if bits == 8 else 1023
+    bins = torch.as_tensor(rng.randint(0, B, (F, N)).astype(np.uint8)) \
+        if bits == 8 else _bins16(rng, F, N, B)
+    grad = torch.as_tensor((rng.randn(N) * 0.4).astype(np.float32))
+    hess = torch.as_tensor((rng.rand(N) * 0.25).astype(np.float32))
+    cid = torch.as_tensor(np.where(rng.rand(N) < 0.85, rng.randint(0, C, N),
+                                   -1).astype(np.int32))
+    g, h = grad.to(cuda), hess.to(cuda)
+    tree_e = hist_cuda.fixed_exponent(g, h, N)
+    if entry == "hist_float":
+        b, c = bins.to(cuda), cid.to(cuda)
+        run = lambda e: hist_cuda.hist_float(b, g, h, c, C, B, e)
+        want = hist_cuda.hist_float(bins, grad, hess, cid, C, B)
+    else:
+        P = compact.bucket_table(N)[0]
+        pane = compact.pack_planes(bins, grad, hess, cid >= 0, P)
+        pc = pane.to(cuda)
+        run = lambda e: hist_cuda.hist_pane_float(pc, F, 1001, N - 2000, B,
+                                                  None, bits // 8, e)
+        want = hist_cuda.hist_pane_float(pane, F, 1001, N - 2000, B, None,
+                                         bits // 8)
+    for e in (tree_e, None):
+        first = run(e).cpu()
+        for _ in range(3):
+            assert torch.equal(run(e).cpu(), first)
+        _assert_hist(first.numpy(), want.numpy(), "float32")
 
 
 @pytest.mark.parametrize("start,cnt,feat,thr", [

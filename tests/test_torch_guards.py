@@ -105,11 +105,12 @@ def test_default_device_needs_cuda():
     ("predict_leaf_index", "maybe"), ("is_save_binary_file", "maybe"),
     ("max_bin", "0"), ("quant_rounding", "dither"),
     ("mixed_bin", "sometimes"), ("streaming", "sometimes"),
-    ("checkpoint_interval", "5"), ("metrics_out", "m.jsonl"),
+    ("checkpoint_interval", "-1"), ("metrics_out", "m.jsonl"),
     ("metric", "auc,map"), ("pipeline", "readback"),
     ("is_pre_partition", "true"), ("save_binary_format", "parquet"),
     ("ingest_workers", "0"), ("ingest_chunk_rows", "0"),
-    ("use_two_round_loading", "often"), ("checkpoint_dir", "ck"),
+    ("use_two_round_loading", "often"), ("checkpoint_keep", "0"),
+    ("elastic_shrink", "true"),
 ])
 def test_out_of_slice_config_is_fatal(key, value):
     cfg = lgt.OverallConfig()

@@ -106,9 +106,11 @@ def test_pane_entry_refuses_what_the_kernel_does_not_take(bad):
         hist_cuda.hist_pane_float(*args, B)
 
 
-# F, C, side-band words per row (3: float and pane modes, 1: int8)
-PLAN_SHAPES = [(28, 1, 3), (28, 1, 1), (28, 42, 3), (28, 64, 3), (28, 64, 1),
-               (200, 1, 3), (3, 7, 3), (1, 1, 3)]
+# F, C, mode ("float": the float and pane entries, 20-byte cells and 5
+# side-band words a row; "int8": 12-byte cells, 1 word)
+PLAN_SHAPES = [(28, 1, "float"), (28, 1, "int8"), (28, 42, "float"),
+               (28, 64, "float"), (28, 64, "int8"), (200, 1, "float"),
+               (3, 7, "float"), (1, 1, "float")]
 
 
 @pytest.mark.parametrize("n", [1, 17, 4000, 50_000, 1_000_000])
@@ -117,15 +119,18 @@ def test_launch_plan_fits_and_covers(n, F, C, side):
     """Every plan fits shared memory and covers each feature and row once:
     csrc/hist.cu refuses a plan that does not, and its layout of the
     accumulator and side band is the one sized here."""
+    cell, words = hist_cuda.CELL_BYTES[side], hist_cuda.SIDE_WORDS[side]
     for shift in (0, 9):
         (vec, threads, g, copies, tile, chunk, groups, chunks, smem, slices,
          slice_cells) = hist_cuda.plan(n, F, B, C, side, shift, 132)
         assert vec in (4, 16) and threads in (256, 512)
         assert smem <= hist_cuda.MAX_SMEM
-        # every 8-bit accumulator fits one slice
-        assert slices == 1 and slice_cells == B * C
-        acc = -(-copies * g * B * 3 * C * 4 // 16) * 16
-        assert smem == acc + side * 4 * (tile + tile // vec)
+        # every 8-bit int8 accumulator fits one slice; the float mode's
+        # 20-byte cells pass one slice's SLICE_BYTES above 38 columns
+        assert slices == (2 if side == "float" and C > 38 else 1)
+        assert (slices - 1) * slice_cells < B * C <= slices * slice_cells
+        acc = -(-copies * g * slice_cells * cell // 16) * 16
+        assert smem == acc + words * 4 * (tile + tile // vec)
         assert tile % 16 == 0 and chunk % tile == 0
         assert (groups - 1) * g < F <= groups * g
         assert (chunks - 1) * chunk < n + shift <= chunks * chunk
@@ -149,7 +154,7 @@ def test_launch_plan_fills_the_card_at_child_sizes():
     runs on a few hundred blocks of about 3K cells each, and children of
     4,000 and 50,000 rows on about a hundred blocks and more."""
     def blocks(n):
-        p = hist_cuda.plan(n, 28, B, 1, 3, 9, 132)
+        p = hist_cuda.plan(n, 28, B, 1, "float", 9, 132)
         return p[6] * p[7], p[2] * B * 3
     root_blocks, cells = blocks(1_000_000)
     assert 300 <= root_blocks <= 1100 and cells == 3072

@@ -277,11 +277,13 @@ def test_split_search_matches_jax_at_wide_b(B):
 # ------------------------------------------------------------- launch plan
 
 
-# B, C, side-band words per row: the 16-bit shapes of chip_smoke.py
+# B, C, mode (hist_cuda.CELL_BYTES): the 16-bit shapes of chip_smoke.py
 # phase 10 and the widest the int8 mode takes
-WIDE_PLAN_SHAPES = [(1023, 1, 3), (1023, 8, 3), (1023, 42, 3), (1023, 42, 1),
-                    (1023, 64, 1), (50_000, 1, 3), (50_000, 1, 1),
-                    (65_536, 1, 3), (4096, 255, 1), (256, 255, 1)]
+WIDE_PLAN_SHAPES = [(1023, 1, "float"), (1023, 8, "float"),
+                    (1023, 42, "float"), (1023, 42, "int8"),
+                    (1023, 64, "int8"), (50_000, 1, "float"),
+                    (50_000, 1, "int8"), (65_536, 1, "float"),
+                    (4096, 255, "int8"), (256, 255, "int8")]
 
 
 @pytest.mark.parametrize("n", [1, 4000, 1_000_000])
@@ -291,15 +293,16 @@ def test_launch_plan_slices_wide_accumulators(n, B, C, side):
     by its slices exactly once, each slice within SLICE_BYTES; slices and
     row chunks together cover every (feature, row)."""
     F = 28
+    cell, words = hist_cuda.CELL_BYTES[side], hist_cuda.SIDE_WORDS[side]
     for shift in (0, 9):
         (vec, threads, g, copies, tile, chunk, groups, chunks, smem, slices,
          slice_cells) = hist_cuda.plan(n, F, B, C, side, shift, 132)
         assert smem <= hist_cuda.MAX_SMEM and tile >= 16
         assert (slices - 1) * slice_cells < B * C <= slices * slice_cells
-        assert slice_cells * 12 <= hist_cuda.SLICE_BYTES
-        assert slices == -(-B * C * 12 // hist_cuda.SLICE_BYTES)
-        acc = -(-copies * g * slice_cells * 12 // 16) * 16
-        assert smem == acc + side * 4 * (tile + tile // vec)
+        assert slice_cells * cell <= hist_cuda.SLICE_BYTES
+        assert slices == -(-B * C * cell // hist_cuda.SLICE_BYTES)
+        acc = -(-copies * g * slice_cells * cell // 16) * 16
+        assert smem == acc + words * 4 * (tile + tile // vec)
         assert (groups - 1) * g < F <= groups * g
         assert (chunks - 1) * chunk < n + shift <= chunks * chunk
         if slices > 1:
