@@ -88,7 +88,18 @@ the same bits.  Phase 13 checkpoints and resumes the main path
 table: stopped by a raise at iteration 6 and resumed to the unbroken
 model text, launching the kernels for the remaining trees only, and a
 CLI run SIGKILLed at iteration 6 and rerun to the unbroken model file
-(see ``checkpoint_phase``).  Every phase must
+(see ``checkpoint_phase``).  Phase 14 arms the observability layer
+around the main path (the JSONL sink fenced, memory gauges, health, the
+profiler, the flight recorder, the stall watchdog with a stall injected)
+and requires the unarmed model text, route counters equal to the kernel
+counts, fenced phases within each iteration's wall, a memory block and a
+roofline that read the H100, both kernels' events in the profiler trace,
+one flight dump, clean health blocks, and a ServingFront's monitor
+windows and drift against the model's ``score_reference=`` line, checked
+by ``scripts/trace_report.py`` and ``scripts/monitor_report.py`` (see
+``observability_phase``).  Phase 9 also times int8 with stochastic
+rounding (the hash and quantization, then the launch) beside its plain
+version and ``scatter_add_`` of the same levels.  Every phase must
 pass; the last line of standard output is ``{"ok": true, "device":
 {...}}``.  Exits nonzero,
 printing no result, when there is no CUDA device or the package is not
@@ -122,7 +133,9 @@ FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
         "pane_segment": (12_345, 300_001), "n_f200": 250_000,
         "int8_cols": (1, 8, 32, 64), "n_es": 40_000, "n_cli": 100_000,
         "class_cols": (1, 8, 64), "wide_cols": (1, 8, 64),
-        "n_ingest": 2_000_000, "ingest_parse_rows": 200_000}
+        "n_ingest": 2_000_000, "ingest_parse_rows": 200_000,
+        "obs_front_s": 2.0, "stall_timeout": 1.5, "stall_s": 3.5,
+        "monitor_interval_s": 0.5}
 
 
 def make_table(rows: int, features: int, seed: int):
@@ -394,6 +407,7 @@ def main() -> int:
             if "registers" in line or "bytes stack" in line:
                 say("  ptxas %s: %s" % (name, line.strip()))
     kernels = run(torch.device("cuda"), FULL)
+    say("chip_smoke: phases 1-14 in %.1f s" % (time.perf_counter() - t0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -407,7 +421,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-13 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-14 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -959,6 +973,11 @@ def run(dev, sizes, timer=None):
                                          sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    # ---- phase 14: observability around the main path
+    for path, counts in observability_phase(dev, sizes, x, y, train_set,
+                                            served, sync).items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
     return list(kernels.values())
 
 
@@ -968,10 +987,11 @@ def mixed_phase(dev, sizes, sync, timer):
     at 64 bins and 4 at 254):
 
     (a) the histogram kernel's per-class launches (F = 24 at B = 64, F = 4
-        at B = 254; float and int8; C = 1, 8, 64) and the pane entry over
-        each class's bin rows, against their plain versions, timed beside
-        their bounds and the library call; a packed pass against the
-        uniform one;
+        at B = 254; float, int8 and int8 with stochastic rounding, its
+        hash and quantization timed with the launch; C = 1, 8, 64) and
+        the pane entry over each class's bin rows, against their plain
+        versions, timed beside their bounds and the library call; a
+        packed pass against the uniform one;
     (b) bench.py's headline configuration (depth-wise int8, 255 leaves,
         ``mixed_bin=auto``), 5 iterations: the plan, two launches a pass,
         held-out AUC, and the same model text as ``mixed_bin=false``;
@@ -1069,6 +1089,33 @@ def mixed_phase(dev, sizes, sync, timer):
                     "bound_by": "bytes",
                     "library_ms": timer(lambda: acc.scatter_add_(0, idx3,
                                                                  src3))})
+                if mode == "int8":
+                    # stochastic rounding: the value-keyed hash and the
+                    # quantization, then the int8 launch; plain: the
+                    # same quantization, then the plain version; library:
+                    # scatter_add_ of the same levels
+                    sr, _ = quantize_values(grad, hess, ok, True, 7)
+                    sr32 = sr.t().to(torch.int32)
+                    if not torch.equal(hist_cuda.hist_int8(cb, sr, cid, C,
+                                                           width),
+                                       hist_cuda.hist_plain(cb, sr32, cid,
+                                                            C, width)):
+                        fail("phase 9a hist %s int8_sr not bitwise" % what)
+                    sr3 = sr32[None].expand(cnt, N, 3).reshape(-1, 3)
+                    class_shapes.append({
+                        "F": cnt, "N": N, "B": width, "C": C,
+                        "mode": "int8_sr", "max_abs_err": 0.0,
+                        "ms": timer(lambda: hist_cuda.hist_int8(
+                            cb, quantize_values(grad, hess, ok, True, 7)[0],
+                            cid, C, width)),
+                        "plain_ms": timer(lambda: hist_cuda.hist_plain(
+                            cb, quantize_values(grad, hess, ok, True, 7)[0]
+                            .t().to(torch.int32), cid, C, width)),
+                        "bound_ms": bound(N, cnt, width, C, 7),
+                        "bound_by": "bytes",
+                        "library_ms": timer(lambda: acc.scatter_add_(
+                            0, idx3, sr3))})
+                    del sr3
                 del src3, acc
             del idx, idx3
         # a whole pass, packed (two launches, assembled) against uniform
@@ -3059,6 +3106,355 @@ def checkpoint_phase(dev, sizes, train_set, sync):
     say("phase 13 checkpoints: %.1f s [%s]" % (rec["phase_s"], card))
     say(json.dumps({"checkpoint": rec}))
     return by_path
+
+
+# the top-level phases of one boosting iteration (telemetry.py's
+# docstring): histogram, split_find and partition nest inside grow
+ITERATION_PHASES = ("gradient", "bagging", "goss", "grow", "score_update",
+                    "valid_update", "model_readback", "eval")
+GROWER_PHASES = ("histogram", "split_find", "partition")
+# the __global__ functions of csrc/hist.cu and csrc/partition.cu
+KERNEL_NAMES = {"hist": ("hist_kernel",),
+                "partition": ("partition_move", "partition_count")}
+
+
+def report_check(script: str, path: str) -> str:
+    """``python3 scripts/<script> --check <path>`` must exit 0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable,
+                          os.path.join(here, "scripts", script), "--check",
+                          path], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail("%s --check %s exited %d: %s" % (
+            script, path, out.returncode, (out.stdout + out.stderr)[-2000:]))
+    return out.stdout.strip()
+
+
+def observability_phase(dev, sizes, x, y, train_set, served, sync):
+    """Phase 14: the observability layer around the main path.
+
+    (a) The main path (255 leaves, float32, compacted, 5 iterations) is
+        trained unarmed; with the sink armed (``metrics_out``,
+        ``metrics_fence=true``, ``memory_stats=true``, ``health=true``,
+        ``trace_dump_dir``, ``trace_run_id``); and fully armed, adding
+        ``profile_dir`` and ``stall_timeout`` with ``faults.arm(3,
+        "stall")`` sleeping longer than the timeout: the model text must
+        be byte-equal.  Checks (b)-(g) read the fully armed run.
+    (b) The summary's ``hist/cuda_*`` counters sum to the histogram
+        kernel's launches and ``partition/cuda`` equals the partition
+        kernel's (``*/plain*`` on a CPU rehearsal); no plain route counts
+        on the card.
+    (c) Every iteration record has the canonical phase keys; under the
+        fence an iteration's top-level phases sum to at most its wall
+        time (host clock between iterations), and the grower's phases to
+        at most its ``grow``.  Their share of the wall is printed.
+    (d) The memory block reads the card: its peak is at least the bin
+        matrix and at most ``torch.cuda.max_memory_allocated()``.
+    (e) The roofline resolves the H100's peaks, and the histogram's and
+        the partition's fractions of the HBM peak lie in (0, 1.05].
+    (f) The Chrome trace in ``profile_dir`` holds the span names and the
+        kernel events of both kernels.
+    (g) The stall left one flight record naming iteration 3 in the sink
+        and a flight dump (reason ``stall``) that
+        ``scripts/trace_report.py --check`` accepts.
+    (h) The health blocks: no NaN or Inf; then the int8 depth-wise
+        headline with ``health=true`` reads ``quant_sat`` > 0.
+    (i) Phase 11's ServingFront over model (b), loaded from its file,
+        with ``monitor_out`` and ``slo_p99_us``: at least 2 windows that
+        ``scripts/monitor_report.py --check`` accepts, drift computed
+        against the file's ``score_reference=`` line, and the front's
+        request traces accepted by ``trace_report.py --check`` (the
+        components of every request sum to its wall time).
+
+    Recorded, not gated: seconds an iteration armed against unarmed (host
+    clock), the sink's bytes, the phase's seconds.  Returns the launch
+    counts of the armed run and of the serving session."""
+    import shutil
+    import threading
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import faults, lifecycle, monitor, telemetry
+    from lightgbm_tpu_torch.ops import compact, hist_cuda
+    card = card_name()
+    on_card = dev.type == "cuda"
+    fam = "cuda" if on_card else "plain"
+    t_phase = time.perf_counter()
+    rec, by_path = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        base = {"objective": "binary", "num_leaves": 255,
+                "num_iterations": 5, "learning_rate": 0.1,
+                "hist_dtype": "float32", "max_bin": 255}
+        plain_booster, plain_s, _ = drive(base, train_set, dev, sync)
+        plain_text = plain_booster.model_to_string()
+        del plain_booster
+        sink = os.path.join(tmp, "metrics.jsonl")
+        prof, dumps = os.path.join(tmp, "prof"), os.path.join(tmp, "dumps")
+        # the sink armed alone (fenced, with memory gauges, health and
+        # the flight recorder): the cost of arming, beside the unarmed run
+        lite = dict(base, metrics_out=os.path.join(tmp, "lite.jsonl"),
+                    metrics_fence="true", memory_stats="true",
+                    health="true", trace_dump_dir=os.path.join(tmp, "lite"),
+                    trace_run_id="chip_smoke_14")
+        lite_booster, lite_s, _ = drive(lite, train_set, dev, sync)
+        if lite_booster.model_to_string() != plain_text:
+            fail("phase 14a: the sink-armed model text differs from the "
+                 "unarmed run's")
+        del lite_booster
+        armed = dict(lite, metrics_out=sink, profile_dir=prof,
+                     trace_dump_dir=dumps,
+                     stall_timeout=sizes["stall_timeout"])
+        faults.arm(3, "stall", stall_s=sizes["stall_s"])
+        try:
+            booster, armed_s, counts = drive(armed, train_set, dev, sync)
+        finally:
+            faults.disarm()
+        by_path["observability_main_armed"] = counts
+        # (a)
+        if booster.model_to_string() != plain_text:
+            fail("phase 14a: the armed model text differs from the "
+                 "unarmed run's")
+        say("phase 14a armed main path: model text byte-equal to the "
+            "unarmed run, sink-armed and fully armed; seconds per "
+            "iteration unarmed %s, sink armed %s, fully armed %s (the "
+            "profiler on, a %.1f s stall at iteration 3) [%s]" % (
+                " ".join("%.3f" % v for v in plain_s),
+                " ".join("%.3f" % v for v in lite_s),
+                " ".join("%.3f" % v for v in armed_s), sizes["stall_s"],
+                card))
+        recs = [json.loads(line) for line in open(sink)]
+        iters = [r for r in recs if "iter" in r]
+        summary = [r for r in recs if r.get("summary")]
+        flights = [r for r in recs if "flight_recorder" in r]
+        if len(iters) != 5 or len(summary) != 1 or \
+                not any("residency" in r for r in recs):
+            fail("phase 14: sink holds %d iteration records, %d summaries"
+                 % (len(iters), len(summary)))
+        summary = summary[0]
+        # (b)
+        ctr = summary["counters"]
+        hist_routes = {k: v for k, v in ctr.items()
+                       if k.startswith("hist/%s_" % fam)}
+        other = "plain" if on_card else "cuda"
+        if sum(hist_routes.values()) != counts["hist"] \
+                or ctr.get("partition/" + fam, 0) != counts["partition"] \
+                or any(k.startswith(("hist/" + other, "partition/" + other))
+                       for k in ctr):
+            fail("phase 14b: route counters %s against launches hist %d "
+                 "partition %d" % (ctr, counts["hist"], counts["partition"]))
+        say("phase 14b route counters %s equal the kernel counts (hist %d, "
+            "partition %d)" % ({k: v for k, v in sorted(ctr.items())
+                                if k.startswith(("hist/", "partition/"))},
+                               counts["hist"], counts["partition"]))
+        # (c)
+        shares = []
+        for k, r in enumerate(iters):
+            pt = r["phase_times"]
+            if not set(telemetry.CANONICAL_PHASES) <= set(pt) \
+                    or r["trace_times"] != {}:
+                fail("phase 14c: record %d lacks canonical keys: %s"
+                     % (k, sorted(pt)))
+            top = sum(pt.get(p, 0.0) for p in ITERATION_PHASES)
+            inner = sum(pt.get(p, 0.0) for p in GROWER_PHASES)
+            if top > armed_s[k] or inner > pt.get("grow", 0.0):
+                fail("phase 14c: iteration %d phases %.4f s over its wall "
+                     "%.4f s (grower %.4f over grow %.4f)" % (
+                         k + 1, top, armed_s[k], inner, pt.get("grow", 0)))
+            shares.append(top / armed_s[k])
+        rec["phase_share"] = shares
+        say("phase 14c canonical keys in every record; fenced phases cover "
+            "%s of each iteration's wall" % " ".join(
+                "%.3f" % v for v in shares))
+        # (d)
+        mem = summary["memory"]
+        bins_bytes = train_set.num_data * train_set.num_features
+        peak = mem["peak_bytes_in_use"]
+        if on_card:
+            top_alloc = torch.cuda.max_memory_allocated()
+            if mem["source"] != "device" or not bins_bytes <= peak \
+                    <= top_alloc:
+                fail("phase 14d: memory block %s, peak %d outside [%d, %d]"
+                     % (mem["source"], peak, bins_bytes, top_alloc))
+        elif mem["source"] != "host_rss":
+            fail("phase 14d: a CPU run reads %s" % mem["source"])
+        say("phase 14d memory: source %s, peak %d bytes (bin matrix %d, "
+            "allocator peak %s)" % (mem["source"], peak, bins_bytes,
+                                    torch.cuda.max_memory_allocated()
+                                    if on_card else "n/a"))
+        # (e)
+        roof = summary["roofline"]
+        fr = {p: roof["phases"].get(p, {}).get("frac_of_peak_bw")
+              for p in ("histogram", "partition")}
+        if on_card and (not isinstance(roof["peaks"], dict)
+                        or not all(v is not None and 0 < v <= 1.05
+                                   for v in fr.values())):
+            fail("phase 14e: roofline peaks %s, fractions %s"
+                 % (roof["peaks"], fr))
+        rec["roofline"] = {p: roof["phases"].get(p) for p in fr}
+        say("phase 14e roofline on %s: %s" % (roof["device_kind"], json.dumps(
+            {p: {k: v for k, v in (roof["phases"].get(p) or {}).items()
+                 if k in ("calls", "bytes_accessed", "seconds",
+                          "attained_hbm_gbps", "frac_of_peak_bw")}
+             for p in fr})))
+        # (f)
+        with open(os.path.join(prof, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        kernel_names = {e["name"] for e in events
+                        if e.get("cat") == "kernel"}
+        missing = [s for s in ("grow", "histogram", "split_find",
+                               "partition") if s not in names]
+        for which, fns in KERNEL_NAMES.items():
+            if on_card and not any(fn in k for k in kernel_names
+                                   for fn in fns):
+                missing.append(which + " kernel")
+        if missing:
+            fail("phase 14f: the profiler trace lacks %s" % missing)
+        say("phase 14f profiler trace: %d events, spans and both kernels' "
+            "events present (%d kernel events)" % (
+                len(events), sum(1 for e in events
+                                 if e.get("cat") == "kernel")))
+        del events
+        # (g)
+        stall = []
+        for name in sorted(os.listdir(dumps)):
+            with open(os.path.join(dumps, name)) as f:
+                head = json.loads(f.readline())["trace_header"]
+            if head["reason"] == "stall":
+                stall.append(os.path.join(dumps, name))
+        # the stall's record names its iteration; a loaded host could add
+        # a dump elsewhere (the watchdog re-arms once progress resumes)
+        at_stall = [r["flight_recorder"] for r in flights
+                    if r["flight_recorder"]["iteration"] == 3]
+        if len(at_stall) != 1 or not stall \
+                or telemetry.last_flight_record() is None:
+            fail("phase 14g: %d stall dumps, %d flight records (%d at the "
+                 "stall)" % (len(stall), len(flights), len(at_stall)))
+        for path in stall:
+            report_check("trace_report.py", path)
+        say("phase 14g stall: %d flight dump(s), %d at the stall (in-flight "
+            "phase %s, iteration 3, %.1f s), accepted by trace_report.py "
+            "--check" % (len(stall), len(at_stall), at_stall[0]["phase"],
+                         at_stall[0]["stalled_for_s"]))
+        # (h)
+        health = summary["health"]
+        bad = {k: health[k] for k in ("grad_nan", "grad_inf", "hess_nan",
+                                      "hess_inf", "score_nan", "score_inf")
+               if health[k]}
+        pd = {"objective": "binary", "grow_policy": "depthwise",
+              "hist_dtype": "int8", "num_leaves": 255,
+              "min_data_in_leaf": 100, "min_sum_hessian_in_leaf": 10,
+              "learning_rate": 0.1, "max_bin": 255, "num_iterations": 5,
+              "health": "true"}
+        b8, _, counts8 = drive(pd, train_set, dev, sync)
+        h8 = b8.health_summary()
+        by_path["observability_depthwise_int8_health"] = counts8
+        bad.update({"int8 " + k: h8[k] for k in ("grad_nan", "score_nan",
+                                                 "score_inf") if h8[k]})
+        if bad or not h8["quant_sat"] > 0:
+            fail("phase 14h: health %s, int8 quant_sat %s"
+                 % (bad, h8["quant_sat"]))
+        say("phase 14h health: no NaN or Inf; score_max_abs %.4f; int8 "
+            "depth-wise quant_sat %d over 5 iterations" % (
+                health["score_max_abs"], h8["quant_sat"]))
+        del b8, booster
+        # (i)
+        path_b = os.path.join(tmp, "model_b.txt")
+        with open(path_b, "w") as f:
+            f.write(served["b"])
+        line = [ln for ln in served["b"].split("\n")
+                if ln.startswith("score_reference=")]
+        if len(line) != 1:
+            fail("phase 14i: model (b) has %d score_reference lines"
+                 % len(line))
+        mon_path = os.path.join(tmp, "monitor.jsonl")
+        serve_dumps = os.path.join(tmp, "serve_dumps")
+        cfg = lgt.OverallConfig()
+        cfg.set({"monitor_out": mon_path,
+                 "monitor_interval_s": sizes["monitor_interval_s"],
+                 "slo_p99_us": 20000, "metrics_out": os.path.join(
+                     tmp, "serve_metrics.jsonl"),
+                 "trace_dump_dir": serve_dumps}, require_data=False)
+        reset_counts()
+        telemetry.arm_session(cfg.io_config)
+        try:
+            bb = lgt.GBDT.from_model_file(path_b, device=dev)
+            if bb.score_reference != json.loads(line[0].split("=", 1)[1]):
+                fail("phase 14i: the loaded reference is not the file's")
+            front = lgt.ServingFront(bb.serving_engine().warmup())
+            x_test = x[sizes["n_train"]:]
+            stop, errors, served_n = threading.Event(), [], [0] * 4
+
+            def client(i):
+                r = np.random.RandomState(SEED + 200 + i)
+                try:
+                    while not stop.is_set():
+                        n = r.randint(1, 33)
+                        s0 = r.randint(0, len(x_test) - n)
+                        front.submit(x_test[s0:s0 + n]).result(60)
+                        served_n[i] += 1
+                except Exception as e:  # failed on below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(i,),
+                                        daemon=True) for i in range(4)]
+            for th in threads:
+                th.start()
+            time.sleep(sizes["obs_front_s"])
+            stop.set()
+            for th in threads:
+                th.join(60)
+            front.close()
+            if errors:
+                fail("phase 14i: a client failed: %r" % errors[:3])
+            drift = [monitor.engine_drift(key) for key in
+                     monitor.monitor_snapshot()["drift"]]
+            drift = [d for d in drift if d["psi"] is not None]
+            if not drift or drift[0]["ref_count"] != \
+                    monitor.ScoreHistogram.from_dict(
+                        bb.score_reference).count:
+                fail("phase 14i: no drift against the reference: %s"
+                     % drift)
+        finally:
+            telemetry.disable()
+        by_path["observability_serving"] = {
+            "hist": hist_cuda.launches, "partition": compact.launches}
+        if any(v for v in by_path["observability_serving"].values()):
+            fail("phase 14i: serving launched a kernel")
+        mon_recs = [json.loads(ln) for ln in open(mon_path)]
+        windows = sum(1 for r in mon_recs if "monitor_window" in r)
+        if windows < 2:
+            fail("phase 14i: %d monitor windows" % windows)
+        report_check("monitor_report.py", mon_path)
+        for name in sorted(os.listdir(serve_dumps)):
+            report_check("trace_report.py", os.path.join(serve_dumps, name))
+        say("phase 14i monitor: %d requests, %d windows accepted by "
+            "monitor_report.py --check, drift psi %.6f against the "
+            "score_reference line (%d reference scores, %d live), "
+            "request traces accepted by trace_report.py --check" % (
+                sum(served_n), windows, drift[0]["psi"],
+                drift[0]["ref_count"], drift[0]["live_count"]))
+        left = lifecycle.leaks()
+        if left:
+            fail("phase 14: leaked %s" % [(k, n) for k, n, _ in left])
+        rec["s_per_iter"] = {"unarmed": float(np.median(plain_s)),
+                             "sink_armed": float(np.median(lite_s)),
+                             "fully_armed": float(np.median(armed_s))}
+        rec["sink_bytes"] = os.path.getsize(sink)
+        rec["health_int8_quant_sat"] = h8["quant_sat"]
+        rec["monitor_windows"] = windows
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say("phase 14 observability: median seconds per iteration unarmed "
+        "%.4f, sink armed %.4f, fully armed %.4f (the profiler and the "
+        "stall included); sink %d bytes; %.1f s [%s]" % (
+            rec["s_per_iter"]["unarmed"], rec["s_per_iter"]["sink_armed"],
+            rec["s_per_iter"]["fully_armed"], rec["sink_bytes"],
+            rec["phase_s"], card))
+    say(json.dumps({"observability": rec}))
+    return {k: {"hist": v["hist"], "partition": v["partition"]}
+            for k, v in by_path.items()}
 
 
 if __name__ == "__main__":

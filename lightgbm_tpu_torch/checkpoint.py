@@ -39,10 +39,12 @@ replaced snapshots count in ``dropped``).  A live writer is tracked by
 ``lifecycle`` until it is closed, so a test that leaves one running
 shows it as a leak.
 
-Left out of the copy: the JAX package's telemetry counters and trace
-events (``telemetry.count``, ``tracing.event``), which belong to the
-port's observability layer (ROADMAP A10); ``written`` and ``dropped``
-are plain attributes of the writer.
+Telemetry and trace events, as the JAX package files them:
+``ckpt/written``, ``ckpt/pruned``, ``ckpt/snapshots``, ``ckpt/dropped``
+and ``ckpt/async_write_us`` counters, ``ckpt/restored`` (counted by
+``GBDT.restore_checkpoint``), and the flight recorder's ``ckpt_write``
+and ``ckpt_drop`` events; ``written`` and ``dropped`` stay attributes of
+the writer too.
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from . import lifecycle
+from . import lifecycle, telemetry, tracing
 from .utils import log
 
 MAGIC = "lightgbm_tpu_checkpoint"
@@ -244,10 +246,15 @@ def write_checkpoint(directory: str, payload: dict, keep: int = 2) -> str:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, final)
+    telemetry.count("ckpt/written")
+    if tracing.active():
+        tracing.event("ckpt_write", iter=int(payload["iteration"]),
+                      bytes=len(body))
     if keep >= 1:
         for old in list_checkpoints(directory)[:-keep]:
             try:
                 os.unlink(old)
+                telemetry.count("ckpt/pruned")
             except OSError:
                 pass
     return final
@@ -384,7 +391,11 @@ class CheckpointWriter:
                 raise RuntimeError("CheckpointWriter is closed")
             if self._pending is not None:
                 self.dropped += 1
+                telemetry.count("ckpt/dropped")
+                if tracing.active():
+                    tracing.event("ckpt_drop")
             self._pending = raw_state
+            telemetry.count("ckpt/snapshots")
             self._cv.notify()
 
     def write_sync(self, raw_state: dict) -> str:
@@ -404,10 +415,13 @@ class CheckpointWriter:
                 if raw is None and self._closing:
                     return
             try:
+                t0 = time.perf_counter()
                 write_checkpoint(self.directory, serialize_state(raw),
                                  keep=self.keep)
                 with self._cv:
                     self.written += 1
+                telemetry.count("ckpt/async_write_us",
+                                int(1e6 * (time.perf_counter() - t0)))
             except Exception as e:  # disk trouble: keep the last good file
                 self._error = e
                 log.warning("background checkpoint write failed: %s" % e)

@@ -7,7 +7,11 @@ parser's OpenMP pool; the training and validation loads take the
 command line's ingest keys (columns, header, caches, streaming), and a
 load with ``is_save_binary_file`` writes the cache.  A ``checkpoint_dir``
 that holds a checkpoint resumes training from the latest one, and the
-run trains what is left of ``num_iterations``.
+run trains what is left of ``num_iterations``.  The observability keys
+arm the session as lightgbm_tpu/cli.py:263-310 does
+(``telemetry.arm_session``): the ``metrics_out`` sink with the flight
+recorder, the live monitor, the stall watchdog; ``profile_dir`` wraps
+the training loop in ``torch.profiler``; ``main`` ends the session.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import time
 from typing import List
 
 from . import config as config_mod
+from . import telemetry
 from .io.dataset import Dataset
 from .metrics import create_metrics
 from .models.gbdt import GBDT
@@ -31,6 +36,7 @@ class Application:
         self.config = config_mod.load_config(argv)
         if self.config.num_threads > 0:
             native_lib.set_num_threads(self.config.num_threads)
+        telemetry.arm_session(self.config.io_config)
 
     def run(self) -> None:
         if self.config.task_type == "train":
@@ -77,14 +83,16 @@ class Application:
         log.info("Start train ...")
         is_eval = bool(train_metrics) or any(booster.valid_metrics)
         start = time.perf_counter()
-        booster.run_training(
-            booster.remaining_iterations(cfg.boosting_config.num_iterations),
-            is_eval,
-            save_fn=lambda: booster.save_model_to_file(False,
-                                                       io.output_model),
-            progress_fn=lambda it: log.info(
-                "%f seconds elapsed, finished %d iteration"
-                % (time.perf_counter() - start, it)))
+        with telemetry.profile(io.profile_dir):
+            booster.run_training(
+                booster.remaining_iterations(
+                    cfg.boosting_config.num_iterations),
+                is_eval,
+                save_fn=lambda: booster.save_model_to_file(False,
+                                                           io.output_model),
+                progress_fn=lambda it: log.info(
+                    "%f seconds elapsed, finished %d iteration"
+                    % (time.perf_counter() - start, it)))
         booster.save_model_to_file(True, io.output_model)
         log.info("Finished train")
 
@@ -99,6 +107,10 @@ class Application:
                   serving_options=engine_options_from_config(io)
                   ).predict_file(io.data_filename, io.output_result,
                                  io.has_header)
+        if telemetry.enabled():
+            # no training loop writes the totals here: the serve/* family
+            # reaches the sink through this summary
+            telemetry.emit_summary()
         log.info("Finished prediction")
 
 
@@ -108,6 +120,9 @@ def main(argv: List[str] = None) -> int:
         Application(argv).run()
     except log.LightGBMError:
         return 1
+    finally:
+        # closes the sink, the recorder (with its dump) and the monitor
+        telemetry.disable()
     return 0
 
 

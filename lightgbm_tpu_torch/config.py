@@ -14,7 +14,13 @@ and stochastic), the serving engine's ``predict_*`` keys with
 ``predict_leaf_index``, and the ingest keys: the column selectors,
 caches, two-round and streamed loads, parse workers, ``num_threads``;
 checkpoints (``checkpoint_interval``, ``checkpoint_dir``,
-``checkpoint_keep``), ``device_type`` and ``histogram_pool_size``.
+``checkpoint_keep``), ``device_type`` and ``histogram_pool_size``; and
+observability on one process: the telemetry sink (``metrics_out``,
+``metrics_fence``, ``memory_stats``, ``profile_dir``), the flight
+recorder (``trace_*``, ``stall_timeout``), training health
+(``health``, ``on_anomaly``, ``health_divergence_rounds``) and the live
+monitor (``monitor_*``, ``slo_*``); ``timeline`` runs only at auto
+(which one process resolves off) and false.
 The difference is the slice rule: a key the port does not run raises
 ``Fatal`` naming it, instead of being parsed and silently ignored.
 Keys whose JAX-package default is the only value the port runs (serial
@@ -121,7 +127,19 @@ SLICE_KEYS = frozenset((
     # the device (cpu, or the card as gpu/cuda) and the JAX package's
     # histogram pool key (checked, no effect)
     "device_type", "histogram_pool_size",
+    # observability (telemetry.py, tracing.py, health.py, monitor.py)
+    "profile_dir", "metrics_out", "metrics_fence", "memory_stats",
+    "timeline", "stall_timeout", "trace_ring_events", "trace_dump_dir",
+    "trace_sketch_growth", "trace_run_id", "monitor_out",
+    "monitor_interval_s", "slo_p99_us", "slo_window_s", "health",
+    "on_anomaly", "health_divergence_rounds",
 ))
+
+# per-process timeline shards belong to the multi-process learners
+TIMELINE_REFUSED = ("Parameter timeline=true is not supported by "
+                    "lightgbm_tpu_torch: per-process timeline shards belong "
+                    "to the multi-process parallel learners, which are not "
+                    "ported (one process resolves timeline=auto to off)")
 
 # device_type values and the device each names (device.py's rule)
 DEVICE_TYPES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
@@ -251,6 +269,33 @@ class IOConfig:
     weight_column: str = ""
     group_column: str = ""
     ignore_column: str = ""
+    # observability (lightgbm_tpu/config.py:138-208): a torch.profiler
+    # Chrome trace of the training loop; the per-iteration JSONL sink,
+    # its stream fence and memory gauges ("auto": on with a sink); the
+    # timeline shard mode (auto or false: one process has one sink); the
+    # stall watchdog's timeout (0 off); the flight recorder's ring, dump
+    # directory, sketch growth and run tag; the live monitor's JSONL and
+    # window, and the serving SLO's p99 target (0 off) and budget window
+    profile_dir: str = ""
+    metrics_out: str = ""
+    metrics_fence: bool = False
+    memory_stats: str = "auto"
+    timeline: str = "auto"
+    stall_timeout: float = 0.0
+    trace_ring_events: int = 65536
+    trace_dump_dir: str = ""
+    trace_sketch_growth: float = 1.05
+    trace_run_id: str = ""
+    monitor_out: str = ""
+    monitor_interval_s: float = 1.0
+    slo_p99_us: float = 0.0
+    slo_window_s: float = 60.0
+
+    def memory_stats_enabled(self) -> bool:
+        """``memory_stats=``: "auto" follows the sink, "true"/"false"
+        force (lightgbm_tpu/config.py:301-306)."""
+        return (self.memory_stats == "true"
+                or (self.memory_stats == "auto" and bool(self.metrics_out)))
 
     def predict_bucket_list(self) -> tuple:
         """The ``predict_buckets=`` ladder: sorted unique positive ints
@@ -349,6 +394,80 @@ class IOConfig:
         for key in ("label_column", "weight_column", "group_column",
                     "ignore_column"):
             setattr(self, key, params.get(key, getattr(self, key)))
+        self._set_observability(params)
+
+    def _set_observability(self, params: Dict[str, str]) -> None:
+        """The observability keys, with lightgbm_tpu/config.py:334-404's
+        checks and messages; ``timeline=true`` is TIMELINE_REFUSED."""
+        self.profile_dir = params.get("profile_dir", self.profile_dir)
+        self.metrics_out = params.get("metrics_out", self.metrics_out)
+        self.metrics_fence = _get_bool(params, "metrics_fence",
+                                       self.metrics_fence)
+        if "memory_stats" in params:
+            value = params["memory_stats"].lower()
+            log.check(value in ("auto", "true", "false"),
+                      "memory_stats must be auto, true or false")
+            self.memory_stats = value
+        if "timeline" in params:
+            value = params["timeline"].lower()
+            log.check(value in ("auto", "true", "false"),
+                      "timeline must be auto, true or false")
+            if value == "true":
+                log.fatal(TIMELINE_REFUSED)
+            self.timeline = value
+        self.stall_timeout = _get_float(params, "stall_timeout",
+                                        self.stall_timeout)
+        log.check(self.stall_timeout >= 0.0,
+                  "stall_timeout should be >= 0")
+        self.trace_ring_events = _get_int(params, "trace_ring_events",
+                                          self.trace_ring_events)
+        log.check(self.trace_ring_events > 0,
+                  "trace_ring_events should be > 0 (preallocated "
+                  "flight-recorder ring slots)")
+        if "trace_dump_dir" in params:
+            self.trace_dump_dir = params["trace_dump_dir"]
+            if self.trace_dump_dir:
+                # a dump dir that cannot take writes would fail silently
+                # at the one moment it matters, inside a crash dump
+                try:
+                    os.makedirs(self.trace_dump_dir, exist_ok=True)
+                except OSError:
+                    pass
+                log.check(os.path.isdir(self.trace_dump_dir)
+                          and os.access(self.trace_dump_dir, os.W_OK),
+                          "trace_dump_dir must be a writable directory")
+        self.trace_sketch_growth = _get_float(params, "trace_sketch_growth",
+                                              self.trace_sketch_growth)
+        log.check(1.0005 <= self.trace_sketch_growth <= 2.0,
+                  "trace_sketch_growth should be in [1.0005, 2.0]")
+        if "trace_run_id" in params:
+            value = str(params["trace_run_id"])
+            log.check(len(value) <= 128
+                      and not any(c.isspace() for c in value),
+                      "trace_run_id must be <= 128 chars with no "
+                      "whitespace (it lands verbatim in dump headers "
+                      "and report keys)")
+            self.trace_run_id = value
+        if "monitor_out" in params:
+            self.monitor_out = params["monitor_out"]
+            if self.monitor_out:
+                parent = os.path.dirname(self.monitor_out) or "."
+                log.check(os.path.isdir(parent)
+                          and os.access(parent, os.W_OK),
+                          "monitor_out parent must be a writable "
+                          "directory")
+        self.monitor_interval_s = _get_float(params, "monitor_interval_s",
+                                             self.monitor_interval_s)
+        log.check(self.monitor_interval_s > 0.0,
+                  "monitor_interval_s should be > 0 (the windowed-"
+                  "snapshot interval)")
+        self.slo_p99_us = _get_float(params, "slo_p99_us", self.slo_p99_us)
+        log.check(self.slo_p99_us >= 0.0,
+                  "slo_p99_us should be >= 0 (0 disables SLO tracking)")
+        self.slo_window_s = _get_float(params, "slo_window_s",
+                                       self.slo_window_s)
+        log.check(self.slo_window_s > 0.0,
+                  "slo_window_s should be > 0 (the error-budget window)")
 
 
 def _get_num_class(params, default):
@@ -561,6 +680,13 @@ class BoostingConfig:
     checkpoint_interval: int = 0
     checkpoint_dir: str = ""
     checkpoint_keep: int = 2
+    # training health (health.py; lightgbm_tpu/config.py:711-725): "auto"
+    # on whenever telemetry is armed; the anomaly policy warn / halt /
+    # record; k consecutive worsening eval iterations flag divergence
+    # (0 off)
+    health: str = "auto"
+    on_anomaly: str = "warn"
+    health_divergence_rounds: int = 0
     tree_config: TreeConfig = dataclasses.field(default_factory=TreeConfig)
 
     def set(self, params: Dict[str, str]) -> None:
@@ -588,6 +714,21 @@ class BoostingConfig:
         self.is_provide_training_metric = _get_bool(
             params, "is_training_metric", self.is_provide_training_metric)
         self.num_class = _get_num_class(params, self.num_class)
+        # lightgbm_tpu/config.py:811-824
+        if "health" in params:
+            value = params["health"].lower()
+            log.check(value in ("auto", "true", "false"),
+                      "health must be auto, true or false")
+            self.health = value
+        if "on_anomaly" in params:
+            value = params["on_anomaly"].lower()
+            log.check(value in ("warn", "halt", "record"),
+                      "on_anomaly must be warn, halt or record")
+            self.on_anomaly = value
+        self.health_divergence_rounds = _get_int(
+            params, "health_divergence_rounds", self.health_divergence_rounds)
+        log.check(self.health_divergence_rounds >= 0,
+                  "health_divergence_rounds should be >= 0")
         self.tree_config.set(params)
         if "bagging_device" in params:
             value = params["bagging_device"].lower()

@@ -10,7 +10,10 @@ never inside one).  Kinds:
   checkpoint files already hold.
 - ``stall``: sleep ``stall_s`` seconds once (1.0 by default).
 - ``raise``: raise ``RuntimeError("injected fault ...")``, which takes
-  the training loop's exception path.
+  the training loop's exception path.  Before the raise the live monitor
+  closes its in-flight window and the flight recorder dumps its ring
+  (lightgbm_tpu/faults.py:159-163), so a raise escaping outside
+  ``run_training`` still leaves a timeline.
 
 There is no environment switch: a process that must be killed arms the
 hatch itself, e.g. ``python -c "from lightgbm_tpu_torch import faults,
@@ -83,4 +86,9 @@ def maybe_fire(iteration: int) -> None:
         time.sleep(stall_s)
     else:
         log.warning("fault injection: raising at iteration %d" % iteration)
+        # the monitor's close window files its events into the ring, so
+        # it goes before the recorder's dump
+        from . import monitor, tracing
+        monitor.flush_on_fault("injected_raise")
+        tracing.dump_on_fault("injected_raise")
         raise RuntimeError("injected fault at iteration %d" % iteration)

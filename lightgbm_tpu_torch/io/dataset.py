@@ -25,7 +25,8 @@ the header names the features (``_make_feature_names``).  Both cache
 formats are written byte for byte as the JAX package writes them:
 ``save_binary`` (pickled header + raw matrix) and
 ``save_binary_reference`` (the reference's own layout).  Continued
-training scores each text row with ``predict_fun``.  ``to_device``
+training scores each text row with ``predict_fun``.  A load runs under
+the ``ingest`` telemetry span, whatever its route.  ``to_device``
 places the bin matrix, labels and weights on the training device.
 
 Not ported: the distributed shard draw and re-shard
@@ -43,6 +44,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..device import resolve_device
 from ..ops.bins import to_tensor as bins_to_tensor
 from ..utils import log
@@ -165,7 +167,15 @@ class Dataset:
         docstring says.  ``predict_fun(features)`` scores every text row
         (continued training).  ``device``: where a streamed load lands
         its bin matrix, "cuda" by default (a ``Fatal`` without a card) or
-        "cpu"; the other routes keep it on the host."""
+        "cpu"; the other routes keep it on the host.  Every route runs
+        under the ``ingest`` telemetry span (the JAX package spans only
+        its streamed routes; their sub-spans and counters are
+        io/streaming.py's)."""
+        with telemetry.span("ingest"):
+            return cls._load_train(io_config, predict_fun, device)
+
+    @classmethod
+    def _load_train(cls, io_config, predict_fun, device) -> "Dataset":
         from . import streaming
         self = cls()
         self.data_filename = io_config.data_filename

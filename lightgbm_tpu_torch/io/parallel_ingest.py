@@ -25,10 +25,16 @@ across passes and loads, and are registered with ``lifecycle`` while they
 live; ``shutdown_workers`` reaps them, at exit too.  A worker's parser
 tiers are added to the parent's ``parser.tier_calls``.
 
+Telemetry, as the JAX package files it: the ``ingest``,
+``ingest_count``, ``ingest_pass1`` and ``ingest_bin`` spans, the
+``ingest/*`` counters of io/streaming.py with each range's parse and bin
+microseconds measured in its worker, ``ingest/worker_wait_us`` (the
+parent's time blocked on a result), and the flight recorder's pass and
+chunk events tagged with the worker's pid.
+
 Not ported: the multi-process shard cut (pass 2 over owned rows only)
 and the in-process pool of ``ingest_workers=1`` under ``num_machines >
-1``, which belong to the parallel learners (ROADMAP A9); the telemetry
-counters and events (A10).
+1``, which belong to the parallel learners (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -37,12 +43,13 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 import traceback
 from typing import List, Optional
 
 import numpy as np
 
-from .. import lifecycle
+from .. import lifecycle, telemetry, tracing
 from ..utils import log
 from . import parser as parser_mod
 from .binning import bin_features
@@ -184,7 +191,10 @@ class _Tasks:
             pending.append(self.submit(nxt))
             nxt += 1
         while pending:
+            t0 = time.perf_counter()
             res = pending.popleft().recv()
+            telemetry.count("ingest/worker_wait_us",
+                            int((time.perf_counter() - t0) * 1e6))
             self.outstanding -= 1
             if nxt < n_tasks:
                 pending.append(self.submit(nxt))
@@ -235,11 +245,12 @@ def _extract_column(lines, delim: str, raw_idx: int) -> np.ndarray:
 
 def _pass1_range(ridx: int) -> dict:
     job = _JOB
+    t0 = time.perf_counter()
     s, e = job.ranges[ridx]
     lines = parser_mod.read_range_lines(job.filename, s, e)
     n = len(lines)
     g0 = job.offsets[ridx]
-    out = {"ridx": ridx, "n": n}
+    out = {"ridx": ridx, "n": n, "pid": os.getpid()}
     local = None
     if job.sample_idx is not None:
         lo = np.searchsorted(job.sample_idx, g0)
@@ -283,19 +294,24 @@ def _pass1_range(ridx: int) -> dict:
             out["sample"] = feats
         elif local.size:
             out["sample"] = feats[local]
+    out["parse_us"] = (time.perf_counter() - t0) * 1e6
     return out
 
 
 def _pass2_range(ridx: int) -> dict:
     job = _JOB
+    t0 = time.perf_counter()
     s, e = job.ranges[ridx]
     lines = parser_mod.read_range_lines(job.filename, s, e)
     feats = (job.parser.parse(lines).features if lines
              else np.zeros((0, job.num_cols), dtype=np.float64))
+    t1 = time.perf_counter()
     binned = bin_features(job.mappers, job.used_feature_map, feats,
                           job.dtype)
     return {"ridx": ridx, "n": feats.shape[0], "binned": binned,
-            "feats": feats if job.need_feats else None}
+            "feats": feats if job.need_feats else None,
+            "pid": os.getpid(), "parse_us": (t1 - t0) * 1e6,
+            "bin_us": (time.perf_counter() - t1) * 1e6}
 
 
 def _worker_main() -> int:
@@ -339,14 +355,26 @@ def load_train_streaming_parallel(ds, io_config, parser, predict_fun,
                                   workers: int, depth: int = 2) -> None:
     """io/streaming.load_train_streaming with its passes on ``workers``
     worker processes; the same dataset, bit for bit."""
+    with telemetry.span("ingest"):
+        _load_parallel(ds, io_config, parser, predict_fun, weight_idx,
+                       group_idx, ignore_set, header_names, device,
+                       foreign_bin, workers, depth)
+
+
+def _load_parallel(ds, io_config, parser, predict_fun, weight_idx,
+                   group_idx, ignore_set, header_names, device, foreign_bin,
+                   workers: int, depth: int) -> None:
     from . import streaming
     from .dataset import SAMPLE_CNT, pinned_sample_indices
 
     filename = io_config.data_filename
     window = workers + _WINDOW_EXTRA
-    ranges, counts, total_rows = plan_ranges(
-        filename, io_config.has_header, workers,
-        io_config.ingest_chunk_rows)
+    t_pass = time.perf_counter()
+    with telemetry.span("ingest_count"):
+        ranges, counts, total_rows = plan_ranges(
+            filename, io_config.has_header, workers,
+            io_config.ingest_chunk_rows)
+    tracing.record_ingest_pass(0, time.perf_counter() - t_pass, total_rows)
     ds.global_num_data = total_rows
     sample_idx = pinned_sample_indices(total_rows,
                                        io_config.data_random_seed,
@@ -368,31 +396,38 @@ def load_train_streaming_parallel(ds, io_config, parser, predict_fun,
     sample: Optional[np.ndarray] = None
     num_cols = None
     start = 0
-    tasks = _Tasks(pool, job, "_pass1_range")
-    try:
-        for out in tasks.results(k, window):
-            n = out["n"]
-            g0 = int(offsets[out["ridx"]])
-            num_cols = out["num_cols"]
-            labels_parts.append(out["labels"])
-            if weight_parts is not None:
-                weight_parts.append(out["weight"])
-            if group_parts is not None:
-                group_parts.append(out["group"])
-            if sample_idx is None:
-                if "sample" in out:
-                    sample_parts.append(out["sample"])
-            elif "sample" in out:
-                if sample is None:
-                    sample = np.empty((sample_idx.size, num_cols),
-                                      np.float64)
-                lo = np.searchsorted(sample_idx, g0)
-                hi = np.searchsorted(sample_idx, g0 + n)
-                sample[lo:hi] = out["sample"]
-            start += n
-    finally:
-        if tasks.outstanding:
-            shutdown_workers()   # their queues are out of step
+    t_pass = time.perf_counter()
+    with telemetry.span("ingest_pass1"):
+        tasks = _Tasks(pool, job, "_pass1_range")
+        try:
+            for out in tasks.results(k, window):
+                n = out["n"]
+                telemetry.count("ingest/parse_us", int(out["parse_us"]))
+                tracing.record_ingest_chunk(1, out["ridx"], n,
+                                            out["parse_us"], 0.0, 0.0,
+                                            worker=out["pid"])
+                g0 = int(offsets[out["ridx"]])
+                num_cols = out["num_cols"]
+                labels_parts.append(out["labels"])
+                if weight_parts is not None:
+                    weight_parts.append(out["weight"])
+                if group_parts is not None:
+                    group_parts.append(out["group"])
+                if sample_idx is None:
+                    if "sample" in out:
+                        sample_parts.append(out["sample"])
+                elif "sample" in out:
+                    if sample is None:
+                        sample = np.empty((sample_idx.size, num_cols),
+                                          np.float64)
+                    lo = np.searchsorted(sample_idx, g0)
+                    hi = np.searchsorted(sample_idx, g0 + n)
+                    sample[lo:hi] = out["sample"]
+                start += n
+        finally:
+            if tasks.outstanding:
+                shutdown_workers()   # their queues are out of step
+    tracing.record_ingest_pass(1, time.perf_counter() - t_pass, start)
     log.check(start == total_rows,
               "Input file changed between the streaming passes "
               f"(pass 0: {total_rows} rows, pass 1: {start})")
@@ -412,11 +447,18 @@ def load_train_streaming_parallel(ds, io_config, parser, predict_fun,
                 dtype=sink.dtype, num_cols=num_cols or 0,
                 need_feats=predict_fun is not None)
     start = 0
+    t_pass = time.perf_counter()
     try:
         tasks = _Tasks(pool, job2, "_pass2_range")
         try:
             for out in tasks.results(k, window):
-                sink.commit(out["binned"], out["feats"])
+                with telemetry.span("ingest_bin"):
+                    t0 = time.perf_counter()
+                    sink.commit(out["binned"], out["feats"])
+                    h2d_us = (time.perf_counter() - t0) * 1e6
+                streaming.count_chunk(2, out["ridx"], out["n"],
+                                      out["parse_us"], out["bin_us"],
+                                      h2d_us, worker=out["pid"])
                 start += out["n"]
         finally:
             if tasks.outstanding:
@@ -424,6 +466,8 @@ def load_train_streaming_parallel(ds, io_config, parser, predict_fun,
         log.check(start == total_rows and sink.cursor == ds.num_data,
                   "Input file changed between the streaming passes "
                   f"(pass 1: {total_rows} rows, pass 2: {start})")
+        tracing.record_ingest_pass(2, time.perf_counter() - t_pass,
+                                   sink.cursor)
         sink.finish()
     except BaseException:
         sink.abort()

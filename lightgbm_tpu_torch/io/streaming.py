@@ -38,11 +38,20 @@ memmapped matrix to the device in row chunks.  ``ingest_workers > 1``
 hands the passes to byte-range worker processes
 (io/parallel_ingest.py).
 
+Telemetry, as the JAX package files it: a streamed load runs under the
+``ingest`` span with ``ingest_count`` (pass 0), ``ingest_pass1``,
+``ingest_bin`` (a pass-2 chunk's parse, bin and hand-off) and
+``ingest_h2d`` (the writer's finish); the counters ``ingest/chunks``,
+``ingest/rows``, ``ingest/parse_us``, ``ingest/bin_us``,
+``ingest/h2d_us``, ``ingest/h2d_bytes``, ``ingest/h2d_wait_us``,
+``ingest/overlap_hidden_us`` and the route
+``ingest/double_buffer_on|off``; the flight recorder's
+``record_ingest_pass`` and ``record_ingest_chunk`` events.
+
 Not ported: ``single_process()``, ``HostRowWriter`` and the mesh
 placement (``_placement``), which belong to the parallel learners
 (ROADMAP A9); the ``LGBM_TPU_INGEST_SYNC`` environment switch (the port
-adds none: chip_smoke.py builds its writer at depth 0 instead); the
-telemetry spans and counters (A10).
+adds none: chip_smoke.py builds its writer at depth 0 instead).
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import telemetry, tracing
 from ..utils import log
 from . import parser as parser_mod
 from .dataset import (SAMPLE_CNT, _make_feature_names, cache_prefix,
@@ -97,6 +107,9 @@ class DeviceRowWriter:
         self.bins = torch.empty((self.num_features, self.num_rows),
                                 dtype=self._dtype, device=device)
         self._cuda = device.type == "cuda"
+        telemetry.count_route("ingest", "ingest/double_buffer_on"
+                              if self._cuda and self.depth > 0
+                              else "ingest/double_buffer_off")
         if self._cuda:
             self._stream = torch.cuda.Stream(device)
             # the matrix was allocated on the training stream
@@ -121,6 +134,7 @@ class DeviceRowWriter:
             chunk = chunk.view(np.int16)
         src = torch.from_numpy(np.ascontiguousarray(chunk))
         self.h2d_bytes += chunk.nbytes
+        telemetry.count("ingest/h2d_bytes", chunk.nbytes)
         if not self._cuda:
             self.bins[:, start:start + c].copy_(src)
             return
@@ -153,17 +167,28 @@ class DeviceRowWriter:
         _, event, t_dispatch = self._pending.popleft()
         t0 = time.perf_counter()
         event.synchronize()
-        self.wait_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.wait_s += t1 - t0
         self.hidden_s += max(0.0, t0 - t_dispatch)
+        telemetry.count("ingest/h2d_wait_us", int((t1 - t0) * 1e6))
+        telemetry.count("ingest/overlap_hidden_us",
+                        int(max(0.0, t0 - t_dispatch) * 1e6))
 
     def finish(self) -> torch.Tensor:
         """The matrix, with the training stream ordered after every copy.
         The host does not wait: the staging buffers are freed through the
         caching allocators, which hold them until their copies end."""
-        if self._cuda:
-            torch.cuda.current_stream(self.device).wait_stream(self._stream)
-            self._pending.clear()
-            self._slots = []
+        with telemetry.span("ingest_h2d"):
+            if self._cuda:
+                torch.cuda.current_stream(self.device).wait_stream(
+                    self._stream)
+                self._pending.clear()
+                self._slots = []
+            else:
+                # the CPU copies ran in append: nothing waited, nothing
+                # hid (filed so the derived columns have their counters)
+                telemetry.count("ingest/h2d_wait_us", 0)
+                telemetry.count("ingest/overlap_hidden_us", 0)
         return self.bins
 
 
@@ -276,7 +301,10 @@ class Pass2Sink:
         if self.writer is None:
             ds.bins = self.host
         else:
+            t0 = time.perf_counter()
             ds.device_bins = self.writer.finish()
+            telemetry.count("ingest/h2d_us",
+                            int((time.perf_counter() - t0) * 1e6))
             ds.bins = None
             ds.ingest_writer = self.writer
         if self.init_scores is not None:
@@ -307,6 +335,16 @@ def load_train_streaming(ds, io_config, parser, predict_fun, weight_idx,
             log.warning("ingest_workers=%d requested but no worker "
                         "interpreter can be exec'd — parsing serially"
                         % workers)
+    with telemetry.span("ingest"):
+        _load_serial(ds, io_config, parser, predict_fun, weight_idx,
+                     group_idx, ignore_set, header_names, device,
+                     foreign_bin, depth)
+
+
+def _load_serial(ds, io_config, parser, predict_fun, weight_idx,
+                 group_idx, ignore_set, header_names, device, foreign_bin,
+                 depth) -> None:
+    """The passes of ``load_train_streaming`` in this process."""
     filename = io_config.data_filename
     chunk_rows = io_config.ingest_chunk_rows
 
@@ -315,8 +353,11 @@ def load_train_streaming(ds, io_config, parser, predict_fun, weight_idx,
             filename, skip_header=io_config.has_header,
             chunk_lines=chunk_rows))
 
-    total_rows = parser_mod.count_data_rows(
-        filename, skip_header=io_config.has_header)
+    t_pass = time.perf_counter()
+    with telemetry.span("ingest_count"):
+        total_rows = parser_mod.count_data_rows(
+            filename, skip_header=io_config.has_header)
+    tracing.record_ingest_pass(0, time.perf_counter() - t_pass, total_rows)
     ds.global_num_data = total_rows
     sample_idx = pinned_sample_indices(total_rows,
                                        io_config.data_random_seed,
@@ -328,26 +369,35 @@ def load_train_streaming(ds, io_config, parser, predict_fun, weight_idx,
     sample = None
     num_cols = None
     start = 0
-    for lines in chunks():
-        parsed = parser.parse(lines)
-        feats = parsed.features
-        num_cols = feats.shape[1]
-        labels_parts.append(parsed.labels)
-        if weight_parts is not None:
-            weight_parts.append(feats[:, weight_idx].astype(np.float32))
-        if group_parts is not None:
-            group_parts.append(feats[:, group_idx].copy())
-        c = feats.shape[0]
-        if sample_idx is None:
-            sample_parts.append(feats)
-        else:
-            if sample is None:
-                sample = np.empty((sample_idx.size, num_cols), np.float64)
-            lo = np.searchsorted(sample_idx, start)
-            hi = np.searchsorted(sample_idx, start + c)
-            if hi > lo:
-                sample[lo:hi] = feats[sample_idx[lo:hi] - start]
-        start += c
+    t_pass = time.perf_counter()
+    with telemetry.span("ingest_pass1"):
+        for chunk_no, lines in enumerate(chunks()):
+            t0 = time.perf_counter()
+            parsed = parser.parse(lines)
+            parse_us = (time.perf_counter() - t0) * 1e6
+            telemetry.count("ingest/parse_us", int(parse_us))
+            tracing.record_ingest_chunk(1, chunk_no, len(lines), parse_us,
+                                        0.0, 0.0)
+            feats = parsed.features
+            num_cols = feats.shape[1]
+            labels_parts.append(parsed.labels)
+            if weight_parts is not None:
+                weight_parts.append(feats[:, weight_idx].astype(np.float32))
+            if group_parts is not None:
+                group_parts.append(feats[:, group_idx].copy())
+            c = feats.shape[0]
+            if sample_idx is None:
+                sample_parts.append(feats)
+            else:
+                if sample is None:
+                    sample = np.empty((sample_idx.size, num_cols),
+                                      np.float64)
+                lo = np.searchsorted(sample_idx, start)
+                hi = np.searchsorted(sample_idx, start + c)
+                if hi > lo:
+                    sample[lo:hi] = feats[sample_idx[lo:hi] - start]
+            start += c
+    tracing.record_ingest_pass(1, time.perf_counter() - t_pass, start)
     log.check(start == total_rows,
               "Input file changed between the streaming passes "
               f"(pass 0: {total_rows} rows, pass 1: {start})")
@@ -361,18 +411,41 @@ def load_train_streaming(ds, io_config, parser, predict_fun, weight_idx,
 
     sink = Pass2Sink(ds, io_config, predict_fun, device, foreign_bin, depth)
     start = 0
+    t_pass = time.perf_counter()
     try:
-        for lines in chunks():
-            feats = parser.parse(lines).features
-            sink.commit(ds.bin_chunk(feats, sink.dtype), feats)
+        for chunk_no, lines in enumerate(chunks()):
+            with telemetry.span("ingest_bin"):
+                t0 = time.perf_counter()
+                feats = parser.parse(lines).features
+                t1 = time.perf_counter()
+                binned = ds.bin_chunk(feats, sink.dtype)
+                t2 = time.perf_counter()
+                sink.commit(binned, feats)
+                t3 = time.perf_counter()
+            count_chunk(2, chunk_no, feats.shape[0], (t1 - t0) * 1e6,
+                        (t2 - t1) * 1e6, (t3 - t2) * 1e6)
             start += feats.shape[0]
         log.check(start == total_rows and sink.cursor == ds.num_data,
                   "Input file changed between the streaming passes "
                   f"(pass 1: {total_rows} rows, pass 2: {start})")
+        tracing.record_ingest_pass(2, time.perf_counter() - t_pass,
+                                   sink.cursor)
         sink.finish()
     except BaseException:
         sink.abort()
         raise
+
+
+def count_chunk(pass_no: int, chunk_no: int, n: int, parse_us: float,
+                bin_us: float, h2d_us: float, worker=None) -> None:
+    """One pass-2 chunk's counters and its flight-recorder event."""
+    telemetry.count("ingest/chunks")
+    telemetry.count("ingest/rows", n)
+    telemetry.count("ingest/parse_us", int(parse_us))
+    telemetry.count("ingest/bin_us", int(bin_us))
+    telemetry.count("ingest/h2d_us", int(h2d_us))
+    tracing.record_ingest_chunk(pass_no, chunk_no, n, parse_us, bin_us,
+                                h2d_us, worker=worker)
 
 
 def _open_cache(ds, io_config, dtype, shape,
@@ -403,15 +476,29 @@ def load_binary_streaming(ds, path: str, io_config, device,
     ds.apply_binary_header(header)
     dtype = np.dtype(header["bins_dtype"])
     shape = tuple(header["bins_shape"])
-    writer = DeviceRowWriter(shape[0], shape[1], dtype, device, depth)
-    if shape[0] * shape[1]:
-        mm = np.memmap(path, dtype=dtype, mode="r", offset=offset,
-                       shape=shape)
-        step = io_config.ingest_chunk_rows
-        for s in range(0, shape[1], step):
-            writer.append(np.array(mm[:, s:s + step]), s)
-        del mm
-    ds.device_bins = writer.finish()
+    with telemetry.span("ingest"):
+        writer = DeviceRowWriter(shape[0], shape[1], dtype, device, depth)
+        t_pass = time.perf_counter()
+        if shape[0] * shape[1]:
+            mm = np.memmap(path, dtype=dtype, mode="r", offset=offset,
+                           shape=shape)
+            step = io_config.ingest_chunk_rows
+            for chunk_no, s in enumerate(range(0, shape[1], step)):
+                with telemetry.span("ingest_bin"):
+                    t0 = time.perf_counter()
+                    chunk = np.array(mm[:, s:s + step])
+                    t1 = time.perf_counter()
+                    writer.append(chunk, s)
+                    t2 = time.perf_counter()
+                count_chunk(2, chunk_no, chunk.shape[1], 0.0,
+                            (t1 - t0) * 1e6, (t2 - t1) * 1e6)
+            del mm
+        tracing.record_ingest_pass(2, time.perf_counter() - t_pass,
+                                   shape[1])
+        t0 = time.perf_counter()
+        ds.device_bins = writer.finish()
+        telemetry.count("ingest/h2d_us",
+                        int((time.perf_counter() - t0) * 1e6))
     ds.bins = None
     ds.ingest_writer = writer
     ds.metadata.finalize(ds.num_data)

@@ -2,13 +2,13 @@
 lightgbm_tpu/models/gbdt.py.
 
 Ported: ``init``, ``add_valid_dataset``, ``train_one_iter`` (:1141-1319
-without health, telemetry or pipelining), ``run_training``'s
-per-iteration loop, ``output_metric`` with early stopping,
-``save_model_to_file`` (withholding the early-stopping window),
-``models_from_string``, ``from_model_file``, ``predict_raw``,
-``predict``, ``predict_multiclass``, ``feature_importance``, and
-``export_flat`` / ``serving_engine`` / ``predict_leaf_index`` over the
-serving engine (serving.py); and the
+without pipelining), ``run_training``'s per-iteration loop,
+``output_metric`` with early stopping, ``save_model_to_file``
+(withholding the early-stopping window, and the ``score_reference=``
+line at finish), ``models_from_string``, ``from_model_file``,
+``predict_raw``, ``predict``, ``predict_multiclass``,
+``feature_importance``, and ``export_flat`` / ``serving_engine`` /
+``predict_leaf_index`` over the serving engine (serving.py); and the
 sampling state: bagging (a numpy draw per record or per query, or the
 threefry device draw, ops/sampling.py), ``feature_fraction`` (one numpy
 stream per class) and GOSS, each feeding the growers' row and feature
@@ -29,9 +29,21 @@ Single-process checkpoints (:701-1000, the serial non-pipelined branch):
 early-stopping state, ``restore_checkpoint`` continues a fresh booster
 from one bit for bit, and ``run_training`` writes them every
 ``checkpoint_interval`` iterations (checkpoint.py) and fires the fault
-hatch (faults.py) at each iteration boundary.  The fused chunk programs,
-the deferred-readback pipeline and the elastic and health monitors are
-not ported.
+hatch (faults.py) at each iteration boundary.
+
+Observability on one process (:1171-1307, :1520-1720): the iteration's
+phases run under telemetry spans (``gradient``, ``bagging``, ``goss``,
+``grow``, ``score_update``, ``valid_update``, ``model_readback``,
+``eval``; the growers add ``histogram``, ``split_find`` and
+``partition``), one record a iteration goes to the ``metrics_out`` sink
+with the ``health`` block of health.py (its one host read an iteration
+taken beside the last class's tree) and the memory gauges, the summary
+record ends the run (also on an exception, marked ``aborted``, before
+the flight recorder's crash dump), ``run_training`` checks in with the
+stall watchdog, and the layout and bagging routes are counted once a
+booster.  None of it moves a tree.  The fused chunk programs, the
+deferred-readback pipeline and the elastic monitor are not ported;
+their telemetry goes with them.
 
 The score is a [K, N] f32 tensor on the training device (K = num_class,
 1 unless the objective is multiclass); gradients, histograms, partitions
@@ -41,13 +53,14 @@ class k, as gbdt.cpp:175-195.
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from .. import checkpoint, faults
+from .. import checkpoint, faults, health, telemetry, tracing
 from ..device import resolve_device
 from ..ops import sampling
 from ..ops.bins import to_tensor as bins_to_tensor
@@ -84,6 +97,13 @@ class GBDT:
         # the checkpoint writer of the latest run_training, closed when it
         # returns (its ``written`` and ``dropped`` counts stay readable)
         self.checkpoint_writer = None
+        # the training-time score histogram (monitor.ScoreHistogram dict):
+        # the serving drift baseline, written as the model file's
+        # ``score_reference=`` line and parsed back from it
+        self.score_reference: Optional[dict] = None
+        self._health_monitor = None
+        self._last_eval_values: dict = {}
+        self._residency_filed = False
 
     # ------------------------------------------------------------------ init
 
@@ -92,6 +112,7 @@ class GBDT:
         """GBDT::Init (gbdt.cpp:41-89).  ``device``: "cuda" (default; a
         Fatal when there is no card) or "cpu"."""
         self.device = resolve_device(device)
+        telemetry.set_device(self.device)
         self.gbdt_config = boosting_config
         self.tree_config = boosting_config.tree_config
         self.train_data = train_data
@@ -105,6 +126,9 @@ class GBDT:
         self.num_bins_max = int(train_data.num_bins.max())
         self._bin_upper_table = train_data.bin_upper_bounds_matrix()
         self._pack_spec = train_data.plan_packing(self.tree_config.mixed_bin)
+        telemetry.count_route("hist_layout", "hist/mixedbin_off"
+                              if self._pack_spec is None
+                              else "hist/mixedbin_on")
         if self._pack_spec is None:
             self.bins_device = train_data.to_device(self.device)["bins"]
         else:
@@ -152,6 +176,13 @@ class GBDT:
         objective.init(train_data.metadata, self.num_data, self.device)
         for metric in self.training_metrics:
             metric.init("training", train_data.metadata, self.num_data)
+        # "auto" follows the telemetry registry (lightgbm_tpu/models/
+        # gbdt.py:437-449)
+        self._health_monitor = (health.HealthMonitor(
+            on_anomaly=boosting_config.on_anomaly,
+            divergence_rounds=boosting_config.health_divergence_rounds,
+            quantized=is_int8(self.tree_config.compute_dtype))
+            if health.resolve_enabled(boosting_config.health) else None)
 
     def _init_sampling(self, bc) -> None:
         """The bagging, feature_fraction and GOSS state
@@ -165,6 +196,9 @@ class GBDT:
         self._bag_draw_idx = 0
         if self._bag_device:
             self._bag_base_key = sampling.bag_key(bc.bagging_seed)
+            telemetry.count_route("bagging", "bagging/device")
+        elif self._use_bagging:
+            telemetry.count_route("bagging", "bagging/host")
         self._feat_mask = (None, None)     # (mask bytes, device mask)
         # per-class feature-fraction streams, one seed
         # (serial_tree_learner.cpp:159-167; one learner per class)
@@ -224,43 +258,92 @@ class GBDT:
         True when training must stop: the first class whose tree has a
         single leaf ends the iteration, and the trees of the classes
         before it stay; or early stopping, which drops the last
-        ``early_stopping_round`` iterations' trees."""
-        grad, hess = self.objective.get_gradients(
-            self.score if self.num_class > 1 else self.score[0])
+        ``early_stopping_round`` iterations' trees.  Each phase runs
+        under its telemetry span, and with a sink one record is written
+        an iteration (module docstring)."""
+        self._file_residency()
+        mon = self._health_monitor
+        with telemetry.span("gradient") as sp:
+            grad, hess = self.objective.get_gradients(
+                self.score if self.num_class > 1 else self.score[0])
+            sp.fence((grad, hess))
         if self.num_class == 1:
             grad, hess = grad[None], hess[None]
         g_grow, h_grow, goss_mask = self._goss_masks(grad, hess)
+        hvec = None
         for cls in range(self.num_class):
-            self._draw_bag_mask(self.iter)
+            with telemetry.span("bagging"):
+                self._draw_bag_mask(self.iter)
             row_mask = goss_mask if goss_mask is not None else self._bag_mask
-            tree_arrays = self._grow(g_grow[cls], h_grow[cls], row_mask,
-                                     self._feature_sample(cls))
+            with telemetry.span("grow") as sp:
+                tree_arrays = self._grow(g_grow[cls], h_grow[cls], row_mask,
+                                         self._feature_sample(cls))
+                sp.fence(tree_arrays.leaf_ids)
             n = tree_arrays.num_leaves
+            if mon is not None:
+                mon.add_tree(n, tree_arrays.split_gain, tree_arrays.leaf_count)
             if n <= 1:
                 log.info("Can't training anymore, there isn't any leaf "
                          "meets split requirements.")
+                if mon is not None:
+                    # the gradients may be why no split was found: record
+                    # the block and apply the policy before stopping
+                    with telemetry.span("model_readback"):
+                        hvec = mon.vector(grad, hess, self.score).cpu()
+                    block = mon.assemble(hvec.numpy())
+                    if telemetry.sink_active():
+                        dp, dt = telemetry.take_phase_deltas()
+                        telemetry.emit_iteration(
+                            self.iter + 1, dp, dt,
+                            eval_metrics=self._last_eval_values,
+                            health=block,
+                            memory=telemetry.take_memory_record(),
+                            extra={"stopped": "degenerate_tree"})
+                    mon.apply_policy(block, self.iter + 1)
                 return True
             # shrinkage in f32 on the device, as the JAX package does
             lr = torch.tensor(self.gbdt_config.learning_rate,
                               dtype=torch.float32, device=self.device)
-            shrunk = torch.as_tensor(tree_arrays.leaf_value,
-                                     device=self.device) * lr
-            self.score[cls] = train_score_update(self.score[cls], shrunk,
-                                                 tree_arrays.leaf_ids)
-            for entry in self.valid_datasets:
-                entry["score"][cls] = add_tree_score(
-                    entry["bins"], entry["score"][cls],
-                    tree_arrays.split_feature[:n - 1],
-                    tree_arrays.threshold_bin[:n - 1],
-                    tree_arrays.left_child[:n - 1],
-                    tree_arrays.right_child[:n - 1], shrunk)
-            tree = self._to_host_tree(tree_arrays)
+            with telemetry.span("score_update") as sp:
+                shrunk = torch.as_tensor(tree_arrays.leaf_value,
+                                         device=self.device) * lr
+                self.score[cls] = train_score_update(self.score[cls], shrunk,
+                                                     tree_arrays.leaf_ids)
+                sp.fence(self.score)
+            if self.valid_datasets:
+                with telemetry.span("valid_update") as sp:
+                    for entry in self.valid_datasets:
+                        entry["score"][cls] = add_tree_score(
+                            entry["bins"], entry["score"][cls],
+                            tree_arrays.split_feature[:n - 1],
+                            tree_arrays.threshold_bin[:n - 1],
+                            tree_arrays.left_child[:n - 1],
+                            tree_arrays.right_child[:n - 1], shrunk)
+                        sp.fence(entry["score"])
+            with telemetry.span("model_readback"):
+                tree = self._to_host_tree(tree_arrays)
+                if mon is not None and cls == self.num_class - 1:
+                    # the health vector's one host read, over the raw
+                    # gradients and the updated scores
+                    hvec = mon.vector(grad, hess, self.score).cpu()
             tree.shrinkage(self.gbdt_config.learning_rate)
             self.models.append(tree)
         met_early_stopping = False
         if is_eval:
-            met_early_stopping = self.output_metric(self.iter + 1)
+            with telemetry.span("eval"):
+                met_early_stopping = self.output_metric(self.iter + 1)
         self.iter += 1
+        block = mon.assemble(hvec.numpy()) if mon is not None else None
+        if telemetry.sink_active():
+            dp, dt = telemetry.take_phase_deltas()
+            telemetry.emit_iteration(self.iter, dp, dt,
+                                     eval_metrics=self._last_eval_values,
+                                     health=block,
+                                     memory=telemetry.take_memory_record())
+        if mon is not None:
+            # after the record: a halt must not lose the record that
+            # explains it
+            mon.apply_policy(block, self.iter)
         if met_early_stopping:
             log.info("Early stopping at iteration %d, the best iteration "
                      "round is %d"
@@ -270,6 +353,52 @@ class GBDT:
             del self.models[len(self.models)
                             - self.early_stopping_round * self.num_class:]
         return met_early_stopping
+
+    def _file_residency(self) -> None:
+        """The one-shot dataset-residency report of the memory gauges,
+        at the first iteration (lightgbm_tpu/models/gbdt.py:464-502)."""
+        if self._residency_filed or not telemetry.memory_enabled():
+            return
+        self._residency_filed = True
+        telemetry.set_residency(self._residency_report())
+
+    def _residency_report(self) -> dict:
+        """Static device footprint of the training state: the bin matrix,
+        the scores, the metadata, the histogram scratch of the grower."""
+        F, B = self.train_data.num_features, self.num_bins_max
+        L = self._num_leaves()
+        md = self.train_data.metadata
+        md_bytes = sum(int(np.asarray(a).nbytes) for a in
+                       (md.label, md.weights, md.init_score,
+                        md.query_boundaries) if a is not None)
+        if self.tree_config.policy == "depthwise":
+            # the widest level: P parent slots, each [F, B, 3] f32, live
+            # twice across the subtraction
+            from .grower_depthwise import num_levels
+            P = 1 << max(num_levels(L, self.tree_config.max_depth) - 1, 0)
+            hist_scratch = 2 * P * F * B * 3 * 4
+        else:
+            hist_scratch = L * F * B * 3 * 4     # the [L, F, B, 3] cache
+
+        def nbytes(t):
+            return int(t.numel() * t.element_size())
+
+        return {
+            "num_rows": int(self.num_data),
+            "num_features": int(F),
+            "num_bins_max": int(B),
+            "bin_matrix_bytes": nbytes(self.bins_device),
+            "score_bytes": nbytes(self.score),
+            "metadata_bytes": int(md_bytes),
+            "hist_scratch_bytes": int(hist_scratch),
+            "valid_bins_bytes": sum(nbytes(e["bins"])
+                                    for e in self.valid_datasets),
+        }
+
+    def health_summary(self):
+        """Cumulative health totals (None when the monitor is off)."""
+        return (self._health_monitor.summary()
+                if self._health_monitor is not None else None)
 
     # -------------------------------------------------------------- sampling
 
@@ -281,6 +410,8 @@ class GBDT:
         queries) without replacement from one stream, then uploads."""
         if not self._use_bagging or it % self.gbdt_config.bagging_freq != 0:
             return
+        if tracing.active():
+            tracing.event("bagging_draw", iter=int(it))
         frac = self.gbdt_config.bagging_fraction
         n = self.num_data
         if self._bag_device:
@@ -312,9 +443,15 @@ class GBDT:
         the inputs and None when GOSS is off."""
         if not self._goss_on:
             return grad, hess, None
-        return sampling.goss_select(
-            threefry.fold_in(self._goss_key, self.iter), grad, hess,
-            self._goss_top_cnt, self._goss_other_cnt, self._goss_amp)
+        with telemetry.span("goss") as sp:
+            out = sampling.goss_select(
+                threefry.fold_in(self._goss_key, self.iter), grad, hess,
+                self._goss_top_cnt, self._goss_other_cnt, self._goss_amp)
+            sp.fence(out[2])
+        telemetry.count("goss/iterations")
+        if tracing.active():
+            tracing.event("goss_draw", iter=int(self.iter))
+        return out
 
     def _feature_sample(self, cls: int) -> torch.Tensor:
         """[F] bool on the device: ``max(int(F·frac), 1)`` features from
@@ -333,17 +470,22 @@ class GBDT:
                                torch.from_numpy(mask).to(self.device))
         return self._feat_mask[1]
 
+    def _num_leaves(self) -> int:
+        """The leaf budget of a tree (config.h:159-163)."""
+        tc = self.tree_config
+        num_leaves = tc.num_leaves
+        if tc.max_depth > 0:
+            num_leaves = min(num_leaves, 1 << (tc.max_depth - 1))
+        return max(num_leaves, 2)
+
     def _grow(self, grad, hess, row_mask, feature_mask):
         """One tree over the rows' [N] gradients, under the configured
         growth policy."""
         tc = self.tree_config
-        num_leaves = tc.num_leaves
-        if tc.max_depth > 0:    # config.h:159-163
-            num_leaves = min(num_leaves, 1 << (tc.max_depth - 1))
         return grow_tree_unified(
             self.bins_device, grad, hess, row_mask, feature_mask,
             self.num_bins_device, policy=tc.policy,
-            num_leaves=max(num_leaves, 2),
+            num_leaves=self._num_leaves(),
             num_bins_max=self.num_bins_max,
             min_data_in_leaf=tc.min_data_in_leaf,
             min_sum_hessian_in_leaf=tc.min_sum_hessian_in_leaf,
@@ -355,12 +497,20 @@ class GBDT:
                      progress_fn: Optional[Callable] = None) -> None:
         """The per-iteration loop of Application::Train
         (application.cpp:239-257), with the JAX package's boundary work
-        (lightgbm_tpu/models/gbdt.py:1560-1600, :1645-1682): every
+        (lightgbm_tpu/models/gbdt.py:1520-1720): every
         ``checkpoint_interval`` iterations a snapshot goes to a background
         writer, the fault hatch fires at each boundary, one checkpoint is
         written synchronously at the end and one, best effort, on an
-        exception; the writer is always closed."""
+        exception; the writer is always closed.  With ``stall_timeout``
+        configured the telemetry watchdog runs around the loop.  With a
+        sink, the summary record closes the run; an exception escaping
+        the loop writes it marked ``aborted`` and then dumps the flight
+        recorder's ring before re-raising."""
         bc = self.gbdt_config
+        wd_armed = telemetry.arm_watchdog()
+        if wd_armed:
+            telemetry.watchdog_checkin(phase="run_training",
+                                       iteration=self.iter)
         writer = None
         if bc.checkpoint_interval > 0:
             log.check(bool(bc.checkpoint_dir),
@@ -372,6 +522,8 @@ class GBDT:
         try:
             for _ in range(num_iterations):
                 finished = self.train_one_iter(is_eval=is_eval)
+                if wd_armed:
+                    telemetry.watchdog_checkin(iteration=self.iter)
                 if save_fn is not None:
                     save_fn()
                 if progress_fn is not None:
@@ -386,19 +538,36 @@ class GBDT:
             if writer is not None:
                 # a restart after a clean finish sees the complete run
                 writer.write_sync(self.checkpoint_state())
-        except BaseException:
+        except BaseException as e:
             if writer is not None:
                 # an exception between iterations leaves the state whole;
                 # if it is torn, the write fails and the last periodic
                 # checkpoint stands
                 try:
                     writer.write_sync(self.checkpoint_state())
-                except Exception as e:
-                    log.warning("final checkpoint not written: %s" % e)
+                except Exception as err:
+                    log.warning("final checkpoint not written: %s" % err)
+            if telemetry.sink_active():
+                extra = {"aborted": type(e).__name__, "iterations": self.iter}
+                if self._health_monitor is not None:
+                    extra["health"] = self._health_monitor.summary()
+                try:
+                    telemetry.emit_summary(extra=extra)
+                except Exception as err:  # the real fault is re-raised
+                    log.warning("aborted run's summary not written: %s"
+                                % err)
+            tracing.dump_on_fault(type(e).__name__)
             raise
         finally:
             if writer is not None:
                 writer.close()
+            if wd_armed:
+                telemetry.disarm_watchdog()
+        if telemetry.sink_active():
+            extra = {"iterations": self.iter}
+            if self._health_monitor is not None:
+                extra["health"] = self._health_monitor.summary()
+            telemetry.emit_summary(extra=extra)
 
     # ------------------------------------------------------- checkpoints
 
@@ -533,6 +702,7 @@ class GBDT:
             for r, state in zip(self._feat_rngs, ff):
                 r.set_state(checkpoint.rng_state_from_json(state))
         self.models = models
+        telemetry.count("ckpt/restored")
         self.iter = int(payload["iteration"])
         self.best_score = [list(map(float, r))
                            for r in payload["best_score"]]
@@ -637,6 +807,7 @@ class GBDT:
         eval_now = freq > 0 and iteration % freq == 0
         train, valid = self.eval_values(
             train=eval_now, valid=eval_now or self.early_stopping_round > 0)
+        self._observe_metric_values(train, valid)
         if eval_now:
             for metric, values in zip(self.training_metrics, train):
                 log.info("Iteration:%d, %s : %s" % (
@@ -662,6 +833,26 @@ class GBDT:
                         >= self.early_stopping_round):
                     ret = True
         return ret
+
+    def _observe_metric_values(self, train, valid) -> None:
+        """The record's ``eval_metrics`` (``<set>/<metric>`` -> values)
+        and the health monitor's divergence tracking
+        (lightgbm_tpu/models/gbdt.py:2402-2432)."""
+        named = []
+        if train is not None:
+            named += [("training/" + m.name, m, v)
+                      for m, v in zip(self.training_metrics, train)]
+        for e, metrics, values in zip(self.valid_datasets,
+                                      self.valid_metrics, valid or []):
+            named += [(e["name"] + "/" + m.name, m, v)
+                      for m, v in zip(metrics, values)]
+        if telemetry.sink_active() and named:
+            self._last_eval_values = {k: [float(x) for x in v]
+                                      for k, _, v in named}
+        if self._health_monitor is not None:
+            for key, metric, values in named:
+                self._health_monitor.observe_eval(
+                    key, float(values[-1]), metric.is_bigger_better)
 
     # ------------------------------------------------------------ prediction
 
@@ -700,7 +891,40 @@ class GBDT:
         """The first ``num_models`` trees (all when < 0) flattened for
         the serving engine (lightgbm_tpu/models/gbdt.py:2494-2505)."""
         models = self.models if num_models < 0 else self.models[:num_models]
-        return FlatEnsemble.from_models(models, self.num_class)
+        flat = FlatEnsemble.from_models(models, self.num_class)
+        # the drift baseline rides the flattened ensemble, so a front can
+        # register it without the booster
+        flat.score_reference = self.capture_score_reference()
+        return flat
+
+    def capture_score_reference(self) -> Optional[dict]:
+        """The live training scores as a monitor.ScoreHistogram dict, the
+        drift baseline (lightgbm_tpu/models/gbdt.py:2464-2492): recaptured
+        from the current scores on every call while the booster holds
+        them (the true rows' [K, N] scores as float64 on the host); a
+        booster without scores (a loaded model) keeps the reference its
+        file carried, or None."""
+        score = getattr(self, "score", None)
+        if score is None:
+            return self.score_reference
+        from ..monitor import ScoreHistogram
+        values = score.detach().to("cpu").numpy().astype(np.float64)
+        n = int(getattr(self, "num_data", 0)) or values.shape[-1]
+        values = values[..., :n].ravel()
+        if values.size == 0:
+            return None
+        hist = ScoreHistogram()
+        hist.record_many(values)
+        self.score_reference = hist.to_dict()
+        return self.score_reference
+
+    def _score_reference_line(self) -> str:
+        """``score_reference=<json>\\n``, or "" without a reference."""
+        reference = self.capture_score_reference()
+        if reference is None:
+            return ""
+        return "score_reference=%s\n" % json.dumps(reference,
+                                                    separators=(",", ":"))
 
     def serving_engine(self, num_models: int = -1,
                        **options) -> ServingEngine:
@@ -736,10 +960,12 @@ class GBDT:
 
     def save_model_to_file(self, is_finish: bool, filename: str) -> None:
         """Incremental text save (gbdt.cpp:307-348), in the JAX package's
-        format (lightgbm_tpu/models/gbdt.py:2605-2642) without its
-        score-reference line: each call appends the finished trees but
-        the last ``early_stopping_round`` iterations', which early
-        stopping may still drop; the final call writes the rest."""
+        format (lightgbm_tpu/models/gbdt.py:2605-2642): each call appends
+        the finished trees but the last ``early_stopping_round``
+        iterations', which early stopping may still drop; the final call
+        writes the rest, then the ``score_reference=`` line (at finish,
+        so an early save cannot freeze an early-iteration distribution
+        into the model) and the feature importances."""
         if self._saved_model_size == -1:
             self._model_file = open(filename, "w")
             self._model_file.write(self.model_header())
@@ -755,6 +981,7 @@ class GBDT:
         self._saved_model_size = max(self._saved_model_size, rest)
         self._model_file.flush()
         if is_finish:
+            self._model_file.write(self._score_reference_line())
             self._model_file.write("\n" + self.feature_importance() + "\n")
             self._model_file.close()
 
@@ -769,6 +996,7 @@ class GBDT:
         return (self.model_header()
                 + "".join("Tree=%d\n%s\n" % (i, t.to_string())
                           for i, t in enumerate(self.models))
+                + self._score_reference_line()
                 + "\n" + self.feature_importance() + "\n")
 
     def models_from_string(self, model_str: str) -> None:
@@ -790,6 +1018,12 @@ class GBDT:
         self.max_feature_idx = int(find_value("max_feature_idx="))
         sigmoid = find_value("sigmoid=")
         self.sigmoid = float(sigmoid) if sigmoid is not None else -1.0
+        reference = find_value("score_reference=")
+        if reference is not None:
+            try:
+                self.score_reference = json.loads(reference)
+            except ValueError:
+                self.score_reference = None
         i = 0
         while i < len(lines):
             if "Tree=" in lines[i]:

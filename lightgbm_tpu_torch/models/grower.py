@@ -17,6 +17,7 @@ grow the same trees bit for bit.
 """
 from __future__ import annotations
 
+from .. import telemetry
 from ..ops.histogram import build_histogram
 from .grower_unified import TreeArrays, grow_best_first
 
@@ -30,10 +31,10 @@ def grow_tree(bins, grad, hess, row_mask, feature_mask, num_bins, *,
 
     def small_hist(bl, new, feat, thr, left_small, leaf_ids):
         small_leaf = bl if left_small else new
-        return build_histogram(bins, grad, hess,
-                               row_mask & (leaf_ids == small_leaf),
-                               num_bins_max, compute_dtype, packing, new,
-                               exponent)
+        with telemetry.span("histogram") as sp:
+            return sp.fence(build_histogram(
+                bins, grad, hess, row_mask & (leaf_ids == small_leaf),
+                num_bins_max, compute_dtype, packing, new, exponent))
 
     return grow_best_first(
         bins, grad, hess, row_mask, feature_mask, num_bins, small_hist,

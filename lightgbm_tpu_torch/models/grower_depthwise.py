@@ -26,7 +26,9 @@ feature's storage row.
 All of this runs on the device; the host reads one count per level, to
 stop once no slot was chosen or the budget is spent (later levels could
 change nothing), and reads the tree back once.  The partition kernel is
-not used: rows never move in memory, only their slot ids change.
+not used: rows never move in memory, only their slot ids change (the
+``partition`` telemetry span times that slot update; ``histogram`` and
+``split_find`` the level's passes and search).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..ops.bins import widen
 from ..ops.histogram import canonical_index, histogram_leafbatch
 from ..ops.split import find_best_split
@@ -69,8 +72,10 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
     i32, i64, f32 = torch.int32, torch.int64, torch.float32
 
     def level_hist(col_id, col_ok, C, salt):
-        return histogram_leafbatch(bins, grad, hess, col_id, col_ok, C, B,
-                                   compute_dtype, packing, salt, exponent)
+        with telemetry.span("histogram") as sp:
+            return sp.fence(histogram_leafbatch(
+                bins, grad, hess, col_id, col_ok, C, B, compute_dtype,
+                packing, salt, exponent))
 
     # canonical split feature -> storage row
     c2p = None if packing is None else canonical_index(packing, dev)
@@ -104,9 +109,11 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
     D = num_levels(L, max_depth)
     for d in range(D):
         P = 1 << d
-        res = find_best_split(hists, slot_g, slot_h, slot_c, num_bins,
-                              feature_mask, float(min_data_in_leaf),
-                              float(min_sum_hessian_in_leaf))
+        with telemetry.span("split_find") as sp:
+            res = find_best_split(hists, slot_g, slot_h, slot_c, num_bins,
+                                  feature_mask, float(min_data_in_leaf),
+                                  float(min_sum_hessian_in_leaf))
+            sp.fence(res.gain)
         can = alive & (res.gain > 0.0) & torch.isfinite(res.gain)
 
         # ---- budget: the top-gain slots first
@@ -151,14 +158,15 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
 
         # ---- rows to child slots: each row gathers its slot's split
         # attributes and its own bin on the split feature
-        small_is_right = res.right_count < res.left_count      # ties: left
-        in_chosen = chosen[slot_id]
-        row_feat = res.feature if c2p is None else c2p[res.feature]
-        row_bin = widen(bins.gather(0, row_feat[slot_id][None])[0])
-        go_right = in_chosen & (row_bin > res.threshold[slot_id])
-        out_leaf = torch.where(go_right, right_leaf[slot_id].to(i32),
-                               out_leaf)
-        slot_id = 2 * slot_id + go_right.to(i64)
+        with telemetry.span("partition") as sp:
+            small_is_right = res.right_count < res.left_count  # ties: left
+            in_chosen = chosen[slot_id]
+            row_feat = res.feature if c2p is None else c2p[res.feature]
+            row_bin = widen(bins.gather(0, row_feat[slot_id][None])[0])
+            go_right = in_chosen & (row_bin > res.threshold[slot_id])
+            out_leaf = torch.where(go_right, right_leaf[slot_id].to(i32),
+                                   out_leaf)
+            slot_id = sp.fence(2 * slot_id + go_right.to(i64))
 
         # the level's one host read
         n_chosen = int(csum[-1])

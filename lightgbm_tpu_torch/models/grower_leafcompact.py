@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ops.bins import bin_bytes
 from ..ops.compact import BLOCK, pack_planes, partition_pane, unpack_values
 from ..ops.hist_cuda import hist_pane_float
@@ -70,23 +71,27 @@ class _Pane:
         F = self.F
         start, cnt = int(self.seg_start[bl]), int(self.seg_cnt[bl])
         src, dst = self.panes[self.side[bl]], self.panes[1 - self.side[bl]]
-        plcnt = int(partition_pane(src, dst, F, feat, thr, start, cnt,
-                                   self.nb))
+        with telemetry.span("partition"):
+            plcnt = int(partition_pane(src, dst, F, feat, thr, start, cnt,
+                                       self.nb))
         sstart = start if left_small else start + plcnt
         scnt = plcnt if left_small else cnt - plcnt
         self.seg_start[new] = start + plcnt
         self.seg_cnt[bl], self.seg_cnt[new] = plcnt, cnt - plcnt
         self.side[bl] = self.side[new] = 1 - self.side[bl]
-        if is_int8(self.compute_dtype):
-            # quantization needs the pass maximum first: unpack, then the
-            # int8 route
-            return build_histogram(
-                *unpack_values(dst[:, sstart:sstart + scnt], F, self.nb),
-                self.B, self.compute_dtype, self.packing, new)
-        return assemble([hist_pane_float(dst, F, sstart, scnt, w, (s, n),
-                                         self.nb, self.exponent)
-                         for s, n, w in class_ranges(self.packing, F, self.B)],
-                        self.packing, self.B)
+        with telemetry.span("histogram") as sp:
+            if is_int8(self.compute_dtype):
+                # quantization needs the pass maximum first: unpack, then
+                # the int8 route
+                return sp.fence(build_histogram(
+                    *unpack_values(dst[:, sstart:sstart + scnt], F,
+                                   self.nb),
+                    self.B, self.compute_dtype, self.packing, new))
+            return sp.fence(assemble(
+                [hist_pane_float(dst, F, sstart, scnt, w, (s, n), self.nb,
+                                 self.exponent)
+                 for s, n, w in class_ranges(self.packing, F, self.B)],
+                self.packing, self.B))
 
 
 def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,

@@ -16,7 +16,9 @@ The two best-first policies differ only in how a split's smaller child
 gets its histogram, so they share one split loop here
 (``grow_best_first``), as in the JAX package they share the same split
 body (:479-594 and :1036-1279).  The loop is eager Python: the host
-reads back each split's candidate record once, and keeps the tree
+reads back each split's candidate record once (under the ``split_find``
+telemetry span; the histograms run under ``histogram`` and the
+compacted grower's row moves under ``partition``), and keeps the tree
 arrays and the candidate table as numpy f32/int32 with the same values
 as the device scalars they come from, so the best-first choice
 (``np.argmax``, first maximum) is the JAX package's ``jnp.argmax``.
@@ -36,6 +38,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ops.bins import widen
 from ..ops.hist_cuda import fixed_exponent
 from ..ops.histogram import build_histogram, is_int8
@@ -118,15 +121,19 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
 
     def search(hist, g, h, c):
         """Best splits of a [k, F, B, 3] stack -> host [k, 11] f32."""
-        totals = torch.tensor(np.stack([g, h, c], 0), dtype=f32, device=dev)
-        res = find_best_split(hist, totals[0], totals[1], totals[2],
-                              num_bins, feature_mask,
-                              float(min_data_in_leaf),
-                              float(min_sum_hessian_in_leaf))
-        return res.packed().cpu().numpy()
+        with telemetry.span("split_find"):
+            totals = torch.tensor(np.stack([g, h, c], 0), dtype=f32,
+                                  device=dev)
+            res = find_best_split(hist, totals[0], totals[1], totals[2],
+                                  num_bins, feature_mask,
+                                  float(min_data_in_leaf),
+                                  float(min_sum_hessian_in_leaf))
+            return res.packed().cpu().numpy()
 
-    root_hist = build_histogram(bins, grad, hess, row_mask, num_bins_max,
-                                compute_dtype, packing, 0, exponent)
+    with telemetry.span("histogram") as sp:
+        root_hist = sp.fence(build_histogram(bins, grad, hess, row_mask,
+                                             num_bins_max, compute_dtype,
+                                             packing, 0, exponent))
     root_g, root_h, root_c = root_stats_of(root_hist, compute_dtype, grad,
                                            hess, row_mask).cpu().numpy()
     best = search(root_hist[None], [root_g], [root_h], [root_c])[0]

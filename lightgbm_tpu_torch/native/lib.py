@@ -7,7 +7,8 @@ the package's git-ignored ``_build/``, through a temp file and a rename
 leave a library that fails to load).  Its name carries a digest of the
 source, so an edited source is rebuilt and a stale library never loads.
 A failed build leaves the reason in :data:`build_error` and the callers
-take the next tier (io/parser.py), as the JAX package's do.  Imports
+take the next tier (io/parser.py), as the JAX package's do.  The build's
+seconds (or a cached load) go to costmodel.py's ``compile`` block.  Imports
 numpy and the standard library only: the exec'd parse workers
 (io/parallel_ingest.py) load it too.
 """
@@ -19,9 +20,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
+
+from .. import costmodel
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "lgbm_native.cpp")
@@ -73,8 +77,14 @@ def load() -> Optional[ctypes.CDLL]:
             return _lib
         _tried = True
         path = library_path()
-        if not os.path.exists(path):
+        if os.path.exists(path):
+            costmodel.note_build("g++:lgbm_native.cpp", 0.0, cached=True)
+        else:
+            t0 = time.perf_counter()
             _build(path)
+            if os.path.exists(path):
+                costmodel.note_build("g++:lgbm_native.cpp",
+                                     time.perf_counter() - t0, cached=False)
         if not os.path.exists(path):
             return None
         try:

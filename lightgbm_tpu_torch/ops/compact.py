@@ -16,8 +16,10 @@ histogram reads only that child's rows.  Two entries:
   bucketed slice, a new slice returned.
 
 On a CUDA tensor both launch csrc/partition.cu (its header says what
-bounds it and how it works) with the launch plan of ``plan``; on a CPU
-tensor they run the plain version, the stable-sort formulation of the JAX
+bounds it and how it works) with the launch plan of ``plan``, and each
+launch counts ``partition/cuda`` in telemetry with its analytic bytes
+(costmodel.py); on a CPU tensor they run the plain version (counted
+``partition/plain``), the stable-sort formulation of the JAX
 package's oracle (compact.py:438-444).  The byte planes go through
 ``Tensor.view(dtype)``, so an 8-bit pane is bit-exact with the JAX
 package's.
@@ -28,6 +30,7 @@ import collections
 
 import torch
 
+from .. import costmodel, telemetry
 from . import cuda_build
 from .bins import bin_bytes as bins_bytes
 from .cuda_build import require
@@ -142,7 +145,18 @@ def _launch(entry, src, dst, args, cnt: int, left):
     cuda_build.check(rc, "partition kernel")
     launches += 1
     kernel_launches += 2 if count_pass else 1
+    _count_launch("partition/cuda", src.shape[0], cnt)
     return left
+
+
+def _count_launch(route: str, rows: int, cnt: int) -> None:
+    """The launch's route counter and its analytic cost (costmodel.py):
+    the segment's pane rows read and written (PERF.md's bound), a compare
+    a lane; the plain version files the same work."""
+    if telemetry.enabled():
+        telemetry.count(route)
+        costmodel.note_launch("partition", route, bytes=2 * rows * cnt,
+                              flops=cnt)
 
 
 def partition_pane(src, dst, F: int, feat: int, thr: int, start: int,
@@ -174,6 +188,7 @@ def partition_pane(src, dst, F: int, feat: int, thr: int, start: int,
             "segment out of range")
     hi = F + feat if bin_bytes == 2 else -1
     if src.device.type == "cpu":
+        _count_launch("partition/plain", R, cnt)
         return pane_plain(src, dst, feat, thr, start, cnt, hi)
     if cnt == 0:                            # no lanes: nothing to launch
         return torch.zeros((), dtype=torch.int32, device=src.device)
@@ -220,6 +235,7 @@ def partition_segment(seg, mask3, delta: int, cnt: int, plcnt: int):
     require(0 <= delta and 0 <= cnt and delta + cnt <= W
             and 0 <= plcnt <= cnt, "segment out of range")
     if seg.device.type == "cpu":
+        _count_launch("partition/plain", R, cnt)
         return partition_plain(seg, mask3, delta, cnt)
     # the kernel writes the segment's lanes only; the rest come from here
     out = seg.clone(memory_format=torch.contiguous_format)

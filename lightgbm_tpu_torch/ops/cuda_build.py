@@ -4,7 +4,9 @@ Each source has a plain C interface, so it compiles with ``nvcc`` alone
 (no PyTorch headers) into a shared library under ``_build/`` of this
 package (git-ignored), at first use, and loads with ``ctypes``.  The
 library name carries a digest of the source, so an edited kernel is
-rebuilt and a stale one never loads.  Nothing here runs at import time:
+rebuilt and a stale one never loads.  Each build's seconds, and each
+load of a library an earlier process built, go to costmodel.py's
+``compile`` block.  Nothing here runs at import time:
 the CPU tests import every module without a CUDA toolkit.
 """
 from __future__ import annotations
@@ -16,8 +18,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from typing import Dict, List
 
+from .. import costmodel
 from ..utils import log
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,6 +33,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 build_log: Dict[str, str] = {}   # source name -> ptxas resource report
+_built = set()                   # sources this process compiled
 
 
 def nvcc_path() -> str:
@@ -58,6 +63,7 @@ def build(names=SOURCES) -> None:
     """Compile every missing library, one ``nvcc`` per source, all
     started together; raises on any compiler error."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
     procs = []
     for name in names:
         out = library_path(name)
@@ -77,6 +83,10 @@ def build(names=SOURCES) -> None:
             os.unlink(tmp)
         else:
             os.replace(tmp, out)
+            _built.add(name)
+            # seconds from the start of the parallel build to this one's end
+            costmodel.note_build("nvcc:%s.cu" % name,
+                                 time.perf_counter() - t0, cached=False)
     if failed:
         log.fatal("nvcc failed:\n" + "\n".join(failed))
 
@@ -89,6 +99,8 @@ def load(name: str) -> ctypes.CDLL:
             path = library_path(name)
             if not os.path.exists(path):
                 build((name,))
+            elif name not in _built:
+                costmodel.note_build("nvcc:%s.cu" % name, 0.0, cached=True)
             lib = ctypes.CDLL(path)
             _declare(name, lib)
             _libs[name] = lib

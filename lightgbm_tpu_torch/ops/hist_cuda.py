@@ -19,7 +19,10 @@ tensor they launch csrc/hist.cu (its header says what bounds it and how
 it is laid out) with the launch plan of ``plan``;
 on a CPU tensor they run the plain version, an ``index_add_`` on
 ``(f*B + bin)*C + cid``.  There is no other route: a CUDA tensor that the
-kernel refuses raises.
+kernel refuses raises.  Each launch counts its route in telemetry
+(``hist/cuda_float``, ``hist/cuda_int8``, ``hist/cuda_pane``) with its
+analytic bytes and adds (costmodel.py); a plain version counts
+``hist/plain_float``, ``hist/plain_int8`` or ``hist/plain_pane``.
 
 The TPU kernel's operand tricks have no counterpart here, because the
 CUDA kernel computes their target directly: the bf16 hi/lo split of the
@@ -39,6 +42,7 @@ import functools
 
 import torch
 
+from .. import costmodel, telemetry
 from . import cuda_build
 from .bins import bin_bytes, widen
 from .compact import unpack_values
@@ -140,6 +144,26 @@ def quantize_values(grad, hess, col_ok, stochastic: bool = False,
     hq = quant(hess, hs, hbits)
     vals = torch.stack([gq * okf, hq * okf, okf]).to(torch.int8)
     return vals, torch.stack([gs, hs, torch.ones_like(gs)])
+
+
+def quant_saturation_count(grad, hess):
+    """Health gauge (hist_pallas.py:272-303, bit for bit): how many
+    grad/hess entries quantize to the ±127 ceiling under
+    ``quantize_values``' scale from the finite maximum (``|x|·127 >
+    max·126.5``), as a 0-dim f32 tensor on their device.  The scale pins
+    the max row at 127, so a few saturated rows are normal; a large count
+    means the magnitudes have collapsed onto the ceiling (iteration 0's
+    uniform hessians are the usual case).  Histogram passes quantize
+    with masked scales at most this maximum, so read it as a floor.
+    Kept beside ``quantize_values`` so the two cannot drift."""
+    f32 = torch.float32
+    total = torch.zeros((), dtype=f32, device=grad.device)
+    for x in (grad, hess):
+        ax = torch.where(torch.isfinite(x), x.abs(),
+                         torch.zeros((), dtype=x.dtype, device=x.device))
+        m = ax.max()
+        total = total + (ax * 127.0 > m * 126.5).to(f32).sum()
+    return total
 
 
 def group_width(num_bins_max: int) -> int:
@@ -271,10 +295,33 @@ def plan(n: int, F: int, B: int, C: int, mode: str, shift: int,
             slices, slice_cells)
 
 
-def _launch(entry, bins, args, num_cols, B, mode, out, layout=(),
-            fixed=()):
-    """``layout``: the entry's bin-layout argument, if it takes one;
-    ``fixed``: the float modes' (exponent, scratch) pointers."""
+# side-band bytes a row, per route (PERF.md's bound formulas): the float
+# mode reads grad, hess and the column id, int8 its three levels and the
+# column id, the pane entry its grad, hess and validity planes; a plain
+# version computes the same function, so it files the same work
+_SIDE_BYTES = {"hist/cuda_float": 12, "hist/cuda_int8": 7,
+               "hist/cuda_pane": 9, "hist/plain_float": 12,
+               "hist/plain_int8": 7, "hist/plain_pane": 9}
+
+
+def _count_launch(route: str, bin_bytes_: int, n: int, f: int, b: int,
+                  c: int) -> None:
+    """The launch's route counter and its analytic cost (costmodel.py),
+    both under the ``histogram`` phase; a flag check while telemetry is
+    off."""
+    if telemetry.enabled():
+        telemetry.count(route)
+        nbytes, adds = costmodel.hist_cost(bin_bytes_, n, f, b, c,
+                                           _SIDE_BYTES[route])
+        costmodel.note_launch("histogram", route, bytes=nbytes, flops=adds)
+
+
+def _launch(entry, bins, args, num_cols, B, mode, out, route, layout=(),
+            fixed=(), nb=None):
+    """``route``: the launch's counter name (``_SIDE_BYTES``);
+    ``layout``: the entry's bin-layout argument, if it takes one;
+    ``fixed``: the float modes' (exponent, scratch) pointers; ``nb``:
+    bytes a bin (by default ``bins``' own)."""
     global launches
     F, N = bins.shape
     if N == 0 or F == 0:
@@ -287,6 +334,8 @@ def _launch(entry, bins, args, num_cols, B, mode, out, layout=(),
                *fixed, out.data_ptr(), stream)
     cuda_build.check(rc, "hist kernel")
     launches += 1
+    _count_launch(route, bin_bytes(bins) if nb is None else nb, N, F, B,
+                  num_cols)
     launch_rows.append(N)
     launch_cols.append(num_cols)
     return out
@@ -314,6 +363,8 @@ def hist_float(bins, grad, hess, cid, num_cols: int, B: int,
     by default this call's own), so they are the same on every run."""
     _check(bins, cid, (grad, hess), num_cols, B)
     if bins.device.type == "cpu":
+        _count_launch("hist/plain_float", bin_bytes(bins), bins.shape[1],
+                      bins.shape[0], B, num_cols)
         ones = torch.ones_like(grad)
         return hist_plain(bins, torch.stack([grad, hess, ones], 1), cid,
                           num_cols, B)
@@ -327,7 +378,8 @@ def hist_float(bins, grad, hess, cid, num_cols: int, B: int,
                               hess, N)
     return _launch(lib.lgbm_hist_f32, bins,
                    (grad.data_ptr(), hess.data_ptr(), cid.data_ptr()),
-                   num_cols, B, "float", out, (bin_bytes(bins),), fixed)
+                   num_cols, B, "float", out, "hist/cuda_float",
+                   (bin_bytes(bins),), fixed)
 
 
 def hist_int8(bins, levels, cid, num_cols: int, B: int):
@@ -336,6 +388,8 @@ def hist_int8(bins, levels, cid, num_cols: int, B: int):
     # the kernel stages a row's column id in one byte, 0xFF for "dropped"
     require(num_cols <= 255, "the int8 mode takes num_cols <= 255")
     if bins.device.type == "cpu":
+        _count_launch("hist/plain_int8", bin_bytes(bins), bins.shape[1],
+                      bins.shape[0], B, num_cols)
         return hist_plain(bins, levels.t().to(torch.int32), cid, num_cols, B)
     require(levels.dtype == torch.int8 and levels.shape[0] == 3,
             "levels must be int8 [3, N]")
@@ -345,7 +399,8 @@ def hist_int8(bins, levels, cid, num_cols: int, B: int):
     lib = cuda_build.load("hist")
     return _launch(lib.lgbm_hist_i8, bins,
                    (levels.data_ptr(), levels.stride(0), cid.data_ptr()),
-                   num_cols, B, "int8", out, (bin_bytes(bins),))
+                   num_cols, B, "int8", out, "hist/cuda_int8",
+                   (bin_bytes(bins),))
 
 
 def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
@@ -374,6 +429,7 @@ def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
                            device=pane.device)
     seg = pane[:, sstart:sstart + scnt]
     if pane.device.type == "cpu":
+        _count_launch("hist/plain_pane", bin_bytes, scnt, Fr, B, 1)
         return pane_plain(seg, F, B, (first, Fr), bin_bytes)
     out = torch.empty((Fr, B, 3), dtype=torch.float32, device=pane.device)
     lib = cuda_build.load("hist")
@@ -387,7 +443,7 @@ def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
     return _launch(lib.lgbm_hist_pane,
                    seg[first:first + Fr].view(torch.uint8),
                    (hi_off, planes.data_ptr()), 1, B, "float", out,
-                   fixed=fixed)
+                   "hist/cuda_pane", fixed=fixed, nb=bin_bytes)
 
 
 def pane_plain(seg, F: int, B: int, rows=None, bin_bytes: int = 1):

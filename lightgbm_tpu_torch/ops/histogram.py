@@ -26,6 +26,8 @@ rows at the class's width and puts the histograms back in canonical
 feature order (``assemble``).  int8 quantizes once for all classes and
 assembles the int accumulators before dequantizing, so packed and
 uniform int8 histograms are bitwise equal (hist_pallas.py:380-404).
+A packed leaf batch counts ``hist/mixedbin_leafbatch`` in telemetry, as
+the JAX package's routing layer does (histogram.py:318).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import functools
 import torch
 import torch.nn.functional as nnf
 
+from .. import telemetry
 from .hist_cuda import (group_width, grouped, hist_float, hist_int8,
                         quantize_values)
 
@@ -115,6 +118,8 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
     by default each launch's own).  The result is in canonical feature
     order."""
     int8 = is_int8(compute_dtype)
+    if packing is not None:
+        telemetry.count("hist/mixedbin_leafbatch")
     if compute_dtype == "bfloat16":
         grad, hess = round_bf16(grad), round_bf16(hess)
 

@@ -26,11 +26,24 @@ card unless the caller asks for the CPU).
    the queue is full (backpressure, never shedding), and
    ``swap_engine`` flips to a new engine between requests.
 
+Observability, as the JAX engine has it: the ``serve/*`` counters
+(flattens, calls, rows, pad rows, the bucket of each chunk, the front's
+intake, coalescing, linger, queue depth and swaps), the spans
+``predict_encode`` (the host rank-encode), ``predict`` (the device walk,
+fenced under ``metrics_fence``) and ``predict_warmup``; with the flight
+recorder armed, per-request traces through the front — enqueue → queue
+→ linger → coalesce → dispatch → walk → scatter → complete, whose six
+components sum exactly to each request's wall time
+(``tracing.record_serve_request``); with the monitor armed, every
+delivered score feeds the engine's live drift histogram against the
+model's ``score_reference=`` histogram (carried on the FlatEnsemble).
+The JAX engine's cost-model capture of its compiled walks has no
+counterpart: the walk is eager torch code.
+
 Not ported: tree-axis sharding (``shards > 1``, a ``Fatal``; ROADMAP
-A9), the JAX engine's telemetry, tracing, drift-monitor and cost-model
-hooks (A10), and its per-tree replay ``algo="scan"`` (a ``Fatal``: the
-JAX package keeps it as bench.py's A/B lane, and on the H100 it loses to
-the breadth-first walk at every bucket; PERF.md section 5).
+A9), and the per-tree replay ``algo="scan"`` (a ``Fatal``: the JAX
+package keeps it as bench.py's A/B lane, and on the H100 it loses to the
+breadth-first walk at every bucket; PERF.md section 5).
 """
 from __future__ import annotations
 
@@ -43,7 +56,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import lifecycle
+from . import lifecycle, monitor, telemetry, tracing
 from .config import SCAN_REFUSED
 from .device import resolve_device
 from .ops import scoring
@@ -94,6 +107,9 @@ class FlatEnsemble:
         self.num_class = num_class
         self.num_trees = sf.shape[0]
         self._int8: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        # the model's training-time score histogram (GBDT.export_flat
+        # sets it): a ServingFront's drift baseline
+        self.score_reference: Optional[dict] = None
 
     @classmethod
     def from_models(cls, models, num_class: int) -> "FlatEnsemble":
@@ -101,6 +117,7 @@ class FlatEnsemble:
         belongs to class k % num_class."""
         global FLATTEN_COUNT
         FLATTEN_COUNT += 1
+        telemetry.count("serve/ensemble_flatten")
         T = len(models)
         max_nodes = max(max((t.num_leaves - 1 for t in models), default=1),
                         1)
@@ -216,6 +233,7 @@ class ServingEngine:
         self.linger_us = int(linger_us)
         self.queue = int(queue)
         self._tables = None
+        telemetry.set_device(self.device)
 
     def _device_tables(self) -> dict:
         """The flattened tables on the device, pushed once; every call
@@ -263,20 +281,39 @@ class ServingEngine:
 
     def _bucketed(self, features: np.ndarray, run) -> List[np.ndarray]:
         """encode → chunk at the largest bucket → pad to its bucket → run
-        → strip the padding; one host array per chunk."""
-        codes = self.flat.encode(features)
+        → strip the padding; one host array per chunk.  A ServingFront
+        batch being scored on this thread gets its dispatch and walk
+        marks (``tracing.current_batch``); a direct call sees None."""
+        with telemetry.span("predict_encode"):
+            codes = self.flat.encode(features)
         N = codes.shape[1]
         maxb = self.buckets[-1]
         outs = []
-        for s in range(0, max(N, 1), maxb):
-            chunk = codes[:, s:s + maxb]
-            n = chunk.shape[1]
-            b = self.bucket_for(n)
-            if b > n:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((chunk.shape[0], b - n), chunk.dtype)],
-                    axis=1)
-            outs.append(run(chunk)[:, :n].cpu().numpy())
+        telemetry.count("serve/predict_calls")
+        telemetry.count("serve/rows", N)
+        bt = tracing.current_batch()
+        with telemetry.span("predict") as sp:
+            for s in range(0, max(N, 1), maxb):
+                chunk = codes[:, s:s + maxb]
+                n = chunk.shape[1]
+                b = self.bucket_for(n)
+                if b > n:
+                    telemetry.count("serve/pad_rows", b - n)
+                    if bt is not None:
+                        bt.add_pad(b - n)
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((chunk.shape[0], b - n),
+                                         chunk.dtype)], axis=1)
+                telemetry.count("serve/bucket_%d" % b)
+                if bt is not None:
+                    bt.set_bucket(b)
+                    bt.mark_run_begin()
+                out = run(chunk)
+                if bt is not None:
+                    bt.mark_dispatched()
+                outs.append(sp.fence(out)[:, :n].cpu().numpy())
+                if bt is not None:
+                    bt.mark_run_end()
         return outs
 
     def scores(self, features: np.ndarray) -> np.ndarray:
@@ -304,19 +341,28 @@ class ServingEngine:
         if self.flat.num_trees == 0:
             return self
         F = max(len(self.flat.used), 1)
-        for b in (buckets if buckets is not None else self.buckets):
-            self._run_scores(np.zeros((F, int(b)), np.int32)).cpu()
+        with telemetry.span("predict_warmup"):
+            for b in (buckets if buckets is not None else self.buckets):
+                self._run_scores(np.zeros((F, int(b)), np.int32)).cpu()
+        telemetry.count("serve/warmups")
         return self
 
 
 class _FrontRequest:
-    __slots__ = ("features", "future", "rows", "t_submit")
+    __slots__ = ("features", "future", "rows", "t_submit", "trace_id",
+                 "t_enq_ns", "block_ns")
 
-    def __init__(self, features, future, rows, t_submit):
+    def __init__(self, features, future, rows, t_submit, trace_id=0,
+                 t_enq_ns=0, block_ns=0):
         self.features = features
         self.future = future
         self.rows = rows
         self.t_submit = t_submit
+        # the flight recorder's identity and integer enqueue stamp: the
+        # attribution identity needs perf_counter_ns boundaries
+        self.trace_id = trace_id
+        self.t_enq_ns = t_enq_ns
+        self.block_ns = block_ns
 
 
 class _SwapMarker:
@@ -328,10 +374,19 @@ class _SwapMarker:
         self.t0 = t0
 
 
+def _drift_identity(engine) -> tuple:
+    """(drift key, training-time reference histogram) of one installed
+    engine: a fresh monitor key, and the model's ``score_reference=``
+    histogram carried on its FlatEnsemble (None for a model without one;
+    the A/A lane still runs)."""
+    return monitor.engine_key(), getattr(engine.flat, "score_reference",
+                                         None)
+
+
 class ServingFront:
     """A coalescing front over a ServingEngine
-    (lightgbm_tpu/serving.py:618-952, without its telemetry, tracing and
-    drift hooks).
+    (lightgbm_tpu/serving.py:618-952, its telemetry, tracing and drift
+    hooks included: see the module docstring).
 
     One worker thread drains a bounded request queue: it waits up to
     ``linger_us`` past the first queued request's arrival (or until a
@@ -366,6 +421,9 @@ class ServingFront:
         self._closed = False
         self.stats = {"requests": 0, "rows": 0, "batches": 0,
                       "queue_peak_rows": 0, "swaps": 0}
+        # a fresh drift key for each installed engine: a swapped-in model
+        # starts a clean live histogram
+        self._monitor_key, self._monitor_ref = _drift_identity(engine)
         self._thread = threading.Thread(target=self._serve_loop,
                                         name="lgbm-torch-serving-front",
                                         daemon=True)
@@ -385,22 +443,43 @@ class ServingFront:
             raise ValueError("submit expects a [rows, features] matrix")
         n = features.shape[0]
         fut: Future = Future()
+        t_arrive_ns = time.perf_counter_ns()
         with self._cond:
             if self._closed:
                 raise RuntimeError("ServingFront is closed")
+            blocked = False
             while self._queued_rows > 0 \
                     and self._queued_rows + n > self.queue_rows:
+                blocked = True
                 self._cond.wait(0.05)
                 if self._closed:
                     raise RuntimeError("ServingFront is closed")
-            self._queue.append(_FrontRequest(features, fut, n,
-                                             time.perf_counter()))
+            # the enqueue stamp comes after any backpressure block: the
+            # traced wall is enqueue → complete, the block its own event
+            t_enq_ns = time.perf_counter_ns()
+            req = _FrontRequest(features, fut, n, time.perf_counter(),
+                                trace_id=tracing.next_trace_id(),
+                                t_enq_ns=t_enq_ns,
+                                block_ns=(t_enq_ns - t_arrive_ns
+                                          if blocked else 0))
+            self._queue.append(req)
             self._queued_rows += n
             self.stats["requests"] += 1
             self.stats["rows"] += n
             if self._queued_rows > self.stats["queue_peak_rows"]:
                 self.stats["queue_peak_rows"] = self._queued_rows
+            # filed before the lock releases, so the ring shows every
+            # enqueue before its completion (tracing's lock is a leaf)
+            if tracing.active():
+                tracing.event("serve_enqueue", trace=req.trace_id, rows=n,
+                              t_ns=t_enq_ns,
+                              depth_rows=self._queued_rows - n)
+                if blocked:
+                    tracing.event("serve_backpressure", trace=req.trace_id,
+                                  block_ns=req.block_ns)
             self._cond.notify_all()
+        telemetry.count("serve/front_requests")
+        telemetry.count("serve/front_rows", n)
         return fut
 
     def predict(self, features: np.ndarray,
@@ -424,6 +503,7 @@ class ServingFront:
                 raise RuntimeError("ServingFront is closed")
             self._queue.append(marker)
             self._cond.notify_all()
+        tracing.event("serve_swap_enqueue")
         if not marker.event.wait(timeout):
             # a timed-out swap must not flip later behind the caller's
             # back: withdraw the marker if the worker has not popped it;
@@ -439,8 +519,11 @@ class ServingFront:
                                    "withdrawn; the old engine still "
                                    "serves)")
             marker.event.wait(60.0)
+        drain = time.perf_counter() - marker.t0
         self.stats["swaps"] += 1
-        return time.perf_counter() - marker.t0
+        telemetry.count("serve/swaps")
+        telemetry.count("serve/swap_drain_us", int(drain * 1e6))
+        return drain
 
     def close(self, timeout: float = 60.0) -> None:
         """Stop accepting, score every queued request, join the worker."""
@@ -452,6 +535,8 @@ class ServingFront:
         # leak guard to surface
         if not self._thread.is_alive():
             lifecycle.untrack(self)
+        telemetry.count("serve/queue_peak_rows",
+                        self.stats["queue_peak_rows"])
 
     def __enter__(self) -> "ServingFront":
         return self
@@ -484,8 +569,16 @@ class ServingFront:
                     # behind scores on the new one
                     self._queue.popleft()
                     self._engine = head.engine
+                    self._monitor_key, self._monitor_ref = \
+                        _drift_identity(head.engine)
                     head.event.set()
+                    tracing.event("serve_swap_flip",
+                                  drain_us=int((time.perf_counter()
+                                                - head.t0) * 1e6))
                     continue
+                # the worker has seen the head: queue-wait ends here,
+                # linger-wait begins
+                t_linger_ns = time.perf_counter_ns()
                 maxb = self._engine.buckets[-1]
                 deadline = head.t_submit + self.linger_s
                 while not self._closed:
@@ -505,17 +598,34 @@ class ServingFront:
                     self._queue.popleft()
                     batch.append(r)
                     total += r.rows
+                t_form_ns = time.perf_counter_ns()
                 self._queued_rows -= total
+                depth_after = self._queued_rows
                 engine = self._engine
+                mon_key, mon_ref = self._monitor_key, self._monitor_ref
                 self._cond.notify_all()        # wake blocked submitters
             # device work runs outside the lock: submit stays wait-free
             # while a batch is on the device
+            wait_s = time.perf_counter() - batch[0].t_submit
             self.stats["batches"] += 1
+            telemetry.count("serve/coalesced_batches")
+            telemetry.count("serve/coalesced_rows", total)
+            telemetry.count("serve/coalesced_requests", len(batch))
+            telemetry.count("serve/linger_wait_us", int(wait_s * 1e6))
+            telemetry.count("serve/queue_depth_rows", total + depth_after)
+            telemetry.count("serve/queue_depth_samples")
             feats = (batch[0].features if len(batch) == 1 else
                      np.concatenate([r.features for r in batch], axis=0))
+            # the batch trace, thread-local: engine._bucketed fills in its
+            # dispatch and walk marks on this thread
+            bt = tracing.begin_batch() if tracing.active() else None
             try:
                 scores = engine.scores(feats)
             except BaseException as e:  # delivered per request, never lost
+                tracing.end_batch()
+                if bt is not None:
+                    tracing.event("serve_error", batch=bt.batch_id,
+                                  rows=total, error=type(e).__name__)
                 for r in batch:
                     # a client may cancel between the check and the set:
                     # the InvalidStateError must not kill this worker
@@ -527,6 +637,21 @@ class ServingFront:
                 if not isinstance(e, Exception):
                     raise
                 continue
+            tracing.end_batch()
+            if monitor.active():
+                # the live drift feed, outside the lock, after the walk
+                monitor.record_scores(mon_key, scores, reference=mon_ref)
+            t_scores_ns = time.perf_counter_ns()
+            if bt is not None:
+                tracing.event("serve_batch", batch=bt.batch_id,
+                              requests=len(batch), rows=total,
+                              bucket=bt.bucket, pad_rows=bt.pad_rows,
+                              wait_us=int(wait_s * 1e6))
+                tracing.bump("serve/dispatch_bucket_%d" % bt.bucket)
+                tracing.bump("serve/dispatch_rows_bucket_%d" % bt.bucket,
+                             total)
+                bounds = (t_linger_ns, t_form_ns, bt.run_begin_ns,
+                          bt.dispatched_ns, t_scores_ns)
             ofs = 0
             for r in batch:
                 # per request: one client cancelling in the check→set
@@ -537,6 +662,13 @@ class ServingFront:
                 except Exception:
                     pass
                 ofs += r.rows
+                if bt is not None:
+                    # the complete stamp after the delivery: the six
+                    # components telescope exactly to t_done - t_enq
+                    tracing.record_serve_request(
+                        r.trace_id, bt, r.t_enq_ns,
+                        time.perf_counter_ns(), bounds, r.rows,
+                        block_ns=r.block_ns)
 
 
 def engine_options_from_config(io_config) -> dict:

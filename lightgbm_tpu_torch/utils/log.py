@@ -61,6 +61,11 @@ def warning(msg: str, *args) -> None:
         _write("Warning", msg % args if args else msg)
 
 
+def error(msg: str, *args) -> None:
+    if _level >= ERROR:
+        _write("Error", msg % args if args else msg)
+
+
 def fatal(msg: str, *args) -> None:
     """Equivalent of Log::Fatal (log.h:63-72) minus the process kill."""
     text = msg % args if args else msg

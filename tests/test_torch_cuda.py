@@ -891,3 +891,82 @@ def test_streamed_load_on_card_equals_resident(cuda, tmp_path):
     again = lgt.Dataset.load_train(IOConfig(data_filename=path,
                                             streaming="true"), device=cuda)
     assert lgt.train(params, again, device=cuda).model_to_string() == want
+
+
+# ---- observability on the card
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    {"leafwise_compact": "false"},
+    {"grow_policy": "depthwise", "hist_dtype": "int8"},
+], ids=["compacted_float32", "masked_float32", "depthwise_int8"])
+def test_armed_training_on_card(cuda, tmp_path, extra):
+    """chip_smoke.py phase 14 (a), (b) and (d) at a small size: armed
+    (sink, fence, memory gauges, health) the model text is byte-equal to
+    the unarmed run's; the summary's ``hist/cuda_*`` counters sum to the
+    histogram launches and ``partition/cuda`` equals the partition
+    launches, with no plain route; the memory block reads the card's
+    allocator, its peak between the bin matrix and the allocator's own
+    peak."""
+    import json
+    from lightgbm_tpu_torch import lifecycle
+    rng = np.random.RandomState(17)
+    x = rng.randn(50_000, 12)
+    y = (x[:, 0] - x[:, 1] + 0.4 * rng.randn(50_000) > 0).astype(np.float32)
+    ds = lgt.Dataset.from_arrays(x, y, max_bin=255)
+    params = dict({"objective": "binary", "num_leaves": 63,
+                   "num_iterations": 3, "verbose": -1}, **extra)
+    plain = lgt.train(params, ds, device=cuda).model_to_string()
+    sink = tmp_path / "m.jsonl"
+    h0, p0 = hist_cuda.launches, compact.launches
+    armed = lgt.train(dict(params, metrics_out=str(sink),
+                           metrics_fence="true", memory_stats="true",
+                           health="true"), ds, device=cuda)
+    assert armed.model_to_string() == plain
+    recs = [json.loads(line) for line in open(sink)]
+    summary = recs[-1]
+    assert summary["summary"] and len([r for r in recs if "iter" in r]) == 3
+    ctr = summary["counters"]
+    assert sum(v for k, v in ctr.items() if k.startswith("hist/cuda_")) \
+        == hist_cuda.launches - h0 > 0
+    assert ctr.get("partition/cuda", 0) == compact.launches - p0
+    assert not any("plain" in k for k in ctr)
+    mem = summary["memory"]
+    assert mem["source"] == "device"
+    assert ds.num_data * ds.num_features <= mem["peak_bytes_in_use"] \
+        <= torch.cuda.max_memory_allocated()
+    assert lifecycle.leaks() == []
+
+
+def test_fence_times_device_work_on_card(cuda):
+    """A fenced span waits on the stream, so it times the device work
+    queued inside it (CUDA events bound it from below); unfenced, the
+    same span closes after the host's enqueue, long before the work
+    ends."""
+    from lightgbm_tpu_torch import telemetry
+    cycles = 200_000_000                    # about 0.1 s of sleep
+    telemetry.set_device(cuda)
+    try:
+        for fence in (True, False):
+            telemetry.enable(fence=fence)
+            telemetry.reset()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            with telemetry.span("histogram") as sp:
+                start.record()
+                torch.cuda._sleep(cycles)
+                end.record()
+                sp.fence(torch.zeros(1, device=cuda))
+            span_s = telemetry.snapshot()["phase_times"]["histogram"]
+            torch.cuda.synchronize()
+            device_s = start.elapsed_time(end) / 1e3
+            if fence:
+                assert span_s >= device_s > 0.01
+            else:
+                assert span_s < 0.5 * device_s
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+        telemetry.set_device(None)
