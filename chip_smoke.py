@@ -97,7 +97,16 @@ roofline that read the H100, both kernels' events in the profiler trace,
 one flight dump, clean health blocks, and a ServingFront's monitor
 windows and drift against the model's ``score_reference=`` line, checked
 by ``scripts/trace_report.py`` and ``scripts/monitor_report.py`` (see
-``observability_phase``).  Phase 9 also times int8 with stochastic
+``observability_phase``).  Phase 15 runs the parallel learners in worker
+processes (this script with ``--parallel-worker``): a one-rank NCCL world
+on the main path under ``tree_learner=data`` (phase 4's model text), two
+ranks sharing the card over gloo under both data-parallel schedules
+(int8 byte-equal to serial, float32 alike to phase 4's model), the
+feature-parallel learner (byte-equal to serial), and the CLI under
+``torch.distributed.run`` (rank files byte-equal); every rank launches
+the kernels on its own rows (see ``parallel_phase``;
+``chip_smoke.py --phase15`` runs the build, phase 4's main path and
+phase 15 alone).  Phase 9 also times int8 with stochastic
 rounding (the hash and quantization, then the launch) beside its plain
 version and ``scatter_add_`` of the same levels.  Every phase must
 pass; the last line of standard output is ``{"ok": true, "device":
@@ -407,7 +416,7 @@ def main() -> int:
             if "registers" in line or "bytes stack" in line:
                 say("  ptxas %s: %s" % (name, line.strip()))
     kernels = run(torch.device("cuda"), FULL)
-    say("chip_smoke: phases 1-14 in %.1f s" % (time.perf_counter() - t0))
+    say("chip_smoke: phases 1-15 in %.1f s" % (time.perf_counter() - t0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -421,7 +430,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-14 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-15 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -976,6 +985,11 @@ def run(dev, sizes, timer=None):
     # ---- phase 14: observability around the main path
     for path, counts in observability_phase(dev, sizes, x, y, train_set,
                                             served, sync).items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    # ---- phase 15: the parallel learners, worker processes on the card
+    for path, counts in parallel_phase(dev, sizes, x, y, served,
+                                       sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
     return list(kernels.values())
@@ -3457,5 +3471,460 @@ def observability_phase(dev, sizes, x, y, train_set, served, sync):
             for k, v in by_path.items()}
 
 
+PARALLEL_WORKER = "--parallel-worker"
+PARALLEL_TIMEOUT_S = 240     # a world's limit: killed, and the phase fails
+
+
+def parallel_worker(spec_path: str) -> int:
+    """One rank of a phase-15 world (``chip_smoke.py --parallel-worker
+    spec.json``, under torch's environment): join the world, train each
+    job of the spec through ``lightgbm_tpu_torch.train`` on this rank's
+    rows (its shard of the table under ``tree_learner=data``, every row
+    under ``feature``) with every kernel count set to 0 just before and
+    read just after, and write the model text and what was measured.
+    Telemetry is armed (no sink) for the collective sites and the route
+    counters."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import parallel, telemetry
+    from lightgbm_tpu_torch.ops import compact, hist_cuda
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    spec = json.load(open(spec_path))
+    dev = spec["device"]
+    parallel.init_distributed()
+    rank, world = parallel.get_rank(), parallel.get_num_machines()
+    x = np.load(spec["x"]).astype(np.float64)
+    y = np.load(spec["y"])
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    sets, out = {}, {}
+    for job in spec["jobs"]:
+        shard = job["params"]["tree_learner"] == "data"
+        if shard not in sets:
+            t0 = time.perf_counter()
+            sets[shard] = lgt.Dataset.from_arrays(
+                x, y, max_bin=255, rank=rank if shard else 0,
+                num_machines=world if shard else 1)
+            say("rank %d: %s dataset %d rows in %.1f s" % (
+                rank, "shard" if shard else "whole", sets[shard].num_data,
+                time.perf_counter() - t0))
+        iter_s, clock = [], [0.0]
+
+        def progress(it):
+            sync()
+            now = time.perf_counter()
+            iter_s.append(now - clock[0])
+            clock[0] = now
+
+        telemetry.enable()
+        telemetry.reset()
+        reset_counts()
+        sync()
+        clock[0] = time.perf_counter()
+        booster = lgt.train(job["params"], sets[shard], device=dev,
+                            progress_fn=progress)
+        sync()
+        counts = {"hist": hist_cuda.launches, "partition": compact.launches,
+                  "partition_kernels": compact.kernel_launches}
+        routes = {k: v for k, v in telemetry.counters().items()
+                  if k.startswith(("hist/", "partition/"))}
+        ic = telemetry.interconnect_snapshot() or {"sites": {}}
+        telemetry.disable()
+        telemetry.reset()
+        text = booster.model_to_string()
+        path = os.path.join(spec["dir"], "%s.rank%d.txt" % (job["name"],
+                                                            rank))
+        with open(path, "w") as f:
+            f.write(text)
+        out[job["name"]] = {
+            "iter_s": iter_s, "counts": counts, "routes": routes,
+            "sites": {k: {"calls": v["calls"], "bytes": v["bytes"],
+                          "seconds": v["seconds"]}
+                      for k, v in ic["sites"].items()},
+            "backend": booster._learner.comm.backend,
+            "world": booster._learner.world, "rows": sets[shard].num_data,
+            "leaves": [t.num_leaves for t in booster.models]}
+    with open(os.path.join(spec["dir"], "out.%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    parallel.shutdown()
+    return 0
+
+
+def run_world(tmp, name, nprocs, jobs, dev, data):
+    """A phase-15 world of ``nprocs`` worker processes on ``dev``, each
+    running ``jobs``; fails the phase if a rank fails or the world runs
+    past PARALLEL_TIMEOUT_S.  Returns [rank] -> {job: record}."""
+    from lightgbm_tpu_torch.parallel.launch import LocalWorld, WorldTimeout
+    wdir = os.path.join(tmp, name)
+    os.makedirs(wdir)
+    spec = os.path.join(wdir, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"device": dev.type, "x": data[0], "y": data[1],
+                   "dir": wdir, "jobs": jobs}, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    world = LocalWorld([sys.executable, os.path.abspath(__file__),
+                        PARALLEL_WORKER, spec], nprocs, wdir,
+                       PARALLEL_TIMEOUT_S, env)
+    try:
+        ranks = world.wait()
+    except WorldTimeout as e:
+        fail("phase 15 %s: %s" % (name, e))
+    for r, (rc, out) in enumerate(ranks):
+        if rc != 0:
+            say(out[-6000:])
+            fail("phase 15 %s: rank %d exited %d" % (name, r, rc))
+    say("phase 15 %s: %d rank(s) in %.1f s" % (name, nprocs,
+                                                time.perf_counter() - t0))
+    return [json.load(open(os.path.join(wdir, "out.%d.json" % r)))
+            for r in range(nprocs)], wdir
+
+
+def rank_texts(wdir, job, nprocs):
+    return [open(os.path.join(wdir, "%s.rank%d.txt" % (job, r))).read()
+            for r in range(nprocs)]
+
+
+def held_out_auc(text, x_test, y_test, dev):
+    """AUC of a model text's predictions on the held-out rows."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.metrics import AUCMetric
+    booster = lgt.GBDT()
+    booster.device = dev
+    booster.models_from_string(text)
+
+    class _Md:
+        label = y_test
+        weights = None
+
+    auc = AUCMetric(None)
+    auc.init("test", _Md, len(y_test))
+    return float(auc.eval(booster.predict(x_test))[0])
+
+
+def first_parting_split(text, want):
+    """(tree, node, gain, want's gain) of the first split where two model
+    texts part, or None."""
+    import lightgbm_tpu_torch as lgt
+    trees = []
+    for t in (text, want):
+        b = lgt.GBDT()
+        b.models_from_string(t)
+        trees.append(b.models)
+    for k, (a, b) in enumerate(zip(*trees)):
+        n = min(a.num_leaves, b.num_leaves) - 1
+        for i in range(n):
+            if (a.split_feature_real[i] != b.split_feature_real[i]
+                    or a.threshold[i] != b.threshold[i]):
+                return k, i, float(a.split_gain[i]), float(b.split_gain[i])
+        if a.num_leaves != b.num_leaves:
+            return k, n, float("nan"), float("nan")
+    return None
+
+
+def check_ranks(what, ranks, dev):
+    """Every rank's route counters equal its own launches (``hist/cuda_*``
+    and ``partition/cuda``), with no plain route, and it launched the
+    histogram kernel.  On the CPU (a rehearsal) the plain routes stand
+    for the launches, and ``counts`` takes them."""
+    route = "cuda" if dev.type == "cuda" else "plain"
+    for r, rec in enumerate(ranks):
+        routes, c = rec["routes"], rec["counts"]
+        hist_routes = sum(v for k, v in routes.items()
+                          if k.startswith("hist/%s_" % route))
+        part_routes = routes.get("partition/" + route, 0)
+        if route == "plain":
+            c.update(hist=hist_routes, partition=part_routes)
+        other = [k for k in routes if k.startswith(("hist/", "partition/"))
+                 and "/%s" % route not in k
+                 and not k.startswith("hist/mixedbin")]
+        if (other or hist_routes != c["hist"]
+                or part_routes != c["partition"] or c["hist"] == 0):
+            fail("%s rank %d: route counters %s against launches %s"
+                 % (what, r, routes, c))
+
+
+def parallel_phase(dev, sizes, x, y, served, sync):
+    """Phase 15: the parallel learners in worker processes on the card,
+    each rank through ``lightgbm_tpu_torch.train`` (and the CLI under
+    ``torch.distributed.run``), every rank launching the kernels on its
+    own rows:
+
+    (a) a one-rank NCCL world on the main path (float32, compacted, 255
+        leaves, 5 iterations) under ``tree_learner=data``: phase 4's
+        model text;
+    (b) two ranks sharing the card over gloo, ``tree_learner=data`` at
+        main-path width under both schedules: int8 model text byte-equal
+        to a serial int8 run on the card; float32 against phase 4's
+        model: the first tree's structure exact and leaf values within
+        rtol 1e-5, held-out AUC within 1e-4 (a later split that parts at
+        a near-tie is printed with both gains); both ranks' texts equal;
+        each rank's route counters equal its own launches (``hist/cuda_*``
+        and ``partition/cuda``, one histogram a leaf and one partition a
+        split), no ``*/plain*``;
+    (c) two ranks, ``tree_learner=feature``: masked float32 and
+        depth-wise int8, byte-equal to serial on the card;
+    (d) the CLI through ``torch.distributed.run`` on the first n_cli rows
+        of the table: the two ranks' model files byte-equal.
+
+    Prints each rank's seconds per iteration against serial, collective
+    seconds per iteration and wire bytes per site, and each world's
+    backend.  Returns the kernel launches of rank 0 of each path."""
+    import shutil
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import telemetry
+    from lightgbm_tpu_torch.ops import compact, hist_cuda
+    card = card_name()
+    t_phase = time.perf_counter()
+    n_train = sizes["n_train"]
+    x_test, y_test = x[n_train:], y[n_train:]
+    main_params = {"objective": "binary", "num_leaves": 255,
+                   "num_iterations": 5, "learning_rate": 0.1,
+                   "hist_dtype": "float32", "max_bin": 255}
+    dp = {"tree_learner": "data", "num_machines": 2}
+    int8_params = dict(main_params, hist_dtype="int8", num_iterations=3)
+    masked = dict(main_params, leafwise_compact="false", num_iterations=3)
+    depthwise = dict(main_params, grow_policy="depthwise", hist_dtype="int8")
+    rec, by_path = {"card": card}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        data = (os.path.join(tmp, "x.npy"), os.path.join(tmp, "y.npy"))
+        # the table is float32 at heart (make_table): exact as float32
+        np.save(data[0], x[:n_train].astype(np.float32))
+        np.save(data[1], y[:n_train])
+        train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
+                                            max_bin=255)
+
+        # the serial runs to hold the worlds against, armed as the workers
+        serial, serial_s = {}, {}
+        for name, params in (("float32", main_params), ("int8", int8_params),
+                             ("masked", masked), ("depthwise", depthwise)):
+            telemetry.enable()
+            booster, iter_s, _ = drive(params, train_set, dev, sync)
+            telemetry.disable()
+            telemetry.reset()
+            serial[name] = booster.model_to_string()
+            serial_s[name] = iter_s
+        if serial["float32"] != served["a"]:
+            fail("phase 15: the serial main path differs from phase 4's")
+
+        # (a) one rank, NCCL on the card (CPU: gloo)
+        ranks, wdir = run_world(tmp, "one_rank", 1, [
+            {"name": "main", "params": dict(main_params, **dp)}], dev, data)
+        a = ranks[0]["main"]
+        want_backend = "nccl" if dev.type == "cuda" else "gloo"
+        if a["backend"] != want_backend or a["world"] != 1:
+            fail("phase 15a: backend %s, world %d" % (a["backend"],
+                                                      a["world"]))
+        if rank_texts(wdir, "main", 1)[0] != served["a"]:
+            fail("phase 15a: the one-rank data-parallel model text differs "
+                 "from phase 4's")
+        check_ranks("phase 15a", [a], dev)
+        by_path["parallel_dp1_nccl"] = a["counts"]
+        say("phase 15a one-rank %s world, tree_learner=data: phase 4's model "
+            "text; seconds per iteration %s (serial %s)" % (
+                a["backend"], ["%.3f" % v for v in a["iter_s"]],
+                ["%.3f" % v for v in serial_s["float32"]]))
+
+        # (b) and (c): two ranks sharing the card
+        jobs = [{"name": "dp_%s_%s" % (dt, s),
+                 "params": dict(main_params if dt == "float32"
+                                else int8_params, dp_schedule=s, **dp)}
+                for dt in ("int8", "float32")
+                for s in ("psum", "reduce_scatter")]
+        jobs += [{"name": "fp_masked_float32",
+                  "params": dict(masked, tree_learner="feature",
+                                 num_machines=2)},
+                 {"name": "fp_depthwise_int8",
+                  "params": dict(depthwise, tree_learner="feature",
+                                 num_machines=2)}]
+        ranks, wdir = run_world(tmp, "two_ranks", 2, jobs, dev, data)
+        want_backend = "gloo"
+        auc_serial = held_out_auc(served["a"], x_test, y_test, dev)
+        for job in jobs:
+            name = job["name"]
+            recs = [r[name] for r in ranks]
+            texts = rank_texts(wdir, name, 2)
+            if texts[0] != texts[1]:
+                fail("phase 15 %s: the ranks' model texts differ" % name)
+            if any(r["backend"] != want_backend or r["world"] != 2
+                   for r in recs):
+                fail("phase 15 %s: backends %s" % (name, [
+                    (r["backend"], r["world"]) for r in recs]))
+            check_ranks("phase 15 " + name, recs, dev)
+            leaves = recs[0]["leaves"]
+            splits = sum(leaves) - len(leaves)
+            for r, one in enumerate(recs):
+                c = one["counts"]
+                if name.startswith("dp_") and not (
+                        c["hist"] == sum(leaves)
+                        and c["partition"] == splits):
+                    fail("phase 15 %s rank %d: %d histogram launches, %d "
+                         "partitions; expected one a leaf (%d) and one a "
+                         "split (%d)" % (name, r, c["hist"], c["partition"],
+                                         sum(leaves), splits))
+                if name.startswith("fp_") and c["partition"] != 0:
+                    fail("phase 15 %s rank %d: %d partitions"
+                         % (name, r, c["partition"]))
+            if name.startswith("dp_int8"):
+                if texts[0] != serial["int8"]:
+                    fail("phase 15b %s: int8 model text differs from the "
+                         "serial int8 run's" % name)
+                verdict = "byte-equal to serial int8"
+            elif name.startswith("dp_float32"):
+                got = lgt.GBDT()
+                got.models_from_string(texts[0])
+                want = lgt.GBDT()
+                want.models_from_string(served["a"])
+                ta, tb = got.models[0], want.models[0]
+                for field in ("split_feature_real", "threshold",
+                              "left_child", "right_child", "leaf_parent"):
+                    if not np.array_equal(getattr(ta, field),
+                                          getattr(tb, field)):
+                        fail("phase 15b %s: first tree's %s differs from "
+                             "phase 4's" % (name, field))
+                rel = float(np.max(np.abs(ta.leaf_value - tb.leaf_value)
+                                   / np.maximum(np.abs(tb.leaf_value),
+                                                1e-30)))
+                if rel > 1e-5:
+                    fail("phase 15b %s: first tree's leaf values rtol %g"
+                         % (name, rel))
+                auc = held_out_auc(texts[0], x_test, y_test, dev)
+                if abs(auc - auc_serial) > 1e-4:
+                    fail("phase 15b %s: held-out AUC %.6f against phase 4's "
+                         "%.6f" % (name, auc, auc_serial))
+                part = first_parting_split(texts[0], served["a"])
+                verdict = ("first tree alike (leaf rtol %.3g), AUC %.6f vs "
+                           "%.6f; %s" % (rel, auc, auc_serial,
+                                         "every split equal" if part is None
+                                         else "first parting split: tree %d "
+                                         "node %d, gains %.6f vs %.6f"
+                                         % part))
+                rec[name + "_leaf_rtol"] = rel
+                rec[name + "_auc"] = auc
+            else:
+                base = serial["masked" if "masked" in name else "depthwise"]
+                if texts[0] != base:
+                    fail("phase 15c %s: model text differs from the serial "
+                         "run's" % name)
+                verdict = "byte-equal to serial"
+            by_path["parallel_" + name] = recs[0]["counts"]
+            base_s = serial_s["int8" if name.startswith("dp_int8")
+                              else "float32" if name.startswith("dp_")
+                              else "masked" if "masked" in name
+                              else "depthwise"]
+            per_rank = []
+            for r, one in enumerate(recs):
+                coll_s = sum(v["seconds"] for v in one["sites"].values())
+                iters = max(len(one["iter_s"]), 1)
+                per_rank.append({
+                    "rank": r, "rows": one["rows"],
+                    "s_per_iter": one["iter_s"],
+                    "collective_ms_per_iter": 1e3 * coll_s / iters,
+                    "hist": one["counts"]["hist"],
+                    "partition": one["counts"]["partition"],
+                    "partition_kernels": one["counts"]["partition_kernels"],
+                    "sites": one["sites"]})
+            rec[name] = {"backend": recs[0]["backend"], "ranks": per_rank,
+                         "serial_s_per_iter": base_s}
+            say("phase 15 %s (%s): %s; median s/iteration rank 0 %.4f, rank "
+                "1 %.4f, serial %.4f; collective ms/iteration %.1f / %.1f; "
+                "launches per rank hist %s, partition %s" % (
+                    name, recs[0]["backend"], verdict,
+                    float(np.median(recs[0]["iter_s"])),
+                    float(np.median(recs[1]["iter_s"])),
+                    float(np.median(base_s)),
+                    per_rank[0]["collective_ms_per_iter"],
+                    per_rank[1]["collective_ms_per_iter"],
+                    [p["hist"] for p in per_rank],
+                    [p["partition"] for p in per_rank]))
+            for site, v in sorted(recs[0]["sites"].items()):
+                say("  site %s: %d calls, %d bytes (%d a call), %.4f s" % (
+                    site, v["calls"], v["bytes"], v["bytes"] //
+                    max(v["calls"], 1), v["seconds"]))
+
+        # (d) the CLI under torch.distributed.run, device as the phase's
+        n_cli = sizes["n_cli"]
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        np.savetxt(os.path.join(cli_dir, "train.tsv"),
+                   np.column_stack([y[:n_cli], x[:n_cli]]), delimiter="\t",
+                   fmt="%.9g")
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "lightgbm_tpu_torch",
+               "task=train", "data=train.tsv", "objective=binary",
+               "num_leaves=255", "num_trees=5", "hist_dtype=int8",
+               "tree_learner=data", "num_machines=2", "output_model=m.txt",
+               "device=%s" % dev.type]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=cli_dir, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=PARALLEL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            fail("phase 15d: torch.distributed.run ran past %d s"
+                 % PARALLEL_TIMEOUT_S)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            say(out[-6000:])
+            fail("phase 15d: torch.distributed.run exited %d"
+                 % proc.returncode)
+        files = [open(os.path.join(cli_dir, f)).read()
+                 for f in ("m.txt", "m.txt.rank1")]
+        if files[0] != files[1] or files[0].count("Tree=") != 5:
+            fail("phase 15d: the ranks' model files differ or lack trees")
+        rec["cli_s"] = cli_s
+        say("phase 15d CLI under torch.distributed.run, 2 ranks, %d rows: "
+            "rank files byte-equal (%d bytes), %.1f s" % (
+                n_cli, len(files[0]), cli_s))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say("phase 15 parallel learners: %.1f s [%s]" % (rec["phase_s"], card))
+    say(json.dumps({"parallel": rec}))
+    return {k: {"hist": v["hist"], "partition": v["partition"]}
+            for k, v in by_path.items()}
+
+
+def phase15_rehearsal() -> int:
+    """``chip_smoke.py --phase15``: the build, phase 4's main path and
+    phase 15 alone (a short call for the parallel phase; the contract run
+    is the script without arguments)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.build()
+    dev, sizes = torch.device("cuda"), FULL
+    x, latent = make_table(sizes["n_train"] + sizes["n_test"], 28, SEED)
+    y = (latent > 0).astype(np.float32)
+    train_set = lgt.Dataset.from_arrays(x[:sizes["n_train"]],
+                                        y[:sizes["n_train"]], max_bin=255)
+    booster, _, _ = drive({"objective": "binary", "num_leaves": 255,
+                           "num_iterations": 5, "learning_rate": 0.1,
+                           "hist_dtype": "float32", "max_bin": 255},
+                          train_set, dev, torch.cuda.synchronize)
+    parallel_phase(dev, sizes, x, y, {"a": booster.model_to_string()},
+                   torch.cuda.synchronize)
+    say("chip_smoke --phase15: %.1f s" % (time.perf_counter() - t0))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == [PARALLEL_WORKER]:
+        sys.exit(parallel_worker(sys.argv[2]))
+    sys.exit(phase15_rehearsal() if sys.argv[1:] == ["--phase15"]
+             else main())

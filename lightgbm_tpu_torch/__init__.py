@@ -10,7 +10,9 @@ the default, raises without one) unless the caller passes
 - CLI: ``python -m lightgbm_tpu_torch task=train data=... [device=cpu]``
   (``task=predict`` scores through the serving engine)
 - Python: :class:`Dataset` (``Dataset.load_train(io_config)`` loads a
-  text file or a dataset cache, ``from_arrays`` arrays), :func:`train`,
+  text file or a dataset cache, ``from_arrays`` arrays), :func:`train`
+  (with ``tree_learner=data|feature`` on every rank of a
+  ``torch.distributed`` world: ``parallel``),
   :class:`GBDT`; serving: :class:`FlatEnsemble`, :class:`ServingEngine`,
   :class:`ServingFront` (``serving``, or ``GBDT.serving_engine``);
   checkpoints: ``checkpoint`` (the file format, the background writer)
@@ -53,7 +55,18 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
     observability keys arm the session as on the command line
     (``telemetry.arm_session``), and a session this call armed ends with
     it (lightgbm_tpu/__init__.py:48-103); ``profile_dir`` wraps the
-    training loop in ``torch.profiler``."""
+    training loop in ``torch.profiler``.
+
+    A parallel learner (``tree_learner`` data or feature, ``num_machines
+    > 1``): every rank of the world calls ``train`` with its own
+    ``train_set`` (under data its shard, e.g. ``Dataset.load_train(io,
+    rank=..., num_machines=..., bin_finder=parallel.
+    distributed_bin_finder())``, under feature every row).  The world is
+    torch's environment's (``parallel.init_distributed``, which ``train``
+    calls and which the caller may call first), or one rank without
+    one; the process group stays for the caller (``parallel.shutdown``
+    leaves it)."""
+    from .cli import init_parallel
     from .metrics import create_metrics
     from .objectives import create_objective
 
@@ -63,6 +76,7 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
     bc = config.boosting_config
     armed = telemetry.arm_session(config.io_config)
     try:
+        learner = init_parallel(config)
         booster = GBDT()
         train_metrics = []
         if bc.is_provide_training_metric:
@@ -70,7 +84,7 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
         booster.init(bc, train_set,
                      create_objective(config.objective_type,
                                       config.objective_config),
-                     train_metrics, device=device)
+                     train_metrics, device=device, learner=learner)
         for i, valid in enumerate(valid_sets):
             name = valid_names[i] if valid_names else "valid_%d" % (i + 1)
             booster.add_valid_dataset(valid, create_metrics(config),

@@ -12,6 +12,17 @@ arm the session as lightgbm_tpu/cli.py:263-310 does
 (``telemetry.arm_session``): the ``metrics_out`` sink with the flight
 recorder, the live monitor, the stall watchdog; ``profile_dir`` wraps
 the training loop in ``torch.profiler``; ``main`` ends the session.
+
+A parallel learner (``tree_learner=data|feature`` with ``num_machines >
+1``) runs one rank a process, launched by ``python -m
+torch.distributed.run --nproc-per-node P -m lightgbm_tpu_torch
+config=...``: each rank joins the world, takes the world's smallest
+``data_random_seed``, ``feature_fraction_seed`` and ``feature_fraction``
+(lightgbm_tpu/cli.py:324-337), loads its shard under ``data`` (with
+the distributed bin finder) or every row under ``feature``, and trains
+the same trees.  Rank 0 writes ``output_model``; rank r > 0 writes the
+same text to ``<output_model>.rank<r>``.  ``main`` leaves the world on
+success and on a ``Fatal`` alike.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from .models.gbdt import GBDT
 from .models.predictor import Predictor, continuation_score
 from .native import lib as native_lib
 from .objectives import create_objective
+from .parallel import learners, mesh
 from .serving import engine_options_from_config
 from .utils import log
 
@@ -53,6 +65,11 @@ class Application:
         cfg = self.config
         io = cfg.io_config
         start = time.perf_counter()
+        learner = init_parallel(cfg)
+        rank, shards, bin_finder = 0, 1, None
+        if cfg.is_parallel_find_bin:
+            rank, shards = mesh.get_rank(), mesh.get_num_machines()
+            bin_finder = learners.distributed_bin_finder()
         booster = GBDT()
         predict_fun = None
         if io.input_model:
@@ -62,14 +79,17 @@ class Application:
                 cont.models, feats, cont.device)
             booster.models = cont.models
         train_data = Dataset.load_train(io, predict_fun,
-                                        device=cfg.device or None)
+                                        device=cfg.device or None,
+                                        rank=rank, num_machines=shards,
+                                        bin_finder=bin_finder)
         train_metrics = (create_metrics(cfg)
                          if cfg.boosting_config.is_provide_training_metric
                          else [])
         booster.init(cfg.boosting_config, train_data,
                      create_objective(cfg.objective_type,
                                       cfg.objective_config),
-                     train_metrics, device=cfg.device or None)
+                     train_metrics, device=cfg.device or None,
+                     learner=learner)
         for filename in io.valid_data_filenames:
             booster.add_valid_dataset(
                 Dataset.load_valid(train_data, filename, predict_fun,
@@ -83,17 +103,18 @@ class Application:
         log.info("Start train ...")
         is_eval = bool(train_metrics) or any(booster.valid_metrics)
         start = time.perf_counter()
+        rank = mesh.get_rank()
+        output = io.output_model + ("" if rank == 0 else ".rank%d" % rank)
         with telemetry.profile(io.profile_dir):
             booster.run_training(
                 booster.remaining_iterations(
                     cfg.boosting_config.num_iterations),
                 is_eval,
-                save_fn=lambda: booster.save_model_to_file(False,
-                                                           io.output_model),
+                save_fn=lambda: booster.save_model_to_file(False, output),
                 progress_fn=lambda it: log.info(
                     "%f seconds elapsed, finished %d iteration"
                     % (time.perf_counter() - start, it)))
-        booster.save_model_to_file(True, io.output_model)
+        booster.save_model_to_file(True, output)
         log.info("Finished train")
 
     def predict(self) -> None:
@@ -114,6 +135,22 @@ class Application:
         log.info("Finished prediction")
 
 
+def init_parallel(cfg):
+    """Application::InitTrain's parallel part (lightgbm_tpu/cli.py:
+    324-337): join the world, take the world's smallest seeds and
+    feature fraction, and make the learner; None for the serial
+    learner."""
+    if not cfg.is_parallel:
+        return None
+    mesh.init_distributed()
+    io, tree = cfg.io_config, cfg.boosting_config.tree_config
+    io.data_random_seed = mesh.sync_up_by_min(io.data_random_seed)
+    tree.feature_fraction_seed = mesh.sync_up_by_min(
+        tree.feature_fraction_seed)
+    tree.feature_fraction = mesh.sync_up_by_min(tree.feature_fraction)
+    return learners.create_parallel_learner(cfg)
+
+
 def main(argv: List[str] = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     try:
@@ -121,8 +158,10 @@ def main(argv: List[str] = None) -> int:
     except log.LightGBMError:
         return 1
     finally:
-        # closes the sink, the recorder (with its dump) and the monitor
+        # closes the sink, the recorder (with its dump) and the monitor;
+        # then leaves the world, if this run joined one
         telemetry.disable()
+        mesh.shutdown()
     return 0
 
 

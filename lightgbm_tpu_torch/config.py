@@ -20,12 +20,19 @@ observability on one process: the telemetry sink (``metrics_out``,
 recorder (``trace_*``, ``stall_timeout``), training health
 (``health``, ``on_anomaly``, ``health_divergence_rounds``) and the live
 monitor (``monitor_*``, ``slo_*``); ``timeline`` runs only at auto
-(which one process resolves off) and false.
+(which resolves off) and false; and the reference's two parallel
+learners (parallel/): ``tree_learner`` serial, data or feature,
+``num_machines``, ``dp_schedule``, ``is_pre_partition``, and
+``machine_list_file``, ``local_listen_port`` and ``time_out``, which
+are checked as the JAX package checks them and have no effect (torch's
+environment does their work, parallel/mesh.py).  As in the JAX package,
+``num_machines`` of 1 makes any learner serial.
 The difference is the slice rule: a key the port does not run raises
 ``Fatal`` naming it, instead of being parsed and silently ignored.
-Keys whose JAX-package default is the only value the port runs (serial
-learner, one serving device, files not pre-split per machine) are
-accepted at that value and refused at any other.
+Keys whose JAX-package default is the only value the port runs (one
+serving device) are accepted at that value and refused at any other;
+the keys of the parallel work still to come (``A9B_KEYS``) name
+ROADMAP A9b.
 Growth runs under all three policies of the JAX package: compacted
 leaf-wise (the default), masked leaf-wise (``leafwise_compact=false``)
 and depth-wise (``grow_policy=depthwise``).
@@ -79,6 +86,9 @@ ALIAS_TABLE: Dict[str, str] = {
     "shrinkage_rate": "learning_rate",
     "tree": "tree_learner",
     "num_machine": "num_machines",
+    "local_port": "local_listen_port",
+    "mlist": "machine_list_file",
+    "topk": "top_k",
     "two_round_loading": "use_two_round_loading",
     "two_round": "use_two_round_loading",
     "is_save_binary": "is_save_binary_file",
@@ -133,13 +143,24 @@ SLICE_KEYS = frozenset((
     "trace_sketch_growth", "trace_run_id", "monitor_out",
     "monitor_interval_s", "slo_p99_us", "slo_window_s", "health",
     "on_anomaly", "health_divergence_rounds",
+    # the parallel learners (parallel/); the last three have no effect
+    "tree_learner", "num_machines", "dp_schedule", "is_pre_partition",
+    "machine_list_file", "local_listen_port", "time_out",
 ))
+
+# keys of the parallel work still to port (ROADMAP A9b), refused by name
+A9B_KEYS = {
+    "feature_shards": "the hybrid and voting learners' 2-D mesh",
+    "top_k": "the voting learner",
+    "elastic_shrink": "the elastic mesh shrink",
+    "straggler_k": "the elastic mesh shrink's straggler rule",
+}
 
 # per-process timeline shards belong to the multi-process learners
 TIMELINE_REFUSED = ("Parameter timeline=true is not supported by "
-                    "lightgbm_tpu_torch: per-process timeline shards belong "
-                    "to the multi-process parallel learners, which are not "
-                    "ported (one process resolves timeline=auto to off)")
+                    "lightgbm_tpu_torch yet: per-process timeline shards "
+                    "of the parallel learners are ROADMAP A9b "
+                    "(timeline=auto resolves to off)")
 
 # device_type values and the device each names (device.py's rule)
 DEVICE_TYPES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
@@ -158,11 +179,7 @@ METRICS = ("l1", "l2", "binary_logloss", "binary_error", "auc", "ndcg",
 # keys of the JAX package whose default is the only value the slice runs
 DEFAULT_ONLY = {
     "boosting_type": ("gbdt", "gbrt"),
-    "tree_learner": ("serial",),
-    "num_machines": ("1",),
-    # files pre-split per machine belong to the parallel learners (A9)
-    "is_pre_partition": ("false",),
-    # one device serves every tree: tree-axis sharding is ROADMAP A9
+    # one device serves every tree: tree-axis sharding is ROADMAP A9b
     "serve_shards": ("0", "1"),
 }
 
@@ -182,6 +199,9 @@ def check_slice(params: Dict[str, str]) -> None:
     for key, value in params.items():
         if key in SLICE_KEYS:
             continue
+        if key in A9B_KEYS:
+            log.fatal("Parameter %s is not supported by lightgbm_tpu_torch "
+                      "yet: %s is ROADMAP A9b" % (key, A9B_KEYS[key]))
         allowed = DEFAULT_ONLY.get(key)
         if allowed is None:
             log.fatal("Parameter %s is not supported by lightgbm_tpu_torch "
@@ -239,6 +259,8 @@ class IOConfig:
     has_header: bool = False
     is_sigmoid: bool = True
     num_model_predict: int = -1
+    # each rank's data file is already its shard (no shard draw)
+    is_pre_partition: bool = False
     # the serving engine (serving.py; lightgbm_tpu/config.py:209-255):
     # the ladder of batch shapes a batch is padded to, the leaf table
     # ("float32", or "int8" with a per-tree scale), buffer donation
@@ -332,6 +354,8 @@ class IOConfig:
         self.is_sigmoid = _get_bool(params, "is_sigmoid", self.is_sigmoid)
         self.num_model_predict = _get_int(params, "num_model_predict",
                                           self.num_model_predict)
+        self.is_pre_partition = _get_bool(params, "is_pre_partition",
+                                          self.is_pre_partition)
         # lightgbm_tpu/config.py:406-438
         self.predict_buckets = params.get("predict_buckets",
                                           self.predict_buckets)
@@ -574,6 +598,10 @@ class TreeConfig:
     # it only to warn under its parallel learners (config.py:1011-1016),
     # which the port does not run; every leaf's histogram is kept
     histogram_pool_size: float = -1.0
+    # the data-parallel histogram reduction (parallel/learners.py): psum,
+    # reduce_scatter, or auto (reduce_scatter in a world of more than one
+    # rank, else psum)
+    dp_schedule: str = "auto"
 
     @property
     def compute_dtype(self) -> str:
@@ -625,6 +653,11 @@ class TreeConfig:
                                           self.leafwise_segments)
         log.check(self.leafwise_segments >= 1,
                   "leafwise_segments should be >= 1")
+        if "dp_schedule" in params:
+            value = params["dp_schedule"].lower()
+            log.check(value in ("auto", "psum", "reduce_scatter"),
+                      "dp_schedule must be auto, psum or reduce_scatter")
+            self.dp_schedule = value
         if "leafwise_compact" in params:
             value = params["leafwise_compact"].lower()
             log.check(value in ("auto", "true", "false"),
@@ -687,6 +720,8 @@ class BoostingConfig:
     health: str = "auto"
     on_anomaly: str = "warn"
     health_divergence_rounds: int = 0
+    # serial, data or feature (parallel/learners.py)
+    tree_learner: str = "serial"
     tree_config: TreeConfig = dataclasses.field(default_factory=TreeConfig)
 
     def set(self, params: Dict[str, str]) -> None:
@@ -729,6 +764,21 @@ class BoostingConfig:
             params, "health_divergence_rounds", self.health_divergence_rounds)
         log.check(self.health_divergence_rounds >= 0,
                   "health_divergence_rounds should be >= 0")
+        if "tree_learner" in params:
+            value = params["tree_learner"].lower()
+            if value == "serial":
+                self.tree_learner = "serial"
+            elif value in ("feature", "feature_parallel"):
+                self.tree_learner = "feature"
+            elif value in ("data", "data_parallel"):
+                self.tree_learner = "data"
+            elif value in ("hybrid", "voting", "voting_parallel"):
+                log.fatal("Parameter tree_learner=%s is not supported by "
+                          "lightgbm_tpu_torch yet: the hybrid and voting "
+                          "learners are ROADMAP A9b (it runs serial, data "
+                          "and feature)" % value)
+            else:
+                log.fatal("Tree learner type error")
         self.tree_config.set(params)
         if "bagging_device" in params:
             value = params["bagging_device"].lower()
@@ -766,6 +816,30 @@ class BoostingConfig:
 
 
 @dataclasses.dataclass
+class NetworkConfig:
+    """lightgbm_tpu/config.py NetworkConfig (:890-910), config.h:201-209:
+    ``num_machines`` sets the parallel learners' world (parallel/
+    mesh.world_size); the rest is checked and has no effect."""
+    num_machines: int = 1
+    local_listen_port: int = 12400
+    time_out: int = 120
+    machine_list_filename: str = ""
+
+    def set(self, params: Dict[str, str]) -> None:
+        self.num_machines = _get_int(params, "num_machines",
+                                     self.num_machines)
+        log.check(self.num_machines >= 1, "num_machines should be >= 1")
+        self.local_listen_port = _get_int(params, "local_listen_port",
+                                          self.local_listen_port)
+        log.check(self.local_listen_port > 0,
+                  "local_listen_port should be > 0")
+        self.time_out = _get_int(params, "time_out", self.time_out)
+        log.check(self.time_out > 0, "time_out should be > 0")
+        self.machine_list_filename = params.get("machine_list_file",
+                                                self.machine_list_filename)
+
+
+@dataclasses.dataclass
 class OverallConfig:
     task_type: str = "train"
     # the native parser's OpenMP pool (native/lib.set_num_threads); 0
@@ -788,6 +862,12 @@ class OverallConfig:
         default_factory=ObjectiveConfig)
     metric_config: MetricConfig = dataclasses.field(
         default_factory=MetricConfig)
+    network_config: NetworkConfig = dataclasses.field(
+        default_factory=NetworkConfig)
+    # a parallel learner runs (num_machines > 1, tree_learner not serial)
+    is_parallel: bool = False
+    # ... and finds bins over the world's shards (tree_learner=data)
+    is_parallel_find_bin: bool = False
 
     def set(self, params: Dict[str, str], require_data: bool = True) -> None:
         params = apply_aliases({k: str(v) for k, v in params.items()})
@@ -828,6 +908,7 @@ class OverallConfig:
         self.boosting_config.set(params)
         self.objective_config.set(params)
         self.metric_config.set(params)
+        self.network_config.set(params)
         self._check_param_conflict()
         log.set_level_from_verbosity(self.io_config.verbosity)
 
@@ -866,6 +947,21 @@ class OverallConfig:
             if objective_multiclass != (metric_type in ("multi_logloss",
                                                         "multi_error")):
                 log.fatal("Objective and metrics don't match.")
+        # lightgbm_tpu/config.py:986-1018 (config.cpp:133-182)
+        bc = self.boosting_config
+        if self.network_config.num_machines <= 1:
+            bc.tree_learner = "serial"
+        self.is_parallel = bc.tree_learner != "serial"
+        if not self.is_parallel:
+            self.network_config.num_machines = 1
+        self.is_parallel_find_bin = bc.tree_learner == "data"
+        if (self.is_parallel_find_bin
+                and bc.tree_config.histogram_pool_size >= 0):
+            log.warning("Histogram LRU queue was enabled "
+                        "(histogram_pool_size=%f). Will disable this for "
+                        "reducing communication cost."
+                        % bc.tree_config.histogram_pool_size)
+            bc.tree_config.histogram_pool_size = -1
 
 
 def parse_config_file(path: str) -> Dict[str, str]:

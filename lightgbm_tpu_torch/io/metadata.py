@@ -7,8 +7,9 @@ weights, recomputed by a cache reader whose file carries weights and
 queries), the initial scores of an ``input_init_score`` file (one value
 per line), an in-file query-id column (``set_queries_from_column``,
 turned into boundaries by ``finalize``) and the ``finalize`` size
-checks.  Distributed partitioning belongs to the parallel learners,
-outside the port.
+checks; and for the data-parallel learner, ``partition`` (a rank's
+rows of the side data, metadata.cpp:130-212) and ``global_view`` (the
+world's labels, weights and query layout in rank order, for metrics).
 """
 from __future__ import annotations
 
@@ -68,6 +69,57 @@ class Metadata:
             lo, hi = self.query_boundaries[i], self.query_boundaries[i + 1]
             qw[i] = self.weights[lo:hi].mean() if hi > lo else 0.0
         self.query_weights = qw
+
+    def partition(self, used_indices: np.ndarray, num_all_data: int) -> None:
+        """Keep this rank's rows of the side data (metadata.cpp:130-212;
+        lightgbm_tpu/io/metadata.py:127-153): weights, initial scores and
+        labels by row; query boundaries of the queries the rows hold,
+        which a query-atomic shard holds whole."""
+        used_indices = np.asarray(used_indices)
+        if self.weights is not None:
+            if self.weights.size != num_all_data:
+                log.fatal("Initial weights size doesn't equal to data")
+            self.weights = self.weights[used_indices]
+        if self.query_boundaries is not None:
+            if self.query_boundaries[-1] != num_all_data:
+                log.fatal("Initial query size doesn't equal to data")
+            row_query = np.searchsorted(self.query_boundaries, used_indices,
+                                        side="right") - 1
+            _, counts = np.unique(row_query, return_counts=True)
+            boundaries = np.zeros(counts.size + 1, dtype=np.int32)
+            boundaries[1:] = np.cumsum(counts)
+            self.query_boundaries = boundaries
+            self.load_query_weights()
+        if self.init_score is not None:
+            if self.init_score.size != num_all_data:
+                log.fatal("Initial score size doesn't equal to data")
+            self.init_score = self.init_score[used_indices]
+        if self.label is not None:
+            self.label = self.label[used_indices]
+        self.num_data = used_indices.size
+
+    def global_view(self, gather_rows) -> "Metadata":
+        """The world's metadata from this rank's (lightgbm_tpu/io/
+        metadata.py:70-97): ``gather_rows(local) -> global`` concatenates
+        every rank's row-aligned array in rank order
+        (parallel/mesh.gather_ragged_rows).  Shards are query-atomic, so
+        the query counts concatenate into the global boundaries.  Metrics
+        over it and the scores gathered in the same order are the serial
+        run's."""
+        g = Metadata()
+        if self.label is not None:
+            g.set_label(gather_rows(self.label))
+        if self.weights is not None:
+            g.weights = gather_rows(self.weights)
+        if self.query_boundaries is not None:
+            counts = np.diff(self.query_boundaries).astype(np.int64)
+            gcounts = gather_rows(counts)
+            boundaries = np.zeros(gcounts.size + 1, dtype=np.int32)
+            boundaries[1:] = np.cumsum(gcounts)
+            g.query_boundaries = boundaries
+            g.load_query_weights()
+        g.num_data = 0 if g.label is None else g.label.size
+        return g
 
     def set_label(self, label: np.ndarray) -> None:
         self.label = np.asarray(label, dtype=np.float32)

@@ -45,6 +45,17 @@ booster.  None of it moves a tree.  The fused chunk programs, the
 deferred-readback pipeline and the elastic monitor are not ported;
 their telemetry goes with them.
 
+Under a parallel learner (``init(..., learner=)``, parallel/learners.py)
+the booster is one rank's: N is the rank's own row count (its shard
+under ``tree_learner=data``, every row under ``feature``), every rank
+grows the same trees through the learner, and each rank bags its own
+rows with the host draw from ``bagging_seed``.  Training metrics and the
+``score_reference=`` line read the world's rows (the scores and the
+metadata gathered in rank order), so they are the serial run's; the
+int8 row bound is checked on the world's N.  In a world of more than one
+rank GOSS and checkpoints are named ``Fatal``s (ROADMAP A9b), and
+lambdarank needs query-atomic shards.
+
 The score is a [K, N] f32 tensor on the training device (K = num_class,
 1 unless the objective is multiclass); gradients, histograms, partitions
 and score updates run there, and the host holds the trees and the
@@ -62,10 +73,12 @@ import torch
 
 from .. import checkpoint, faults, health, telemetry, tracing
 from ..device import resolve_device
+from ..objectives.rank import LambdarankNDCG
 from ..ops import sampling
 from ..ops.bins import to_tensor as bins_to_tensor
 from ..ops.histogram import is_int8
 from ..ops.scoring import add_tree_score, train_score_update
+from ..parallel import learners, mesh
 from ..serving import FlatEnsemble, ServingEngine
 from ..utils import log, threefry
 from .grower_unified import grow_tree_unified
@@ -104,14 +117,25 @@ class GBDT:
         self._health_monitor = None
         self._last_eval_values: dict = {}
         self._residency_filed = False
+        # a parallel learner (parallel/learners.py) and whether this
+        # booster's rows are one shard of a world of more than one rank
+        self._learner = None
+        self._sharded = False
 
     # ------------------------------------------------------------------ init
 
     def init(self, boosting_config, train_data, objective,
-             training_metrics=(), device=None) -> None:
+             training_metrics=(), device=None, learner=None) -> None:
         """GBDT::Init (gbdt.cpp:41-89).  ``device``: "cuda" (default; a
-        Fatal when there is no card) or "cpu"."""
+        Fatal when there is no card) or "cpu".  ``learner``: a parallel
+        learner (module docstring); it binds this rank's device and
+        collective group, so every rank of its world calls ``init``."""
         self.device = resolve_device(device)
+        self._learner = learner
+        if learner is not None:
+            self.device = learner.bind(self.device)
+            self._sharded = learner.shards_rows and learner.world > 1
+            self._check_world(boosting_config, train_data, objective)
         telemetry.set_device(self.device)
         self.gbdt_config = boosting_config
         self.tree_config = boosting_config.tree_config
@@ -125,7 +149,12 @@ class GBDT:
         self.num_data = train_data.num_data
         self.num_bins_max = int(train_data.num_bins.max())
         self._bin_upper_table = train_data.bin_upper_bounds_matrix()
-        self._pack_spec = train_data.plan_packing(self.tree_config.mixed_bin)
+        # the feature-parallel learner owns canonical features: no packing
+        # (lightgbm_tpu/parallel/learners.py:512-516)
+        self._pack_spec = (None if learner is not None
+                           and not learner.shards_rows
+                           else train_data.plan_packing(
+                               self.tree_config.mixed_bin))
         telemetry.count_route("hist_layout", "hist/mixedbin_off"
                               if self._pack_spec is None
                               else "hist/mixedbin_on")
@@ -168,14 +197,22 @@ class GBDT:
             _start_score(train_data.metadata.init_score, self.num_class,
                          self.num_data), device=self.device)
         if is_int8(self.tree_config.compute_dtype):
-            # int32 accumulators: 127 x rows must not wrap (gbdt.py:42-54)
-            if self.num_data > (1 << 31) // 127:
+            # int32 accumulators: 127 x rows must not wrap (gbdt.py:42-54);
+            # a world's sums are the world's rows
+            if self.global_num_data() > (1 << 31) // 127:
                 log.fatal("hist_dtype=int8 supports at most %d rows"
                           % ((1 << 31) // 127))
         self._init_sampling(boosting_config)
         objective.init(train_data.metadata, self.num_data, self.device)
-        for metric in self.training_metrics:
-            metric.init("training", train_data.metadata, self.num_data)
+        if self._sharded and self.training_metrics:
+            # the world's rows, in rank order: the serial run's values
+            # (lightgbm_tpu/models/gbdt.py:425-432)
+            md = train_data.metadata.global_view(mesh.gather_ragged_rows)
+            for metric in self.training_metrics:
+                metric.init("training", md, md.num_data)
+        else:
+            for metric in self.training_metrics:
+                metric.init("training", train_data.metadata, self.num_data)
         # "auto" follows the telemetry registry (lightgbm_tpu/models/
         # gbdt.py:437-449)
         self._health_monitor = (health.HealthMonitor(
@@ -183,6 +220,36 @@ class GBDT:
             divergence_rounds=boosting_config.health_divergence_rounds,
             quantized=is_int8(self.tree_config.compute_dtype))
             if health.resolve_enabled(boosting_config.health) else None)
+
+    def _check_world(self, bc, train_data, objective) -> None:
+        """What a parallel world refuses (module docstring)."""
+        world = self._learner.world
+        if world > 1 and bc.goss:
+            # lightgbm_tpu/models/gbdt.py:1534-1539; the port has no
+            # fused chunk program
+            log.fatal("goss=true in multi-process training requires the "
+                      "fused chunk path: grow_policy=depthwise and a device "
+                      "formulation for every configured metric (not ported "
+                      "to lightgbm_tpu_torch: ROADMAP A9b)")
+        if world > 1 and bc.checkpoint_interval > 0:
+            log.fatal("checkpoint_interval > 0 under a world of %d ranks is "
+                      "not ported to lightgbm_tpu_torch yet: checkpoints "
+                      "and their topology-aware restore are ROADMAP A9b"
+                      % world)
+        if (self._sharded and isinstance(objective, LambdarankNDCG)
+                and train_data.metadata.query_boundaries is not None
+                and not train_data.shard_query_atomic):
+            log.fatal("distributed lambdarank requires query-atomic row "
+                      "sharding: supply query ids via a .query side file (an "
+                      "in-file group column is extracted after sharding and "
+                      "splits queries across machines)")
+
+    def global_num_data(self) -> int:
+        """Rows of the world (this booster's own outside a sharded
+        world)."""
+        if not self._sharded:
+            return self.num_data
+        return sum(mesh.all_gather_object(int(self.num_data)))
 
     def _init_sampling(self, bc) -> None:
         """The bagging, feature_fraction and GOSS state
@@ -223,11 +290,14 @@ class GBDT:
         always draws with numpy on the host."""
         if not self._use_bagging or bc.bagging_device == "false":
             return False
-        capable = self.train_data.metadata.query_boundaries is None
+        # a shard bags its own rows with the host draw (gbdt.py:555-575)
+        capable = (self.train_data.metadata.query_boundaries is None
+                   and not self._sharded)
         if bc.bagging_device == "true":
             if not capable:
                 log.warning("bagging_device=true cannot apply here "
-                            "(per-query bagging); keeping the host draw")
+                            "(a row shard or per-query bagging); keeping "
+                            "the host draw")
             return capable
         return capable and self.device.type == "cuda"
 
@@ -480,7 +550,10 @@ class GBDT:
 
     def _grow(self, grad, hess, row_mask, feature_mask):
         """One tree over the rows' [N] gradients, under the configured
-        growth policy."""
+        growth policy, or through the parallel learner."""
+        if self._learner is not None:
+            return self._learner(self, self.bins_device, grad, hess,
+                                 row_mask, feature_mask)
         tc = self.tree_config
         return grow_tree_unified(
             self.bins_device, grad, hess, row_mask, feature_mask,
@@ -538,6 +611,8 @@ class GBDT:
             if writer is not None:
                 # a restart after a clean finish sees the complete run
                 writer.write_sync(self.checkpoint_state())
+            if self._learner is not None:
+                learners.aggregate_telemetry()
         except BaseException as e:
             if writer is not None:
                 # an exception between iterations leaves the state whole;
@@ -747,6 +822,10 @@ class GBDT:
             else None
         if latest is None:
             return
+        if self._learner is not None and self._learner.world > 1:
+            log.fatal("resuming checkpoint %s under a world of %d ranks is "
+                      "not ported to lightgbm_tpu_torch yet (ROADMAP A9b)"
+                      % (latest, self._learner.world))
         log.info("resuming from checkpoint %s" % latest)
         self.restore_checkpoint(latest)
 
@@ -788,13 +867,22 @@ class GBDT:
 
         train_vals = valid_vals = None
         if train:
-            train_vals = [m.eval(flat(self.score))
+            score = self._world_score()
+            train_vals = [m.eval(flat(score))
                           for m in self.training_metrics]
         if valid:
             valid_vals = [[m.eval(flat(e["score"])) for m in metrics]
                           for e, metrics in zip(self.valid_datasets,
                                                 self.valid_metrics)]
         return train_vals, valid_vals
+
+    def _world_score(self) -> torch.Tensor:
+        """The [K, N] training score, of the world's rows in rank order
+        when this booster holds a shard (collective then)."""
+        if not self._sharded:
+            return self.score
+        rows = mesh.gather_ragged_rows(self.score.cpu().numpy().T)
+        return torch.from_numpy(np.ascontiguousarray(rows.T))
 
     def output_metric(self, iteration: int) -> bool:
         """GBDT::OutputMetric (gbdt.cpp:225-259), as gbdt.py:2369-2456:
@@ -904,13 +992,12 @@ class GBDT:
         them (the true rows' [K, N] scores as float64 on the host); a
         booster without scores (a loaded model) keeps the reference its
         file carried, or None."""
-        score = getattr(self, "score", None)
-        if score is None:
+        if getattr(self, "score", None) is None:
             return self.score_reference
         from ..monitor import ScoreHistogram
+        score = self._world_score()
         values = score.detach().to("cpu").numpy().astype(np.float64)
-        n = int(getattr(self, "num_data", 0)) or values.shape[-1]
-        values = values[..., :n].ravel()
+        values = values.ravel()
         if values.size == 0:
             return None
         hist = ScoreHistogram()

@@ -19,22 +19,26 @@ from __future__ import annotations
 
 from .. import telemetry
 from ..ops.histogram import build_histogram
-from .grower_unified import TreeArrays, grow_best_first
+from .grower_unified import SERIAL, TreeArrays, grow_best_first
 
 
 def grow_tree(bins, grad, hess, row_mask, feature_mask, num_bins, *,
               num_leaves: int, num_bins_max: int, min_data_in_leaf: int,
               min_sum_hessian_in_leaf: float, max_depth: int = -1,
               compute_dtype: str = "float32", packing=None,
-              exponent=None) -> TreeArrays:
-    """Grow one tree; the arguments are grow_tree_unified's."""
+              exponent=None, schedule=SERIAL,
+              partition_bins=None) -> TreeArrays:
+    """Grow one tree; the arguments are grow_tree_unified's.  Under a
+    feature-parallel world ``bins`` holds this rank's owned features and
+    ``partition_bins`` all of them."""
 
     def small_hist(bl, new, feat, thr, left_small, leaf_ids):
         small_leaf = bl if left_small else new
         with telemetry.span("histogram") as sp:
             return sp.fence(build_histogram(
                 bins, grad, hess, row_mask & (leaf_ids == small_leaf),
-                num_bins_max, compute_dtype, packing, new, exponent))
+                num_bins_max, compute_dtype, packing, new, exponent,
+                **schedule.int_seams()))
 
     return grow_best_first(
         bins, grad, hess, row_mask, feature_mask, num_bins, small_hist,
@@ -42,7 +46,7 @@ def grow_tree(bins, grad, hess, row_mask, feature_mask, num_bins, *,
         min_data_in_leaf=min_data_in_leaf,
         min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
         max_depth=max_depth, compute_dtype=compute_dtype, packing=packing,
-        exponent=exponent)
+        exponent=exponent, schedule=schedule, partition_bins=partition_bins)
 
 
 __all__ = ["grow_tree"]

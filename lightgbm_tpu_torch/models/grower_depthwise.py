@@ -23,6 +23,17 @@ s of level d holds one candidate leaf and its children sit at 2s and
 Under mixed-bin packing step 4 reads each row's bin from the split
 feature's storage row.
 
+Under a parallel learner's ``schedule`` (models/grower_unified.
+SeamSchedule) the root pass is reduced whole (``root_hist_reduce``; the
+int8 accumulators before dequantization) and, with ``own_slice``, cut to
+this rank's feature block; each level pass is reduced by
+``hist_reduce_level`` (f32 ``[C, F, B, 3]``) or ``int_reduce_level``
+(the int8 ``[F, B, 3C]`` accumulator, in the int domain), and the
+level's search is the schedule's ``split_finder``.  The search's agreed
+records are equal on every rank, so every rank takes the same slots and
+stops at the same level; rows move on ``partition_bins``, every
+feature's bins, when ``bins`` holds only owned features.
+
 All of this runs on the device; the host reads one count per level, to
 stop once no slot was chosen or the budget is spent (later levels could
 change nothing), and reads the tree back once.  The partition kernel is
@@ -38,9 +49,9 @@ import torch
 
 from .. import telemetry
 from ..ops.bins import widen
-from ..ops.histogram import canonical_index, histogram_leafbatch
+from ..ops.histogram import canonical_index, histogram_leafbatch, is_int8
 from ..ops.split import find_best_split
-from .grower_unified import TreeArrays, root_stats_of
+from .grower_unified import SERIAL, TreeArrays, root_stats_of
 
 
 def num_levels(num_leaves: int, max_depth: int = -1) -> int:
@@ -63,26 +74,42 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
                         min_data_in_leaf: int,
                         min_sum_hessian_in_leaf: float, max_depth: int = -1,
                         compute_dtype: str = "float32",
-                        packing=None, exponent=None) -> TreeArrays:
+                        packing=None, exponent=None, schedule=SERIAL,
+                        partition_bins=None) -> TreeArrays:
     """Grow one tree; the arguments are grow_tree_unified's."""
     F, N = bins.shape
     dev = bins.device
     L, B = num_leaves, num_bins_max
     M = L - 1                                   # node records
     i32, i64, f32 = torch.int32, torch.int64, torch.float32
+    s = schedule
+    finder = s.split_finder or find_best_split
+    if partition_bins is None:
+        partition_bins = bins
+    int8 = is_int8(compute_dtype)
 
     def level_hist(col_id, col_ok, C, salt):
+        root = salt == 0
         with telemetry.span("histogram") as sp:
-            return sp.fence(histogram_leafbatch(
+            red = s.root_hist_reduce if root else s.hist_reduce_level
+            hist = histogram_leafbatch(
                 bins, grad, hess, col_id, col_ok, C, B, compute_dtype,
-                packing, salt, exponent))
+                packing, salt, exponent, s.scale_reduce,
+                s.root_hist_reduce if root else s.int_reduce_level)
+            if red is not None and not int8:
+                hist = red(hist)
+            return sp.fence(hist)
 
     # canonical split feature -> storage row
     c2p = None if packing is None else canonical_index(packing, dev)
 
     hists = level_hist(torch.zeros(N, dtype=i64, device=dev), row_mask, 1,
                        0)
-    root = root_stats_of(hists[0], compute_dtype, grad, hess, row_mask)
+    root = root_stats_of(hists[0], compute_dtype, grad, hess, row_mask, s)
+    if s.own_slice is not None:
+        # the root stats came from the whole histogram; from here on the
+        # levels hold this rank's feature block
+        hists = s.own_slice(hists, 1)
 
     # per-slot state of the current level
     alive = torch.ones(1, dtype=torch.bool, device=dev)
@@ -110,9 +137,9 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
     for d in range(D):
         P = 1 << d
         with telemetry.span("split_find") as sp:
-            res = find_best_split(hists, slot_g, slot_h, slot_c, num_bins,
-                                  feature_mask, float(min_data_in_leaf),
-                                  float(min_sum_hessian_in_leaf))
+            res = finder(hists, slot_g, slot_h, slot_c, num_bins,
+                         feature_mask, float(min_data_in_leaf),
+                         float(min_sum_hessian_in_leaf))
             sp.fence(res.gain)
         can = alive & (res.gain > 0.0) & torch.isfinite(res.gain)
 
@@ -162,7 +189,8 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
             small_is_right = res.right_count < res.left_count  # ties: left
             in_chosen = chosen[slot_id]
             row_feat = res.feature if c2p is None else c2p[res.feature]
-            row_bin = widen(bins.gather(0, row_feat[slot_id][None])[0])
+            row_bin = widen(partition_bins.gather(
+                0, row_feat[slot_id][None])[0])
             go_right = in_chosen & (row_bin > res.threshold[slot_id])
             out_leaf = torch.where(go_right, right_leaf[slot_id].to(i32),
                                    out_leaf)

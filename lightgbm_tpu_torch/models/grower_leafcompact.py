@@ -41,14 +41,15 @@ from ..ops.compact import BLOCK, pack_planes, partition_pane, unpack_values
 from ..ops.hist_cuda import hist_pane_float
 from ..ops.histogram import (assemble, build_histogram, class_ranges,
                              is_int8, round_bf16)
-from .grower_unified import TreeArrays, grow_best_first
+from .grower_unified import SERIAL, TreeArrays, grow_best_first
 
 
 class _Pane:
     """The double-buffered plane pane and each leaf's lane range."""
 
     def __init__(self, bins, grad, hess, row_mask, num_leaves: int,
-                 num_bins_max: int, compute_dtype: str, packing, exponent):
+                 num_bins_max: int, compute_dtype: str, packing, exponent,
+                 schedule=SERIAL):
         F, N = bins.shape
         P = -(-N // BLOCK) * BLOCK          # pane width: the root bucket
         if compute_dtype == "bfloat16":
@@ -59,6 +60,7 @@ class _Pane:
         self.nb = bin_bytes(bins)                    # 2: a 16-bit pane
         self.packing = packing
         self.exponent = exponent                     # the tree's, float
+        self.schedule = schedule
         self.seg_start = np.zeros(num_leaves, np.int64)
         self.seg_cnt = np.zeros(num_leaves, np.int64)
         self.seg_cnt[0] = N
@@ -86,7 +88,8 @@ class _Pane:
                 return sp.fence(build_histogram(
                     *unpack_values(dst[:, sstart:sstart + scnt], F,
                                    self.nb),
-                    self.B, self.compute_dtype, self.packing, new))
+                    self.B, self.compute_dtype, self.packing, new,
+                    **self.schedule.int_seams()))
             return sp.fence(assemble(
                 [hist_pane_float(dst, F, sstart, scnt, w, (s, n), self.nb,
                                  self.exponent)
@@ -100,17 +103,24 @@ def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
                           min_sum_hessian_in_leaf: float,
                           max_depth: int = -1,
                           compute_dtype: str = "float32",
-                          packing=None, exponent=None) -> TreeArrays:
-    """Grow one tree; the arguments are grow_tree_unified's."""
+                          packing=None, exponent=None, schedule=SERIAL,
+                          partition_bins=None) -> TreeArrays:
+    """Grow one tree; the arguments are grow_tree_unified's.  In a
+    data-parallel world the pane holds this rank's rows, each split
+    partitions them, and the smaller child is the one the agreed split
+    record's global counts name, the same on every rank."""
+    if partition_bins is not None and partition_bins is not bins:
+        raise ValueError("the compacted grower needs every feature's bins "
+                         "(no feature-parallel ownership)")
     pane = _Pane(bins, grad, hess, row_mask, num_leaves, num_bins_max,
-                 compute_dtype, packing, exponent)
+                 compute_dtype, packing, exponent, schedule)
     return grow_best_first(
         bins, grad, hess, row_mask, feature_mask, num_bins, pane.small_hist,
         num_leaves=num_leaves, num_bins_max=num_bins_max,
         min_data_in_leaf=min_data_in_leaf,
         min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
         max_depth=max_depth, compute_dtype=compute_dtype, packing=packing,
-        exponent=exponent)
+        exponent=exponent, schedule=schedule)
 
 
 __all__ = ["grow_tree_leafcompact"]

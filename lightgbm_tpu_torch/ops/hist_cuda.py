@@ -110,15 +110,24 @@ def stochastic_bits(x, other, salt: int):
 
 
 def quantize_values(grad, hess, col_ok, stochastic: bool = False,
-                    salt: int = 0):
+                    salt: int = 0, max_reduce=None):
     """int8 quantization with a per-pass global scale — hist_pallas.py:
     216-269, bit for bit: round to nearest even, or with ``stochastic``
     unbiased ``floor(y + u)`` with u from ``stochastic_bits`` (salt for
-    grad, salt + 0x51ED for hess).
+    grad, salt + 0x51ED for hess).  ``max_reduce`` (a data-parallel
+    world's): the pass maxima [2] f32 -> their maxima over the world,
+    before the division, as the JAX ``axis_name`` pmax
+    (hist_pallas.py:241-247), so every rank quantizes with the serial
+    run's scale.  No rows: maxima 0.
     Returns (vals [3, N] int8 = (gq*ok, hq*ok, ok), scale [3] f32)."""
     okf = col_ok.to(torch.float32)
-    ag = torch.max(grad.abs() * okf)
-    ah = torch.max(hess.abs() * okf)
+    if grad.numel():
+        ag = torch.max(grad.abs() * okf)
+        ah = torch.max(hess.abs() * okf)
+    else:
+        ag = ah = torch.zeros((), dtype=torch.float32, device=grad.device)
+    if max_reduce is not None:
+        ag, ah = max_reduce(torch.stack([ag, ah]))
     # divide by a tensor, not a Python number: CUDA turns division by a
     # host scalar into a multiplication by its reciprocal, which can round
     # the scale one ulp away from the CPU's (and the JAX package's)

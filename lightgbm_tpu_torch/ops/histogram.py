@@ -88,15 +88,21 @@ def _float_one(bins, grad, hess, col_id, col_ok, num_cols, B, packing,
 
 
 def _int8_one(bins, grad, hess, col_id, col_ok, num_cols, B, packing, salt,
-              stochastic):
+              stochastic, scale_reduce=None, int_reduce=None):
     F = bins.shape[0]
     # one quantization for every class launch: the scale comes from the
     # same rows whatever the layout
-    vals, scale = quantize_values(grad, hess, col_ok, stochastic, salt)
+    vals, scale = quantize_values(grad, hess, col_ok, stochastic, salt,
+                                  scale_reduce)
     cid = torch.where(col_ok, col_id, -1).to(torch.int32)
     acc = assemble([hist_int8(bins[s:s + n], vals, cid, num_cols, w)
                     for s, n, w in class_ranges(packing, F, B)], packing, B)
-    hist = acc.to(torch.float32).reshape(F, B, num_cols, 3)
+    if int_reduce is not None:
+        # the world's sum in the int domain, before the scale: int32 sums
+        # are order-free, so the result is the serial run's bit for bit
+        # (JAX histogram.py:505-510); a dequantized f32 sum would not be
+        acc = int_reduce(acc)
+    hist = acc.to(torch.float32).reshape(acc.shape[0], B, num_cols, 3)
     return hist.permute(2, 0, 1, 3) * scale
 
 
@@ -107,7 +113,8 @@ def round_bf16(x):
 
 def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
                         num_bins_max: int, compute_dtype: str = "float32",
-                        packing=None, salt: int = 0, exponent=None):
+                        packing=None, salt: int = 0, exponent=None,
+                        scale_reduce=None, int_reduce=None):
     """[C, F, B, 3] f32 histograms of C leaf columns in one pass per
     group of 64 columns, 42 with 16-bit bins (``group_width``; one launch
     per bin-width class under ``packing``).  ``bins`` [F, N] uint8, or
@@ -116,7 +123,12 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
     keys ``int8_sr``'s rounding bits; ``exponent``: the float modes'
     fixed-point exponent (``hist_cuda.fixed_exponent``, one per tree;
     by default each launch's own).  The result is in canonical feature
-    order."""
+    order.  The int8 modes' world seams (a data-parallel schedule's,
+    models/grower_unified.SeamSchedule): ``scale_reduce`` takes each
+    pass's maxima to the world's, ``int_reduce`` each pass's
+    canonical [F, B, 3C] int32 accumulator to the world's sum (or this
+    rank's feature block of it); the float modes take none (the caller
+    reduces the f32 result)."""
     int8 = is_int8(compute_dtype)
     if packing is not None:
         telemetry.count("hist/mixedbin_leafbatch")
@@ -126,7 +138,8 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
     def one(*args):
         if int8:
             return _int8_one(*args, packing, salt,
-                             compute_dtype == "int8_sr")
+                             compute_dtype == "int8_sr", scale_reduce,
+                             int_reduce)
         return _float_one(*args, packing, exponent)
 
     return grouped(one, bins, grad, hess, col_id, col_ok, num_cols,
@@ -135,10 +148,11 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
 
 def build_histogram(bins, grad, hess, mask, num_bins_max: int,
                     compute_dtype: str = "float32", packing=None,
-                    salt: int = 0, exponent=None):
+                    salt: int = 0, exponent=None, scale_reduce=None,
+                    int_reduce=None):
     """[F, B, 3] histogram of the rows where ``mask`` holds: the
     one-column leaf batch, as on the TPU (histogram.py:541-564)."""
     cid = torch.zeros(bins.shape[1], dtype=torch.int32, device=bins.device)
     return histogram_leafbatch(bins, grad, hess, cid, mask, 1,
                                num_bins_max, compute_dtype, packing, salt,
-                               exponent)[0]
+                               exponent, scale_reduce, int_reduce)[0]

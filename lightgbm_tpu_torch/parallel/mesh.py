@@ -1,0 +1,312 @@
+"""The world of ranks and its collectives, over ``torch.distributed``.
+
+Counterpart of lightgbm_tpu/parallel/mesh.py.  One process is one rank,
+and one rank is one of the reference's "machines"; the reference's
+Linkers bootstrap (linkers_socket.cpp:20-110) becomes
+``torch.distributed.init_process_group`` from torch's own environment:
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` and
+``LOCAL_RANK``, as ``torch.distributed.run`` sets them
+(``init_distributed``).  Without them there is no process group, and the
+world is one rank.  The ``machine_list_file``, ``local_listen_port``
+and ``time_out`` keys are checked and have no effect: the environment
+does their work.
+
+**Backend rule** (``comm_for``, logged once per device type):
+
+- CPU tensors use gloo;
+- CUDA ranks on distinct devices use NCCL;
+- CUDA ranks that share a device use gloo on CUDA tensors, because NCCL
+  refuses two ranks on one device.  Which ranks share a device is found
+  by all-gathering each rank's device UUID.  A collective that gloo
+  does not run on CUDA tensors is staged through a pinned host copy,
+  with a warning, and its telemetry site gains ``/host_staged``.
+
+The bootstrap group is always gloo: host-side exchanges (seeds, bin
+mappers, metric rows, the clock handshake) ride it as pickled objects.
+
+**World size** (``world_size``): a ``num_machines`` larger than the world
+warns and shrinks to the world, as ``get_mesh`` does in the JAX package
+(linkers_socket.cpp:106-109).
+
+Not ported: ``global_row_layout`` and ``make_global_rows`` (each rank
+holds its own rows; no padded global array exists), ``get_mesh2d`` and
+``get_serving_mesh`` (the hybrid and voting learners and tree-sharded
+serving, ROADMAP A9b).  The collectives are library calls: no kernel
+of the port runs here.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .. import telemetry
+from ..utils import log
+
+DATA_AXIS = "data"
+FEATURE_AXIS = "feature"
+
+_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+# the process group this module created (and so destroys), and the
+# collective groups per device type
+_owned = False
+_comms: dict = {}
+
+
+def _reduce_scatter():
+    """``reduce_scatter_single``, or its older name on a torch without it
+    (the newer torch's old name warns)."""
+    return getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+
+
+def _all_gather():
+    return getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+
+
+def initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def init_distributed() -> bool:
+    """Join the world that torch's environment describes (module
+    docstring), once; True when a process group is up.  The group is
+    gloo; ``comm_for`` adds the collective group of a device."""
+    global _owned
+    if initialized():
+        return True
+    if not dist.is_available() or not all(k in os.environ for k in _ENV):
+        return False
+    dist.init_process_group("gloo", init_method="env://")
+    _owned = True
+    log.info("joined the world as rank %d of %d (gloo bootstrap, %s:%s)"
+             % (dist.get_rank(), dist.get_world_size(),
+                os.environ["MASTER_ADDR"], os.environ["MASTER_PORT"]))
+    clock_handshake()
+    return True
+
+
+def shutdown() -> None:
+    """Destroy the process group this module created (and every
+    collective group on it), once every rank has come here (a bounded
+    barrier: a rank that never comes is reported, not waited for); a
+    group the caller created stays."""
+    global _owned
+    _comms.clear()
+    if _owned and initialized():
+        try:
+            dist.monitored_barrier(timeout=datetime.timedelta(seconds=60))
+        except RuntimeError as e:
+            log.warning("leaving the world without every rank: %s"
+                        % str(e).splitlines()[0])
+        dist.destroy_process_group()
+    _owned = False
+
+
+def get_rank() -> int:
+    """This process's rank (Network::rank); 0 without a world."""
+    return dist.get_rank() if initialized() else 0
+
+
+def get_num_machines() -> int:
+    """The world's size; 1 without a world."""
+    return dist.get_world_size() if initialized() else 1
+
+
+def world_size(num_machines: int) -> int:
+    """The learner's world: every rank of the process group.  A larger
+    ``num_machines`` warns and shrinks to it."""
+    world = get_num_machines()
+    if num_machines > world:
+        log.warning("num_machines=%d exceeds the world (%d ranks); "
+                    "shrinking world size to match "
+                    "(linkers_socket.cpp:106-109 behavior)"
+                    % (num_machines, world))
+    return world
+
+
+def all_gather_object(obj) -> list:
+    """Every rank's ``obj``, in rank order (pickled, over the bootstrap
+    group)."""
+    if not initialized():
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def clock_handshake() -> float:
+    """Each rank's ``time.time()`` all-gathered at bootstrap; the
+    leader-relative offset goes to ``telemetry.set_clock_offset`` with
+    the exchange's round trip as its error bar (JAX mesh.py:63-95).
+    Collective.  Returns the offset (0 without a world)."""
+    if get_num_machines() <= 1:
+        telemetry.set_clock_offset(0.0)
+        return 0.0
+    t0 = time.perf_counter()
+    stamps = all_gather_object(time.time())
+    rtt = time.perf_counter() - t0
+    offset = float(stamps[0] - stamps[get_rank()])
+    telemetry.set_clock_offset(offset, rtt_s=rtt)
+    return offset
+
+
+def sync_up_by_min(value):
+    """GlobalSyncUpByMin (application.cpp:275-302): the smallest value
+    over the world, in the value's own type."""
+    if get_num_machines() <= 1:
+        return value
+    return type(value)(min(all_gather_object(value)))
+
+
+def gather_ragged_rows(local) -> np.ndarray:
+    """Every rank's host array concatenated along axis 0 in rank order,
+    lengths free (row shards, per-query counts); JAX mesh.py:303-322."""
+    local = np.asarray(local)
+    if get_num_machines() <= 1:
+        return local
+    return np.concatenate(all_gather_object(local), axis=0)
+
+
+def rank_device(device: torch.device) -> torch.device:
+    """The rank's device: a CUDA device without an index becomes
+    ``cuda:(LOCAL_RANK % device count)``, so ranks share the cards in
+    turn (the one H100: every rank on it)."""
+    if device.type != "cuda" or device.index is not None:
+        return device
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+class Comm:
+    """The collectives of one learner's world, on one device type.
+
+    Every rank must call the same methods in the same order.  Each call
+    files its telemetry ``site`` (``telemetry.collective_span``).  A
+    world of one rank without a process group runs each op as the
+    identity."""
+
+    def __init__(self, group, backend: str, rank: int, size: int):
+        self.group = group
+        self.backend = backend
+        self.rank = rank
+        self.size = size
+        self._staged = set()        # op kinds gloo refused on CUDA
+
+    def _run(self, site: str, kind: str, axis: str, op, t: torch.Tensor,
+             *out):
+        """``op(*out, t)`` on the group, filed at ``site`` (over ``axis``,
+        the JAX package's mesh axis of the same collective) with ``t``'s
+        bytes, the payload this rank sends, as the JAX package files the
+        collective's input; gloo on a CUDA tensor stages the op kinds it
+        refuses through pinned host copies."""
+        def direct(x):
+            op(*out, x)
+
+        def staged(x):
+            hx = torch.empty(x.shape, dtype=x.dtype,
+                             pin_memory=True).copy_(x)
+            ho = [torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+                  for y in out]
+            op(*ho, hx)
+            for y, hy in zip(out, ho):
+                y.copy_(hy)
+            if not out:
+                x.copy_(hx)
+
+        if self.backend == "gloo" and t.is_cuda:
+            if kind not in self._staged:
+                try:
+                    return telemetry.collective_span(
+                        site, direct, kind=kind, axis=axis)(t)
+                except RuntimeError as e:
+                    log.warning("gloo runs no %s on CUDA tensors (%s); "
+                                "staging it through host memory"
+                                % (kind, str(e).splitlines()[0]))
+                    self._staged.add(kind)
+            return telemetry.collective_span(
+                site + "/host_staged", staged, kind=kind, axis=axis)(t)
+        return telemetry.collective_span(site, direct, kind=kind,
+                                         axis=axis)(t)
+
+    def all_reduce(self, t: torch.Tensor, site: str, op: str = "sum",
+                   axis: str = DATA_AXIS) -> torch.Tensor:
+        """The sum (or ``op="max"``) of ``t`` over the world, in a new
+        tensor."""
+        t = t.contiguous().clone()
+        if self.group is None:
+            return t
+        rop = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+        self._run(site, "psum" if op == "sum" else "pmax", axis,
+                  lambda x: dist.all_reduce(x, op=rop, group=self.group), t)
+        return t
+
+    def reduce_scatter(self, t: torch.Tensor, site: str) -> torch.Tensor:
+        """``t`` [size * k, ...] summed over the world; this rank's block
+        ``[rank * k, (rank + 1) * k)``."""
+        t = t.contiguous()
+        k = t.shape[0] // self.size
+        if self.group is None:
+            return t.clone()
+        out = torch.empty((k,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        fn = _reduce_scatter()
+        self._run(site, "psum_scatter", DATA_AXIS,
+                  lambda o, x: fn(o, x, group=self.group), t, out)
+        return out
+
+    def all_gather(self, t: torch.Tensor, site: str,
+                   axis: str = DATA_AXIS) -> torch.Tensor:
+        """[size, *t.shape]: every rank's ``t`` in rank order."""
+        if self.group is None:
+            return t[None].clone()
+        flat = t.reshape(-1).contiguous()
+        out = torch.empty(self.size * flat.numel(), dtype=t.dtype,
+                          device=t.device)
+        fn = _all_gather()
+        self._run(site, "all_gather", axis,
+                  lambda o, x: fn(o, x, group=self.group), flat, out)
+        return out.view((self.size,) + tuple(t.shape))
+
+
+def comm_for(device: torch.device) -> Comm:
+    """The collective group of this rank's ``device`` under the backend
+    rule (module docstring).  Collective the first time per device
+    type: every rank calls it at the same point."""
+    key = device.type
+    comm = _comms.get(key)
+    if comm is not None:
+        return comm
+    if not initialized():
+        comm = Comm(None, "none", 0, 1)
+        _comms[key] = comm
+        return comm
+    rank, size = dist.get_rank(), dist.get_world_size()
+    group, backend, why = dist.group.WORLD, "gloo", "CPU tensors"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        uuids = all_gather_object(
+            str(torch.cuda.get_device_properties(device).uuid))
+        if len(set(uuids)) == len(uuids):
+            group = dist.new_group(backend="nccl")
+            backend, why = "nccl", "each rank on its own device"
+        else:
+            why = ("%d ranks share %d device(s); NCCL refuses two ranks "
+                   "on one device" % (size, len(set(uuids))))
+    log.info("collectives: %s backend over %d rank(s) (%s)"
+             % (backend, size, why))
+    comm = Comm(group, backend, rank, size)
+    _comms[key] = comm
+    return comm
+
+
+__all__ = ["Comm", "DATA_AXIS", "FEATURE_AXIS", "all_gather_object",
+           "clock_handshake", "comm_for", "gather_ragged_rows", "get_rank",
+           "get_num_machines", "init_distributed", "initialized",
+           "rank_device", "shutdown", "sync_up_by_min", "world_size"]

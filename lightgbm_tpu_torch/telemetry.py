@@ -90,9 +90,23 @@ Counters are bumped from the ServingFront worker, the checkpoint writer
 and the ingest threads as well as the training loop, so every update of
 the registry takes one lock.  Each thread keeps its own span stack.
 
-Left to the parallel learners (not ported): collective sites and the
-``interconnect`` block, timeline shards and clock offsets, cross-host
-merges.  Pure stdlib at import (torch is imported where a span or gauge
+7. **Collective sites** (the parallel learners, parallel/): every
+   collective a learner runs files its site (``record_collective``,
+   through ``collective_span``) with the JAX package's site names
+   (``dp_psum/<policy>/hist_allreduce``, ``dp_rs/<policy>/hist_scatter``,
+   ``.../splitinfo_allreduce``, ``fp/splitinfo_allreduce``,
+   ``hist/quant_scale_pmax``; a gloo collective staged through host
+   memory adds ``/host_staged``).  The port runs eagerly, so a record is
+   an executed call, not a trace: the summary's ``interconnect`` block
+   holds each site's calls, logical payload bytes and host seconds (the
+   call's wall time, a wait included).  ``set_clock_offset`` keeps the
+   leader-relative clock offset of parallel/mesh.clock_handshake;
+   ``merge_host_counters`` and ``merge_host_memory`` install the
+   cross-rank sums of parallel/learners.aggregate_telemetry under
+   ``allhosts/`` keys.
+
+Left to later work: timeline shards and ``record_collective_sync``.
+Pure stdlib at import (torch is imported where a span or gauge
 first needs it): the exec'd ingest workers import this module without
 torch.
 """
@@ -197,6 +211,13 @@ _WD_THREAD_NAME = "lgbm-torch-watchdog"
 # the watchdog re-arms when progress resumes, up to this many dumps
 _WD_MAX_DUMPS = 3
 
+# collective sites (module docstring, 7): site -> record
+_collectives: Dict[str, dict] = {}
+_last_collective: Optional[str] = None
+_clock_offset = 0.0
+_clock_rtt: Optional[float] = None
+_allhosts_mem_peak = 0
+
 _torch_mod = None
 
 
@@ -269,8 +290,11 @@ def reset() -> None:
     """Zero every counter, timer and gauge (the sink and the enabled
     state stay)."""
     global _mem_peak, _residency, _mem_dev_peak_base, _mem_source
+    global _last_collective, _allhosts_mem_peak
     from . import costmodel
     costmodel.reset()
+    _last_collective = None
+    _allhosts_mem_peak = 0
     with _lock:
         _counters.clear()
         _phase_times.clear()
@@ -286,6 +310,7 @@ def reset() -> None:
         _residency = None
         _ring.clear()
         _span_stacks.clear()
+        _collectives.clear()
 
 
 def arm_session(io_config) -> bool:
@@ -463,7 +488,21 @@ def memory_snapshot() -> Optional[dict]:
                                        in sorted(_mem_phase_peak.items())}
         if _residency is not None:
             out["residency"] = _residency
+        if _allhosts_mem_peak:
+            out["allhosts_peak_bytes_in_use"] = int(_allhosts_mem_peak)
     return out
+
+
+def mem_peak_bytes() -> int:
+    return int(_mem_peak)
+
+
+def merge_host_memory(peak: int) -> None:
+    """Install the cross-rank peak bytes (parallel/learners.
+    aggregate_telemetry): the memory block's
+    ``allhosts_peak_bytes_in_use``."""
+    global _allhosts_mem_peak
+    _allhosts_mem_peak = int(peak)
 
 
 def set_residency(report: dict) -> None:
@@ -611,7 +650,7 @@ def _flight_dump(stalled_s: float, dump_index: int = 1) -> None:
             "phase": in_flight_phase,
             "iteration": _wd_context.get("iteration"),
             "detail": _wd_context.get("detail"),
-            "last_collective": None,
+            "last_collective": _last_collective,
             "open_spans": open_spans,
             "ring": events[-_RING_CAP:],
             "threads": threads,
@@ -782,6 +821,125 @@ def counters() -> Dict[str, int]:
         return dict(_counters)
 
 
+def merge_host_counters(totals: Dict[str, int]) -> None:
+    """Install cross-rank counter sums (parallel/learners.
+    aggregate_telemetry) under ``allhosts/`` keys."""
+    with _lock:
+        for k, v in totals.items():
+            _counters["allhosts/" + k] = int(v)
+
+
+# ------------------------------------------------------- collective sites
+
+def record_collective(site: str, kind: str, axis: Optional[str],
+                      nbytes: int, seconds: float = 0.0,
+                      phase: Optional[str] = None) -> None:
+    """File one executed collective at ``site``: its kind (``psum``,
+    ``psum_scatter``, ``all_gather``, ``pmax``), the axis it reduces over,
+    its logical payload bytes and host seconds.  ``phase`` defaults to
+    the outermost open span on this thread (``grow`` in training).  No-op
+    while disabled."""
+    global _last_collective
+    if not _enabled:
+        return
+    if phase is None:
+        stack = _span_stacks.get(threading.get_ident())
+        phase = stack[0] if stack else None
+    with _lock:
+        rec = _collectives.get(site)
+        if rec is None:
+            rec = _collectives[site] = {
+                "kind": kind, "axis": axis, "bytes_per_call": 0,
+                "calls": 0, "bytes": 0, "seconds": 0.0, "phase": phase}
+        rec["calls"] += 1
+        rec["bytes"] += int(nbytes)
+        rec["bytes_per_call"] = max(rec["bytes_per_call"], int(nbytes))
+        rec["seconds"] += float(seconds)
+        _last_collective = site
+    if _ring_armed:
+        _ring_event("collective", site)
+
+
+def _nbytes(args) -> int:
+    """Logical payload bytes of the tensors in ``args`` (nested tuples,
+    lists)."""
+    torch = _torch()
+    total, stack = 0, [args]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+        elif isinstance(v, (tuple, list)):
+            stack.extend(v)
+    return total
+
+
+def collective_span(site: str, fn, *, kind: str, axis: Optional[str] = None,
+                    phase: Optional[str] = None):
+    """``fn`` wrapped so that each call files ``site`` with the payload
+    bytes of its tensor arguments and the call's host seconds; the call
+    itself is unchanged.  ``None`` passes through."""
+    if fn is None:
+        return None
+
+    def wrapped(*args, **kwargs):
+        if not _enabled:
+            return fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        record_collective(site, kind, axis, _nbytes(args),
+                          time.perf_counter() - t0, phase)
+        return out
+
+    wrapped.site = site
+    return wrapped
+
+
+def interconnect_snapshot() -> Optional[dict]:
+    """The ``interconnect`` block: per site its calls, bytes and host
+    seconds with the attained rate, and per phase the bytes and
+    collective seconds beside the phase's span seconds.  None while no
+    collective ran."""
+    with _lock:
+        if not _collectives:
+            return None
+        recs = {k: dict(v) for k, v in _collectives.items()}
+        phase_times = dict(_phase_times)
+    sites, phases = {}, {}
+    for site, rec in sorted(recs.items()):
+        secs = rec["seconds"]
+        entry = {"kind": rec["kind"], "axis": rec["axis"],
+                 "bytes_per_call": int(rec["bytes_per_call"]),
+                 "calls": int(rec["calls"]), "bytes": int(rec["bytes"]),
+                 "seconds": round(secs, 6),
+                 "attained_gb_per_s": (round(rec["bytes"] / secs / 1e9, 6)
+                                       if secs > 0 else None)}
+        if rec["phase"]:
+            entry["phase"] = rec["phase"]
+            ph = phases.setdefault(rec["phase"], {"bytes": 0,
+                                                  "collective_seconds": 0.0})
+            ph["bytes"] += rec["bytes"]
+            ph["collective_seconds"] += secs
+        sites[site] = entry
+    for name, ph in phases.items():
+        ph["collective_seconds"] = round(ph["collective_seconds"], 6)
+        ph["span_seconds"] = round(phase_times.get(name, 0.0), 6)
+    return {"sites": sites, "phases": dict(sorted(phases.items())),
+            "clock_offset_s": _clock_offset, "clock_rtt_s": _clock_rtt,
+            "note": "logical payload bytes; host seconds of each call"}
+
+
+def set_clock_offset(offset_s: float, rtt_s: Optional[float] = None) -> None:
+    """Install the leader-relative clock offset measured by
+    parallel/mesh.clock_handshake: seconds to add to this rank's
+    ``time.time()`` to land on rank 0's clock, with the handshake's
+    round trip as its error bar."""
+    global _clock_offset, _clock_rtt
+    _clock_offset = float(offset_s)
+    _clock_rtt = None if rtt_s is None else float(rtt_s)
+
+
+
 # ---------------------------------------------------------------- snapshots
 
 def snapshot() -> dict:
@@ -797,6 +955,9 @@ def snapshot() -> dict:
     if mem is not None:
         out["memory"] = mem
     _attach_cost_blocks(out)
+    ic = interconnect_snapshot()
+    if ic is not None:
+        out["interconnect"] = ic
     return out
 
 
@@ -918,6 +1079,9 @@ def emit_summary(extra: Optional[dict] = None) -> dict:
     if mem is not None:
         record["memory"] = mem
     _attach_cost_blocks(record)
+    ic = interconnect_snapshot()
+    if ic is not None:
+        record["interconnect"] = ic
     from . import tracing
     trace = tracing.snapshot()
     if trace:

@@ -970,3 +970,108 @@ def test_fence_times_device_work_on_card(cuda):
         telemetry.disable()
         telemetry.reset()
         telemetry.set_device(None)
+
+
+# one rank of a card world: train the spec's jobs on this rank's shard of
+# the arrays (tree_learner=data) and write each model text and the backend
+PARALLEL_WORKER = r'''
+import json, sys
+import numpy as np
+import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch import parallel
+
+spec = json.load(open(sys.argv[1]))
+parallel.init_distributed()
+rank, P = parallel.get_rank(), parallel.get_num_machines()
+x, y = np.load(spec["x"]), np.load(spec["y"])
+ds = lgt.Dataset.from_arrays(x, y, max_bin=63, rank=rank, num_machines=P)
+out = {}
+for name, params in spec["jobs"].items():
+    booster = lgt.train(params, ds, device="cuda")
+    out[name] = {"model": booster.model_to_string(),
+                 "backend": booster._learner.comm.backend,
+                 "world": booster._learner.world}
+json.dump(out, open(spec["out"] % rank, "w"))
+parallel.shutdown()
+'''
+
+
+def _card_world(tmp_path, nprocs, jobs, x, y):
+    """The jobs in a world of ``nprocs`` ranks on the card (parallel/
+    launch.LocalWorld, killed past 120 s): [rank] -> {job: record}."""
+    import json
+    import os
+    import sys
+    from lightgbm_tpu_torch.parallel.launch import LocalWorld
+    np.save(tmp_path / "x.npy", x)
+    np.save(tmp_path / "y.npy", y)
+    spec = {"x": str(tmp_path / "x.npy"), "y": str(tmp_path / "y.npy"),
+            "jobs": jobs, "out": str(tmp_path / "out.%d.json")}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    (tmp_path / "worker.py").write_text(PARALLEL_WORKER)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    ranks = LocalWorld([sys.executable, "worker.py", "spec.json"], nprocs,
+                       str(tmp_path), 120, env).wait()
+    for r, (rc, out) in enumerate(ranks):
+        assert rc == 0, "rank %d failed:\n%s" % (r, out[-4000:])
+    return [json.load(open(spec["out"] % r)) for r in range(nprocs)]
+
+
+_DP_PARAMS = {"objective": "binary", "num_leaves": 31, "num_iterations": 3,
+              "min_data_in_leaf": 20, "max_bin": 63,
+              "tree_learner": "data", "num_machines": 2}
+
+
+def _dp_table():
+    rng = np.random.RandomState(13)
+    x = rng.randn(20_000, 10).astype(np.float32)
+    y = ((x[:, 0] - 0.5 * x[:, 1] + 0.3 * rng.randn(20_000)) > 0)
+    return x.astype(np.float64), y.astype(np.float32)
+
+
+def test_one_rank_nccl_world_is_serial(cuda, tmp_path):
+    """(a) A one-rank world on the card takes NCCL, and tree_learner=data
+    there trains the serial run's model text (float32, compacted)."""
+    x, y = _dp_table()
+    ranks = _card_world(tmp_path, 1, {"f32": _DP_PARAMS}, x, y)
+    rec = ranks[0]["f32"]
+    assert (rec["backend"], rec["world"]) == ("nccl", 1)
+    serial = lgt.train({k: v for k, v in _DP_PARAMS.items()
+                        if k not in ("tree_learner", "num_machines")},
+                       lgt.Dataset.from_arrays(x, y, max_bin=63),
+                       device="cuda")
+    assert rec["model"] == serial.model_to_string()
+
+
+def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """(b) Two ranks on the one card take gloo; int8 under both schedules
+    is the serial run's model text, float32's structure is serial's and
+    its leaf values within rtol 1e-5 / atol 5e-6; both ranks agree."""
+    x, y = _dp_table()
+    jobs = {"%s_%s" % (d, s): dict(_DP_PARAMS, hist_dtype=d, dp_schedule=s)
+            for d in ("int8", "float32") for s in ("psum", "reduce_scatter")}
+    ranks = _card_world(tmp_path, 2, jobs, x, y)
+    full = lgt.Dataset.from_arrays(x, y, max_bin=63)
+    for d in ("int8", "float32"):
+        serial = lgt.train({k: v for k, v in dict(_DP_PARAMS,
+                                                  hist_dtype=d).items()
+                            if k not in ("tree_learner", "num_machines")},
+                           full, device="cuda")
+        for s in ("psum", "reduce_scatter"):
+            recs = [r["%s_%s" % (d, s)] for r in ranks]
+            assert recs[0]["model"] == recs[1]["model"]
+            assert all((r["backend"], r["world"]) == ("gloo", 2)
+                       for r in recs)
+            if d == "int8":
+                assert recs[0]["model"] == serial.model_to_string()
+                continue
+            got = lgt.GBDT()
+            got.models_from_string(recs[0]["model"])
+            for ta, tb in zip(got.models, serial.models):
+                np.testing.assert_array_equal(ta.split_feature_real,
+                                              tb.split_feature_real)
+                np.testing.assert_array_equal(ta.threshold, tb.threshold)
+                np.testing.assert_allclose(ta.leaf_value, tb.leaf_value,
+                                           rtol=1e-5, atol=5e-6)

@@ -47,6 +47,14 @@ def test_no_jax_or_reference_imports():
     assert not offenders, offenders
 
 
+def test_parallel_modules_are_guarded():
+    """The parallel learners' modules are among the sources scanned above
+    and imported with JAX blocked below."""
+    mods = set(_port_modules())
+    assert {"lightgbm_tpu_torch.parallel", "lightgbm_tpu_torch.parallel.mesh",
+            "lightgbm_tpu_torch.parallel.learners"} <= mods
+
+
 def _port_modules():
     for path in _port_sources():
         rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
@@ -100,17 +108,19 @@ def test_default_device_needs_cuda():
 
 @pytest.mark.parametrize("key,value", [
     ("objective", "huber"), ("grow_policy", "levelwise"),
-    ("leafwise_compact", "maybe"), ("tree_learner", "data"),
-    ("num_machines", "4"), ("boosting_type", "dart"),
+    ("leafwise_compact", "maybe"), ("tree_learner", "hybrid"),
+    ("num_machines", "0"), ("boosting_type", "dart"),
     ("predict_leaf_index", "maybe"), ("is_save_binary_file", "maybe"),
     ("max_bin", "0"), ("quant_rounding", "dither"),
     ("mixed_bin", "sometimes"), ("streaming", "sometimes"),
     ("checkpoint_interval", "-1"), ("timeline", "true"),
     ("metric", "auc,map"), ("pipeline", "readback"),
-    ("is_pre_partition", "true"), ("save_binary_format", "parquet"),
+    ("is_pre_partition", "maybe"), ("save_binary_format", "parquet"),
     ("ingest_workers", "0"), ("ingest_chunk_rows", "0"),
     ("use_two_round_loading", "often"), ("checkpoint_keep", "0"),
-    ("elastic_shrink", "true"),
+    ("elastic_shrink", "true"), ("tree_learner", "voting"),
+    ("feature_shards", "2"), ("top_k", "5"), ("straggler_k", "2"),
+    ("dp_schedule", "ring"), ("time_out", "0"),
 ])
 def test_out_of_slice_config_is_fatal(key, value):
     cfg = lgt.OverallConfig()

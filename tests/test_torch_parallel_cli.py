@@ -1,0 +1,230 @@
+"""The parallel learners through the command line, and what they refuse.
+
+- ``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+  lightgbm_tpu_torch ... tree_learner=data num_machines=2`` (gloo on the
+  CPU, killed past WORLD_TIMEOUT): rank 0's ``output_model`` and rank
+  1's ``output_model.rank1`` are byte-equal, and equal to the serial
+  CLI's model file in int8;
+- its metric lines (training metrics over the world's rows, validation
+  metrics on every rank) equal the serial CLI's, rtol 1e-6;
+- every key and route still refused (ROADMAP A9b) is a named ``Fatal``:
+  the hybrid and voting learners and their keys, the elastic keys,
+  ``serve_shards > 1``, ``timeline=true``, GOSS and checkpoints under a
+  world of more than one rank (GOSS through a CLI world, every rank
+  exiting 1), the non-resident load routes under a shard draw.
+"""
+import glob
+import os
+import re
+import signal
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch import cli
+from lightgbm_tpu_torch.utils import log
+from test_torch_parallel import BASE, REPO, WORLD_TIMEOUT, write_table
+
+ARGS = ["task=train", "objective=binary", "num_leaves=15",
+        "min_data_in_leaf=20", "min_sum_hessian_in_leaf=1.0",
+        "learning_rate=0.2", "num_trees=3", "max_bin=32", "hist_dtype=int8",
+        "metric=auc,binary_logloss", "is_training_metric=true",
+        "device=cpu"]
+METRIC_LINE = re.compile(r"Iteration:(\d+), (.+?) : (.*)$")
+
+
+def torchrun(tmp_path, args, nproc=2):
+    """The CLI under ``torch.distributed.run`` in ``tmp_path``: (exit
+    code, launcher output, [rank stdout]); the launcher's process group is
+    killed past WORLD_TIMEOUT."""
+    logs = tmp_path / "logs"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), "--log-dir", str(logs),
+           "--redirects", "3", "-m", "lightgbm_tpu_torch"] + args
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen(cmd, cwd=str(tmp_path), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=WORLD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        pytest.fail("torch.distributed.run ran past %d s and was killed"
+                    % WORLD_TIMEOUT)
+    ranks = sorted(glob.glob(str(logs / "**" / "stdout.log"),
+                             recursive=True),
+                   key=lambda p: int(os.path.basename(os.path.dirname(p))))
+    return proc.returncode, out, [open(p).read() for p in ranks]
+
+
+def metric_lines(text):
+    """{(iteration, metric): values} of a run's log."""
+    out = {}
+    for line in text.splitlines():
+        m = METRIC_LINE.search(line)
+        if m:
+            out[int(m.group(1)), m.group(2)] = [float(v) for v in
+                                                m.group(3).split()]
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli")
+    write_table(d / "train.tsv")
+    write_table(d / "valid.tsv", n=1000, seed=8)
+    args = ARGS + ["data=train.tsv", "valid_data=valid.tsv"]
+    rc, out, ranks = torchrun(d, args + ["tree_learner=data",
+                                         "num_machines=2",
+                                         "output_model=dp.txt"])
+    assert rc == 0, out[-4000:]
+    serial_log = d / "serial.log"
+    old, cwd = sys.stdout, os.getcwd()
+    with open(serial_log, "w") as f:
+        sys.stdout = f
+        os.chdir(d)
+        try:
+            serial_rc = cli.main(args + ["output_model=serial.txt"])
+        finally:
+            sys.stdout = old
+            os.chdir(cwd)
+    assert serial_rc == 0
+    return d, ranks, serial_log.read_text()
+
+
+def test_cli_rank_model_files_byte_equal(runs):
+    d, ranks, _ = runs
+    assert len(ranks) == 2
+    rank0 = (d / "dp.txt").read_text()
+    assert rank0 == (d / "dp.txt.rank1").read_text()
+    assert rank0 == (d / "serial.txt").read_text()
+
+
+def test_cli_metric_lines_equal_serial(runs):
+    _, ranks, serial = runs
+    want = metric_lines(serial)
+    assert len(want) == 3 * 2 * 2      # iterations x sets x metrics
+    for text in ranks:
+        got = metric_lines(text)
+        assert got.keys() == want.keys()
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-6,
+                                       err_msg=str(key))
+
+
+def test_cli_goss_refused_on_every_rank(tmp_path):
+    write_table(tmp_path / "train.tsv", n=500)
+    rc, out, ranks = torchrun(tmp_path, ARGS + [
+        "data=train.tsv", "tree_learner=data", "num_machines=2",
+        "goss=true"])
+    assert rc != 0
+    assert len(ranks) == 2
+    for text in ranks:
+        assert "goss=true in multi-process training requires" in text
+        assert "ROADMAP A9b" in text
+
+
+@pytest.mark.parametrize("key,value,match", [
+    ("tree_learner", "hybrid", "tree_learner=hybrid.*A9b"),
+    ("tree_learner", "voting", "tree_learner=voting.*A9b"),
+    ("tree_learner", "voting_parallel", "voting_parallel.*A9b"),
+    ("feature_shards", "2", "feature_shards.*A9b"),
+    ("top_k", "5", "top_k.*A9b"),
+    ("topk", "5", "top_k.*A9b"),
+    ("elastic_shrink", "true", "elastic_shrink.*A9b"),
+    ("straggler_k", "2", "straggler_k.*A9b"),
+    ("timeline", "true", "timeline=true.*A9b"),
+    ("serve_shards", "2", "serve_shards=2"),
+    ("tree_learner", "ring", "Tree learner type error"),
+    ("dp_schedule", "ring", "dp_schedule must be"),
+    ("local_listen_port", "0", "local_listen_port should be > 0"),
+    ("time_out", "0", "time_out should be > 0"),
+])
+def test_refused_keys(key, value, match):
+    cfg = lgt.OverallConfig()
+    with pytest.raises(log.Fatal, match=match):
+        cfg.set({"objective": "binary", "num_machines": "2", key: value},
+                require_data=False)
+
+
+def test_parity_keys_accepted_without_effect():
+    cfg = lgt.OverallConfig()
+    cfg.set({"objective": "binary", "tree_learner": "data_parallel",
+             "num_machines": "2", "mlist": "machines.txt",
+             "local_port": "12401", "time_out": "30",
+             "dp_schedule": "psum", "is_pre_partition": "true"},
+            require_data=False)
+    nc = cfg.network_config
+    assert (nc.num_machines, nc.machine_list_filename, nc.local_listen_port,
+            nc.time_out) == (2, "machines.txt", 12401, 30)
+    assert cfg.boosting_config.tree_learner == "data"
+    assert cfg.is_parallel and cfg.is_parallel_find_bin
+    assert cfg.io_config.is_pre_partition
+    assert cfg.boosting_config.tree_config.dp_schedule == "psum"
+
+
+def _cache(path):
+    lgt.Dataset.load_train(_io(path, is_save_binary_file="true"))
+
+
+def _io(path, **extra):
+    cfg = lgt.OverallConfig()
+    cfg.set(dict(BASE, data=str(path), **extra))
+    return cfg.io_config
+
+
+@pytest.mark.parametrize("route", ["streaming", "two_round", "save_binary",
+                                   "sibling_cache", "cache_as_data",
+                                   "pre_partition_streaming"])
+def test_sharded_load_routes_refused(tmp_path, route):
+    path = tmp_path / "train.tsv"
+    write_table(path, n=300)
+    extra = {}
+    if route == "streaming":
+        extra = {"streaming": "true", "ingest_workers": "2"}
+    elif route == "pre_partition_streaming":
+        # each rank's own file: still the resident load alone (the
+        # world's mappers come through the resident route)
+        extra = {"streaming": "true", "is_pre_partition": "true"}
+    elif route == "two_round":
+        extra = {"use_two_round_loading": "true"}
+    elif route == "save_binary":
+        extra = {"is_save_binary_file": "true"}
+    else:
+        _cache(path)
+        if route == "cache_as_data":
+            path = tmp_path / "train.tsv.bin"
+    with pytest.raises(log.Fatal, match="num_machines > 1.*A9b"):
+        lgt.Dataset.load_train(_io(path, **extra), rank=0, num_machines=2)
+
+
+class _World2:
+    """A learner in a world of two ranks, refused before any collective."""
+    world = 2
+    shards_rows = True
+
+    def bind(self, device):
+        return device
+
+
+@pytest.mark.parametrize("extra,match", [
+    ({"goss": "true"}, "goss=true in multi-process"),
+    ({"checkpoint_interval": "1", "checkpoint_dir": "ck"},
+     "checkpoint_interval > 0 under a world of 2"),
+])
+def test_world_refusals_at_init(tmp_path, extra, match):
+    path = tmp_path / "train.tsv"
+    write_table(path, n=300)
+    cfg = lgt.OverallConfig()
+    cfg.set(dict(BASE, data=str(path), **extra))
+    from lightgbm_tpu_torch.objectives import create_objective
+    with pytest.raises(log.Fatal, match=match):
+        lgt.GBDT().init(cfg.boosting_config,
+                        lgt.Dataset.load_train(cfg.io_config),
+                        create_objective("binary", cfg.objective_config),
+                        device="cpu", learner=_World2())
