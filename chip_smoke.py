@@ -106,7 +106,19 @@ feature-parallel learner (byte-equal to serial), and the CLI under
 ``torch.distributed.run`` (rank files byte-equal); every rank launches
 the kernels on its own rows (see ``parallel_phase``;
 ``chip_smoke.py --phase15`` runs the build, phase 4's main path and
-phase 15 alone).  Phase 9 also times int8 with stochastic
+phase 15 alone).  Phase 16 runs the hybrid and voting learners in one
+world of four ranks sharing the card over gloo, a 2-D grid of ranks
+(rank r at data index r // fs, feature index r % fs): hybrid 2 x 2
+compacted float32 (alike to serial, AUC within 1e-4) and int8
+(byte-equal), hybrid ``mixed_bin=true`` int8 on a table of narrow and
+wide columns in each block, masked and compacted (the block-local plan,
+byte-equal to the serial uniform text), voting 4 x 1 depth-wise int8
+(``top_k=20``, exact: byte-equal), voting 2 x 2 compacted float32
+(``top_k=4``, PV-tree: AUC within 0.01), and the CLI under
+``torch.distributed.run`` with ``tree_learner=hybrid`` (four rank files
+byte-equal); every rank's kernel launches and wire bytes per site are
+checked (see ``hybrid_voting_phase``; ``chip_smoke.py --phase16`` runs
+the build and phase 16 alone).  Phase 9 also times int8 with stochastic
 rounding (the hash and quantization, then the launch) beside its plain
 version and ``scatter_add_`` of the same levels.  Every phase must
 pass; the last line of standard output is ``{"ok": true, "device":
@@ -416,7 +428,7 @@ def main() -> int:
             if "registers" in line or "bytes stack" in line:
                 say("  ptxas %s: %s" % (name, line.strip()))
     kernels = run(torch.device("cuda"), FULL)
-    say("chip_smoke: phases 1-15 in %.1f s" % (time.perf_counter() - t0))
+    say("chip_smoke: phases 1-16 in %.1f s" % (time.perf_counter() - t0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -430,7 +442,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-15 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-16 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -990,6 +1002,11 @@ def run(dev, sizes, timer=None):
     # ---- phase 15: the parallel learners, worker processes on the card
     for path, counts in parallel_phase(dev, sizes, x, y, served,
                                        sync).items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    # ---- phase 16: the hybrid and voting learners, a grid of 4 ranks
+    for path, counts in hybrid_voting_phase(dev, sizes, x, y,
+                                            sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
     return list(kernels.values())
@@ -3473,39 +3490,48 @@ def observability_phase(dev, sizes, x, y, train_set, served, sync):
 
 PARALLEL_WORKER = "--parallel-worker"
 PARALLEL_TIMEOUT_S = 240     # a world's limit: killed, and the phase fails
+PHASE16_TIMEOUT_S = 420      # phase 16's one world of 4 ranks and 6 jobs
 
 
 def parallel_worker(spec_path: str) -> int:
-    """One rank of a phase-15 world (``chip_smoke.py --parallel-worker
-    spec.json``, under torch's environment): join the world, train each
-    job of the spec through ``lightgbm_tpu_torch.train`` on this rank's
-    rows (its shard of the table under ``tree_learner=data``, every row
-    under ``feature``) with every kernel count set to 0 just before and
-    read just after, and write the model text and what was measured.
-    Telemetry is armed (no sink) for the collective sites and the route
-    counters."""
+    """One rank of a phase-15 or phase-16 world (``chip_smoke.py
+    --parallel-worker spec.json``, under torch's environment): join the
+    world, train each job of the spec through ``lightgbm_tpu_torch.train``
+    on this rank's rows of the job's table (``learners.row_shard``: its
+    shard under ``tree_learner=data``, its data index's under ``hybrid``
+    and ``voting``, every row under ``feature``) with every kernel count
+    set to 0 just before and read just after, and write the model text
+    and what was measured.  Telemetry is armed (no sink) for the
+    collective sites and the route counters."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import parallel, telemetry
+    from lightgbm_tpu_torch.config import OverallConfig
     from lightgbm_tpu_torch.ops import compact, hist_cuda
+    from lightgbm_tpu_torch.parallel import learners
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     spec = json.load(open(spec_path))
     dev = spec["device"]
     parallel.init_distributed()
-    rank, world = parallel.get_rank(), parallel.get_num_machines()
-    x = np.load(spec["x"]).astype(np.float64)
-    y = np.load(spec["y"])
+    rank = parallel.get_rank()
+    tables = spec["tables"]
     sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
     sets, out = {}, {}
     for job in spec["jobs"]:
-        shard = job["params"]["tree_learner"] == "data"
+        cfg = OverallConfig()
+        cfg.set({k: str(v) for k, v in job["params"].items()},
+                require_data=False)
+        table = job.get("table", "main")
+        shard = (table,) + learners.row_shard(cfg)
         if shard not in sets:
             t0 = time.perf_counter()
+            x = np.load(tables[table][0]).astype(np.float64)
             sets[shard] = lgt.Dataset.from_arrays(
-                x, y, max_bin=255, rank=rank if shard else 0,
-                num_machines=world if shard else 1)
-            say("rank %d: %s dataset %d rows in %.1f s" % (
-                rank, "shard" if shard else "whole", sets[shard].num_data,
+                x, np.load(tables[table][1]), max_bin=255, rank=shard[1],
+                num_machines=shard[2])
+            del x
+            say("rank %d: %s table, shard %d of %d: %d rows in %.1f s" % (
+                rank, table, shard[1], shard[2], sets[shard].num_data,
                 time.perf_counter() - t0))
         iter_s, clock = [], [0.0]
 
@@ -3535,13 +3561,16 @@ def parallel_worker(spec_path: str) -> int:
                                                             rank))
         with open(path, "w") as f:
             f.write(text)
+        grid = getattr(booster._learner, "grid", None)
         out[job["name"]] = {
             "iter_s": iter_s, "counts": counts, "routes": routes,
             "sites": {k: {"calls": v["calls"], "bytes": v["bytes"],
-                          "seconds": v["seconds"]}
+                          "bytes_per_call": v["bytes_per_call"],
+                          "seconds": v["seconds"], "axis": v["axis"]}
                       for k, v in ic["sites"].items()},
             "backend": booster._learner.comm.backend,
             "world": booster._learner.world, "rows": sets[shard].num_data,
+            "grid": None if grid is None else list(grid[:4]),
             "leaves": [t.num_leaves for t in booster.models]}
     with open(os.path.join(spec["dir"], "out.%d.json" % rank), "w") as f:
         json.dump(out, f)
@@ -3549,34 +3578,40 @@ def parallel_worker(spec_path: str) -> int:
     return 0
 
 
-def run_world(tmp, name, nprocs, jobs, dev, data):
-    """A phase-15 world of ``nprocs`` worker processes on ``dev``, each
-    running ``jobs``; fails the phase if a rank fails or the world runs
-    past PARALLEL_TIMEOUT_S.  Returns [rank] -> {job: record}."""
+def run_world(tmp, name, nprocs, jobs, dev, data, phase=15,
+              timeout=PARALLEL_TIMEOUT_S, threads=None):
+    """A phase-15 (or 16) world of ``nprocs`` worker processes on ``dev``,
+    each running ``jobs``; ``data``: the (x, y) .npy paths, or a dict of
+    them by table name; ``threads``: each rank's intra-op threads
+    (``OMP_NUM_THREADS``).  Fails the phase if a rank fails or the world
+    runs past ``timeout``.  Returns ([rank] -> {job: record}, its
+    directory)."""
     from lightgbm_tpu_torch.parallel.launch import LocalWorld, WorldTimeout
     wdir = os.path.join(tmp, name)
     os.makedirs(wdir)
     spec = os.path.join(wdir, "spec.json")
+    tables = data if isinstance(data, dict) else {"main": list(data)}
     with open(spec, "w") as f:
-        json.dump({"device": dev.type, "x": data[0], "y": data[1],
-                   "dir": wdir, "jobs": jobs}, f)
+        json.dump({"device": dev.type, "tables": tables, "dir": wdir,
+                   "jobs": jobs}, f)
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
     t0 = time.perf_counter()
     world = LocalWorld([sys.executable, os.path.abspath(__file__),
-                        PARALLEL_WORKER, spec], nprocs, wdir,
-                       PARALLEL_TIMEOUT_S, env)
+                        PARALLEL_WORKER, spec], nprocs, wdir, timeout, env)
     try:
         ranks = world.wait()
     except WorldTimeout as e:
-        fail("phase 15 %s: %s" % (name, e))
+        fail("phase %d %s: %s" % (phase, name, e))
     for r, (rc, out) in enumerate(ranks):
         if rc != 0:
             say(out[-6000:])
-            fail("phase 15 %s: rank %d exited %d" % (name, r, rc))
-    say("phase 15 %s: %d rank(s) in %.1f s" % (name, nprocs,
-                                                time.perf_counter() - t0))
+            fail("phase %d %s: rank %d exited %d" % (phase, name, r, rc))
+    say("phase %d %s: %d rank(s) in %.1f s" % (
+        phase, name, nprocs, time.perf_counter() - t0))
     return [json.load(open(os.path.join(wdir, "out.%d.json" % r)))
             for r in range(nprocs)], wdir
 
@@ -3895,6 +3930,354 @@ def parallel_phase(dev, sizes, x, y, served, sync):
             for k, v in by_path.items()}
 
 
+def site_line(site, v):
+    return "  site %s (%s): %d calls, %d bytes (%d a call, %d at most), " \
+        "%.4f s" % (site, v["axis"], v["calls"], v["bytes"],
+                    v["bytes"] // max(v["calls"], 1), v["bytes_per_call"],
+                    v["seconds"])
+
+
+def hybrid_voting_phase(dev, sizes, x, y, sync):
+    """Phase 16: the hybrid and voting learners in one world of 4 worker
+    processes sharing the card over gloo (a 2-D grid of ranks: rank r at
+    data index r // fs, feature index r % fs), each rank through
+    ``lightgbm_tpu_torch.train`` on its data index's rows of phase 4's
+    table (or ``make_mixed``'s), launching both kernels on its own rows:
+
+    (a) hybrid 2 x 2, compacted float32, 255 leaves, 3 iterations: the
+        structure of a serial run's trees, leaf values within rtol 1e-5,
+        held-out AUC within 1e-4;
+    (b) hybrid 2 x 2, compacted int8, 3 iterations: the serial int8 text;
+    (c) hybrid 2 x 2, ``mixed_bin=true`` int8 on a mixed table (narrow
+        and wide columns in each block), masked and compacted, 3
+        iterations: the rank log names the block-local plan, and the text
+        is the serial int8 text under the uniform and the packed layout;
+    (d) voting 4 x 1, ``top_k=20`` (2·top_k >= 28: exact), depth-wise
+        int8, 5 iterations: the serial text;
+    (e) voting 2 x 2, ``top_k=4`` (V = 8 < Fb = 14: PV-tree), compacted
+        float32, 255 leaves, 3 iterations: held-out AUC within 0.01 of
+        serial's, recorded beside it;
+    (f) the CLI under ``torch.distributed.run``, 4 ranks,
+        ``tree_learner=hybrid`` on n_cli rows: the four rank files
+        byte-equal.
+
+    Every rank's text equals every other rank's; each rank launches the
+    histogram kernel as its serial twin does (one a leaf, twice under
+    the masked packed block's two classes, four times under the
+    compacted packed pane's four segments; 1 + one a level pass
+    depth-wise) and the partition kernel one a split (compacted), and
+    files the predicted wire bytes per site.  Prints each rank's seconds
+    per iteration beside a serial run's, collective seconds per
+    iteration, wire bytes per site.  Returns rank 0's kernel launches
+    per path."""
+    import shutil
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import telemetry
+    card = card_name()
+    t_phase = time.perf_counter()
+    n_train = sizes["n_train"]
+    x_test, y_test = x[n_train:], y[n_train:]
+    nl = sizes.get("parallel_leaves", 255)
+    f32 = {"objective": "binary", "num_leaves": nl, "num_iterations": 3,
+           "learning_rate": 0.1, "hist_dtype": "float32", "max_bin": 255}
+    int8 = dict(f32, hist_dtype="int8")
+    masked = dict(int8, leafwise_compact="false")
+    depthwise = dict(int8, grow_policy="depthwise", num_iterations=5)
+    hybrid = {"tree_learner": "hybrid", "num_machines": 4,
+              "feature_shards": 2}
+    jobs = [
+        ("a", "hybrid_compacted_float32", "main", dict(f32, **hybrid)),
+        ("b", "hybrid_compacted_int8", "main", dict(int8, **hybrid)),
+        ("c", "hybrid_masked_int8_mixed", "mixed",
+         dict(masked, mixed_bin="true", **hybrid)),
+        ("c", "hybrid_compacted_int8_mixed", "mixed",
+         dict(int8, mixed_bin="true", **hybrid)),
+        ("d", "voting_depthwise_int8", "main",
+         dict(depthwise, tree_learner="voting", num_machines=4, top_k=20)),
+        ("e", "voting_compacted_float32", "main",
+         dict(f32, tree_learner="voting", num_machines=4,
+              feature_shards=2, top_k=4))]
+    rec, by_path = {"card": card}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hybrid_")
+    try:
+        xm, ym = make_mixed(n_train, 28, SEED + 1, 24)
+        data = {}
+        for name, (a, b) in (("main", (x[:n_train], y[:n_train])),
+                             ("mixed", (xm, ym))):
+            data[name] = [os.path.join(tmp, name + "_x.npy"),
+                          os.path.join(tmp, name + "_y.npy")]
+            np.save(data[name][0], a.astype(np.float32))
+            np.save(data[name][1], b)
+        sets = {"main": lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
+                                                max_bin=255),
+                "mixed": lgt.Dataset.from_arrays(xm, ym, max_bin=255)}
+        B = int(sets["main"].num_bins.max())
+
+        # the serial twins, on the card, armed as the workers are
+        serial, serial_s, serial_counts = {}, {}, {}
+        for name, table, params in (
+                ("float32", "main", f32), ("int8", "main", int8),
+                ("masked_mixed", "mixed", masked),
+                ("masked_mixed_packed", "mixed",
+                 dict(masked, mixed_bin="true")),
+                ("compacted_mixed", "mixed", dict(int8, mixed_bin="false")),
+                ("depthwise", "main", depthwise)):
+            telemetry.enable()
+            booster, iter_s, counts = drive(params, sets[table], dev, sync)
+            if dev.type == "cpu":
+                # a rehearsal: the plain routes stand for the launches
+                counts["hist"] = sum(
+                    v for k, v in telemetry.counters().items()
+                    if k.startswith("hist/plain_"))
+            telemetry.disable()
+            telemetry.reset()
+            serial[name] = booster.model_to_string()
+            serial_s[name] = iter_s
+            serial_counts[name] = counts
+        if serial["masked_mixed"] != serial["masked_mixed_packed"]:
+            fail("phase 16: serial masked int8 packed differs from uniform")
+        twin = {"hybrid_compacted_float32": "float32",
+                "hybrid_compacted_int8": "int8",
+                "hybrid_masked_int8_mixed": "masked_mixed",
+                "hybrid_compacted_int8_mixed": "compacted_mixed",
+                "voting_depthwise_int8": "depthwise",
+                "voting_compacted_float32": "float32"}
+
+        ranks, wdir = run_world(tmp, "grid", 4, [
+            {"name": n, "table": t, "params": p} for _, n, t, p in jobs],
+            dev, data, phase=16, timeout=PHASE16_TIMEOUT_S, threads=2)
+        logs = [open(os.path.join(wdir, "rank%d.log" % r)).read()
+                for r in range(4)]
+        if not all("mixed-bin packing (block-local, block=14)" in t
+                   for t in logs):
+            fail("phase 16c: a rank's log does not name the block-local "
+                 "plan")
+        auc_serial = held_out_auc(serial["float32"], x_test, y_test, dev)
+        pred = {"hybrid_compacted_float32": {
+                    "hybrid/leafcompact/own_block_allreduce": 14 * B * 12,
+                    "hybrid/leafcompact/root_hist": 28 * B * 12,
+                    "hybrid/leafcompact/splitinfo_allreduce": 88},
+                "hybrid_compacted_int8": {
+                    "hybrid/leafcompact/own_block_int_allreduce":
+                        14 * B * 12,
+                    "hist/quant_scale_pmax": 8},
+                "voting_compacted_float32": {
+                    "voting/leafcompact/votes_allgather": 2 * 4 * 4,
+                    "voting/leafcompact/root_votes_allgather": 4 * 4,
+                    "voting/leafcompact/voted_hist_allreduce":
+                        2 * 8 * B * 12,
+                    "voting/leafcompact/root_voted_hist_allreduce":
+                        8 * B * 12},
+                "voting_depthwise_int8": {
+                    "voting/depthwise/splitinfo_allreduce": None}}
+        for letter, name, table, params in jobs:
+            recs = [r[name] for r in ranks]
+            texts = rank_texts(wdir, name, 4)
+            what = "phase 16%s %s" % (letter, name)
+            if len(set(texts)) != 1:
+                fail("%s: the ranks' model texts differ" % what)
+            grids = [tuple(r["grid"]) for r in recs]
+            fs = params.get("feature_shards", 1)
+            want_grid = [(4 // fs, fs, r // fs, r % fs) for r in range(4)]
+            if grids != want_grid or any(r["backend"] != "gloo"
+                                         for r in recs):
+                fail("%s: grids %s, backends %s" % (
+                    what, grids, [r["backend"] for r in recs]))
+            check_ranks(what, recs, dev)
+            leaves = recs[0]["leaves"]
+            splits = sum(leaves) - len(leaves)
+            base = serial_counts[twin[name]]
+            compacted = "compacted" in name
+            for r, one in enumerate(recs):
+                c = one["counts"]
+                if name.startswith("voting_compacted"):
+                    want_hist = sum(leaves)    # its own trees
+                elif "mixed" in name:
+                    # packed: 2 classes of the owned block (masked), 2
+                    # segments of each of 2 blocks (the compacted pane)
+                    want_hist = sum(leaves) * (4 if compacted else 2)
+                else:
+                    want_hist = base["hist"]
+                if c["hist"] != want_hist or c["partition"] != (
+                        splits if compacted else 0):
+                    fail("%s rank %d: %d histogram launches, %d partitions;"
+                         " expected %d and %d" % (
+                             what, r, c["hist"], c["partition"], want_hist,
+                             splits if compacted else 0))
+            want = serial[twin[name]]
+            if name == "hybrid_compacted_float32":
+                got, ser = lgt.GBDT(), lgt.GBDT()
+                got.models_from_string(texts[0])
+                ser.models_from_string(want)
+                # each data shard's f32 histogram rounds once before the
+                # cross-shard add, so a leaf whose gradient sum cancels
+                # can part from serial's by more than rtol 1e-5 alone:
+                # the first tree is held to rtol 1e-5 (phase 15b's gate),
+                # every tree to rtol 1e-5 / atol 5e-6 (the CPU tests'
+                # budget, tests/test_torch_parallel.py)
+                rels, abss = [], []
+                for k, (ta, tb) in enumerate(zip(got.models, ser.models)):
+                    for field in ("split_feature_real", "threshold",
+                                  "left_child", "right_child",
+                                  "leaf_parent"):
+                        if not np.array_equal(getattr(ta, field),
+                                              getattr(tb, field)):
+                            fail("%s: tree %d's %s differs from serial's"
+                                 % (what, k, field))
+                    diff = np.abs(ta.leaf_value - tb.leaf_value)
+                    rels.append(float(np.max(diff / np.maximum(
+                        np.abs(tb.leaf_value), 1e-30))))
+                    abss.append(float(np.max(diff)))
+                    if not np.allclose(ta.leaf_value, tb.leaf_value,
+                                       rtol=1e-5, atol=5e-6):
+                        fail("%s: tree %d's leaf values beyond rtol 1e-5 / "
+                             "atol 5e-6 (largest relative %g, absolute %g)"
+                             % (what, k, rels[-1], abss[-1]))
+                say("%s: leaf values against serial's, largest relative "
+                    "difference per tree %s, absolute %s" % (what, rels,
+                                                             abss))
+                rel = rels[0]
+                if rel > 1e-5:
+                    fail("%s: the first tree's leaf values rtol %g" % (what,
+                                                                       rel))
+                auc = held_out_auc(texts[0], x_test, y_test, dev)
+                if abs(auc - auc_serial) > 1e-4:
+                    fail("%s: held-out AUC %.6f against serial's %.6f"
+                         % (what, auc, auc_serial))
+                verdict = ("structure of serial's trees, first tree's leaf "
+                           "rtol %.3g, AUC %.6f vs %.6f" % (rel, auc,
+                                                           auc_serial))
+                rec[name + "_leaf_rtol"], rec[name + "_auc"] = rel, auc
+            elif name == "voting_compacted_float32":
+                auc = held_out_auc(texts[0], x_test, y_test, dev)
+                if abs(auc - auc_serial) > 0.01:
+                    fail("%s: held-out AUC %.6f against serial's %.6f"
+                         % (what, auc, auc_serial))
+                part = first_parting_split(texts[0], want)
+                verdict = ("AUC %.6f vs serial %.6f; %s" % (
+                    auc, auc_serial, "every split serial's" if part is None
+                    else "first split parting from serial's: tree %d node "
+                    "%d, gains %.6f vs %.6f" % part))
+                rec[name + "_auc"] = auc
+                rec[name + "_serial_auc"] = auc_serial
+            else:
+                if texts[0] != want:
+                    fail("%s: model text differs from the serial int8 "
+                         "run's" % what)
+                verdict = "byte-equal to serial int8"
+            for site, per_call in pred.get(name, {}).items():
+                for r, one in enumerate(recs):
+                    got = one["sites"].get(site)
+                    if got is None or (per_call is not None
+                                       and got["bytes_per_call"]
+                                       != per_call):
+                        fail("%s rank %d: site %s filed %s, predicted %s "
+                             "bytes a call" % (what, r, site, got,
+                                               per_call))
+            by_path["parallel_" + name] = recs[0]["counts"]
+            per_rank = []
+            for r, one in enumerate(recs):
+                coll_s = sum(v["seconds"] for v in one["sites"].values())
+                iters = max(len(one["iter_s"]), 1)
+                per_rank.append({
+                    "rank": r, "grid": one["grid"], "rows": one["rows"],
+                    "s_per_iter": one["iter_s"],
+                    "collective_ms_per_iter": 1e3 * coll_s / iters,
+                    "hist": one["counts"]["hist"],
+                    "partition": one["counts"]["partition"],
+                    "partition_kernels": one["counts"]["partition_kernels"]})
+            base_s = serial_s[twin[name]]
+            rec[name] = {"ranks": per_rank, "serial_s_per_iter": base_s,
+                         "rank0_sites": recs[0]["sites"]}
+            say("phase 16%s %s (gloo, grid %dx%d): %s; median s/iteration "
+                "per rank %s, serial %.4f; collective ms/iteration %s; "
+                "launches per rank hist %s, partition %s" % (
+                    letter, name, 4 // fs, fs, verdict,
+                    ["%.4f" % float(np.median(p["s_per_iter"]))
+                     for p in per_rank], float(np.median(base_s)),
+                    ["%.1f" % p["collective_ms_per_iter"] for p in per_rank],
+                    [p["hist"] for p in per_rank],
+                    [p["partition"] for p in per_rank]))
+            for site, v in sorted(recs[0]["sites"].items()):
+                say(site_line(site, v))
+
+        # (f) the CLI under torch.distributed.run, 4 ranks, hybrid
+        n_cli = sizes["n_cli"]
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        np.savetxt(os.path.join(cli_dir, "train.tsv"),
+                   np.column_stack([y[:n_cli], x[:n_cli]]), delimiter="\t",
+                   fmt="%.9g")
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, OMP_NUM_THREADS="2",
+                   PYTHONPATH=os.pathsep.join(
+                       [here] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "4", "-m", "lightgbm_tpu_torch",
+               "task=train", "data=train.tsv", "objective=binary",
+               "num_leaves=%d" % nl, "num_trees=3", "hist_dtype=int8",
+               "tree_learner=hybrid", "num_machines=4",
+               "output_model=m.txt", "device=%s" % dev.type]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=cli_dir, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=PARALLEL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            fail("phase 16f: torch.distributed.run ran past %d s"
+                 % PARALLEL_TIMEOUT_S)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            say(out[-6000:])
+            fail("phase 16f: torch.distributed.run exited %d"
+                 % proc.returncode)
+        files = [open(os.path.join(cli_dir, f)).read()
+                 for f in ("m.txt", "m.txt.rank1", "m.txt.rank2",
+                           "m.txt.rank3")]
+        if len(set(files)) != 1 or files[0].count("Tree=") != 3:
+            fail("phase 16f: the ranks' model files differ or lack trees")
+        if "a 2 x 2 grid of ranks" not in out:
+            fail("phase 16f: the CLI world did not run a 2 x 2 grid")
+        rec["cli_s"] = cli_s
+        say("phase 16f CLI under torch.distributed.run, 4 ranks, "
+            "tree_learner=hybrid, %d rows: rank files byte-equal (%d "
+            "bytes), %.1f s" % (n_cli, len(files[0]), cli_s))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say("phase 16 hybrid and voting learners: %.1f s [%s]"
+        % (rec["phase_s"], card))
+    say(json.dumps({"hybrid_voting": rec}))
+    return {k: {"hist": v["hist"], "partition": v["partition"]}
+            for k, v in by_path.items()}
+
+
+def phase16_rehearsal() -> int:
+    """``chip_smoke.py --phase16``: the build and phase 16 alone (a short
+    call for the 2-D learners; the contract run is the script without
+    arguments)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lightgbm_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.build()
+    sizes = FULL
+    x, latent = make_table(sizes["n_train"] + sizes["n_test"], 28, SEED)
+    y = (latent > 0).astype(np.float32)
+    hybrid_voting_phase(torch.device("cuda"), sizes, x, y,
+                        torch.cuda.synchronize)
+    say("chip_smoke --phase16: %.1f s" % (time.perf_counter() - t0))
+    return 0
+
+
 def phase15_rehearsal() -> int:
     """``chip_smoke.py --phase15``: the build, phase 4's main path and
     phase 15 alone (a short call for the parallel phase; the contract run
@@ -3926,5 +4309,7 @@ def phase15_rehearsal() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [PARALLEL_WORKER]:
         sys.exit(parallel_worker(sys.argv[2]))
-    sys.exit(phase15_rehearsal() if sys.argv[1:] == ["--phase15"]
+    if sys.argv[1:] == ["--phase15"]:
+        sys.exit(phase15_rehearsal())
+    sys.exit(phase16_rehearsal() if sys.argv[1:] == ["--phase16"]
              else main())

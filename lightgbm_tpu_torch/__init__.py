@@ -57,11 +57,13 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
     it (lightgbm_tpu/__init__.py:48-103); ``profile_dir`` wraps the
     training loop in ``torch.profiler``.
 
-    A parallel learner (``tree_learner`` data or feature, ``num_machines
-    > 1``): every rank of the world calls ``train`` with its own
-    ``train_set`` (under data its shard, e.g. ``Dataset.load_train(io,
-    rank=..., num_machines=..., bin_finder=parallel.
-    distributed_bin_finder())``, under feature every row).  The world is
+    A parallel learner (``tree_learner`` data, feature, hybrid or voting,
+    ``num_machines > 1``): every rank of the world calls ``train`` with
+    its own ``train_set`` (under data its shard, e.g.
+    ``Dataset.load_train(io, rank=..., num_machines=..., bin_finder=
+    parallel.distributed_bin_finder())``; under hybrid and voting the
+    shard of its data index, ``rank, num_machines =
+    parallel.learners.row_shard(config)``; under feature every row).  The world is
     torch's environment's (``parallel.init_distributed``, which ``train``
     calls and which the caller may call first), or one rank without
     one; the process group stays for the caller (``parallel.shutdown``

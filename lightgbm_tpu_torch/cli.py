@@ -13,14 +13,15 @@ arm the session as lightgbm_tpu/cli.py:263-310 does
 recorder, the live monitor, the stall watchdog; ``profile_dir`` wraps
 the training loop in ``torch.profiler``; ``main`` ends the session.
 
-A parallel learner (``tree_learner=data|feature`` with ``num_machines >
-1``) runs one rank a process, launched by ``python -m
+A parallel learner (``tree_learner=data|feature|hybrid|voting`` with
+``num_machines > 1``) runs one rank a process, launched by ``python -m
 torch.distributed.run --nproc-per-node P -m lightgbm_tpu_torch
 config=...``: each rank joins the world, takes the world's smallest
 ``data_random_seed``, ``feature_fraction_seed`` and ``feature_fraction``
-(lightgbm_tpu/cli.py:324-337), loads its shard under ``data`` (with
-the distributed bin finder) or every row under ``feature``, and trains
-the same trees.  Rank 0 writes ``output_model``; rank r > 0 writes the
+(lightgbm_tpu/cli.py:324-337), loads its shard under ``data``, its data
+index's shard under ``hybrid`` and ``voting`` (each with the distributed
+bin finder; ``learners.row_shard``) or every row under ``feature``, and
+trains the same trees.  Rank 0 writes ``output_model``; rank r > 0 writes the
 same text to ``<output_model>.rank<r>``.  ``main`` leaves the world on
 success and on a ``Fatal`` alike.
 """
@@ -66,10 +67,9 @@ class Application:
         io = cfg.io_config
         start = time.perf_counter()
         learner = init_parallel(cfg)
-        rank, shards, bin_finder = 0, 1, None
-        if cfg.is_parallel_find_bin:
-            rank, shards = mesh.get_rank(), mesh.get_num_machines()
-            bin_finder = learners.distributed_bin_finder()
+        rank, shards = learners.row_shard(cfg)
+        bin_finder = (learners.distributed_bin_finder()
+                      if cfg.is_parallel_find_bin else None)
         booster = GBDT()
         predict_fun = None
         if io.input_model:

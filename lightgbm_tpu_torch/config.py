@@ -21,8 +21,9 @@ recorder (``trace_*``, ``stall_timeout``), training health
 (``health``, ``on_anomaly``, ``health_divergence_rounds``) and the live
 monitor (``monitor_*``, ``slo_*``); ``timeline`` runs only at auto
 (which resolves off) and false; and the reference's two parallel
-learners (parallel/): ``tree_learner`` serial, data or feature,
-``num_machines``, ``dp_schedule``, ``is_pre_partition``, and
+learners (parallel/): ``tree_learner`` serial, data, feature, hybrid
+or voting (``voting_parallel``), ``num_machines``, ``dp_schedule``,
+``feature_shards``, ``top_k``, ``is_pre_partition``, and
 ``machine_list_file``, ``local_listen_port`` and ``time_out``, which
 are checked as the JAX package checks them and have no effect (torch's
 environment does their work, parallel/mesh.py).  As in the JAX package,
@@ -145,13 +146,12 @@ SLICE_KEYS = frozenset((
     "on_anomaly", "health_divergence_rounds",
     # the parallel learners (parallel/); the last three have no effect
     "tree_learner", "num_machines", "dp_schedule", "is_pre_partition",
+    "feature_shards", "top_k",
     "machine_list_file", "local_listen_port", "time_out",
 ))
 
 # keys of the parallel work still to port (ROADMAP A9b), refused by name
 A9B_KEYS = {
-    "feature_shards": "the hybrid and voting learners' 2-D mesh",
-    "top_k": "the voting learner",
     "elastic_shrink": "the elastic mesh shrink",
     "straggler_k": "the elastic mesh shrink's straggler rule",
 }
@@ -602,6 +602,15 @@ class TreeConfig:
     # reduce_scatter, or auto (reduce_scatter in a world of more than one
     # rank, else psum)
     dp_schedule: str = "auto"
+    # the hybrid and voting learners' grid of ranks (parallel/mesh.
+    # factor_machines): num_machines = data shards x feature_shards; 0 is
+    # auto (hybrid the largest divisor <= sqrt(num_machines), voting 1);
+    # a nonzero value must divide the world
+    feature_shards: int = 0
+    # the voting learner's vote: each data shard proposes its top_k owned
+    # features by local split gain, and the histograms of at most
+    # 2 * top_k voted features are summed over the data shards
+    top_k: int = 20
 
     @property
     def compute_dtype(self) -> str:
@@ -673,6 +682,12 @@ class TreeConfig:
             log.check(value in ("auto", "true", "false"),
                       "mixed_bin must be auto, true or false")
             self.mixed_bin = value
+        self.feature_shards = _get_int(params, "feature_shards",
+                                       self.feature_shards)
+        log.check(self.feature_shards >= 0,
+                  "feature_shards should be >= 0")
+        self.top_k = _get_int(params, "top_k", self.top_k)
+        log.check(self.top_k >= 1, "top_k should be >= 1")
         if "quant_rounding" in params:
             value = params["quant_rounding"].lower()
             log.check(value in ("nearest", "stochastic"),
@@ -720,7 +735,7 @@ class BoostingConfig:
     health: str = "auto"
     on_anomaly: str = "warn"
     health_divergence_rounds: int = 0
-    # serial, data or feature (parallel/learners.py)
+    # serial, data, feature, hybrid or voting (parallel/learners.py)
     tree_learner: str = "serial"
     tree_config: TreeConfig = dataclasses.field(default_factory=TreeConfig)
 
@@ -772,11 +787,15 @@ class BoostingConfig:
                 self.tree_learner = "feature"
             elif value in ("data", "data_parallel"):
                 self.tree_learner = "data"
-            elif value in ("hybrid", "voting", "voting_parallel"):
-                log.fatal("Parameter tree_learner=%s is not supported by "
-                          "lightgbm_tpu_torch yet: the hybrid and voting "
-                          "learners are ROADMAP A9b (it runs serial, data "
-                          "and feature)" % value)
+            elif value == "hybrid":
+                # rows sharded over the data shards, feature blocks owned
+                # over the feature shards of one 2-D grid of ranks
+                self.tree_learner = "hybrid"
+            elif value in ("voting", "voting_parallel"):
+                # the reference names voting but Fatals on it
+                # (src/io/config.cpp:311-313); the JAX package realizes it
+                # as top-k voting over the data shards (PV-tree)
+                self.tree_learner = "voting"
             else:
                 log.fatal("Tree learner type error")
         self.tree_config.set(params)
@@ -954,7 +973,22 @@ class OverallConfig:
         self.is_parallel = bc.tree_learner != "serial"
         if not self.is_parallel:
             self.network_config.num_machines = 1
-        self.is_parallel_find_bin = bc.tree_learner == "data"
+        # hybrid and voting shard rows over their data shards as data
+        # does (lightgbm_tpu/config.py:1005-1016)
+        self.is_parallel_find_bin = bc.tree_learner in ("data", "hybrid",
+                                                        "voting")
+        if bc.tree_learner in ("hybrid", "voting"):
+            # a feature_shards that does not divide the world is refused
+            # by the learner (parallel/mesh.factor_machines); refuse it
+            # against num_machines here already
+            from .parallel.mesh import factor_machines
+            factor_machines(self.network_config.num_machines,
+                            bc.tree_config.feature_shards,
+                            voting=bc.tree_learner == "voting")
+            if bc.goss:
+                log.fatal("goss=true under tree_learner=%s is not ported "
+                          "to lightgbm_tpu_torch yet: GOSS over a world of "
+                          "ranks is ROADMAP A9b" % bc.tree_learner)
         if (self.is_parallel_find_bin
                 and bc.tree_config.histogram_pool_size >= 0):
             log.warning("Histogram LRU queue was enabled "

@@ -227,6 +227,100 @@ class PackSpec(NamedTuple):
         return tuple(inv)
 
 
+class BlockedPackSpec(NamedTuple):
+    """The block-local mixed-bin layout of a contiguous feature-block
+    ownership (the hybrid and voting learners; lightgbm_tpu/io/
+    binning.py:246-330): the bin-width-class permutation is planned per
+    ownership block of width ``block`` and never crosses a block's edge,
+    so the storage rows of block b are the canonical features
+    ``[b * block, (b + 1) * block)`` in another inner order.  Every block
+    has the same class counts: its first ``counts[0]`` narrow features
+    (canonical order) in the narrow segment, everything else, surplus
+    narrow features included, in the wide one.
+
+    widths : ``(narrow_bins, num_bins_max)``
+    counts : per-block features per class ``(c_n, block - c_n)``
+    block  : the ownership block width ``ceil(F / feature_shards)``
+    perm   : storage position -> canonical feature (global, len F)
+    """
+    widths: tuple
+    counts: tuple
+    block: int
+    perm: tuple
+
+    @property
+    def c2p(self) -> tuple:
+        """Canonical feature -> storage position (global)."""
+        inv = [0] * len(self.perm)
+        for p, f in enumerate(self.perm):
+            inv[f] = p
+        return tuple(inv)
+
+    @property
+    def ranges(self):
+        """Global ``(start, count, width)`` segments in storage order: each
+        block's narrow segment, then its wide one (2 per block), for the
+        passes over every feature (the compacted grower's pane)."""
+        F = len(self.perm)
+        c_n = self.counts[0]
+        out = []
+        for start in range(0, F, self.block):
+            width = min(self.block, F - start)
+            if c_n:
+                out.append((start, c_n, self.widths[0]))
+            if width > c_n:
+                out.append((start + c_n, width - c_n, self.widths[1]))
+        return tuple(out)
+
+    @property
+    def block_view(self) -> PackSpec:
+        """The layout of one owned block's ``[block, N]`` bin rows, as the
+        masked and depth-wise hybrid and voting growers histogram them:
+        two classes in the block's storage order (identity perm); the
+        learner's ``hist_feat_gather`` puts the block back in canonical
+        order."""
+        return PackSpec(widths=self.widths,
+                        counts=(self.counts[0], self.block - self.counts[0]),
+                        perm=tuple(range(self.block)))
+
+
+def plan_feature_packing_blocked(num_bins, num_bins_max: int, block: int,
+                                 mode: str = "auto",
+                                 narrow_bins: int = NARROW_BINS,
+                                 shards: int = 0
+                                 ) -> Optional[BlockedPackSpec]:
+    """The block-local layout for ownership blocks of width ``block`` over
+    ``shards`` feature shards (lightgbm_tpu/io/binning.py:333-370), or
+    None (the uniform layout): where ``plan_feature_packing`` would give
+    None, where a shard would own only padding (``block * (shards - 1)
+    >= F``), or where some block has no narrow feature (the narrow count
+    is the minimum over the blocks)."""
+    if mode == "false":
+        return None
+    nb = np.asarray(num_bins)
+    F = nb.size
+    if F == 0 or num_bins_max <= narrow_bins or block <= 0:
+        return None
+    if shards > 1 and block * (shards - 1) >= F:
+        return None
+    narrow = nb <= narrow_bins
+    if not narrow.any() or narrow.all():
+        return None
+    starts = range(0, F, block)
+    c_n = min(int(narrow[s:s + block].sum()) for s in starts)
+    if c_n == 0:
+        return None
+    perm = []
+    for s in starts:
+        local = np.arange(s, min(s + block, F))
+        first_n = local[narrow[local]][:c_n]
+        rest = local[~np.isin(local, first_n)]
+        perm.extend(int(i) for i in np.concatenate([first_n, rest]))
+    return BlockedPackSpec(widths=(int(narrow_bins), int(num_bins_max)),
+                           counts=(int(c_n), int(block - c_n)),
+                           block=int(block), perm=tuple(perm))
+
+
 def plan_feature_packing(num_bins, num_bins_max: int, mode: str = "auto",
                          narrow_bins: int = NARROW_BINS
                          ) -> Optional[PackSpec]:

@@ -59,7 +59,8 @@ from ..device import resolve_device
 from ..ops.bins import to_tensor as bins_to_tensor
 from ..utils import log
 from . import parser as parser_mod
-from .binning import BinMapper, bin_features, plan_feature_packing
+from .binning import (BinMapper, bin_features, plan_feature_packing,
+                      plan_feature_packing_blocked)
 from .metadata import Metadata
 
 SAMPLE_CNT = 50000  # dataset.cpp:219 — max rows sampled for bin finding
@@ -565,13 +566,21 @@ class Dataset:
         out = self.device_bins.cpu().numpy()
         return out.view(np.uint16) if out.dtype == np.int16 else out
 
-    def plan_packing(self, mode: str = "auto"):
+    def plan_packing(self, mode: str = "auto", block: int = 0,
+                     shards: int = 0):
         """The mixed-bin layout of this dataset's per-feature bin counts
-        (io/binning.plan_feature_packing), or None.  The dataset itself
-        stays in canonical order: a training booster keeps its own packed
-        copy of the bin matrix."""
+        (io/binning.plan_feature_packing), or None.  ``block`` > 0: the
+        block-local layout of ownership blocks of that width over
+        ``shards`` feature shards (plan_feature_packing_blocked; the
+        hybrid and voting learners, lightgbm_tpu/io/dataset.py:636-661).
+        The dataset itself stays in canonical order: a training booster
+        keeps its own packed copy of the bin matrix."""
         if not len(self.bin_mappers):
             return None
+        if block > 0:
+            return plan_feature_packing_blocked(
+                self.num_bins, int(self.num_bins.max()), block, mode=mode,
+                shards=shards)
         return plan_feature_packing(self.num_bins, int(self.num_bins.max()),
                                     mode=mode)
 

@@ -47,12 +47,14 @@ their telemetry goes with them.
 
 Under a parallel learner (``init(..., learner=)``, parallel/learners.py)
 the booster is one rank's: N is the rank's own row count (its shard
-under ``tree_learner=data``, every row under ``feature``), every rank
-grows the same trees through the learner, and each rank bags its own
-rows with the host draw from ``bagging_seed``.  Training metrics and the
-``score_reference=`` line read the world's rows (the scores and the
-metadata gathered in rank order), so they are the serial run's; the
-int8 row bound is checked on the world's N.  In a world of more than one
+under ``tree_learner=data``, its data index's under ``hybrid`` and
+``voting``, every row under ``feature``), every rank grows the same
+trees through the learner, and each rank bags its own rows with the host
+draw from ``bagging_seed`` (so a grid's feature group bags alike).
+Training metrics and the ``score_reference=`` line read the world's rows
+(the scores and the metadata gathered in rank order, each data shard
+once), so they are the serial run's; the int8 row bound is checked on
+the world's N.  In a world of more than one
 rank GOSS and checkpoints are named ``Fatal``s (ROADMAP A9b), and
 lambdarank needs query-atomic shards.
 
@@ -134,7 +136,9 @@ class GBDT:
         self._learner = learner
         if learner is not None:
             self.device = learner.bind(self.device)
-            self._sharded = learner.shards_rows and learner.world > 1
+            # a grid's rows are sharded over its data shards alone
+            self._sharded = learner.shards_rows and getattr(
+                learner, "data_shards", learner.world) > 1
             self._check_world(boosting_config, train_data, objective)
         telemetry.set_device(self.device)
         self.gbdt_config = boosting_config
@@ -149,24 +153,11 @@ class GBDT:
         self.num_data = train_data.num_data
         self.num_bins_max = int(train_data.num_bins.max())
         self._bin_upper_table = train_data.bin_upper_bounds_matrix()
-        # the feature-parallel learner owns canonical features: no packing
-        # (lightgbm_tpu/parallel/learners.py:512-516)
-        self._pack_spec = (None if learner is not None
-                           and not learner.shards_rows
-                           else train_data.plan_packing(
-                               self.tree_config.mixed_bin))
-        telemetry.count_route("hist_layout", "hist/mixedbin_off"
-                              if self._pack_spec is None
-                              else "hist/mixedbin_on")
+        self._pack_spec = self._plan_packing(train_data, learner)
         if self._pack_spec is None:
             self.bins_device = train_data.to_device(self.device)["bins"]
         else:
-            spec = self._pack_spec
-            log.info("mixed-bin packing: %d narrow (<=%d bins) + %d wide "
-                     "features (histogram passes per class: %s)"
-                     % (spec.counts[0], spec.widths[0], spec.counts[1],
-                        "x".join(str(w) for w in spec.widths)))
-            perm = np.asarray(spec.perm, np.int64)
+            perm = np.asarray(self._pack_spec.perm, np.int64)
             if train_data.bins is not None:
                 # the booster's own packed copy: the dataset's cached
                 # tensor stays canonical for validation sets and other
@@ -207,7 +198,7 @@ class GBDT:
         if self._sharded and self.training_metrics:
             # the world's rows, in rank order: the serial run's values
             # (lightgbm_tpu/models/gbdt.py:425-432)
-            md = train_data.metadata.global_view(mesh.gather_ragged_rows)
+            md = train_data.metadata.global_view(self._gather_rows)
             for metric in self.training_metrics:
                 metric.init("training", md, md.num_data)
         else:
@@ -221,9 +212,54 @@ class GBDT:
             quantized=is_int8(self.tree_config.compute_dtype))
             if health.resolve_enabled(boosting_config.health) else None)
 
+    def _plan_packing(self, train_data, learner):
+        """The booster's mixed-bin layout (lightgbm_tpu/models/gbdt.py:
+        162-219), logged and counted: none under the feature learner
+        (its owned features are arbitrary subsets), the block-local plan
+        of the learner's ``pack_layout`` under hybrid and voting, else
+        the dataset's own plan."""
+        mode = self.tree_config.mixed_bin
+        if learner is not None and not learner.shards_rows:
+            spec = None
+            if mode == "true":
+                log.warning("mixed_bin is not supported by %s; keeping the "
+                            "uniform layout" % type(learner).__name__)
+        elif learner is not None and hasattr(learner, "pack_layout"):
+            block, shards = learner.pack_layout(train_data.num_features)
+            spec = train_data.plan_packing(mode, block=block, shards=shards)
+            if spec is None and mode == "true":
+                log.warning("mixed_bin=true requested but the block-local "
+                            "plan degenerates to the uniform layout "
+                            "(single bin-width class, or an ownership "
+                            "block without narrow features)")
+        else:
+            spec = train_data.plan_packing(mode)
+        telemetry.count_route("hist_layout", "hist/mixedbin_off"
+                              if spec is None else "hist/mixedbin_on")
+        if spec is None:
+            return None
+        passes = "x".join(str(w) for w in spec.widths)
+        if hasattr(spec, "block"):
+            # the block-local layout files its own marker as well
+            telemetry.count("hist/mixedbin_blocked")
+            log.info("mixed-bin packing (block-local, block=%d): %d narrow "
+                     "(<=%d bins) + %d wide features PER owned block "
+                     "(histogram passes per class: %s)"
+                     % (spec.block, spec.counts[0], spec.widths[0],
+                        spec.counts[1], passes))
+        else:
+            log.info("mixed-bin packing: %d narrow (<=%d bins) + %d wide "
+                     "features (histogram passes per class: %s)"
+                     % (spec.counts[0], spec.widths[0], spec.counts[1],
+                        passes))
+        return spec
+
     def _check_world(self, bc, train_data, objective) -> None:
-        """What a parallel world refuses (module docstring)."""
+        """What a parallel world refuses (module docstring), and a grid's
+        feature groups must agree on their rows."""
         world = self._learner.world
+        if hasattr(self._learner, "agree_rows"):
+            self._learner.agree_rows(train_data.num_data)
         if world > 1 and bc.goss:
             # lightgbm_tpu/models/gbdt.py:1534-1539; the port has no
             # fused chunk program
@@ -249,7 +285,8 @@ class GBDT:
         world)."""
         if not self._sharded:
             return self.num_data
-        return sum(mesh.all_gather_object(int(self.num_data)))
+        return sum(mesh.all_gather_object(int(self.num_data))
+                   [::self._row_step()])
 
     def _init_sampling(self, bc) -> None:
         """The bagging, feature_fraction and GOSS state
@@ -876,12 +913,21 @@ class GBDT:
                                                 self.valid_metrics)]
         return train_vals, valid_vals
 
+    def _gather_rows(self, local) -> np.ndarray:
+        """Every data shard's row-aligned host array in rank order, each
+        shard once (a grid's feature group holds the same rows)."""
+        return mesh.gather_ragged_rows(local, self._row_step())
+
+    def _row_step(self) -> int:
+        """Ranks that hold the same rows (a grid's feature group)."""
+        return getattr(self._learner, "row_step", 1)
+
     def _world_score(self) -> torch.Tensor:
         """The [K, N] training score, of the world's rows in rank order
         when this booster holds a shard (collective then)."""
         if not self._sharded:
             return self.score
-        rows = mesh.gather_ragged_rows(self.score.cpu().numpy().T)
+        rows = self._gather_rows(self.score.cpu().numpy().T)
         return torch.from_numpy(np.ascontiguousarray(rows.T))
 
     def output_metric(self, iteration: int) -> bool:

@@ -27,10 +27,11 @@ def grow_tree(bins, grad, hess, row_mask, feature_mask, num_bins, *,
               min_sum_hessian_in_leaf: float, max_depth: int = -1,
               compute_dtype: str = "float32", packing=None,
               exponent=None, schedule=SERIAL,
-              partition_bins=None) -> TreeArrays:
+              partition_bins=None, partition_packing=None) -> TreeArrays:
     """Grow one tree; the arguments are grow_tree_unified's.  Under a
-    feature-parallel world ``bins`` holds this rank's owned features and
-    ``partition_bins`` all of them."""
+    feature-parallel, hybrid or voting world ``bins`` holds this rank's
+    owned features and ``partition_bins`` all of them (``packing`` the
+    owned block's layout, ``partition_packing`` the whole matrix's)."""
 
     def small_hist(bl, new, feat, thr, left_small, leaf_ids):
         small_leaf = bl if left_small else new
@@ -38,7 +39,7 @@ def grow_tree(bins, grad, hess, row_mask, feature_mask, num_bins, *,
             return sp.fence(build_histogram(
                 bins, grad, hess, row_mask & (leaf_ids == small_leaf),
                 num_bins_max, compute_dtype, packing, new, exponent,
-                **schedule.int_seams()))
+                **schedule.hist_seams()))
 
     return grow_best_first(
         bins, grad, hess, row_mask, feature_mask, num_bins, small_hist,
@@ -46,7 +47,8 @@ def grow_tree(bins, grad, hess, row_mask, feature_mask, num_bins, *,
         min_data_in_leaf=min_data_in_leaf,
         min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
         max_depth=max_depth, compute_dtype=compute_dtype, packing=packing,
-        exponent=exponent, schedule=schedule, partition_bins=partition_bins)
+        exponent=exponent, schedule=schedule, partition_bins=partition_bins,
+        partition_packing=partition_packing)
 
 
 __all__ = ["grow_tree"]

@@ -75,7 +75,8 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
                         min_sum_hessian_in_leaf: float, max_depth: int = -1,
                         compute_dtype: str = "float32",
                         packing=None, exponent=None, schedule=SERIAL,
-                        partition_bins=None) -> TreeArrays:
+                        partition_bins=None,
+                        partition_packing=None) -> TreeArrays:
     """Grow one tree; the arguments are grow_tree_unified's."""
     F, N = bins.shape
     dev = bins.device
@@ -95,13 +96,17 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
             hist = histogram_leafbatch(
                 bins, grad, hess, col_id, col_ok, C, B, compute_dtype,
                 packing, salt, exponent, s.scale_reduce,
-                s.root_hist_reduce if root else s.int_reduce_level)
+                s.root_hist_reduce if root else s.int_reduce_level,
+                s.hist_feat_gather)
             if red is not None and not int8:
                 hist = red(hist)
             return sp.fence(hist)
 
-    # canonical split feature -> storage row
-    c2p = None if packing is None else canonical_index(packing, dev)
+    # canonical split feature -> storage row of partition_bins
+    if partition_packing is None:
+        partition_packing = packing
+    c2p = (None if partition_packing is None
+           else canonical_index(partition_packing, dev))
 
     hists = level_hist(torch.zeros(N, dtype=i64, device=dev), row_mask, 1,
                        0)

@@ -40,7 +40,7 @@ from ..ops.bins import bin_bytes
 from ..ops.compact import BLOCK, pack_planes, partition_pane, unpack_values
 from ..ops.hist_cuda import hist_pane_float
 from ..ops.histogram import (assemble, build_histogram, class_ranges,
-                             is_int8, round_bf16)
+                             gather_features, is_int8, round_bf16)
 from .grower_unified import SERIAL, TreeArrays, grow_best_first
 
 
@@ -89,12 +89,12 @@ class _Pane:
                     *unpack_values(dst[:, sstart:sstart + scnt], F,
                                    self.nb),
                     self.B, self.compute_dtype, self.packing, new,
-                    **self.schedule.int_seams()))
-            return sp.fence(assemble(
+                    **self.schedule.hist_seams()))
+            return sp.fence(gather_features(assemble(
                 [hist_pane_float(dst, F, sstart, scnt, w, (s, n), self.nb,
                                  self.exponent)
                  for s, n, w in class_ranges(self.packing, F, self.B)],
-                self.packing, self.B))
+                self.packing, self.B), self.schedule.hist_feat_gather))
 
 
 def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
@@ -104,12 +104,18 @@ def grow_tree_leafcompact(bins, grad, hess, row_mask, feature_mask,
                           max_depth: int = -1,
                           compute_dtype: str = "float32",
                           packing=None, exponent=None, schedule=SERIAL,
-                          partition_bins=None) -> TreeArrays:
+                          partition_bins=None,
+                          partition_packing=None) -> TreeArrays:
     """Grow one tree; the arguments are grow_tree_unified's.  In a
-    data-parallel world the pane holds this rank's rows, each split
-    partitions them, and the smaller child is the one the agreed split
-    record's global counts name, the same on every rank."""
-    if partition_bins is not None and partition_bins is not bins:
+    data-parallel, hybrid or voting world the pane holds this rank's rows
+    and every feature, each split partitions them, and the smaller child
+    is the one the agreed split record's global counts name, the same on
+    every rank.  A block-local packed pane (io/binning.BlockedPackSpec)
+    takes one histogram launch per ``ranges`` segment, 2 per ownership
+    block."""
+    if ((partition_bins is not None and partition_bins is not bins)
+            or (partition_packing is not None
+                and partition_packing is not packing)):
         raise ValueError("the compacted grower needs every feature's bins "
                          "(no feature-parallel ownership)")
     pane = _Pane(bins, grad, hess, row_mask, num_leaves, num_bins_max,

@@ -42,8 +42,20 @@ collectives; the default, every field None, is the serial schedule:
 - ``hist_reduce_level`` / ``int_reduce_level``: the depth-wise level
   passes' reductions;
 - ``int_root_stats``: the int8 root stats from a histogram of owned
-  features only (feature-parallel): the serial run's, which read
-  feature 0 (``root_stats_of``).
+  features only (feature-parallel, the masked and depth-wise hybrid and
+  voting learners): the serial run's, which read feature 0
+  (``root_stats_of``);
+- ``root_split_finder``: the root's search, where it differs from
+  ``split_finder`` (the voting learner files its root exchange at its
+  own sites, JAX :100-107);
+- ``hist_local``: the float caches and the sibling subtraction stay
+  this rank's own (voting: the finder exchanges the voted features'
+  histograms), so int8 root stats taken from a local histogram would be
+  ``stat_reduce``d (JAX :108-110, :200-226);
+- ``hist_feat_gather``: [F] int64 handed to every histogram build
+  (ops/histogram.gather_features): a block-local packed owned block's
+  storage rows back in canonical order, in the int domain before any
+  reduction (JAX :111-122).
 
 Every rank makes the same collectives in the same order: a histogram
 over no local rows (a launch skipped) is still reduced, and the loop's
@@ -99,13 +111,18 @@ class SeamSchedule(NamedTuple):
     hist_reduce_level: Optional[Callable] = None
     int_reduce_level: Optional[Callable] = None
     int_root_stats: Optional[Callable] = None
+    root_split_finder: Optional[Callable] = None
+    hist_local: bool = False
+    hist_feat_gather: Optional[torch.Tensor] = None
 
-    def int_seams(self, root: bool = False) -> dict:
-        """``build_histogram``'s int8 world seams for a split's smaller
-        child, or with ``root`` for the root (reduced whole)."""
+    def hist_seams(self, root: bool = False) -> dict:
+        """``build_histogram``'s world seams for a split's smaller child,
+        or with ``root`` for the root (reduced whole): the int8 modes'
+        reductions and the owned block's feature gather."""
         return {"scale_reduce": self.scale_reduce,
                 "int_reduce": (self.root_hist_reduce if root
-                               else self.int_hist_reduce)}
+                               else self.int_hist_reduce),
+                "feat_gather": self.hist_feat_gather}
 
     def float_reduce(self, hist, compute_dtype: str, root: bool = False):
         """A float mode's f32 histogram -> the world's (int8 histograms
@@ -125,7 +142,8 @@ def root_stats_of(root_hist, compute_dtype: str, grad, hess, row_mask,
 
     int8 (either rounding): from the histogram — its cells are exact
     multiples of the pass scale, and any feature's bins sum to the
-    quantized totals (a world's histogram is the world's already).
+    quantized totals (a world's histogram is the world's already; under
+    ``hist_local`` a local one, whose sums ``stat_reduce`` adds).
     float32 and bfloat16: from the (unrounded) gradient vectors, as the
     reference computes root sums once (serial_tree_learner.cpp:178-198);
     a world all-reduces the f64 partial sums (``stat_reduce``).  Both
@@ -133,7 +151,10 @@ def root_stats_of(root_hist, compute_dtype: str, grad, hess, row_mask,
     if is_int8(compute_dtype):
         if schedule.int_root_stats is not None:
             return schedule.int_root_stats(root_hist)
-        return root_hist[0].to(torch.float64).sum(0).to(torch.float32)
+        stats = root_hist[0].to(torch.float64).sum(0)
+        if schedule.hist_local and schedule.stat_reduce is not None:
+            stats = schedule.stat_reduce(stats)
+        return stats.to(torch.float32)
     m = row_mask.to(torch.float64)
     stats = torch.stack([(grad.to(torch.float64) * m).sum(),
                          (hess.to(torch.float64) * m).sum(), m.sum()])
@@ -144,7 +165,8 @@ def root_stats_of(root_hist, compute_dtype: str, grad, hess, row_mask,
 
 def partition_feature(packing, feat: int) -> int:
     """The storage row of canonical feature ``feat``: its packed position
-    under mixed-bin packing, else itself."""
+    under mixed-bin packing (the global layout's, ``partition_packing``,
+    where the histograms see an owned block's), else itself."""
     return feat if packing is None else packing.c2p[feat]
 
 
@@ -171,7 +193,8 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
                     min_sum_hessian_in_leaf: float, max_depth: int,
                     compute_dtype: str, packing=None, exponent=None,
                     schedule: SeamSchedule = SERIAL,
-                    partition_bins=None) -> TreeArrays:
+                    partition_bins=None,
+                    partition_packing=None) -> TreeArrays:
     """The reference's strict best-first growth
     (serial_tree_learner.cpp:119-153): each of ``num_leaves - 1`` splits
     takes the leaf with the largest candidate gain, builds the smaller
@@ -181,8 +204,10 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
     (salt 0, the tree's fixed-point ``exponent``); ``small_hist`` salts
     its pass with the new leaf.  ``schedule``: the world's seams (module
     docstring); ``partition_bins``: the whole bin matrix when ``bins``
-    holds only this rank's owned features (feature-parallel), read to
-    move rows on a split's global feature."""
+    holds only this rank's owned features (feature-parallel, the masked
+    hybrid and voting learners), read to move rows on a split's global
+    feature; ``partition_packing``: the layout of ``partition_bins``
+    where ``packing`` is an owned block's (default ``packing``)."""
     F, N = bins.shape
     dev = bins.device
     L = num_leaves
@@ -191,27 +216,31 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
     finder = s.split_finder or find_best_split
     if partition_bins is None:
         partition_bins = bins
+    if partition_packing is None:
+        partition_packing = packing
 
-    def search(hist, g, h, c):
+    def search(hist, g, h, c, root=False):
         """Best splits of a [k, F, B, 3] stack -> host [k, 11] f32."""
         with telemetry.span("split_find"):
             totals = torch.tensor(np.stack([g, h, c], 0), dtype=f32,
                                   device=dev)
-            res = finder(hist, totals[0], totals[1], totals[2], num_bins,
-                         feature_mask, float(min_data_in_leaf),
-                         float(min_sum_hessian_in_leaf))
+            res = ((s.root_split_finder or finder) if root else finder)(
+                hist, totals[0], totals[1], totals[2], num_bins,
+                feature_mask, float(min_data_in_leaf),
+                float(min_sum_hessian_in_leaf))
             return res.packed().cpu().numpy()
 
     with telemetry.span("histogram") as sp:
         full = s.float_reduce(build_histogram(
             bins, grad, hess, row_mask, num_bins_max, compute_dtype,
-            packing, 0, exponent, **s.int_seams(root=True)),
+            packing, 0, exponent, **s.hist_seams(root=True)),
             compute_dtype, root=True)
         root_hist = sp.fence(full if s.own_slice is None
                              else s.own_slice(full, 0))
     root_g, root_h, root_c = root_stats_of(full, compute_dtype, grad, hess,
                                            row_mask, s).cpu().numpy()
-    best = search(root_hist[None], [root_g], [root_h], [root_c])[0]
+    best = search(root_hist[None], [root_g], [root_h], [root_c],
+                  root=True)[0]
 
     # ---- host state (grower_unified.py:439-475)
     split_feature = np.zeros(L - 1, np.int32)
@@ -243,7 +272,7 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
             break
         node, new = nl - 1, nl
         feat, thr = int(cand[bl, _F]), int(cand[bl, _T])
-        pfeat = partition_feature(packing, feat)
+        pfeat = partition_feature(partition_packing, feat)
 
         # --- record the node (Tree::Split, tree.cpp:50-83)
         p = leaf_parent[bl]
@@ -301,7 +330,8 @@ def grow_tree_unified(bins, grad, hess, row_mask, feature_mask, num_bins,
                       min_data_in_leaf: int, min_sum_hessian_in_leaf: float,
                       max_depth: int = -1, compute_dtype: str = "float32",
                       packing=None, schedule: SeamSchedule = SERIAL,
-                      partition_bins=None) -> TreeArrays:
+                      partition_bins=None,
+                      partition_packing=None) -> TreeArrays:
     """Grow one tree under ``policy`` (GROW_POLICIES).  bins [F, N] uint8,
     or int16 carrying 16-bit bins (ops/bins.py), in ``packing``'s storage
     order, if any; grad/hess [N] f32, row_mask
@@ -310,8 +340,8 @@ def grow_tree_unified(bins, grad, hess, row_mask, feature_mask, num_bins,
     "int8_sr" histograms.  The float modes' histograms share one
     fixed-point exponent over the tree's gradients
     (ops/hist_cuda.fixed_exponent; a world's ranks each their own).
-    ``schedule`` and ``partition_bins``: a parallel learner's (module
-    docstring; ``grow_best_first``).  ``feature_mask`` and ``num_bins``
+    ``schedule``, ``partition_bins`` and ``partition_packing``: a
+    parallel learner's (module docstring; ``grow_best_first``).  ``feature_mask`` and ``num_bins``
     are then this rank's owned features' where the schedule has an
     ``own_slice`` or ``bins`` holds only owned features."""
     if policy not in GROW_POLICIES:
@@ -323,7 +353,8 @@ def grow_tree_unified(bins, grad, hess, row_mask, feature_mask, num_bins,
                   min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
                   max_depth=max_depth, compute_dtype=compute_dtype,
                   packing=packing, exponent=exponent, schedule=schedule,
-                  partition_bins=partition_bins)
+                  partition_bins=partition_bins,
+                  partition_packing=partition_packing)
     args = (bins, grad, hess, row_mask, feature_mask, num_bins)
     if policy == "depthwise":
         from .grower_depthwise import grow_tree_depthwise

@@ -27,7 +27,11 @@ feature order (``assemble``).  int8 quantizes once for all classes and
 assembles the int accumulators before dequantizing, so packed and
 uniform int8 histograms are bitwise equal (hist_pallas.py:380-404).
 A packed leaf batch counts ``hist/mixedbin_leafbatch`` in telemetry, as
-the JAX package's routing layer does (histogram.py:318).
+the JAX package's routing layer does (histogram.py:318).  Under the
+block-local layout of the hybrid and voting learners (io/binning.
+BlockedPackSpec) an owned block is histogrammed in its storage order and
+``feat_gather`` puts it back in canonical order, a gather of the
+accumulator after the kernel (int8: before the reduction and the scale).
 """
 from __future__ import annotations
 
@@ -76,19 +80,30 @@ def assemble(parts, packing, B: int):
     return out.index_select(0, canonical_index(packing, out.device))
 
 
+def gather_features(acc, feat_gather, dim: int = 0):
+    """``acc`` with its feature axis ``dim`` gathered by ``feat_gather``
+    ([F] int64: canonical position -> storage position; block-local
+    packing's owned block, JAX histogram.py:161-171), or as it is."""
+    if feat_gather is None:
+        return acc
+    return acc.index_select(dim, feat_gather)
+
+
 def _float_one(bins, grad, hess, col_id, col_ok, num_cols, B, packing,
-               exponent):
+               exponent, feat_gather=None):
     F = bins.shape[0]
     cid = torch.where(col_ok, col_id, -1).to(torch.int32)
     grad, hess = grad.contiguous(), hess.contiguous()
-    acc = assemble([hist_float(bins[s:s + n], grad, hess, cid, num_cols, w,
-                               exponent)
-                    for s, n, w in class_ranges(packing, F, B)], packing, B)
+    acc = gather_features(assemble(
+        [hist_float(bins[s:s + n], grad, hess, cid, num_cols, w, exponent)
+         for s, n, w in class_ranges(packing, F, B)], packing, B),
+        feat_gather)
     return acc.reshape(F, B, num_cols, 3).permute(2, 0, 1, 3)
 
 
 def _int8_one(bins, grad, hess, col_id, col_ok, num_cols, B, packing, salt,
-              stochastic, scale_reduce=None, int_reduce=None):
+              stochastic, scale_reduce=None, int_reduce=None,
+              feat_gather=None):
     F = bins.shape[0]
     # one quantization for every class launch: the scale comes from the
     # same rows whatever the layout
@@ -97,6 +112,9 @@ def _int8_one(bins, grad, hess, col_id, col_ok, num_cols, B, packing, salt,
     cid = torch.where(col_ok, col_id, -1).to(torch.int32)
     acc = assemble([hist_int8(bins[s:s + n], vals, cid, num_cols, w)
                     for s, n, w in class_ranges(packing, F, B)], packing, B)
+    # the block's canonical order in the int domain, before any reduction
+    # and the scale (hist_pallas.py:409-417)
+    acc = gather_features(acc, feat_gather)
     if int_reduce is not None:
         # the world's sum in the int domain, before the scale: int32 sums
         # are order-free, so the result is the serial run's bit for bit
@@ -114,7 +132,8 @@ def round_bf16(x):
 def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
                         num_bins_max: int, compute_dtype: str = "float32",
                         packing=None, salt: int = 0, exponent=None,
-                        scale_reduce=None, int_reduce=None):
+                        scale_reduce=None, int_reduce=None,
+                        feat_gather=None):
     """[C, F, B, 3] f32 histograms of C leaf columns in one pass per
     group of 64 columns, 42 with 16-bit bins (``group_width``; one launch
     per bin-width class under ``packing``).  ``bins`` [F, N] uint8, or
@@ -128,7 +147,10 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
     pass's maxima to the world's, ``int_reduce`` each pass's
     canonical [F, B, 3C] int32 accumulator to the world's sum (or this
     rank's feature block of it); the float modes take none (the caller
-    reduces the f32 result)."""
+    reduces the f32 result).  ``feat_gather`` ([F] int64): a block-local
+    packed owned block's storage rows back in canonical block order,
+    gathered from each pass's accumulator (int8: before ``int_reduce``
+    and the scale)."""
     int8 = is_int8(compute_dtype)
     if packing is not None:
         telemetry.count("hist/mixedbin_leafbatch")
@@ -139,8 +161,8 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
         if int8:
             return _int8_one(*args, packing, salt,
                              compute_dtype == "int8_sr", scale_reduce,
-                             int_reduce)
-        return _float_one(*args, packing, exponent)
+                             int_reduce, feat_gather)
+        return _float_one(*args, packing, exponent, feat_gather)
 
     return grouped(one, bins, grad, hess, col_id, col_ok, num_cols,
                    num_bins_max, group_width(num_bins_max))
@@ -149,10 +171,11 @@ def histogram_leafbatch(bins, grad, hess, col_id, col_ok, num_cols: int,
 def build_histogram(bins, grad, hess, mask, num_bins_max: int,
                     compute_dtype: str = "float32", packing=None,
                     salt: int = 0, exponent=None, scale_reduce=None,
-                    int_reduce=None):
+                    int_reduce=None, feat_gather=None):
     """[F, B, 3] histogram of the rows where ``mask`` holds: the
     one-column leaf batch, as on the TPU (histogram.py:541-564)."""
     cid = torch.zeros(bins.shape[1], dtype=torch.int32, device=bins.device)
     return histogram_leafbatch(bins, grad, hess, cid, mask, 1,
                                num_bins_max, compute_dtype, packing, salt,
-                               exponent, scale_reduce, int_reduce)[0]
+                               exponent, scale_reduce, int_reduce,
+                               feat_gather)[0]

@@ -20,6 +20,9 @@ devices grow different trees; in f64 the int8 mode's sums are exact.
 
 Batched: ``hist`` may carry leading dimensions (both children of a split
 are searched in one call), with matching leading dims on the totals.
+
+``per_feature_best_scores`` (split.py:136-148) is each feature's best
+score alone, for the voting learner's vote.
 """
 from __future__ import annotations
 
@@ -55,12 +58,13 @@ def _leaf_split_gain(g, h):
     return (g * g) / h
 
 
-def find_best_split(hist, sum_grad, sum_hess, num_data, num_bins,
+def _threshold_scan(hist, sum_grad, sum_hess, num_data, num_bins,
                     feature_mask, min_data_in_leaf: float,
-                    min_sum_hessian_in_leaf: float) -> SplitResult:
-    """hist [..., F, B, 3] f32; sum_grad/sum_hess/num_data [...] f32 leaf
-    totals (raw); num_bins [F] int; feature_mask [F] bool."""
-    F, B = hist.shape[-3], hist.shape[-2]
+                    min_sum_hessian_in_leaf: float):
+    """Every threshold's left sums and score (split.py:86-133): (cg, ch,
+    cc, score [..., F, B], gain_shift [..., 1, 1]); ``num_bins`` and
+    ``feature_mask`` are [F] or carry the batch dims too ([..., F])."""
+    B = hist.shape[-2]
     f32 = torch.float32
     eps = torch.tensor(K_EPSILON, dtype=f32, device=hist.device)
     csum = torch.cumsum(hist.to(torch.float64), dim=-2).to(f32)
@@ -78,8 +82,8 @@ def find_best_split(hist, sum_grad, sum_hess, num_data, num_bins,
              & (cc >= min_data_in_leaf)
              & (right_h >= min_sum_hessian_in_leaf)
              & (left_h >= min_sum_hessian_in_leaf)
-             & (thresholds[None, :] <= (num_bins[:, None] - 2))
-             & feature_mask[:, None])
+             & (thresholds <= (num_bins[..., None] - 2))
+             & feature_mask[..., None])
     gain_shift = _leaf_split_gain(total_g, total_h + 2 * eps)
     current = _leaf_split_gain(cg, left_h) + _leaf_split_gain(right_g,
                                                               right_h)
@@ -87,6 +91,36 @@ def find_best_split(hist, sum_grad, sum_hess, num_data, num_bins,
     score = torch.where(valid, current,
                         torch.tensor(float("-inf"), dtype=f32,
                                      device=hist.device))
+    return cg, ch, cc, score, gain_shift
+
+
+def per_feature_best_scores(hist, sum_grad, sum_hess, num_data, num_bins,
+                            feature_mask, min_data_in_leaf: float,
+                            min_sum_hessian_in_leaf: float) -> torch.Tensor:
+    """[..., F] each feature's best (unshifted) split score, -inf where no
+    threshold passes ``min_data_in_leaf``, ``min_sum_hessian_in_leaf`` or
+    the parent's gain (split.py:136-148): the voting learner's local
+    gains, by which each data shard proposes its top-k features."""
+    return _threshold_scan(hist, sum_grad, sum_hess, num_data, num_bins,
+                           feature_mask, min_data_in_leaf,
+                           min_sum_hessian_in_leaf)[3].max(-1).values
+
+
+def find_best_split(hist, sum_grad, sum_hess, num_data, num_bins,
+                    feature_mask, min_data_in_leaf: float,
+                    min_sum_hessian_in_leaf: float) -> SplitResult:
+    """hist [..., F, B, 3] f32; sum_grad/sum_hess/num_data [...] f32 leaf
+    totals (raw); num_bins [F] int and feature_mask [F] bool, or each
+    with the batch dims ([..., F]: a batch of different feature sets)."""
+    B = hist.shape[-2]
+    f32 = torch.float32
+    eps = torch.tensor(K_EPSILON, dtype=f32, device=hist.device)
+    cg, ch, cc, score, gain_shift = _threshold_scan(
+        hist, sum_grad, sum_hess, num_data, num_bins, feature_mask,
+        min_data_in_leaf, min_sum_hessian_in_leaf)
+    total_g = sum_grad.to(f32)[..., None, None]
+    total_h = sum_hess.to(f32)[..., None, None]
+    total_c = num_data.to(f32)[..., None, None]
 
     best_t = (B - 1) - torch.argmax(torch.flip(score, dims=(-1,)), dim=-1)
     best_score = torch.gather(score, -1, best_t[..., None])[..., 0]

@@ -3,11 +3,14 @@
 Counterpart of lightgbm_tpu/parallel/: the reference's two parallel
 learners, ``tree_learner=data`` (rows sharded, histograms summed over
 the world by ``psum`` or ``reduce_scatter``) and ``tree_learner=feature``
-(features owned, the best split reduced over the world), each rank one
-process (learners.py), and the world they run in: the bootstrap from
-torch's environment, the backend rule and the collectives (mesh.py).
-Both learners drive the one grower of models/grower_unified.py through
-its ``SeamSchedule``.  ``hybrid`` and ``voting`` are ROADMAP A9b.
+(features owned, the best split reduced over the world), and the JAX
+package's two on a 2-D grid of ranks, ``hybrid`` (rows over the data
+index, feature blocks over the feature index) and ``voting`` (PV-tree
+top-k voting over the data shards), each rank one process
+(learners.py), and the world they run in: the bootstrap from torch's
+environment, the backend rule, the collectives and the grid's groups
+(mesh.py).  Every learner drives the one grower of
+models/grower_unified.py through its ``SeamSchedule``.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""The reference's two parallel tree learners, over ``torch.distributed``.
+"""The parallel tree learners, over ``torch.distributed``.
 
-Counterpart of lightgbm_tpu/parallel/learners.py for ``tree_learner=data``
-and ``tree_learner=feature``.  The JAX package runs them as SPMD programs
+Counterpart of lightgbm_tpu/parallel/learners.py for ``tree_learner=data``,
+``feature``, ``hybrid`` and ``voting``.  The JAX package runs them as SPMD programs
 under ``shard_map``; here each rank is a process holding its own tensors,
 and the seams of growth (models/grower_unified.SeamSchedule) call the
 collectives of parallel/mesh.Comm on them explicitly.  Every rank grows
@@ -36,10 +36,40 @@ moves its own rows through the partition kernel.
   leaf-wise (``leafwise_compact=auto`` resolves to it, JAX :1596-1603)
   and depth-wise.
 
+- **hybrid** (``HybridLearner``, the JAX package's own design): a 2-D
+  grid of ``ds`` x ``fs`` ranks (parallel/mesh.grid_for, ``num_machines
+  = ds x fs``, ``feature_shards``): rows sharded over the data index,
+  contiguous feature blocks (``_owned_block``) owned over the feature
+  index.  Histograms cover local rows x the owned block; the histogram
+  sum runs over the data group and carries the owned block only, so a
+  split's wire bytes are O(F·B / fs); the split record is reduced over
+  the feature group (``hybrid_ownership_seams``).  The masked and
+  depth-wise growers histogram the owned block's bin rows alone; the
+  compacted grower's pane keeps every feature (its partition reads
+  them) and the seam cuts the owned block out before the sum.
+- **voting** (``VotingLearner``, PV-tree; the reference names it and
+  Fatals): on the same grid (``feature_shards`` 1 unless asked), each
+  data shard scores its owned features on its local histograms
+  (``ops/split.per_feature_best_scores``), votes its ``top_k``, the votes
+  are all-gathered, and the histograms of at most 2·top_k voted features
+  are summed over the data group; the float caches stay local
+  (``hist_local``).  Exact when 2·top_k covers the owned block.  int8
+  keeps its global int32 exchange and restricts only the search
+  (``voting_seams``).  Both tie-breaks are stable sorts: equal gains
+  vote the smaller feature, equal counts take the smaller id.
+
+Under the block-local mixed-bin layout (io/binning.BlockedPackSpec,
+``pack_layout``) the masked and depth-wise hybrid and voting growers
+histogram their block in storage order and ``hist_feat_gather``
+(``_block_feat_gather``) puts each pass back in canonical order in the
+int domain; rows move through the whole layout's map.  Their int8 root
+stats come from feature 0's owner over the feature group, as under
+``feature`` (another feature's f32 cells round apart).
+
 Also here: ``distributed_bin_finder`` (dataset.cpp:353-415),
-``aggregate_telemetry`` and the factory ``create_parallel_learner``.
-Not ported: the fused chunk programs and ``_segmented_grow`` (ROADMAP
-"Not to port"); the hybrid and voting learners (ROADMAP A9b).
+``aggregate_telemetry``, ``row_shard`` (the rows a rank loads) and the
+factory ``create_parallel_learner``.  Not ported: the fused chunk
+programs and ``_segmented_grow`` (ROADMAP "Not to port").
 """
 from __future__ import annotations
 
@@ -51,7 +81,9 @@ import torch
 from .. import telemetry
 from ..io.binning import BinMapper
 from ..models.grower_unified import SeamSchedule, grow_tree_unified
-from ..ops.split import SplitResult, find_best_split
+from ..ops.histogram import is_int8
+from ..ops.split import (SplitResult, find_best_split,
+                         per_feature_best_scores)
 from ..utils import log
 from . import mesh
 
@@ -193,6 +225,184 @@ def dp_psum_seams(comm: mesh.Comm, policy: str) -> SeamSchedule:
         int_reduce_level=psum("hist/int8_cuda_psum"))
 
 
+def _block_feat_gather(pack, own, f: int, Fb: int, device):
+    """The ``hist_feat_gather`` of a block-local packed owned block (JAX
+    :333-354): [Fb] int64, canonical block position -> the block's
+    storage position; padding lanes clamp (the search masks them).  None
+    under the uniform layout."""
+    if pack is None:
+        return None
+    c2p = np.asarray(pack.c2p, np.int64)
+    return torch.as_tensor(np.clip(c2p[own] - f * Fb, 0, Fb - 1),
+                           device=device)
+
+
+def _owner_root_stats(grid: mesh.Grid, site: str) -> Callable:
+    """The int8 root stats of an owned-block histogram: feature 0's
+    owner (f = 0) sends its f64 sums over the feature group and the
+    others add zeros, so every rank takes the serial run's feature-0
+    totals (``int_root_stats``)."""
+    def fn(hist):
+        part = (hist[0].to(torch.float64).sum(0) if grid.f == 0
+                else hist.new_zeros(3, dtype=torch.float64))
+        return grid.feature.all_reduce(part, site, axis=mesh.FEATURE_AXIS
+                                       ).to(torch.float32)
+    return fn
+
+
+def hybrid_ownership_seams(grid: mesh.Grid, F: int, policy: str, fmask,
+                           nbins, slice_hist: bool = False,
+                           pack=None) -> tuple:
+    """The hybrid learner's seams (JAX :241-330): (owned ids [Fb] int64,
+    owned feature mask, owned bin counts, SeamSchedule).  The histograms
+    are summed over the data group, the owned block only; the split
+    record is reduced over the feature group.
+
+    ``slice_hist=False`` (masked, depth-wise): the caller histograms the
+    owned block's bin rows alone, so every sum is a plain data-group
+    all-reduce (``pack``: the block-local layout, whose passes
+    ``hist_feat_gather`` puts back in canonical order).
+    ``slice_hist=True`` (compacted): the pane's histograms cover every
+    feature; the root is summed whole (its stats exact on every rank),
+    then each histogram's owned block is cut out before the sum."""
+    Fb, Fpad, own, ok = _owned_block(F, grid.fs, grid.f)
+    dev = fmask.device
+    own_t = torch.as_tensor(own, device=dev)
+    data = grid.data
+    pre = "hybrid/" + policy
+
+    def psum(site):
+        return lambda t: data.all_reduce(t, site)
+
+    def own_block(h, dim=0):
+        return _pad_features(h, dim, Fpad).narrow(dim, grid.f * Fb, Fb)
+
+    if slice_hist:
+        seams = dict(
+            hist_reduce=lambda h: data.all_reduce(
+                own_block(h), pre + "/own_block_allreduce"),
+            int_hist_reduce=lambda a: data.all_reduce(
+                own_block(a), pre + "/own_block_int_allreduce"),
+            own_slice=own_block)
+    else:
+        seams = dict(
+            hist_reduce=psum(pre + "/hist_allreduce"),
+            int_hist_reduce=psum("hist/int8_cuda_psum"),
+            hist_reduce_level=psum(pre + "/hist_allreduce"),
+            int_reduce_level=psum("hist/int8_cuda_psum"),
+            int_root_stats=_owner_root_stats(grid, pre + "/root_stats"),
+            hist_feat_gather=_block_feat_gather(pack, own, grid.f, Fb,
+                                                dev))
+    schedule = SeamSchedule(
+        scale_reduce=lambda t: data.all_reduce(t, "hist/quant_scale_pmax",
+                                               op="max"),
+        stat_reduce=psum(pre + "/root_stats"),
+        root_hist_reduce=psum(pre + "/root_hist"),
+        split_finder=ownership_finder(own_t, grid.feature,
+                                      pre + "/splitinfo_allreduce",
+                                      mesh.FEATURE_AXIS),
+        **seams)
+    fmask_own = fmask[own_t] & torch.as_tensor(ok, device=dev)
+    return own_t, fmask_own, nbins[own_t], schedule
+
+
+def voting_seams(grid: mesh.Grid, F: int, top_k: int, int8: bool,
+                 policy: str, fmask, nbins, presliced: bool,
+                 pack=None) -> tuple:
+    """The voting learner's seams (JAX :354-498): (owned ids [Fb] int64 or
+    None, feature mask, bin counts, SeamSchedule), the mask and counts
+    the owned block's where ``presliced``, else every feature's.  Its
+    finder, for a
+    batch of leaves (a best-first split's two children, a depth-wise
+    level's slots), each on its own:
+
+    1. scores the owned block's features on local evidence: the local
+       histograms against local totals read from the histogram itself
+       (any feature's bins sum to the leaf's rows), not the global
+       totals, else a leaf whose local rows fall below
+       ``min_data_in_leaf`` would vote only -inf (JAX :432-443);
+    2. votes its top k = min(top_k, Fb) by a stable sort of the scores
+       (equal gains: the smaller feature), -inf votes none;
+    3. all-gathers the votes over the data group, counts them, and takes
+       the V = min(2·top_k, Fb) most voted (a stable sort again: equal
+       counts, the smaller id), in ascending order;
+    4. sums those V features' histograms over the data group (float
+       modes; int8 histograms are global already) and searches them;
+    5. reduces the split record over the feature group.
+
+    ``presliced``: the histograms hold the owned block alone (masked and
+    depth-wise; their feature mask and bin counts are the block's), else
+    every feature (the compacted pane).  The root's finder files its
+    exchange at ``root_`` sites (best-first growers; depth-wise runs one
+    finder).  The float caches stay local (``hist_local``); int8 sums
+    its int32 accumulators over the data group at every pass."""
+    Fb, Fpad, own, ok = _owned_block(F, grid.fs, grid.f)
+    k, V = min(top_k, Fb), min(2 * top_k, Fb)
+    data = grid.data
+    pre = "voting/" + policy
+    dev = fmask.device
+    own_t = torch.as_tensor(own, device=dev)
+    ok_t = torch.as_tensor(ok, device=dev)
+    idx = grid.f * Fb + torch.arange(Fb, device=dev)
+
+    def make_finder(tag):
+        def finder(hist, sg, sh, cnt, nb, fm, mind, minh):
+            if presliced:
+                hist_own, nb_own, fm_own = hist, nb, fm
+            else:
+                hist_own = hist.index_select(-3, own_t)
+                nb_own, fm_own = nb[own_t], fm[own_t] & ok_t
+            B = hist.shape[-2]
+            tot = hist_own[..., 0, :, :].to(torch.float64).sum(-2).to(
+                torch.float32)                                # [..., 3]
+            scores = per_feature_best_scores(
+                hist_own, tot[..., 0], tot[..., 1], tot[..., 2], nb_own,
+                fm_own, mind, minh)                           # [..., Fb]
+            top = torch.argsort(-scores, dim=-1, stable=True)[..., :k]
+            votes = torch.where(torch.isfinite(scores.gather(-1, top)),
+                                idx[top], Fpad).to(torch.int32)
+            votes = data.all_gather(votes, pre + "/%svotes_allgather"
+                                    % tag)                    # [ds, ..., k]
+            votes = votes.movedim(0, -2).flatten(-2)          # [..., ds*k]
+            counts = (votes[..., None, :] == idx[:, None]).sum(-1)
+            voted = torch.sort(torch.argsort(-counts, dim=-1, stable=True)
+                               [..., :V], dim=-1).values      # [..., V]
+            vh = hist_own.gather(-3, voted[..., None, None].expand(
+                *voted.shape, B, 3))                          # [..., V, B, 3]
+            if not int8:
+                vh = data.all_reduce(vh, pre + "/%svoted_hist_allreduce"
+                                     % tag)
+            local = find_best_split(vh, sg, sh, cnt, nb_own[voted],
+                                    fm_own[voted], mind, minh)
+            gid = own_t[voted].gather(-1, local.feature[..., None])[..., 0]
+            return allreduce_best_split(
+                local._replace(feature=gid), grid.feature,
+                pre + "/%ssplitinfo_allreduce" % tag, mesh.FEATURE_AXIS)
+        return finder
+
+    def psum(site):
+        return lambda t: data.all_reduce(t, site)
+
+    int_sum = psum("hist/int8_cuda_psum") if int8 else None
+    schedule = SeamSchedule(
+        scale_reduce=lambda t: data.all_reduce(t, "hist/quant_scale_pmax",
+                                               op="max"),
+        stat_reduce=psum(pre + "/root_stats"),
+        int_hist_reduce=int_sum, root_hist_reduce=int_sum,
+        int_reduce_level=int_sum,
+        int_root_stats=(_owner_root_stats(grid, pre + "/root_stats")
+                        if presliced else None),
+        split_finder=make_finder(""),
+        root_split_finder=(None if policy == "depthwise"
+                           else make_finder("root_")),
+        hist_local=not int8,
+        hist_feat_gather=_block_feat_gather(pack, own, grid.f, Fb, dev))
+    if not presliced:
+        # the compacted pane: every feature; the finder cuts the block
+        return None, fmask, nbins, schedule
+    return own_t, fmask[own_t] & ok_t, nbins[own_t], schedule
+
+
 def balanced_ownership(num_bins, num_shards: int):
     """Bin-count-balanced ownership (feature_parallel_tree_learner.cpp:
     27-44; JAX :1415-1441): features by bin count, each to the lightest
@@ -235,18 +445,40 @@ def create_parallel_learner(config):
         return DataParallelLearner(config)
     if kind == "feature":
         return FeatureParallelLearner(config)
-    if kind in ("hybrid", "voting"):
-        log.fatal("tree_learner=%s is not ported to lightgbm_tpu_torch "
-                  "yet (ROADMAP A9b); it runs tree_learner=data and "
-                  "feature" % kind)
+    if kind == "hybrid":
+        return HybridLearner(config)
+    if kind == "voting":
+        return VotingLearner(config)
     log.fatal("Tree learner type error")
 
 
+def row_shard(config) -> tuple:
+    """(rank, num_machines) of the row draw this rank loads
+    (``Dataset.load_train``): under data the rank's own of the world,
+    under hybrid and voting its data index's of the data shards (the
+    ranks of one feature group hold the same rows); (0, 1), every row,
+    under feature and serial."""
+    if not config.is_parallel_find_bin:
+        return 0, 1
+    rank, world = mesh.get_rank(), mesh.get_num_machines()
+    kind = config.boosting_config.tree_learner
+    if kind in ("hybrid", "voting"):
+        ds, fs = mesh.factor_machines(
+            world, config.boosting_config.tree_config.feature_shards,
+            voting=kind == "voting")
+        return rank // fs, ds
+    return rank, world
+
+
 class _ParallelLearnerBase:
-    """What both learners share: the world (``bind``) and the grow call."""
+    """What the learners share: the world (``bind``) and the grow call."""
     route_name = ""
     # the learner's rows are this rank's shard (data) or every row
     shards_rows = False
+    # ranks holding the same rows, next to each other in rank order (a
+    # grid's feature group): gathers of the world's rows take every
+    # row_step-th rank
+    row_step = 1
 
     def __init__(self, config):
         self.config = config
@@ -263,11 +495,17 @@ class _ParallelLearnerBase:
         return device
 
     @property
+    def data_shards(self) -> int:
+        """How many row shards the world holds."""
+        return self.world
+
+    @property
     def _depthwise(self) -> bool:
         return self.tree_config.grow_policy == "depthwise"
 
     def _grow(self, gbdt, bins, grad, hess, row_mask, feature_mask,
-              num_bins, policy, schedule, partition_bins=None):
+              num_bins, policy, schedule, partition_bins=None,
+              packing="booster", partition_packing=None):
         tc = self.tree_config
         return grow_tree_unified(
             bins, grad, hess, row_mask, feature_mask, num_bins,
@@ -276,8 +514,9 @@ class _ParallelLearnerBase:
             min_data_in_leaf=tc.min_data_in_leaf,
             min_sum_hessian_in_leaf=tc.min_sum_hessian_in_leaf,
             max_depth=tc.max_depth, compute_dtype=tc.compute_dtype,
-            packing=gbdt._pack_spec, schedule=schedule,
-            partition_bins=partition_bins)
+            packing=gbdt._pack_spec if packing == "booster" else packing,
+            schedule=schedule, partition_bins=partition_bins,
+            partition_packing=partition_packing)
 
 
 class DataParallelLearner(_ParallelLearnerBase):
@@ -358,6 +597,108 @@ class FeatureParallelLearner(_ParallelLearnerBase):
                           partition_bins=bins)
 
 
+class HybridLearner(_ParallelLearnerBase):
+    """Rows sharded over the grid's data index, feature blocks owned over
+    its feature index (module docstring), under any of the three
+    growers; 1 x 1 is the serial run."""
+    route_name = "hybrid"
+    shards_rows = True
+    voting = False
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.ds, self.fs = mesh.factor_machines(
+            self.world, self.tree_config.feature_shards, voting=self.voting)
+        self.row_step = self.fs
+        self.grid = None
+
+    @property
+    def data_shards(self) -> int:
+        return self.ds
+
+    def bind(self, device: torch.device) -> torch.device:
+        """This rank's device and its grid's groups (parallel/mesh.
+        grid_for); collective: every rank binds at booster init."""
+        device = mesh.rank_device(device)
+        self.grid = mesh.grid_for(device, self.ds, self.fs)
+        self.comm = self.grid.data
+        return device
+
+    def agree_rows(self, num_data: int) -> None:
+        """Every rank of a feature group must hold the same rows (under
+        ``is_pre_partition`` each reads its own file): their counts are
+        compared over the world, a ``Fatal`` naming the group where they
+        differ.  Collective."""
+        counts = mesh.all_gather_object(int(num_data))
+        for d in range(self.ds):
+            group = counts[d * self.fs:(d + 1) * self.fs]
+            if len(set(group)) > 1:
+                log.fatal("tree_learner=%s: the ranks of data shard %d "
+                          "(ranks %d-%d) hold %s rows; the ranks of one "
+                          "feature group must load the same rows (with "
+                          "is_pre_partition=true, the same file)"
+                          % (self.route_name, d, d * self.fs,
+                             (d + 1) * self.fs - 1, group))
+
+    def pack_layout(self, num_features: int) -> tuple:
+        """(block, feature shards) of the block-local mixed-bin plan: the
+        ownership block width ceil(F / fs) (JAX :1226-1232)."""
+        return -(-num_features // self.fs), self.fs
+
+    def _owned_bins(self, bins, own):
+        """The owned block's bin rows, cached for the booster's matrix."""
+        cache = getattr(self, "_own_cache", None)
+        if cache is None or cache[0] is not bins:
+            cache = self._own_cache = (bins, bins.index_select(0, own))
+        return cache[1]
+
+    @staticmethod
+    def _split_pack(gbdt):
+        """(the owned block's layout, the whole matrix's) under the
+        block-local layout (JAX :1234-1246), else (None, None)."""
+        pack = gbdt._pack_spec
+        if pack is None:
+            return None, None
+        return pack.block_view, pack
+
+    def _seams(self, F, policy, fmask, nbins, slice_hist, pack):
+        return hybrid_ownership_seams(self.grid, F, policy, fmask, nbins,
+                                      slice_hist, pack)
+
+    def __call__(self, gbdt, bins, grad, hess, row_mask, feature_mask):
+        policy = self.tree_config.policy
+        telemetry.count_route("learner_" + self.route_name, "learner/%s_%s"
+                              % (self.route_name, policy))
+        F = bins.shape[0]
+        nbins = gbdt.num_bins_device
+        if policy == "leafcompact":
+            # the pane keeps every feature, in the booster's layout
+            _, fmask, nbins, schedule = self._seams(
+                F, policy, feature_mask, nbins, True, None)
+            return self._grow(gbdt, bins, grad, hess, row_mask, fmask,
+                              nbins, policy, schedule)
+        block_pack, pack = self._split_pack(gbdt)
+        own, fmask, nbins, schedule = self._seams(
+            F, policy, feature_mask, nbins, False, pack)
+        return self._grow(gbdt, self._owned_bins(bins, own), grad, hess,
+                          row_mask, fmask, nbins, policy, schedule,
+                          partition_bins=bins, packing=block_pack,
+                          partition_packing=pack)
+
+
+class VotingLearner(HybridLearner):
+    """PV-tree voting over the grid's data shards (module docstring):
+    ``feature_shards`` 1 unless asked; exact when 2·top_k covers the
+    owned block, and in int8 always."""
+    route_name = "voting"
+    voting = True
+
+    def _seams(self, F, policy, fmask, nbins, slice_hist, pack):
+        return voting_seams(self.grid, F, self.tree_config.top_k,
+                            is_int8(self.tree_config.compute_dtype), policy,
+                            fmask, nbins, not slice_hist, pack)
+
+
 def distributed_bin_finder():
     """Distributed bin finding (dataset.cpp:353-415; JAX :1617-1653): rank
     r finds the mappers of a contiguous feature slice from the sample,
@@ -382,8 +723,9 @@ def distributed_bin_finder():
     return finder
 
 
-__all__ = ["DataParallelLearner", "FeatureParallelLearner",
-           "aggregate_telemetry", "allreduce_best_split",
+__all__ = ["DataParallelLearner", "FeatureParallelLearner", "HybridLearner",
+           "VotingLearner", "aggregate_telemetry", "allreduce_best_split",
            "balanced_ownership", "create_parallel_learner",
            "distributed_bin_finder", "dp_ownership_seams", "dp_psum_seams",
-           "ownership_finder", "static_ownership", "unpack_split"]
+           "hybrid_ownership_seams", "ownership_finder", "row_shard",
+           "static_ownership", "unpack_split", "voting_seams"]

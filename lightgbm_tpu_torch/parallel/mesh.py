@@ -28,17 +28,27 @@ mappers, metric rows, the clock handshake) ride it as pickled objects.
 warns and shrinks to the world, as ``get_mesh`` does in the JAX package
 (linkers_socket.cpp:106-109).
 
+**The 2-D grid** of the hybrid and voting learners (``grid_for``): the
+JAX package's ``get_mesh2d`` lays ``devices[:ds * fs]`` out as a
+``(data, feature)`` mesh; here the devices are ranks, so rank ``r`` sits
+at data index ``d = r // fs`` and feature index ``f = r % fs``
+(``factor_machines`` picks ``ds`` and ``fs``).  A ``Grid`` holds a
+``Comm`` over its data group (the ranks of the same ``f``: histogram
+sums, votes) and one over its feature group (the ranks of the same
+``d``: the split record's reduction).  Every rank creates every group,
+data groups first, in the same order, as ``new_group`` requires.
+
 Not ported: ``global_row_layout`` and ``make_global_rows`` (each rank
-holds its own rows; no padded global array exists), ``get_mesh2d`` and
-``get_serving_mesh`` (the hybrid and voting learners and tree-sharded
-serving, ROADMAP A9b).  The collectives are library calls: no kernel
-of the port runs here.
+holds its own rows; no padded global array exists) and
+``get_serving_mesh`` (tree-sharded serving, ROADMAP A9b).  The
+collectives are library calls: no kernel of the port runs here.
 """
 from __future__ import annotations
 
 import datetime
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -56,6 +66,29 @@ _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 # collective groups per device type
 _owned = False
 _comms: dict = {}
+
+
+def factor_machines(num_machines: int, feature_shards: int = 0,
+                    voting: bool = False) -> "tuple[int, int]":
+    """``(data_shards, feature_shards)`` of a world of ``num_machines``
+    ranks (JAX mesh.py:125-158): a ``feature_shards > 0`` is taken as it
+    is and must divide the world (a ``Fatal`` otherwise); 0 resolves to
+    ``(n, 1)`` under voting, else to the largest divisor of n that is at
+    most sqrt(n) as the feature shards (4 -> (2, 2), 8 -> (4, 2), a prime
+    -> (n, 1))."""
+    n = max(int(num_machines), 1)
+    if feature_shards > 0:
+        if n % feature_shards:
+            log.fatal("feature_shards=%d does not divide num_machines=%d"
+                      % (feature_shards, n))
+        return n // feature_shards, feature_shards
+    if voting:
+        return n, 1
+    fs = 1
+    for d in range(2, int(n ** 0.5) + 1):
+        if n % d == 0:
+            fs = d
+    return n // fs, fs
 
 
 def _reduce_scatter():
@@ -165,13 +198,15 @@ def sync_up_by_min(value):
     return type(value)(min(all_gather_object(value)))
 
 
-def gather_ragged_rows(local) -> np.ndarray:
+def gather_ragged_rows(local, step: int = 1) -> np.ndarray:
     """Every rank's host array concatenated along axis 0 in rank order,
-    lengths free (row shards, per-query counts); JAX mesh.py:303-322."""
+    lengths free (row shards, per-query counts); JAX mesh.py:303-322.
+    ``step``: take every step-th rank's only (a grid's data shards, once
+    each: ranks 0, fs, 2 fs, ...)."""
     local = np.asarray(local)
     if get_num_machines() <= 1:
         return local
-    return np.concatenate(all_gather_object(local), axis=0)
+    return np.concatenate(all_gather_object(local)[::step], axis=0)
 
 
 def rank_device(device: torch.device) -> torch.device:
@@ -275,6 +310,21 @@ class Comm:
         return out.view((self.size,) + tuple(t.shape))
 
 
+def _backend(device: torch.device) -> "tuple[str, str]":
+    """(backend, why) of this rank's ``device`` under the backend rule
+    (module docstring).  Collective on a CUDA device (the UUID
+    gather)."""
+    if device.type != "cuda":
+        return "gloo", "CPU tensors"
+    torch.cuda.set_device(device)
+    uuids = all_gather_object(
+        str(torch.cuda.get_device_properties(device).uuid))
+    if len(set(uuids)) == len(uuids):
+        return "nccl", "each rank on its own device"
+    return "gloo", ("%d ranks share %d device(s); NCCL refuses two ranks "
+                    "on one device" % (len(uuids), len(set(uuids))))
+
+
 def comm_for(device: torch.device) -> Comm:
     """The collective group of this rank's ``device`` under the backend
     rule (module docstring).  Collective the first time per device
@@ -288,17 +338,9 @@ def comm_for(device: torch.device) -> Comm:
         _comms[key] = comm
         return comm
     rank, size = dist.get_rank(), dist.get_world_size()
-    group, backend, why = dist.group.WORLD, "gloo", "CPU tensors"
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-        uuids = all_gather_object(
-            str(torch.cuda.get_device_properties(device).uuid))
-        if len(set(uuids)) == len(uuids):
-            group = dist.new_group(backend="nccl")
-            backend, why = "nccl", "each rank on its own device"
-        else:
-            why = ("%d ranks share %d device(s); NCCL refuses two ranks "
-                   "on one device" % (size, len(set(uuids))))
+    backend, why = _backend(device)
+    group = (dist.new_group(backend="nccl") if backend == "nccl"
+             else dist.group.WORLD)
     log.info("collectives: %s backend over %d rank(s) (%s)"
              % (backend, size, why))
     comm = Comm(group, backend, rank, size)
@@ -306,7 +348,52 @@ def comm_for(device: torch.device) -> Comm:
     return comm
 
 
-__all__ = ["Comm", "DATA_AXIS", "FEATURE_AXIS", "all_gather_object",
-           "clock_handshake", "comm_for", "gather_ragged_rows", "get_rank",
-           "get_num_machines", "init_distributed", "initialized",
-           "rank_device", "shutdown", "sync_up_by_min", "world_size"]
+class Grid(NamedTuple):
+    """This rank's place in the 2-D grid of a hybrid or voting world
+    (module docstring): ``ds`` x ``fs`` ranks, this one at data index
+    ``d`` and feature index ``f``; ``data`` reduces over the ranks of
+    the same ``f``, ``feature`` over the ranks of the same ``d``."""
+    ds: int
+    fs: int
+    d: int
+    f: int
+    data: Comm
+    feature: Comm
+
+
+def grid_for(device: torch.device, ds: int, fs: int) -> Grid:
+    """The 2-D grid of ``ds`` x ``fs`` ranks for this rank's ``device``,
+    its groups under the backend rule.  Collective: every rank calls it
+    once per learner bind, and creates every group (``new_group``),
+    data groups first.  Without a process group the grid is one rank and
+    both groups run each op as the identity."""
+    if not initialized():
+        one = Comm(None, "none", 0, 1)
+        return Grid(1, 1, 0, 0, one, one)
+    rank, size = dist.get_rank(), dist.get_world_size()
+    log.check(ds * fs == size, "a %d x %d grid of ranks needs a world of "
+              "%d ranks, not %d" % (ds, fs, ds * fs, size))
+    backend, why = _backend(device)
+    d, f = divmod(rank, fs)
+    data = feature = None
+    for g in range(fs):
+        group = dist.new_group(ranks=[g + fs * i for i in range(ds)],
+                               backend=backend)
+        if g == f:
+            data = Comm(group, backend, d, ds)
+    for g in range(ds):
+        group = dist.new_group(ranks=[g * fs + j for j in range(fs)],
+                               backend=backend)
+        if g == d:
+            feature = Comm(group, backend, f, fs)
+    log.info("collectives: a %d x %d grid of ranks (data x feature), %s "
+             "backend (%s); rank %d at data %d, feature %d"
+             % (ds, fs, backend, why, rank, d, f))
+    return Grid(ds, fs, d, f, data, feature)
+
+
+__all__ = ["Comm", "DATA_AXIS", "FEATURE_AXIS", "Grid", "all_gather_object",
+           "clock_handshake", "comm_for", "factor_machines",
+           "gather_ragged_rows", "get_rank", "get_num_machines", "grid_for",
+           "init_distributed", "initialized", "rank_device", "shutdown",
+           "sync_up_by_min", "world_size"]

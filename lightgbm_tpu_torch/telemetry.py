@@ -95,8 +95,18 @@ the registry takes one lock.  Each thread keeps its own span stack.
    through ``collective_span``) with the JAX package's site names
    (``dp_psum/<policy>/hist_allreduce``, ``dp_rs/<policy>/hist_scatter``,
    ``.../splitinfo_allreduce``, ``fp/splitinfo_allreduce``,
-   ``hist/quant_scale_pmax``; a gloo collective staged through host
-   memory adds ``/host_staged``).  The port runs eagerly, so a record is
+   ``hist/quant_scale_pmax``, ``hist/int8_cuda_psum``; the hybrid
+   learner's ``hybrid/<policy>/hist_allreduce``,
+   ``hybrid/leafcompact/own_block_allreduce`` and
+   ``.../own_block_int_allreduce``, ``.../root_hist``,
+   ``.../root_stats``, ``.../splitinfo_allreduce``; the voting learner's
+   ``voting/<policy>/votes_allgather``, ``.../voted_hist_allreduce``,
+   ``.../splitinfo_allreduce`` and their ``root_`` twins, and
+   ``.../root_stats``; a gloo collective staged through host memory adds
+   ``/host_staged``), over the axis it reduces (``data`` or, for a
+   grid's split records and int8 root stats, ``feature``), with the
+   payload this rank sends a call (a best-first split's two children
+   in one call under voting).  The port runs eagerly, so a record is
    an executed call, not a trace: the summary's ``interconnect`` block
    holds each site's calls, logical payload bytes and host seconds (the
    call's wall time, a wait included).  ``set_clock_offset`` keeps the

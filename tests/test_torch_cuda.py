@@ -972,26 +972,35 @@ def test_fence_times_device_work_on_card(cuda):
         telemetry.set_device(None)
 
 
-# one rank of a card world: train the spec's jobs on this rank's shard of
-# the arrays (tree_learner=data) and write each model text and the backend
+# one rank of a card world: train the spec's jobs on this rank's row draw
+# of the arrays (learners.row_shard: its own shard under tree_learner=data,
+# its data index's under hybrid and voting) and write each model text and
+# the backend
 PARALLEL_WORKER = r'''
 import json, sys
 import numpy as np
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import parallel
+from lightgbm_tpu_torch.config import OverallConfig
+from lightgbm_tpu_torch.parallel import learners
 
 spec = json.load(open(sys.argv[1]))
 parallel.init_distributed()
-rank, P = parallel.get_rank(), parallel.get_num_machines()
 x, y = np.load(spec["x"]), np.load(spec["y"])
-ds = lgt.Dataset.from_arrays(x, y, max_bin=63, rank=rank, num_machines=P)
-out = {}
+sets, out = {}, {}
 for name, params in spec["jobs"].items():
+    cfg = OverallConfig()
+    cfg.set({k: str(v) for k, v in params.items()}, require_data=False)
+    shard = learners.row_shard(cfg)
+    if shard not in sets:
+        sets[shard] = lgt.Dataset.from_arrays(
+            x, y, max_bin=63, rank=shard[0], num_machines=shard[1])
+    ds = sets[shard]
     booster = lgt.train(params, ds, device="cuda")
     out[name] = {"model": booster.model_to_string(),
                  "backend": booster._learner.comm.backend,
-                 "world": booster._learner.world}
-json.dump(out, open(spec["out"] % rank, "w"))
+                 "world": booster._learner.world, "rows": ds.num_data}
+json.dump(out, open(spec["out"] % parallel.get_rank(), "w"))
 parallel.shutdown()
 '''
 
@@ -1075,3 +1084,62 @@ def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
                 np.testing.assert_array_equal(ta.threshold, tb.threshold)
                 np.testing.assert_allclose(ta.leaf_value, tb.leaf_value,
                                            rtol=1e-5, atol=5e-6)
+
+
+def _serial_text(params, x, y):
+    """The serial run's model text on the card of a parallel job's
+    parameters."""
+    serial = {k: v for k, v in params.items()
+              if k not in ("tree_learner", "num_machines", "feature_shards",
+                           "top_k")}
+    return lgt.train(serial, lgt.Dataset.from_arrays(x, y, max_bin=63),
+                     device="cuda").model_to_string()
+
+
+def test_hybrid_four_ranks_share_the_card(cuda, tmp_path):
+    """Four ranks on a 2 x 2 grid (tree_learner=hybrid) share the card
+    over gloo: compacted int8 is the serial run's model text on every
+    rank, and the ranks of one feature group hold the same rows."""
+    x, y = _dp_table()
+    params = dict(_DP_PARAMS, hist_dtype="int8", tree_learner="hybrid",
+                  num_machines=4, feature_shards=2)
+    ranks = _card_world(tmp_path, 4, {"hybrid": params}, x, y)
+    recs = [r["hybrid"] for r in ranks]
+    assert all((r["backend"], r["world"]) == ("gloo", 4) for r in recs)
+    assert len({r["model"] for r in recs}) == 1
+    assert recs[0]["model"] == _serial_text(params, x, y)
+    rows = [r["rows"] for r in recs]
+    assert rows[0] == rows[1] and rows[2] == rows[3]
+    assert rows[0] + rows[2] == len(y)
+
+
+def test_voting_exact_regime_on_card(cuda, tmp_path):
+    """Four ranks, tree_learner=voting on a 4 x 1 grid with top_k=20 (2 x
+    top_k covers the 10 features: the exact regime): int8 compacted and
+    depth-wise are the serial run's model text; float32 compacted keeps
+    the serial run's structure, leaf values within rtol 1e-5 / atol
+    5e-6; every rank agrees."""
+    x, y = _dp_table()
+    base = dict(_DP_PARAMS, tree_learner="voting", num_machines=4)
+    jobs = {"int8": dict(base, hist_dtype="int8"),
+            "int8_depthwise": dict(base, hist_dtype="int8",
+                                   grow_policy="depthwise"),
+            "float32": dict(base, hist_dtype="float32")}
+    ranks = _card_world(tmp_path, 4, jobs, x, y)
+    for name, params in jobs.items():
+        recs = [r[name] for r in ranks]
+        assert len({r["model"] for r in recs}) == 1, name
+        assert all((r["backend"], r["world"]) == ("gloo", 4) for r in recs)
+        want = _serial_text(params, x, y)
+        if name.startswith("int8"):
+            assert recs[0]["model"] == want, name
+            continue
+        got, serial = lgt.GBDT(), lgt.GBDT()
+        got.models_from_string(recs[0]["model"])
+        serial.models_from_string(want)
+        for ta, tb in zip(got.models, serial.models):
+            np.testing.assert_array_equal(ta.split_feature_real,
+                                          tb.split_feature_real)
+            np.testing.assert_array_equal(ta.threshold, tb.threshold)
+            np.testing.assert_allclose(ta.leaf_value, tb.leaf_value,
+                                       rtol=1e-5, atol=5e-6)

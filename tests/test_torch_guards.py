@@ -106,9 +106,16 @@ def test_default_device_needs_cuda():
             lgt.train(dict(params, num_iterations=1), qds)
 
 
+# the other keys a case needs (a grid of ranks of the hybrid learner)
+CASE_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid",
+                                          "num_machines": "4"},
+                ("goss", "true"): {"tree_learner": "hybrid",
+                                   "num_machines": "4"}}
+
+
 @pytest.mark.parametrize("key,value", [
     ("objective", "huber"), ("grow_policy", "levelwise"),
-    ("leafwise_compact", "maybe"), ("tree_learner", "hybrid"),
+    ("leafwise_compact", "maybe"), ("feature_shards", "-1"),
     ("num_machines", "0"), ("boosting_type", "dart"),
     ("predict_leaf_index", "maybe"), ("is_save_binary_file", "maybe"),
     ("max_bin", "0"), ("quant_rounding", "dither"),
@@ -118,14 +125,16 @@ def test_default_device_needs_cuda():
     ("is_pre_partition", "maybe"), ("save_binary_format", "parquet"),
     ("ingest_workers", "0"), ("ingest_chunk_rows", "0"),
     ("use_two_round_loading", "often"), ("checkpoint_keep", "0"),
-    ("elastic_shrink", "true"), ("tree_learner", "voting"),
-    ("feature_shards", "2"), ("top_k", "5"), ("straggler_k", "2"),
+    ("elastic_shrink", "true"), ("top_k", "0"),
+    ("feature_shards", "3"), ("goss", "true"), ("straggler_k", "2"),
     ("dp_schedule", "ring"), ("time_out", "0"),
 ])
 def test_out_of_slice_config_is_fatal(key, value):
     cfg = lgt.OverallConfig()
     with pytest.raises(log.Fatal, match=key):
-        cfg.set({"objective": "binary", key: value}, require_data=False)
+        cfg.set(dict({"objective": "binary"},
+                     **CASE_CONTEXT.get((key, value), {}), **{key: value}),
+                require_data=False)
 
 
 INGEST_KEYS = [

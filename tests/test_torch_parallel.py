@@ -77,10 +77,15 @@ for job in spec["jobs"]:
     params = dict(spec["base"], **job["params"])
     cfg = OverallConfig()
     cfg.set(dict(params, data=job.get("data", spec["data"])))
+    # the rank's row draw: its own under data, its data index's under
+    # hybrid and voting (a file each under is_pre_partition), every row
+    # under feature
+    shard_rank, shards = learners.row_shard(cfg)
+    if "data_by_shard" in job:
+        cfg.io_config.data_filename = job["data_by_shard"][shard_rank]
     shard = cfg.is_parallel_find_bin
     ds = lgt.Dataset.load_train(
-        cfg.io_config, rank=rank if shard else 0,
-        num_machines=P if shard else 1,
+        cfg.io_config, rank=shard_rank, num_machines=shards,
         bin_finder=learners.distributed_bin_finder() if shard else None)
     if job.get("telemetry"):
         from lightgbm_tpu_torch import telemetry
@@ -118,9 +123,12 @@ class World:
 
     def __init__(self, argv, P: int, cwd, timeout: float = WORLD_TIMEOUT,
                  env=None):
+        # one intra-op thread a rank: P ranks of a core count's threads
+        # each oversubscribe the host several times over (a 4-rank world
+        # of the hybrid tests took 60 s so, 9 s with one thread a rank)
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
-            **(env or {}))
+            **dict({"OMP_NUM_THREADS": "1"}, **(env or {})))
         self.P = P
         self.world = LocalWorld(argv, P, str(cwd), timeout, env)
 

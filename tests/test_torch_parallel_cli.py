@@ -8,10 +8,12 @@
 - its metric lines (training metrics over the world's rows, validation
   metrics on every rank) equal the serial CLI's, rtol 1e-6;
 - every key and route still refused (ROADMAP A9b) is a named ``Fatal``:
-  the hybrid and voting learners and their keys, the elastic keys,
-  ``serve_shards > 1``, ``timeline=true``, GOSS and checkpoints under a
-  world of more than one rank (GOSS through a CLI world, every rank
-  exiting 1), the non-resident load routes under a shard draw.
+  the elastic keys, ``serve_shards > 1``, ``timeline=true``, GOSS and
+  checkpoints under a world of more than one rank (GOSS through a CLI
+  world, every rank exiting 1; under hybrid and voting already in the
+  config), the non-resident load routes under a shard draw; and the
+  hybrid and voting keys' own faults (a ``feature_shards`` that does not
+  divide the world, ``top_k`` below 1).
 """
 import glob
 import os
@@ -129,13 +131,23 @@ def test_cli_goss_refused_on_every_rank(tmp_path):
         assert "ROADMAP A9b" in text
 
 
+# the other keys a case needs (the learner of a grid of ranks)
+REFUSED_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid"},
+                   ("feature_shards", "4"): {"tree_learner": "voting"},
+                   ("goss", "true"): {"tree_learner": "hybrid"},
+                   ("topk", "2"): {"tree_learner": "voting_parallel",
+                                   "feature_shards": "5"}}
+
+
 @pytest.mark.parametrize("key,value,match", [
-    ("tree_learner", "hybrid", "tree_learner=hybrid.*A9b"),
-    ("tree_learner", "voting", "tree_learner=voting.*A9b"),
-    ("tree_learner", "voting_parallel", "voting_parallel.*A9b"),
-    ("feature_shards", "2", "feature_shards.*A9b"),
-    ("top_k", "5", "top_k.*A9b"),
-    ("topk", "5", "top_k.*A9b"),
+    ("feature_shards", "-1", "feature_shards should be >= 0"),
+    ("feature_shards", "3", "feature_shards=3 does not divide "
+                            "num_machines=2"),
+    ("feature_shards", "4", "feature_shards=4 does not divide "
+                            "num_machines=2"),
+    ("top_k", "0", "top_k should be >= 1"),
+    ("topk", "2", "feature_shards=5 does not divide num_machines=2"),
+    ("goss", "true", "goss=true under tree_learner=hybrid.*A9b"),
     ("elastic_shrink", "true", "elastic_shrink.*A9b"),
     ("straggler_k", "2", "straggler_k.*A9b"),
     ("timeline", "true", "timeline=true.*A9b"),
@@ -148,8 +160,9 @@ def test_cli_goss_refused_on_every_rank(tmp_path):
 def test_refused_keys(key, value, match):
     cfg = lgt.OverallConfig()
     with pytest.raises(log.Fatal, match=match):
-        cfg.set({"objective": "binary", "num_machines": "2", key: value},
-                require_data=False)
+        cfg.set(dict({"objective": "binary", "num_machines": "2"},
+                     **REFUSED_CONTEXT.get((key, value), {}),
+                     **{key: value}), require_data=False)
 
 
 def test_parity_keys_accepted_without_effect():
