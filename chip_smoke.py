@@ -118,7 +118,21 @@ byte-equal to the serial uniform text), voting 4 x 1 depth-wise int8
 ``torch.distributed.run`` with ``tree_learner=hybrid`` (four rank files
 byte-equal); every rank's kernel launches and wire bytes per site are
 checked (see ``hybrid_voting_phase``; ``chip_smoke.py --phase16`` runs
-the build and phase 16 alone).  Phase 9 also times int8 with stochastic
+the build and phase 16 alone).  Phase 17 runs GOSS, checkpoints and the
+straggler drain across worlds sharing the card over gloo: GOSS under
+``tree_learner=data`` at 2 ranks (int8 byte-equal to serial GOSS,
+float32 serial's first tree and AUC) and under hybrid 2 x 2; rank 1
+SIGKILLed at iteration 2 and the world restarted from its checkpoints
+(int8 and float32 byte-equal to the unbroken runs); a 2-rank checkpoint
+resumed on 3 ranks and on one (serial's int8 text; the 3 ranks armed
+with the drain, which equal work must not set off); and the drain of a
+3-rank world whose rank 2 sleeps before every iteration, flagged from
+the ranks' measured work, every rank stopped by the named ``Fatal``
+after the checkpoint and the survivors' 2-rank restart serial's text,
+all at the main path's 255 leaves;
+each rank's launches of both kernels are checked per path (see
+``goss_elastic_phase``; ``chip_smoke.py --phase17`` runs the build and
+phase 17 alone).  Phase 9 also times int8 with stochastic
 rounding (the hash and quantization, then the launch) beside its plain
 version and ``scatter_add_`` of the same levels.  Every phase must
 pass; the last line of standard output is ``{"ok": true, "device":
@@ -428,7 +442,7 @@ def main() -> int:
             if "registers" in line or "bytes stack" in line:
                 say("  ptxas %s: %s" % (name, line.strip()))
     kernels = run(torch.device("cuda"), FULL)
-    say("chip_smoke: phases 1-16 in %.1f s" % (time.perf_counter() - t0))
+    say("chip_smoke: phases 1-17 in %.1f s" % (time.perf_counter() - t0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -442,7 +456,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-16 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-17 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -1007,6 +1021,10 @@ def run(dev, sizes, timer=None):
     # ---- phase 16: the hybrid and voting learners, a grid of 4 ranks
     for path, counts in hybrid_voting_phase(dev, sizes, x, y,
                                             sync).items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    # ---- phase 17: GOSS, checkpoints and the drain across worlds
+    for path, counts in goss_elastic_phase(dev, sizes, x, y, sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
     return list(kernels.values())
@@ -3494,18 +3512,22 @@ PHASE16_TIMEOUT_S = 420      # phase 16's one world of 4 ranks and 6 jobs
 
 
 def parallel_worker(spec_path: str) -> int:
-    """One rank of a phase-15 or phase-16 world (``chip_smoke.py
+    """One rank of a phase-15, 16 or 17 world (``chip_smoke.py
     --parallel-worker spec.json``, under torch's environment): join the
     world, train each job of the spec through ``lightgbm_tpu_torch.train``
     on this rank's rows of the job's table (``learners.row_shard``: its
     shard under ``tree_learner=data``, its data index's under ``hybrid``
     and ``voting``, every row under ``feature``) with every kernel count
     set to 0 just before and read just after, and write the model text
-    and what was measured.  Telemetry is armed (no sink) for the
-    collective sites and the route counters."""
+    and what was measured, job by job.  Telemetry is armed (no sink) for
+    the collective sites and the route counters.  Phase 17's jobs may
+    arm a fault on some ranks (``fault``), expect an error, recorded
+    (``expect_error``), and slow one rank down (``slow``: [rank, seconds
+    of its own work before every iteration], a straggler as the drain
+    measures it); the restore of a resumed run is timed."""
     import torch
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch import parallel, telemetry
+    from lightgbm_tpu_torch import elastic, faults, parallel, telemetry
     from lightgbm_tpu_torch.config import OverallConfig
     from lightgbm_tpu_torch.ops import compact, hist_cuda
     from lightgbm_tpu_torch.parallel import learners
@@ -3516,6 +3538,31 @@ def parallel_worker(spec_path: str) -> int:
     rank = parallel.get_rank()
     tables = spec["tables"]
     sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    restore_s = []
+    resume = lgt.GBDT.resume_latest
+
+    def timed_resume(self, directory):
+        t0 = time.perf_counter()
+        resume(self, directory)
+        restore_s.append(time.perf_counter() - t0)
+
+    lgt.GBDT.resume_latest = timed_resume
+    exchanged, exchange = [], elastic.exchange_times
+
+    def kept_exchange(comm, seconds):
+        out = exchange(comm, seconds)
+        exchanged.append([float(v) for v in out])
+        return out
+
+    elastic.exchange_times = kept_exchange
+    train_one_iter = lgt.GBDT.train_one_iter
+
+    def slowed(seconds):
+        def slow_iter(self, *args, **kwargs):
+            time.sleep(seconds)
+            return train_one_iter(self, *args, **kwargs)
+        return slow_iter
+
     sets, out = {}, {}
     for job in spec["jobs"]:
         cfg = OverallConfig()
@@ -3541,39 +3588,64 @@ def parallel_worker(spec_path: str) -> int:
             iter_s.append(now - clock[0])
             clock[0] = now
 
+        fault = job.get("fault")
+        if fault and rank in fault["ranks"]:
+            faults.arm(fault["at"], fault["kind"])
+        if job.get("slow", [None])[0] == rank:
+            lgt.GBDT.train_one_iter = slowed(job["slow"][1])
         telemetry.enable()
         telemetry.reset()
         reset_counts()
+        del restore_s[:]
+        del exchanged[:]
         sync()
         clock[0] = time.perf_counter()
-        booster = lgt.train(job["params"], sets[shard], device=dev,
-                            progress_fn=progress)
+        booster, error = None, None
+        try:
+            booster = lgt.train(job["params"], sets[shard], device=dev,
+                                progress_fn=progress)
+        except Exception as e:
+            if not job.get("expect_error"):
+                raise
+            error = "%s: %s" % (type(e).__name__, e)
+        finally:
+            faults.disarm()
+            lgt.GBDT.train_one_iter = train_one_iter
         sync()
         counts = {"hist": hist_cuda.launches, "partition": compact.launches,
                   "partition_kernels": compact.kernel_launches}
-        routes = {k: v for k, v in telemetry.counters().items()
+        counters = telemetry.counters()
+        routes = {k: v for k, v in counters.items()
                   if k.startswith(("hist/", "partition/"))}
         ic = telemetry.interconnect_snapshot() or {"sites": {}}
         telemetry.disable()
         telemetry.reset()
-        text = booster.model_to_string()
-        path = os.path.join(spec["dir"], "%s.rank%d.txt" % (job["name"],
-                                                            rank))
-        with open(path, "w") as f:
-            f.write(text)
-        grid = getattr(booster._learner, "grid", None)
-        out[job["name"]] = {
+        rec = {
             "iter_s": iter_s, "counts": counts, "routes": routes,
             "sites": {k: {"calls": v["calls"], "bytes": v["bytes"],
                           "bytes_per_call": v["bytes_per_call"],
                           "seconds": v["seconds"], "axis": v["axis"]}
                       for k, v in ic["sites"].items()},
-            "backend": booster._learner.comm.backend,
-            "world": booster._learner.world, "rows": sets[shard].num_data,
-            "grid": None if grid is None else list(grid[:4]),
-            "leaves": [t.num_leaves for t in booster.models]}
-    with open(os.path.join(spec["dir"], "out.%d.json" % rank), "w") as f:
-        json.dump(out, f)
+            "counters": {k: v for k, v in counters.items()
+                         if k.startswith(("ckpt/", "elastic/", "goss/"))},
+            "restore_s": list(restore_s), "error": error,
+            "busy_s": list(exchanged),
+            "rows": sets[shard].num_data}
+        if booster is not None:
+            path = os.path.join(spec["dir"], "%s.rank%d.txt" % (job["name"],
+                                                                rank))
+            with open(path, "w") as f:
+                f.write(booster.model_to_string())
+            grid = getattr(booster._learner, "grid", None)
+            rec.update(backend=booster._learner.comm.backend,
+                       world=booster._learner.world,
+                       grid=None if grid is None else list(grid[:4]),
+                       leaves=[t.num_leaves for t in booster.models])
+        out[job["name"]] = rec
+        # job by job: a later job may lose this process (a SIGKILL)
+        with open(os.path.join(spec["dir"], "out.%d.json" % rank),
+                  "w") as f:
+            json.dump(out, f)
     parallel.shutdown()
     return 0
 
@@ -3586,7 +3658,15 @@ def run_world(tmp, name, nprocs, jobs, dev, data, phase=15,
     (``OMP_NUM_THREADS``).  Fails the phase if a rank fails or the world
     runs past ``timeout``.  Returns ([rank] -> {job: record}, its
     directory)."""
-    from lightgbm_tpu_torch.parallel.launch import LocalWorld, WorldTimeout
+    return finish_world(start_world(tmp, name, nprocs, jobs, dev, data,
+                                    timeout, threads), phase)[:2]
+
+
+def start_world(tmp, name, nprocs, jobs, dev, data,
+                timeout=PARALLEL_TIMEOUT_S, threads=None):
+    """``run_world``'s world, started and not waited for (worlds of one
+    phase may run side by side): (world, directory, name, start)."""
+    from lightgbm_tpu_torch.parallel.launch import LocalWorld
     wdir = os.path.join(tmp, name)
     os.makedirs(wdir)
     spec = os.path.join(wdir, "spec.json")
@@ -3602,18 +3682,34 @@ def run_world(tmp, name, nprocs, jobs, dev, data, phase=15,
     t0 = time.perf_counter()
     world = LocalWorld([sys.executable, os.path.abspath(__file__),
                         PARALLEL_WORKER, spec], nprocs, wdir, timeout, env)
+    return world, wdir, name, t0
+
+
+def finish_world(started, phase, killed=()):
+    """Wait for a ``start_world`` world: fails the phase if it runs past
+    its limit or a rank exits nonzero, but for the ranks of ``killed``
+    (rank 1 SIGKILLed) and, where one was, rank 0 (its peer gone mid
+    collective).  Returns ([rank] -> {job: record}, its directory, the
+    exit codes)."""
+    from lightgbm_tpu_torch.parallel.launch import WorldTimeout
+    world, wdir, name, t0 = started
     try:
         ranks = world.wait()
     except WorldTimeout as e:
         fail("phase %d %s: %s" % (phase, name, e))
+    rcs = [rc for rc, _ in ranks]
     for r, (rc, out) in enumerate(ranks):
-        if rc != 0:
+        if rc != 0 and not killed:
             say(out[-6000:])
             fail("phase %d %s: rank %d exited %d" % (phase, name, r, rc))
-    say("phase %d %s: %d rank(s) in %.1f s" % (
-        phase, name, nprocs, time.perf_counter() - t0))
+    if killed and any(rcs[r] != -9 for r in killed):
+        fail("phase %d %s: exit codes %s, ranks %s were to be killed"
+             % (phase, name, rcs, list(killed)))
+    say("phase %d %s: %d rank(s) in %.1f s (exit codes %s)" % (
+        phase, name, world.nprocs, time.perf_counter() - t0, rcs))
     return [json.load(open(os.path.join(wdir, "out.%d.json" % r)))
-            for r in range(nprocs)], wdir
+            if os.path.exists(os.path.join(wdir, "out.%d.json" % r))
+            else {} for r in range(world.nprocs)], wdir, rcs
 
 
 def rank_texts(wdir, job, nprocs):
@@ -4257,6 +4353,330 @@ def hybrid_voting_phase(dev, sizes, x, y, sync):
             for k, v in by_path.items()}
 
 
+PHASE17_TIMEOUT_S = 300      # each of phase 17's worlds
+P17_SLOW_S = 4.0             # phase 17e's straggler: sleep a iteration
+
+
+def grown_launches(what, recs, dev, compacted=True):
+    """Every rank launched the histogram kernel once a leaf and the
+    partition kernel once a split of the trees it grew in this run (the
+    last ``len(iter_s)`` trees; a resumed run grows the remaining ones),
+    its route counters equal to them (``check_ranks``)."""
+    check_ranks(what, recs, dev)
+    for r, one in enumerate(recs):
+        grown = one["leaves"][len(one["leaves"]) - len(one["iter_s"]):]
+        want = (sum(grown), sum(grown) - len(grown) if compacted else 0)
+        got = (one["counts"]["hist"], one["counts"]["partition"])
+        if got != want:
+            fail("%s rank %d: %d histogram launches and %d partitions; "
+                 "expected %d and %d" % ((what, r) + got + want))
+
+
+def goss_elastic_phase(dev, sizes, x, y, sync):
+    """Phase 17: GOSS, checkpoints and the elastic restart across worlds
+    of worker processes sharing the card over gloo, each rank through
+    ``lightgbm_tpu_torch.train`` on its rows of phase 4's table,
+    launching both kernels on its own rows; worlds that do not depend on
+    each other run side by side:
+
+    (a) GOSS at full width (255 leaves, compacted, ``top_rate=0.2
+        other_rate=0.1``), 2 ranks of ``tree_learner=data``, 3
+        iterations: int8 byte-equal to a serial GOSS run on the card;
+        float32: the first tree serial's structure, held-out AUC within
+        1e-4 of serial's, recorded beside it;
+    (b) GOSS under hybrid 2 x 2, int8: byte-equal to serial;
+    (c) checkpoints every iteration, rank 1 SIGKILLed at iteration 2
+        (rank 0 fails in its next collective), the world restarted from
+        the checkpoint directory: int8 and float32 byte-equal to the
+        unbroken run (serial's in int8, the unbroken world's in float32);
+    (d) the 2-rank int8 checkpoint at iteration 2 resumed on 3 ranks
+        (armed with the drain at ``straggler_k=2``, which ranks of equal
+        work must not set off) and on one (this process): serial's int8
+        text;
+    (e) the drain: 3 ranks, ``elastic_shrink=true straggler_k=2``, rank 2
+        sleeping ``P17_SLOW_S`` before every iteration, its own work as
+        the ranks measure it (nothing injected): every rank stops with
+        the named ``Fatal`` after the checkpoint; a 2-rank restart writes
+        serial's int8 text.
+
+    Every path grows the main path's 255 leaves a tree.  Each rank
+    launches the histogram kernel once a leaf and the partition kernel
+    once a split of the trees it grew.  Prints seconds per iteration,
+    each rank's own work at each drain boundary, collective
+    seconds and wire bytes per site, checkpoint bytes, background write
+    and restore seconds.  Returns rank 0's kernel launches per path."""
+    import re
+    import shutil
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import checkpoint as ckpt
+    card = card_name()
+    t_phase = time.perf_counter()
+    n_train = sizes["n_train"]
+    x_test, y_test = x[n_train:], y[n_train:]
+    nl = sizes.get("parallel_leaves", 255)
+    base = {"objective": "binary", "num_iterations": 3, "learning_rate": 0.1,
+            "max_bin": 255}
+    goss = dict(base, num_leaves=nl, goss="true", top_rate=0.2,
+                other_rate=0.1)
+    small = dict(base, num_leaves=nl, hist_dtype="int8")
+    dp2 = {"tree_learner": "data", "num_machines": 2}
+    rec, by_path = {"card": card}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+
+    def ck(name):
+        return os.path.join(tmp, "ck_" + name)
+
+    def ckpt_job(name, params, world=dp2, **extra):
+        return dict({"name": name, "params": dict(
+            params, checkpoint_interval=1, checkpoint_dir=ck(name),
+            **world)}, **extra)
+
+    kill = {"fault": {"at": 2, "kind": "kill", "ranks": [1]}}
+    try:
+        data = (os.path.join(tmp, "x.npy"), os.path.join(tmp, "y.npy"))
+        np.save(data[0], x[:n_train].astype(np.float32))
+        np.save(data[1], y[:n_train])
+        # round 1: (a), the unbroken float32 world of (c) and (c)'s int8
+        # kill; (b) beside it
+        w1 = start_world(tmp, "goss_ck", 2, [
+            {"name": "a_goss_int8", "params": dict(goss, hist_dtype="int8",
+                                                   **dp2)},
+            {"name": "a_goss_float32",
+             "params": dict(goss, hist_dtype="float32", **dp2)},
+            {"name": "c_whole_float32",
+             "params": dict(small, hist_dtype="float32", **dp2)},
+            ckpt_job("c_int8", small, **kill)], dev, data,
+            PHASE17_TIMEOUT_S, threads=2)
+        w3 = start_world(tmp, "goss_hybrid", 4, [
+            {"name": "b_hybrid_goss_int8",
+             "params": dict(goss, hist_dtype="int8", tree_learner="hybrid",
+                            num_machines=4, feature_shards=2)}], dev, data,
+            PHASE17_TIMEOUT_S, threads=2)
+        train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
+                                            max_bin=255)
+        serial, serial_s = {}, {}
+        for name, params in (("goss_int8", dict(goss, hist_dtype="int8")),
+                             ("goss_float32", dict(goss,
+                                                   hist_dtype="float32")),
+                             ("int8", small)):
+            booster, iter_s, _ = drive(params, train_set, dev, sync)
+            serial[name], serial_s[name] = booster.model_to_string(), iter_s
+        r1, d1, rc1 = finish_world(w1, 17, killed=(1,))
+        r3, d3, _ = finish_world(w3, 17)
+
+        # round 2: (c)'s int8 restart and float32 kill; (d) 2 -> 3 and
+        # (e)'s drain beside it; (d) 2 -> 1 here
+        for dst in ("int8_3", "int8_1"):
+            shutil.copytree(ck("c_int8"), ck(dst))
+        w2 = start_world(tmp, "restart", 2, [
+            dict(ckpt_job("c_int8", small), name="c_resume_int8"),
+            ckpt_job("c_float32", dict(small, hist_dtype="float32"),
+                     **kill)], dev, data, PHASE17_TIMEOUT_S, threads=2)
+        drain = dict(small, elastic_shrink="true", straggler_k=2)
+        w4 = start_world(tmp, "three", 3, [
+            dict(ckpt_job("int8_3", drain, world={"tree_learner": "data",
+                                                  "num_machines": 3}),
+                 name="d_2to3_int8"),
+            ckpt_job("e_drain", drain, world={"tree_learner": "data",
+                                              "num_machines": 3},
+                     slow=[2, P17_SLOW_S], expect_error=True)], dev, data,
+            PHASE17_TIMEOUT_S, threads=2)
+        t0 = time.perf_counter()
+        resumed, resumed_s, resumed_counts = drive(
+            dict(small, checkpoint_interval=1,
+                 checkpoint_dir=ck("int8_1")), train_set, dev, sync)
+        rec["d_2to1_s"] = time.perf_counter() - t0
+        r2, d2, rc2 = finish_world(w2, 17, killed=(1,))
+        r4, d4, _ = finish_world(w4, 17)
+        shutil.copytree(ck("e_drain"), ck("e_restart"))
+
+        # round 3: (c)'s float32 restart and (e)'s restart on 2 ranks
+        r5, d5, _ = finish_world(start_world(tmp, "restart2", 2, [
+            dict(ckpt_job("c_float32", dict(small, hist_dtype="float32")),
+                 name="c_resume_float32"),
+            ckpt_job("e_restart", small)], dev, data, PHASE17_TIMEOUT_S,
+            threads=2), 17)
+
+        # ---- the checks
+        auc_serial = held_out_auc(serial["goss_float32"], x_test, y_test,
+                                  dev)
+        verdicts = {}
+        for letter, name, ranks, wdir, want in (
+                ("a", "a_goss_int8", r1, d1, serial["goss_int8"]),
+                ("a", "a_goss_float32", r1, d1, None),
+                ("b", "b_hybrid_goss_int8", r3, d3, serial["goss_int8"]),
+                ("c", "c_resume_int8", r2, d2, serial["int8"]),
+                ("c", "c_resume_float32", r5, d5, "c_whole_float32"),
+                ("d", "d_2to3_int8", r4, d4, serial["int8"]),
+                ("e", "e_restart", r5, d5, serial["int8"])):
+            recs = [r[name] for r in ranks]
+            texts = rank_texts(wdir, name, len(ranks))
+            what = "phase 17%s %s" % (letter, name)
+            if len(set(texts)) != 1:
+                fail("%s: the ranks' model texts differ" % what)
+            grown_launches(what, recs, dev)
+            if want == "c_whole_float32":
+                want = rank_texts(d1, want, 2)[0]
+            if name == "a_goss_float32":
+                got, ser = lgt.GBDT(), lgt.GBDT()
+                got.models_from_string(texts[0])
+                ser.models_from_string(serial["goss_float32"])
+                for field in ("split_feature_real", "threshold",
+                              "left_child", "right_child", "leaf_parent"):
+                    if not np.array_equal(getattr(got.models[0], field),
+                                          getattr(ser.models[0], field)):
+                        fail("%s: the first tree's %s differs from "
+                             "serial's" % (what, field))
+                auc = held_out_auc(texts[0], x_test, y_test, dev)
+                if abs(auc - auc_serial) > 1e-4:
+                    fail("%s: held-out AUC %.6f against serial's %.6f"
+                         % (what, auc, auc_serial))
+                part = first_parting_split(texts[0], serial["goss_float32"])
+                verdicts[name] = (
+                    "first tree serial's structure; AUC %.6f, serial %.6f; "
+                    "%s" % (auc, auc_serial, "every split serial's"
+                            if part is None else "first split parting: "
+                            "tree %d node %d, gains %.6f vs %.6f" % part))
+                rec[name + "_auc"], rec[name + "_serial_auc"] = \
+                    auc, auc_serial
+            elif texts[0] != want:
+                fail("%s: model text differs from the unbroken run's"
+                     % what)
+            else:
+                verdicts[name] = "byte-equal to the unbroken run"
+            if name.startswith(("a_", "b_")):
+                widest = max(r["rows"] for r in recs)
+                for r, one in enumerate(recs):
+                    site = one["sites"].get("dp/goss_score_allgather")
+                    if site is None or site["calls"] != 3 or \
+                            site["bytes_per_call"] != 4 * widest:
+                        fail("%s rank %d: dp/goss_score_allgather filed "
+                             "%s, predicted 3 calls of %d bytes"
+                             % (what, r, site, 4 * widest))
+            by_path["elastic_" + name] = recs[0]["counts"]
+            per_rank = [{
+                "rank": r, "rows": one["rows"], "s_per_iter": one["iter_s"],
+                "collective_ms_per_iter": 1e3 * sum(
+                    v["seconds"] for v in one["sites"].values())
+                / max(len(one["iter_s"]), 1),
+                "hist": one["counts"]["hist"],
+                "partition": one["counts"]["partition"],
+                "restore_s": one["restore_s"][0] if "resume" in name
+                or "2to3" in name or "restart" in name else None,
+                "counters": one["counters"]} for r, one in enumerate(recs)]
+            rec[name] = {"ranks": per_rank, "rank0_sites": recs[0]["sites"]}
+            say("phase 17%s %s (%d ranks): %s; median s/iteration per rank "
+                "%s; collective ms/iteration %s; launches per rank hist %s, "
+                "partition %s; restore s %s" % (
+                    letter, name, len(recs), verdicts[name],
+                    ["%.4f" % float(np.median(p["s_per_iter"]))
+                     for p in per_rank],
+                    ["%.1f" % p["collective_ms_per_iter"] for p in per_rank],
+                    [p["hist"] for p in per_rank],
+                    [p["partition"] for p in per_rank],
+                    [p["restore_s"] for p in per_rank]))
+            for site, v in sorted(recs[0]["sites"].items()):
+                say(site_line(site, v))
+        for name in ("goss_int8", "goss_float32", "int8"):
+            say("phase 17 serial %s (%s): median s/iteration %.4f"
+                % (name, dev.type, float(np.median(serial_s[name]))))
+            rec["serial_" + name + "_s_per_iter"] = serial_s[name]
+
+        # (c) the kills: rank 1 killed, rank 0 failed in its collective
+        for name, rcs, ranks in (("c_int8", rc1, r1), ("c_float32", rc2,
+                                                       r2)):
+            if rcs[0] == 0 or rcs[1] != -9:
+                fail("phase 17c %s: exit codes %s" % (name, rcs))
+            sizes_b = [os.path.getsize(p) for p in
+                       ckpt.list_checkpoints(ck(name))]
+            rec[name + "_ckpt_bytes"] = sizes_b
+            say("phase 17c %s: rank 1 SIGKILLed at iteration 2, rank 0 "
+                "exited %d; checkpoint files %s bytes" % (name, rcs[0],
+                                                          sizes_b))
+        # (d) 2 -> 1 in this process
+        if resumed.model_to_string() != serial["int8"]:
+            fail("phase 17d: the 2-rank checkpoint resumed on one rank "
+                 "differs from serial's int8 text")
+        grown = [t.num_leaves for t in resumed.models][-len(resumed_s):]
+        if (resumed_counts["hist"], resumed_counts["partition"]) != (
+                sum(grown), sum(grown) - len(grown)):
+            fail("phase 17d 2 -> 1: launches %s" % resumed_counts)
+        by_path["elastic_d_2to1_int8"] = resumed_counts
+        say("phase 17d 2 -> 1 (this process): byte-equal to serial int8 "
+            "(%d trees grown after the restore)" % len(grown))
+
+        # (e) the drain: every rank stopped, named, after the checkpoint
+        drained = [r["e_drain"] for r in r4]
+        check_ranks("phase 17e e_drain", drained, dev)
+        for r, one in enumerate(drained):
+            err = one["error"] or ""
+            if "persistent straggler p2: checkpoint written at iteration " \
+                    "2" not in err or "restarting the 2 surviving " \
+                    "processes" not in err:
+                fail("phase 17e rank %d: %r" % (r, err))
+            times = one["sites"].get("elastic/times_allgather", {})
+            votes = one["sites"].get("elastic/survivor_pmin", {})
+            if (times.get("calls"), times.get("bytes_per_call"),
+                    votes.get("calls"), votes.get("bytes_per_call"),
+                    one["counters"].get("elastic/shrinks")) != (2, 4, 1, 12,
+                                                                1):
+                fail("phase 17e rank %d: sites %s, counters %s"
+                     % (r, one["sites"], one["counters"]))
+            if one["counts"]["hist"] == 0 or one["counts"]["partition"] == 0:
+                fail("phase 17e rank %d: launches %s" % (r, one["counts"]))
+        if ckpt.load_checkpoint(ckpt.latest_checkpoint(ck("e_drain")))[
+                "iteration"] != 2:
+            fail("phase 17e: the drain's checkpoint is not iteration 2's")
+        by_path["elastic_e_drain"] = drained[0]["counts"]
+        logs = open(os.path.join(d5, "rank0.log")).read()
+        if not re.search(r"elastic restart: checkpoint topology "
+                         r"num_machines=3 -> 2", logs):
+            fail("phase 17e: the restart did not log the topology change")
+        rec["e_drain"] = {
+            "sites": drained[0]["sites"], "counters": drained[0]["counters"],
+            "iter_s": [d["iter_s"] for d in drained]}
+        rec["busy_s"] = {"d_2to3_int8": r4[0]["d_2to3_int8"]["busy_s"],
+                         "e_drain": drained[0]["busy_s"]}
+        say("phase 17e drain, 3 ranks: every rank stopped with the named "
+            "Fatal at iteration 2 after the checkpoint; exchange %s; vote "
+            "%s; the 2-rank restart byte-equal to serial int8" % (
+                drained[0]["sites"]["elastic/times_allgather"],
+                drained[0]["sites"]["elastic/survivor_pmin"]))
+        say("phase 17d/e each rank's own work at each boundary, s (p0, "
+            "p1, p2): armed 2 -> 3 %s; drain, p2 sleeping %.1f s %s [%s]"
+            % (rec["busy_s"]["d_2to3_int8"], P17_SLOW_S,
+               rec["busy_s"]["e_drain"], card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say("phase 17 GOSS, checkpoints and the elastic restart: %.1f s [%s]"
+        % (rec["phase_s"], card))
+    say(json.dumps({"goss_elastic": rec}))
+    return {k: {"hist": v["hist"], "partition": v["partition"]}
+            for k, v in by_path.items()}
+
+
+def phase17_rehearsal() -> int:
+    """``chip_smoke.py --phase17``: the build and phase 17 alone (a short
+    call for GOSS, checkpoints and the drain over worlds; the contract
+    run is the script without arguments)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lightgbm_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.build()
+    sizes = FULL
+    x, latent = make_table(sizes["n_train"] + sizes["n_test"], 28, SEED)
+    y = (latent > 0).astype(np.float32)
+    goss_elastic_phase(torch.device("cuda"), sizes, x, y,
+                       torch.cuda.synchronize)
+    say("chip_smoke --phase17: %.1f s" % (time.perf_counter() - t0))
+    return 0
+
+
 def phase16_rehearsal() -> int:
     """``chip_smoke.py --phase16``: the build and phase 16 alone (a short
     call for the 2-D learners; the contract run is the script without
@@ -4311,5 +4731,7 @@ if __name__ == "__main__":
         sys.exit(parallel_worker(sys.argv[2]))
     if sys.argv[1:] == ["--phase15"]:
         sys.exit(phase15_rehearsal())
+    if sys.argv[1:] == ["--phase17"]:
+        sys.exit(phase17_rehearsal())
     sys.exit(phase16_rehearsal() if sys.argv[1:] == ["--phase16"]
              else main())

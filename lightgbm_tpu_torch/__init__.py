@@ -17,7 +17,8 @@ the default, raises without one) unless the caller passes
   :class:`ServingFront` (``serving``, or ``GBDT.serving_engine``);
   checkpoints: ``checkpoint`` (the file format, the background writer)
   and ``faults`` (a one-shot kill, raise or stall at an iteration
-  boundary, for tests); observability: ``telemetry`` (spans, counters,
+  boundary, for tests); ``elastic`` (the straggler rule of the drain);
+  observability: ``telemetry`` (spans, counters,
   the JSONL sink, memory gauges, the stall watchdog), ``tracing`` (the
   flight recorder), ``health``, ``costmodel`` (the kernel roofline),
   ``monitor`` (windows, SLO burn, score drift).
@@ -36,7 +37,7 @@ if _os.environ.get("LIGHTGBM_TPU_TORCH_INGEST_WORKER") != "1":
     from .io.dataset import Dataset
     from .models.gbdt import GBDT
     from .models.tree import Tree
-    from . import checkpoint, faults, serving, telemetry
+    from . import checkpoint, elastic, faults, serving, telemetry
     from .serving import FlatEnsemble, ServingEngine, ServingFront
 
 
@@ -55,7 +56,8 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
     observability keys arm the session as on the command line
     (``telemetry.arm_session``), and a session this call armed ends with
     it (lightgbm_tpu/__init__.py:48-103); ``profile_dir`` wraps the
-    training loop in ``torch.profiler``.
+    training loop in ``torch.profiler``.  ``elastic_shrink`` arms the
+    straggler drain under a parallel learner.
 
     A parallel learner (``tree_learner`` data, feature, hybrid or voting,
     ``num_machines > 1``): every rank of the world calls ``train`` with
@@ -68,7 +70,7 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
     calls and which the caller may call first), or one rank without
     one; the process group stays for the caller (``parallel.shutdown``
     leaves it)."""
-    from .cli import init_parallel
+    from .cli import arm_elastic, init_parallel
     from .metrics import create_metrics
     from .objectives import create_objective
 
@@ -92,6 +94,7 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
             booster.add_valid_dataset(valid, create_metrics(config),
                                       name=name)
         booster.resume_latest(bc.checkpoint_dir)
+        arm_elastic(config, booster)
         is_eval = bool(train_metrics) or bool(valid_sets)
         with telemetry.profile(config.io_config.profile_dir):
             booster.run_training(
@@ -106,5 +109,5 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
 
 
 __all__ = ["Dataset", "FlatEnsemble", "GBDT", "OverallConfig",
-           "ServingEngine", "ServingFront", "Tree", "checkpoint", "faults",
-           "serving", "telemetry", "train"]
+           "ServingEngine", "ServingFront", "Tree", "checkpoint", "elastic",
+           "faults", "serving", "telemetry", "train"]

@@ -31,6 +31,11 @@ verifies the payload length (a short read names the truncation), the
 sha256 (corruption), and then every required field (a missing or
 mistyped field is named in the error).
 
+In a world of ranks the payload is the same, its scores in serial row
+order; rank 0 writes it, and a rank with host bagging state of its own
+writes its file under ``<dir>/rank<r>/`` (``GBDT._rank_checkpoint_dir``),
+so no two ranks write one directory.
+
 ``CheckpointWriter`` is the background path ``GBDT.run_training`` uses:
 the loop hands it a raw snapshot (host copies of the scores, the tree
 list, RNG states) and a thread serializes and writes it.  It holds ONE

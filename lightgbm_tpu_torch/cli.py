@@ -7,7 +7,8 @@ parser's OpenMP pool; the training and validation loads take the
 command line's ingest keys (columns, header, caches, streaming), and a
 load with ``is_save_binary_file`` writes the cache.  A ``checkpoint_dir``
 that holds a checkpoint resumes training from the latest one, and the
-run trains what is left of ``num_iterations``.  The observability keys
+run trains what is left of ``num_iterations``; ``elastic_shrink`` arms
+the straggler drain.  The observability keys
 arm the session as lightgbm_tpu/cli.py:263-310 does
 (``telemetry.arm_session``): the ``metrics_out`` sink with the flight
 recorder, the live monitor, the stall watchdog; ``profile_dir`` wraps
@@ -22,8 +23,10 @@ config=...``: each rank joins the world, takes the world's smallest
 index's shard under ``hybrid`` and ``voting`` (each with the distributed
 bin finder; ``learners.row_shard``) or every row under ``feature``, and
 trains the same trees.  Rank 0 writes ``output_model``; rank r > 0 writes the
-same text to ``<output_model>.rank<r>``.  ``main`` leaves the world on
-success and on a ``Fatal`` alike.
+same text to ``<output_model>.rank<r>``.  Every rank resumes from the
+world's checkpoint (``GBDT.resume_latest``), whatever the world that
+wrote it.  ``main`` leaves the world on success and on a ``Fatal``
+alike.
 """
 from __future__ import annotations
 
@@ -98,8 +101,9 @@ class Application:
         log.info("Finish loading data, use %f seconds"
                  % (time.perf_counter() - start))
         # a checkpoint to resume (with input_model too: a Fatal, the two
-        # are mutually exclusive)
+        # are mutually exclusive), every rank of a world alike
         booster.resume_latest(cfg.boosting_config.checkpoint_dir)
+        arm_elastic(cfg, booster)
         log.info("Start train ...")
         is_eval = bool(train_metrics) or any(booster.valid_metrics)
         start = time.perf_counter()
@@ -149,6 +153,15 @@ def init_parallel(cfg):
         tree.feature_fraction_seed)
     tree.feature_fraction = mesh.sync_up_by_min(tree.feature_fraction)
     return learners.create_parallel_learner(cfg)
+
+
+def arm_elastic(cfg, booster) -> None:
+    """The straggler drain under ``elastic_shrink`` and a parallel
+    learner (lightgbm_tpu/cli.py:382-402).  The survivors' restart is a
+    new world: its learner factors the grid over the ranks it has
+    (``num_machines`` past the world shrinks to it)."""
+    if cfg.boosting_config.elastic_shrink and cfg.is_parallel:
+        booster.enable_elastic()
 
 
 def main(argv: List[str] = None) -> int:

@@ -26,14 +26,14 @@ or voting (``voting_parallel``), ``num_machines``, ``dp_schedule``,
 ``feature_shards``, ``top_k``, ``is_pre_partition``, and
 ``machine_list_file``, ``local_listen_port`` and ``time_out``, which
 are checked as the JAX package checks them and have no effect (torch's
-environment does their work, parallel/mesh.py).  As in the JAX package,
-``num_machines`` of 1 makes any learner serial.
+environment does their work, parallel/mesh.py); and the straggler
+drain (``elastic_shrink``, ``straggler_k``, elastic.py).  As in the JAX
+package, ``num_machines`` of 1 makes any learner serial.
 The difference is the slice rule: a key the port does not run raises
 ``Fatal`` naming it, instead of being parsed and silently ignored.
 Keys whose JAX-package default is the only value the port runs (one
-serving device) are accepted at that value and refused at any other;
-the keys of the parallel work still to come (``A9B_KEYS``) name
-ROADMAP A9b.
+serving device) are accepted at that value and refused at any other,
+naming ROADMAP A9b where the parallel work still to come runs them.
 Growth runs under all three policies of the JAX package: compacted
 leaf-wise (the default), masked leaf-wise (``leafwise_compact=false``)
 and depth-wise (``grow_policy=depthwise``).
@@ -148,13 +148,9 @@ SLICE_KEYS = frozenset((
     "tree_learner", "num_machines", "dp_schedule", "is_pre_partition",
     "feature_shards", "top_k",
     "machine_list_file", "local_listen_port", "time_out",
+    # the straggler drain (elastic.py)
+    "elastic_shrink", "straggler_k",
 ))
-
-# keys of the parallel work still to port (ROADMAP A9b), refused by name
-A9B_KEYS = {
-    "elastic_shrink": "the elastic mesh shrink",
-    "straggler_k": "the elastic mesh shrink's straggler rule",
-}
 
 # per-process timeline shards belong to the multi-process learners
 TIMELINE_REFUSED = ("Parameter timeline=true is not supported by "
@@ -199,9 +195,6 @@ def check_slice(params: Dict[str, str]) -> None:
     for key, value in params.items():
         if key in SLICE_KEYS:
             continue
-        if key in A9B_KEYS:
-            log.fatal("Parameter %s is not supported by lightgbm_tpu_torch "
-                      "yet: %s is ROADMAP A9b" % (key, A9B_KEYS[key]))
         allowed = DEFAULT_ONLY.get(key)
         if allowed is None:
             log.fatal("Parameter %s is not supported by lightgbm_tpu_torch "
@@ -728,6 +721,13 @@ class BoostingConfig:
     checkpoint_interval: int = 0
     checkpoint_dir: str = ""
     checkpoint_keep: int = 2
+    # the straggler drain (elastic.py; lightgbm_tpu/config.py:779-788):
+    # elastic_shrink=true arms it under a parallel learner; a rank
+    # strictly slowest straggler_k consecutive iteration boundaries is
+    # flagged, the world checkpoints and every rank stops for a restart
+    # of the survivors
+    elastic_shrink: bool = False
+    straggler_k: int = 3
     # training health (health.py; lightgbm_tpu/config.py:711-725): "auto"
     # on whenever telemetry is armed; the anomaly policy warn / halt /
     # record; k consecutive worsening eval iterations flag divergence
@@ -832,6 +832,10 @@ class BoostingConfig:
         log.check(self.checkpoint_keep >= 1,
                   "checkpoint_keep should be >= 1 (the latest checkpoint "
                   "must survive)")
+        self.elastic_shrink = _get_bool(params, "elastic_shrink",
+                                        self.elastic_shrink)
+        self.straggler_k = _get_int(params, "straggler_k", self.straggler_k)
+        log.check(self.straggler_k >= 1, "straggler_k should be >= 1")
 
 
 @dataclasses.dataclass
@@ -985,10 +989,10 @@ class OverallConfig:
             factor_machines(self.network_config.num_machines,
                             bc.tree_config.feature_shards,
                             voting=bc.tree_learner == "voting")
-            if bc.goss:
-                log.fatal("goss=true under tree_learner=%s is not ported "
-                          "to lightgbm_tpu_torch yet: GOSS over a world of "
-                          "ranks is ROADMAP A9b" % bc.tree_learner)
+        if bc.elastic_shrink and not self.is_parallel:
+            log.fatal("elastic_shrink=true requires a parallel "
+                      "tree_learner and num_machines > 1 (there is no "
+                      "mesh to shrink under serial training)")
         if (self.is_parallel_find_bin
                 and bc.tree_config.histogram_pool_size >= 0):
             log.warning("Histogram LRU queue was enabled "

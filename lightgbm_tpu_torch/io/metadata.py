@@ -100,10 +100,11 @@ class Metadata:
 
     def global_view(self, gather_rows) -> "Metadata":
         """The world's metadata from this rank's (lightgbm_tpu/io/
-        metadata.py:70-97): ``gather_rows(local) -> global`` concatenates
-        every rank's row-aligned array in rank order
-        (parallel/mesh.gather_ragged_rows).  Shards are query-atomic, so
-        the query counts concatenate into the global boundaries.  Metrics
+        metadata.py:70-97): ``gather_rows(local) -> global`` places every
+        rank's row-aligned array in the world's row order
+        (models.gbdt.SerialRows.gather_host).  Shards are query-atomic
+        and a query's rows are consecutive, so a flag on each query's
+        first row, gathered alike, marks the global boundaries.  Metrics
         over it and the scores gathered in the same order are the serial
         run's."""
         g = Metadata()
@@ -112,10 +113,13 @@ class Metadata:
         if self.weights is not None:
             g.weights = gather_rows(self.weights)
         if self.query_boundaries is not None:
-            counts = np.diff(self.query_boundaries).astype(np.int64)
-            gcounts = gather_rows(counts)
-            boundaries = np.zeros(gcounts.size + 1, dtype=np.int32)
-            boundaries[1:] = np.cumsum(gcounts)
+            qb = self.query_boundaries
+            first = np.zeros(self.num_data, dtype=np.int8)
+            first[qb[:-1][np.diff(qb) > 0]] = 1
+            starts = np.flatnonzero(gather_rows(first))
+            boundaries = np.empty(starts.size + 1, dtype=np.int32)
+            boundaries[:-1] = starts
+            boundaries[-1] = g.label.size if g.label is not None else 0
             g.query_boundaries = boundaries
             g.load_query_weights()
         g.num_data = 0 if g.label is None else g.label.size

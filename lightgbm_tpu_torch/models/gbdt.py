@@ -24,7 +24,7 @@ training set mixes narrow and wide features and ``mixed_bin`` allows
 it, the booster keeps its own copy of the bin matrix packed into
 bin-width classes (``_pack_spec``, gbdt.py:182-219, 455-462); the
 dataset, validation scoring and the trees stay in canonical order.
-Single-process checkpoints (:701-1000, the serial non-pipelined branch):
+Checkpoints (:701-1139, the non-pipelined branches):
 ``checkpoint_state`` snapshots the trees, scores, sampler state and
 early-stopping state, ``restore_checkpoint`` continues a fresh booster
 from one bit for bit, and ``run_training`` writes them every
@@ -41,9 +41,9 @@ taken beside the last class's tree) and the memory gauges, the summary
 record ends the run (also on an exception, marked ``aborted``, before
 the flight recorder's crash dump), ``run_training`` checks in with the
 stall watchdog, and the layout and bagging routes are counted once a
-booster.  None of it moves a tree.  The fused chunk programs, the
-deferred-readback pipeline and the elastic monitor are not ported;
-their telemetry goes with them.
+booster.  None of it moves a tree.  The fused chunk programs and the
+deferred-readback pipeline are not ported; their telemetry goes with
+them.
 
 Under a parallel learner (``init(..., learner=)``, parallel/learners.py)
 the booster is one rank's: N is the rank's own row count (its shard
@@ -51,12 +51,21 @@ under ``tree_learner=data``, its data index's under ``hybrid`` and
 ``voting``, every row under ``feature``), every rank grows the same
 trees through the learner, and each rank bags its own rows with the host
 draw from ``bagging_seed`` (so a grid's feature group bags alike).
-Training metrics and the ``score_reference=`` line read the world's rows
-(the scores and the metadata gathered in rank order, each data shard
-once), so they are the serial run's; the int8 row bound is checked on
-the world's N.  In a world of more than one
-rank GOSS and checkpoints are named ``Fatal``s (ROADMAP A9b), and
-lambdarank needs query-atomic shards.
+The world's rows go by serial row order (``SerialRows``: each rank's
+rows at their ``used_data_indices``, each data shard once), the rule
+the JAX package's single process keeps and its multi-process layout
+breaks (ROADMAP C9, C10).  Training metrics and the ``score_reference=``
+line read the scores and the metadata gathered in it, so they are the
+serial run's; the int8 row bound is checked on the world's N;
+lambdarank needs query-atomic shards.  The GOSS draw runs over the
+world's row scores gathered in that order, so a world's GOSS trees are
+the serial run's, and a checkpoint stores the scores in it, so a
+world's checkpoint is a serial one and a restore fits any number of
+ranks.  Rank 0 writes the checkpoints; a rank with its own host bagging
+state writes its own beside them.  The straggler drain
+(``enable_elastic``, elastic.py) compares the ranks' own work between
+boundaries, checkpoints the world, agrees on the survivors and stops
+every rank for their restart.
 
 The score is a [K, N] f32 tensor on the training device (K = num_class,
 1 unless the objective is multiclass); gradients, histograms, partitions
@@ -68,12 +77,13 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from .. import checkpoint, faults, health, telemetry, tracing
+from .. import checkpoint, elastic, faults, health, telemetry, tracing
 from ..device import resolve_device
 from ..objectives.rank import LambdarankNDCG
 from ..ops import sampling
@@ -123,6 +133,12 @@ class GBDT:
         # booster's rows are one shard of a world of more than one rank
         self._learner = None
         self._sharded = False
+        # a sharded world's rows in serial row order (SerialRows)
+        self._rows = None
+        # the straggler drain's monitor (enable_elastic), or None, and
+        # the clock and the wait clock of the last iteration boundary
+        self._straggler = None
+        self._boundary_t = self._boundary_wait = 0.0
 
     # ------------------------------------------------------------------ init
 
@@ -140,6 +156,9 @@ class GBDT:
             self._sharded = learner.shards_rows and getattr(
                 learner, "data_shards", learner.world) > 1
             self._check_world(boosting_config, train_data, objective)
+            if self._sharded:
+                self._rows = SerialRows(learner.comm, train_data,
+                                        self._row_step(), self.device)
         telemetry.set_device(self.device)
         self.gbdt_config = boosting_config
         self.tree_config = boosting_config.tree_config
@@ -196,9 +215,10 @@ class GBDT:
         self._init_sampling(boosting_config)
         objective.init(train_data.metadata, self.num_data, self.device)
         if self._sharded and self.training_metrics:
-            # the world's rows, in rank order: the serial run's values
-            # (lightgbm_tpu/models/gbdt.py:425-432)
-            md = train_data.metadata.global_view(self._gather_rows)
+            # the world's rows in serial row order: the serial run's
+            # values (lightgbm_tpu/models/gbdt.py:425-432 gathers them in
+            # process order)
+            md = train_data.metadata.global_view(self._rows.gather_host)
             for metric in self.training_metrics:
                 metric.init("training", md, md.num_data)
         else:
@@ -257,21 +277,8 @@ class GBDT:
     def _check_world(self, bc, train_data, objective) -> None:
         """What a parallel world refuses (module docstring), and a grid's
         feature groups must agree on their rows."""
-        world = self._learner.world
         if hasattr(self._learner, "agree_rows"):
             self._learner.agree_rows(train_data.num_data)
-        if world > 1 and bc.goss:
-            # lightgbm_tpu/models/gbdt.py:1534-1539; the port has no
-            # fused chunk program
-            log.fatal("goss=true in multi-process training requires the "
-                      "fused chunk path: grow_policy=depthwise and a device "
-                      "formulation for every configured metric (not ported "
-                      "to lightgbm_tpu_torch: ROADMAP A9b)")
-        if world > 1 and bc.checkpoint_interval > 0:
-            log.fatal("checkpoint_interval > 0 under a world of %d ranks is "
-                      "not ported to lightgbm_tpu_torch yet: checkpoints "
-                      "and their topology-aware restore are ROADMAP A9b"
-                      % world)
         if (self._sharded and isinstance(objective, LambdarankNDCG)
                 and train_data.metadata.query_boundaries is not None
                 and not train_data.shard_query_atomic):
@@ -283,10 +290,12 @@ class GBDT:
     def global_num_data(self) -> int:
         """Rows of the world (this booster's own outside a sharded
         world)."""
-        if not self._sharded:
-            return self.num_data
-        return sum(mesh.all_gather_object(int(self.num_data))
-                   [::self._row_step()])
+        return self._rows.n_total if self._rows is not None \
+            else self.num_data
+
+    def _in_world(self) -> bool:
+        """This booster is one rank of a world of more than one."""
+        return self._learner is not None and self._learner.world > 1
 
     def _init_sampling(self, bc) -> None:
         """The bagging, feature_fraction and GOSS state
@@ -312,9 +321,10 @@ class GBDT:
         self._goss_on = bool(bc.goss)
         if self._goss_on:
             self._goss_key = sampling.bag_key(bc.bagging_seed)
+            # over the world's rows: the serial run's counts
             (self._goss_top_cnt, self._goss_other_cnt,
              self._goss_amp) = sampling.goss_counts(
-                self.num_data, bc.top_rate, bc.other_rate)
+                self.global_num_data(), bc.top_rate, bc.other_rate)
             log.info("GOSS: keeping top %d rows by |grad| + %d amplified "
                      "(x%.3f) random rows per iteration"
                      % (self._goss_top_cnt, self._goss_other_cnt,
@@ -547,13 +557,26 @@ class GBDT:
         """The GOSS draw of this iteration over all classes' [K, N]
         gradients, keyed ``fold_in(PRNGKey(bagging_seed), iter)``
         (gbdt.py:640-670): (amplified grad, amplified hess, row mask), or
-        the inputs and None when GOSS is off."""
+        the inputs and None when GOSS is off.  A sharded world's ranks
+        gather the row scores in serial row order (``SerialRows``, site
+        ``dp/goss_score_allgather``), every rank draws the serial run's
+        mask over them and keeps its own rows' part."""
         if not self._goss_on:
             return grad, hess, None
+        key = threefry.fold_in(self._goss_key, self.iter)
         with telemetry.span("goss") as sp:
-            out = sampling.goss_select(
-                threefry.fold_in(self._goss_key, self.iter), grad, hess,
-                self._goss_top_cnt, self._goss_other_cnt, self._goss_amp)
+            if self._rows is None:
+                out = sampling.goss_select(
+                    key, grad, hess, self._goss_top_cnt,
+                    self._goss_other_cnt, self._goss_amp)
+            else:
+                absg = self._rows.gather(sampling.goss_row_scores(grad),
+                                         "dp/goss_score_allgather")
+                mask, w = sampling.goss_mask_weights(
+                    key, absg, self._goss_top_cnt, self._goss_other_cnt,
+                    self._goss_amp)
+                w = self._rows.take(w)
+                out = grad * w, hess * w, self._rows.take(mask)
             sp.fence(out[2])
         telemetry.count("goss/iterations")
         if tracing.active():
@@ -609,26 +632,36 @@ class GBDT:
         (application.cpp:239-257), with the JAX package's boundary work
         (lightgbm_tpu/models/gbdt.py:1520-1720): every
         ``checkpoint_interval`` iterations a snapshot goes to a background
-        writer, the fault hatch fires at each boundary, one checkpoint is
-        written synchronously at the end and one, best effort, on an
-        exception; the writer is always closed.  With ``stall_timeout``
-        configured the telemetry watchdog runs around the loop.  With a
-        sink, the summary record closes the run; an exception escaping
-        the loop writes it marked ``aborted`` and then dumps the flight
-        recorder's ring before re-raising."""
+        writer, the straggler drain (``enable_elastic``) takes its step,
+        the fault hatch fires at each boundary, one checkpoint is written
+        synchronously at the end and one, best effort, on an exception;
+        the writer is always closed.  In a world every rank takes the
+        snapshot (a sharded world's is a collective) and the ranks of
+        ``_rank_checkpoint_dir`` write it; the exception path runs no
+        collective there, since a peer may not come: it keeps the last
+        periodic checkpoint.  With ``stall_timeout`` configured the
+        telemetry watchdog runs around the loop.  With a sink, the
+        summary record closes the run; an exception escaping the loop
+        writes it marked ``aborted`` and then dumps the flight recorder's
+        ring before re-raising."""
         bc = self.gbdt_config
         wd_armed = telemetry.arm_watchdog()
         if wd_armed:
             telemetry.watchdog_checkin(phase="run_training",
                                        iteration=self.iter)
         writer = None
-        if bc.checkpoint_interval > 0:
+        ckpt_on = bc.checkpoint_interval > 0
+        if ckpt_on:
             log.check(bool(bc.checkpoint_dir),
                       "checkpoint_interval > 0 requires checkpoint_dir")
-            writer = checkpoint.CheckpointWriter(bc.checkpoint_dir,
-                                                 keep=bc.checkpoint_keep)
-            self.checkpoint_writer = writer
+            ckpt_dir = self._rank_checkpoint_dir(bc.checkpoint_dir)
+            if ckpt_dir is not None:
+                writer = checkpoint.CheckpointWriter(ckpt_dir,
+                                                     keep=bc.checkpoint_keep)
+                self.checkpoint_writer = writer
         last_ckpt = self.iter
+        mesh.exact_waits(self._straggler is not None)
+        self._stamp_boundary()
         try:
             for _ in range(num_iterations):
                 finished = self.train_one_iter(is_eval=is_eval)
@@ -640,18 +673,23 @@ class GBDT:
                     progress_fn(self.iter)
                 if finished:
                     break
-                if writer is not None \
-                        and self.iter - last_ckpt >= bc.checkpoint_interval:
-                    writer.submit(self.checkpoint_state())
+                if ckpt_on and self.iter - last_ckpt >= bc.checkpoint_interval:
+                    state = self.checkpoint_state()
+                    if writer is not None:
+                        writer.submit(state)
                     last_ckpt = self.iter
+                if self._straggler is not None:
+                    self._elastic_step(ckpt_on, writer)
                 faults.maybe_fire(self.iter)
-            if writer is not None:
+            if ckpt_on:
                 # a restart after a clean finish sees the complete run
-                writer.write_sync(self.checkpoint_state())
+                state = self.checkpoint_state()
+                if writer is not None:
+                    writer.write_sync(state)
             if self._learner is not None:
                 learners.aggregate_telemetry()
         except BaseException as e:
-            if writer is not None:
+            if writer is not None and not self._in_world():
                 # an exception between iterations leaves the state whole;
                 # if it is torn, the write fails and the last periodic
                 # checkpoint stands
@@ -671,6 +709,7 @@ class GBDT:
             tracing.dump_on_fault(type(e).__name__)
             raise
         finally:
+            mesh.exact_waits(False)
             if writer is not None:
                 writer.close()
             if wd_armed:
@@ -680,6 +719,88 @@ class GBDT:
             if self._health_monitor is not None:
                 extra["health"] = self._health_monitor.summary()
             telemetry.emit_summary(extra=extra)
+
+    # ------------------------------------------------------ straggler drain
+
+    def enable_elastic(self) -> None:
+        """Arm the straggler drain (lightgbm_tpu/models/gbdt.py:989-1019):
+        at every iteration boundary the ranks of a world exchange their
+        own work since the last boundary, an ``elastic.StragglerMonitor``
+        of ``straggler_k`` reads it through ``elastic.clear_lead``, and a
+        flagged rank drains the world (``_elastic_shrink``).  The JAX
+        package's learner factory, which re-meshes a single process in
+        place, has no counterpart: every world of the port is one process
+        a rank, and a live process does not leave a ``torch.distributed``
+        group, so the shrink is the multi-process protocol of checkpoint,
+        agreement, stop and a restart of the survivors."""
+        self._straggler = elastic.StragglerMonitor(
+            self.gbdt_config.straggler_k)
+
+    def _stamp_boundary(self) -> None:
+        self._boundary_t = time.perf_counter()
+        self._boundary_wait = mesh.collective_seconds()
+
+    def _elastic_step(self, ckpt_on: bool, writer) -> None:
+        """One boundary of the drain (lightgbm_tpu/models/gbdt.py:
+        1021-1044): exchange this rank's own work since the last boundary
+        over the world, the interval less its waits in collectives (each
+        rank labeled ``p<rank>``; the JAX package exchanges the interval,
+        ROADMAP C11), feed the monitor, and drain on a flagged rank."""
+        mon = self._straggler
+        if self._in_world():
+            busy = (time.perf_counter() - self._boundary_t) - (
+                mesh.collective_seconds() - self._boundary_wait)
+            gathered = elastic.exchange_times(mesh.host_comm(), busy)
+            mon.observe(self.iter, elastic.clear_lead(
+                elastic.host_times_from_gather(gathered)))
+        self._stamp_boundary()
+        flagged = mon.take_flagged()
+        if flagged is not None:
+            self._elastic_shrink(flagged, ckpt_on, writer)
+
+    def _elastic_shrink(self, flagged: str, ckpt_on: bool, writer) -> None:
+        """The multi-process drain (lightgbm_tpu/models/gbdt.py:
+        1046-1091): write the world checkpoint, agree on the survivors
+        over the world (``elastic.agree_survivors``: every rank names the
+        same count) and stop every rank with a ``Fatal`` asking for a
+        restart of the survivors from the checkpoint.  A world of one, or
+        one without checkpoints, has nothing to restart from: the drain
+        warns and disarms, alike on every rank, and training goes on."""
+        cur = self._learner.world if self._learner is not None else 1
+        if cur <= 1:
+            log.warning("persistent straggler %s flagged but the mesh is "
+                        "already minimal (num_machines=1); cannot shrink"
+                        % flagged)
+            self._straggler = None
+            return
+        if not ckpt_on:
+            log.warning("persistent straggler %s flagged, but no checkpoint "
+                        "is configured (checkpoint_interval=0) — a "
+                        "multi-process shrink restarts survivors from a "
+                        "checkpoint, so none can happen; continuing at the "
+                        "straggler's pace.  Arm checkpoint_interval/"
+                        "checkpoint_dir to make shrinks recoverable."
+                        % flagged)
+            self._straggler = None
+            return
+        state = self.checkpoint_state()
+        if writer is not None:
+            writer.write_sync(state)
+        try:
+            drop = int(str(flagged).lstrip("p").split("@")[0])
+        except ValueError:
+            drop = cur - 1
+        votes = np.ones(cur, np.int32)
+        votes[min(max(drop, 0), cur - 1)] = 0
+        agreed = elastic.agree_survivors(mesh.host_comm(), votes)
+        survivors = max(min(int(agreed.sum()), cur - 1), 1)
+        telemetry.count("elastic/shrinks")
+        if tracing.active():
+            tracing.event("elastic_shrink", iter=int(self.iter))
+        log.fatal("persistent straggler %s: checkpoint written at iteration "
+                  "%d; multi-process mesh shrink requires restarting the %d "
+                  "surviving processes from the checkpoint (task=train, "
+                  "same checkpoint_dir)" % (flagged, self.iter, survivors))
 
     # ------------------------------------------------------- checkpoints
 
@@ -717,19 +838,56 @@ class GBDT:
         }
 
     def _dataset_fingerprint(self) -> dict:
-        """The dataset's identity: rows, feature counts, validation sets."""
+        """The dataset's identity: the world's rows, feature counts,
+        validation sets (lightgbm_tpu/models/gbdt.py:805-815)."""
         return {
             "num_features": int(self.train_data.num_features),
             "num_total_features": int(self.train_data.num_total_features),
-            "num_rows": int(self.train_data.num_data),
+            "num_rows": int(self.global_num_data()),
             "num_valid": len(self.valid_datasets),
         }
 
-    @staticmethod
-    def _topology_info() -> dict:
-        """One process, the serial learner."""
-        return {"tree_learner": "serial", "num_machines": 1,
-                "process_count": 1}
+    def _topology_info(self) -> dict:
+        """The learner's class name, its world (``num_machines``) and the
+        ranks of the process group (lightgbm_tpu/models/gbdt.py:
+        817-827); a pre-partitioned world adds ``row_order: rank``, its
+        scores being in rank order, not serial order."""
+        if self._learner is None:
+            return {"tree_learner": "serial", "num_machines": 1,
+                    "process_count": 1}
+        # one process a rank
+        out = {"tree_learner": type(self._learner).__name__,
+               "num_machines": int(self._learner.world),
+               "process_count": int(self._learner.world)}
+        if self._rows is not None and self._rows.rank_order:
+            out["row_order"] = "rank"
+        return out
+
+    def _topology_changed(self, topo: dict) -> bool:
+        """A checkpoint's topology differs from this run's.  Two runs of
+        one process each are one layout (serial row order) whatever their
+        learner."""
+        here = self._topology_info()
+        if int(topo.get("process_count", 1)) <= 1 \
+                and here["process_count"] <= 1:
+            return False
+        return any(topo.get(k) != here.get(k) for k in
+                   ("tree_learner", "num_machines", "process_count",
+                    "row_order"))
+
+    def _rank_checkpoint_dir(self, directory: str) -> Optional[str]:
+        """Where this rank writes its checkpoints: rank 0 (and one
+        process) ``directory``, field for field the JAX payload; rank
+        r > 0 of a sharded world with host bagging, whose bagging state is
+        its own, ``directory/rank<r>``; None for any other rank, which
+        writes nothing and reads rank 0's files.  No two ranks write one
+        path, so no writer prunes a file another rank reads."""
+        rank = mesh.get_rank() if self._in_world() else 0
+        if rank == 0:
+            return directory
+        if self._sharded and self._use_bagging and not self._bag_device:
+            return os.path.join(directory, "rank%d" % rank)
+        return None
 
     def _rng_snapshot(self):
         """(bagging stream, per-class feature_fraction streams); a part
@@ -753,7 +911,10 @@ class GBDT:
         (checkpoint.serialize_state turns it into the payload, on the
         writer thread).  The scores are copied to the host here, on the
         training thread: the boosting loop updates them in place, and a
-        copy taken here is ordered after every queued update."""
+        copy taken here is ordered after every queued update.  A sharded
+        world's scores are gathered into serial row order (one
+        collective, site ``ckpt/score_allgather``: every rank calls this
+        at the same iteration), so its checkpoint is a serial run's."""
         return {
             "iteration": int(self.iter),
             "num_class": int(self.num_class),
@@ -761,7 +922,7 @@ class GBDT:
             "best_score": [list(r) for r in self.best_score],
             "best_iter": [list(r) for r in self.best_iter],
             "rng": self._rng_snapshot(),
-            "score": self.score.to("cpu", copy=True).numpy(),
+            "score": self._serial_score(),
             "valid_scores": [e["score"].to("cpu", copy=True).numpy()
                              for e in self.valid_datasets],
             "config": self.checkpoint_fingerprint(),
@@ -776,8 +937,12 @@ class GBDT:
         fingerprints are compared field by field, then the trees, sampler
         streams, early-stopping state and raw f32 scores are restored
         exactly, so the continuation is the unbroken run's bit for bit.
-        The incremental model file starts over, so a resumed CLI run
-        writes the whole model again."""
+        The scores are stored in serial row order, so a rank of a
+        sharded world takes its own rows (``used_data_indices``) on any
+        topology, and a world's checkpoint and a serial one are
+        interchangeable; what cannot cross a topology change is refused
+        (``_check_topology``).  The incremental model file starts over,
+        so a resumed CLI run writes the whole model again."""
         try:
             if isinstance(payload, str):
                 payload = checkpoint.load_checkpoint(payload)
@@ -799,11 +964,13 @@ class GBDT:
             log.fatal("checkpoint rng field 'feature_fraction' has %d "
                       "streams, this run has %d classes"
                       % (len(ff), len(self._feat_rngs)))
+        self._check_topology(payload)
         stored = checkpoint.array_from_json(payload["score"])
-        if tuple(stored.shape) != (self.num_class, self.num_data):
+        n_true = self.global_num_data()
+        if tuple(stored.shape) != (self.num_class, n_true):
             log.fatal("checkpoint field 'score' has shape %s, this run "
                       "needs (%d, %d)" % (tuple(stored.shape),
-                                          self.num_class, self.num_data))
+                                          self.num_class, n_true))
         vs = payload["valid_scores"]
         if len(vs) != len(self.valid_datasets):
             log.fatal("checkpoint field 'valid_scores' has %d sets, this "
@@ -820,6 +987,10 @@ class GBDT:
                            for r in payload["best_score"]]
         self.best_iter = [list(map(int, r)) for r in payload["best_iter"]]
         self.score = torch.as_tensor(stored, device=self.device)
+        if self._rows is not None:
+            # the stored scores are the world's in serial row order: this
+            # rank's rows, wherever the checkpoint's world held them
+            self.score = self._rows.take(self.score).contiguous()
         for entry, sj in zip(self.valid_datasets, vs):
             entry["score"] = torch.as_tensor(checkpoint.array_from_json(sj),
                                              device=self.device)
@@ -829,6 +1000,52 @@ class GBDT:
         self._model_file = None
         log.info("restored checkpoint at iteration %d (%d trees)"
                  % (self.iter, len(self.models)))
+
+    def _check_topology(self, payload) -> None:
+        """The elastic restart's rules (lightgbm_tpu/models/gbdt.py:
+        897-903, 958-987): a changed ``num_machines`` is logged; across a
+        topology change a pre-partitioned run (scores in rank order, each
+        rank its own file) and host-stream bagging (one state a shard)
+        cannot continue, each a named ``Fatal``."""
+        topo = payload.get("topology", {})
+        here = self._topology_info()
+        if topo.get("num_machines") not in (None, here["num_machines"]):
+            log.info("elastic restart: checkpoint topology "
+                     "num_machines=%s -> %s (mesh re-factored on the "
+                     "surviving machine count)"
+                     % (topo.get("num_machines"), here["num_machines"]))
+        if not self._topology_changed(topo):
+            return
+        if "row_order" in topo or "row_order" in here:
+            log.fatal("is_pre_partition=true cannot resume across a "
+                      "topology change: the checkpoint of tree_learner=%s "
+                      "on %s process(es) holds its scores in the rank order "
+                      "of its own files, and this run (tree_learner=%s on "
+                      "%d process(es)) has no serial row order to place "
+                      "them by; restart on the checkpoint's topology"
+                      % (topo.get("tree_learner"), topo.get("process_count"),
+                         here["tree_learner"], here["process_count"]))
+        bag = payload["rng"]["bagging"]
+        if bag is not None and bag["mode"] == "host" and (
+                self._sharded
+                or checkpoint.mask_from_json(bag["mask"]).size
+                != self.num_data):
+            log.fatal("checkpoint rng field 'bagging' is the host draw of "
+                      "tree_learner=%s on %s process(es), this run is "
+                      "tree_learner=%s on %d — host-path bagging state is "
+                      "per-shard, so an elastic restart across a different "
+                      "process layout cannot continue it (restart on the "
+                      "checkpoint's topology, or without bagging)"
+                      % (topo.get("tree_learner"), topo.get("process_count"),
+                         here["tree_learner"], here["process_count"]))
+
+    def _serial_score(self) -> np.ndarray:
+        """A host copy of the [K, N] training score, of the world's rows
+        in serial row order in a sharded world (collective there)."""
+        if self._rows is None:
+            return self.score.to("cpu", copy=True).numpy()
+        return self._rows.gather(self.score, "ckpt/score_allgather") \
+            .to("cpu").numpy()
 
     def _restore_bag_json(self, obj) -> None:
         """The bagging stream from its checkpoint form (the stream's mode
@@ -854,17 +1071,43 @@ class GBDT:
 
     def resume_latest(self, directory: str) -> None:
         """Restore the latest checkpoint in ``directory``, if it holds one
-        (lightgbm_tpu/cli.py:368-378)."""
-        latest = checkpoint.latest_checkpoint(directory) if directory \
-            else None
-        if latest is None:
+        (lightgbm_tpu/cli.py:368-378).  In a world every rank reads its
+        own (``_rank_checkpoint_dir``, else rank 0's files); the ranks
+        all-gather the iterations each can resume from and take the
+        latest they share, or stop with a ``Fatal`` naming each rank's
+        (collective)."""
+        if not directory:
             return
-        if self._learner is not None and self._learner.world > 1:
-            log.fatal("resuming checkpoint %s under a world of %d ranks is "
-                      "not ported to lightgbm_tpu_torch yet (ROADMAP A9b)"
-                      % (latest, self._learner.world))
-        log.info("resuming from checkpoint %s" % latest)
-        self.restore_checkpoint(latest)
+        if not self._in_world():
+            latest = checkpoint.latest_checkpoint(directory)
+            if latest is not None:
+                log.info("resuming from checkpoint %s" % latest)
+                self.restore_checkpoint(latest)
+            return
+        own = self._rank_checkpoint_dir(directory) or directory
+        found = _iterations(own)
+        if own != directory:
+            found = sorted(set(found) & set(_iterations(directory)))
+        everyone = mesh.all_gather_object(found)
+        if not any(everyone):
+            return
+        common = set(everyone[0]).intersection(*everyone[1:])
+        if not common:
+            latest = checkpoint.latest_checkpoint(directory)
+            if latest is not None:
+                # the named cause, where a topology change is it
+                self._check_topology(_load(latest))
+            log.fatal("the ranks hold no common checkpoint iteration to "
+                      "resume from in %s: %s" % (directory, "; ".join(
+                          "rank %d: %s" % (r, ", ".join(map(str, its))
+                                           or "none")
+                          for r, its in enumerate(everyone))))
+        path = checkpoint.checkpoint_path(own, max(common))
+        t0 = time.perf_counter()
+        log.info("resuming from checkpoint %s" % path)
+        self.restore_checkpoint(_load(path))
+        log.info("checkpoint restore took %.3f s" % (time.perf_counter()
+                                                     - t0))
 
     def remaining_iterations(self, num_iterations: int) -> int:
         """Iterations left of a run's total budget after a restore
@@ -913,21 +1156,17 @@ class GBDT:
                                                 self.valid_metrics)]
         return train_vals, valid_vals
 
-    def _gather_rows(self, local) -> np.ndarray:
-        """Every data shard's row-aligned host array in rank order, each
-        shard once (a grid's feature group holds the same rows)."""
-        return mesh.gather_ragged_rows(local, self._row_step())
-
     def _row_step(self) -> int:
         """Ranks that hold the same rows (a grid's feature group)."""
         return getattr(self._learner, "row_step", 1)
 
     def _world_score(self) -> torch.Tensor:
-        """The [K, N] training score, of the world's rows in rank order
-        when this booster holds a shard (collective then)."""
-        if not self._sharded:
+        """The [K, N] training score, of the world's rows in the world's
+        row order (``SerialRows``) when this booster holds a shard
+        (collective then)."""
+        if self._rows is None:
             return self.score
-        rows = self._gather_rows(self.score.cpu().numpy().T)
+        rows = self._rows.gather_host(self.score.cpu().numpy().T)
         return torch.from_numpy(np.ascontiguousarray(rows.T))
 
     def output_metric(self, iteration: int) -> bool:
@@ -1199,6 +1438,91 @@ class GBDT:
         out = ["", "feature importances:"]
         out += ["%s=%d" % (name, cnt) for cnt, name in pairs]
         return "\n".join(out) + "\n"
+
+
+class SerialRows:
+    """Where the rows of a sharded world's ranks sit in the world's row
+    order: serial row order (the order of the rows in the file, the
+    serial run's), each rank holding ``used_data_indices`` of the whole
+    table.  Under ``is_pre_partition`` a rank's file has no place in a
+    serial order, and the layout is rank order (``rank_order``), the JAX
+    package's.  Built once a booster (collective: every rank at
+    ``init``), from each data shard once (``step``: a grid's feature
+    group holds the same rows).  The metrics, the score reference, GOSS
+    and the checkpoints all read the world's rows through it.
+
+    ``gather`` all-gathers a row-aligned [..., n] tensor over ``comm``
+    (the learner's data-shard group, one shard a rank), padded to the
+    largest shard, and places every shard's values at their positions:
+    [..., n_total], the same on every rank.  ``take`` is its inverse for
+    this rank: its own rows of a [..., n_total] tensor.  Their index
+    tensors go to the device on first use.  ``gather_host`` places a
+    host array's rows (axis 0) alike, over the bootstrap group."""
+
+    def __init__(self, comm, train_data, step: int, device):
+        n = int(train_data.num_data)
+        own = train_data.used_data_indices
+        self.rank_order = own is None
+        if self.rank_order:
+            counts = mesh.all_gather_object(n)[::step]
+            shard = mesh.get_rank() // step
+            parts = [np.arange(sum(counts[:d]), sum(counts[:d + 1]))
+                     for d in range(len(counts))]
+            own = parts[shard]
+        else:
+            parts = mesh.all_gather_object(np.asarray(own, np.int64))[::step]
+        self.counts = [p.size for p in parts]
+        self.n_total = int(sum(self.counts))
+        self.width = max(self.counts)
+        self.comm, self.step, self.device = comm, step, device
+        self._dst = np.concatenate(parts)
+        self._own = np.asarray(own, np.int64)
+        self._index = None      # (src, dst, own) on the device
+
+    def _device_index(self):
+        if self._index is None:
+            src = np.concatenate([d * self.width + np.arange(c)
+                                  for d, c in enumerate(self.counts)])
+            self._index = tuple(torch.as_tensor(a, device=self.device)
+                                for a in (src, self._dst, self._own))
+        return self._index
+
+    def gather(self, values: torch.Tensor, site: str) -> torch.Tensor:
+        src, dst, _ = self._device_index()
+        n = values.shape[-1]
+        lead = tuple(values.shape[:-1])
+        padded = values.new_zeros(lead + (self.width,))
+        padded[..., :n] = values
+        got = self.comm.all_gather(padded, site)     # [shards, ..., width]
+        flat = got.movedim(0, -2).reshape(lead + (-1,))
+        out = values.new_empty(lead + (self.n_total,))
+        out[..., dst] = flat[..., src]
+        return out
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        return full[..., self._device_index()[2]]
+
+    def gather_host(self, local) -> np.ndarray:
+        local = np.asarray(local)
+        rows = np.concatenate(mesh.all_gather_object(local)[::self.step],
+                              axis=0)
+        out = np.empty_like(rows)
+        out[self._dst] = rows
+        return out
+
+
+def _iterations(directory: str) -> List[int]:
+    """The iterations of the finished checkpoints in ``directory``."""
+    return [int(os.path.basename(p)[5:13])
+            for p in checkpoint.list_checkpoints(directory)]
+
+
+def _load(path: str) -> dict:
+    """A checkpoint file's verified payload; its fault a ``Fatal``."""
+    try:
+        return checkpoint.load_checkpoint(path)
+    except checkpoint.CheckpointError as e:
+        log.fatal(str(e))
 
 
 def _start_score(init_score, num_class: int, num_data: int) -> np.ndarray:

@@ -67,8 +67,9 @@ stats come from feature 0's owner over the feature group, as under
 ``feature`` (another feature's f32 cells round apart).
 
 Also here: ``distributed_bin_finder`` (dataset.cpp:353-415),
-``aggregate_telemetry``, ``row_shard`` (the rows a rank loads) and the
-factory ``create_parallel_learner``.  Not ported: the fused chunk
+``aggregate_telemetry``, ``row_shard`` (the rows a rank loads),
+``grid_shape`` (a grid over the ranks there are, as on a restart on
+fewer ranks) and the factory ``create_parallel_learner``.  Not ported: the fused chunk
 programs and ``_segmented_grow`` (ROADMAP "Not to port").
 """
 from __future__ import annotations
@@ -463,11 +464,25 @@ def row_shard(config) -> tuple:
     rank, world = mesh.get_rank(), mesh.get_num_machines()
     kind = config.boosting_config.tree_learner
     if kind in ("hybrid", "voting"):
-        ds, fs = mesh.factor_machines(
-            world, config.boosting_config.tree_config.feature_shards,
-            voting=kind == "voting")
+        ds, fs = grid_shape(config, world)
         return rank // fs, ds
     return rank, world
+
+
+def grid_shape(config, world: int) -> tuple:
+    """(data shards, feature shards) of a hybrid or voting world of
+    ``world`` ranks (parallel/mesh.factor_machines).  A ``feature_shards``
+    that divides ``num_machines`` but not the world, as on a restart on
+    fewer ranks, is a ``Fatal`` that says so."""
+    fs = config.boosting_config.tree_config.feature_shards
+    if fs and world % fs:
+        log.fatal("feature_shards=%d does not divide the world's %d ranks: "
+                  "a restart on fewer ranks factors the grid over the "
+                  "ranks it has (num_machines=%d shrinks to them); give "
+                  "feature_shards a divisor of %d, or 0"
+                  % (fs, world, config.network_config.num_machines, world))
+    return mesh.factor_machines(
+        world, fs, voting=config.boosting_config.tree_learner == "voting")
 
 
 class _ParallelLearnerBase:
@@ -607,8 +622,7 @@ class HybridLearner(_ParallelLearnerBase):
 
     def __init__(self, config):
         super().__init__(config)
-        self.ds, self.fs = mesh.factor_machines(
-            self.world, self.tree_config.feature_shards, voting=self.voting)
+        self.ds, self.fs = grid_shape(config, self.world)
         self.row_step = self.fs
         self.grid = None
 
@@ -727,5 +741,6 @@ __all__ = ["DataParallelLearner", "FeatureParallelLearner", "HybridLearner",
            "VotingLearner", "aggregate_telemetry", "allreduce_best_split",
            "balanced_ownership", "create_parallel_learner",
            "distributed_bin_finder", "dp_ownership_seams", "dp_psum_seams",
+           "grid_shape",
            "hybrid_ownership_seams", "ownership_finder", "row_shard",
            "static_ownership", "unpack_split", "voting_seams"]

@@ -22,7 +22,19 @@ does their work.
   with a warning, and its telemetry site gains ``/host_staged``.
 
 The bootstrap group is always gloo: host-side exchanges (seeds, bin
-mappers, metric rows, the clock handshake) ride it as pickled objects.
+mappers, metric rows, the clock handshake) ride it as pickled objects,
+and ``host_comm`` runs small host tensors over it (the elastic
+exchanges).
+
+**The wait clock** (``collective_seconds``): the host seconds this rank
+has spent inside collectives, every ``Comm`` call and every object
+exchange.  A rank waits there for its slowest peer, so the seconds
+between two points less the clock's advance are the rank's own work,
+which the straggler drain compares (``GBDT._elastic_step``).  The host
+sees a collective on a CUDA tensor only as far as the backend blocks:
+with ``exact_waits`` on, such a call synchronizes the device before (the
+rank's own queued kernels are its work) and after (NCCL returns before
+the transfer ends), so the clock holds the wait alone.
 
 **World size** (``world_size``): a ``num_machines`` larger than the world
 warns and shrinks to the world, as ``get_mesh`` does in the JAX package
@@ -38,8 +50,9 @@ sums, votes) and one over its feature group (the ranks of the same
 ``d``: the split record's reduction).  Every rank creates every group,
 data groups first, in the same order, as ``new_group`` requires.
 
-Not ported: ``global_row_layout`` and ``make_global_rows`` (each rank
-holds its own rows; no padded global array exists) and
+Not ported: ``global_row_layout``, ``make_global_rows`` and
+``gather_ragged_rows`` (each rank holds its own rows; no padded global
+array exists, and ``models.gbdt.SerialRows`` places a world's rows) and
 ``get_serving_mesh`` (tree-sharded serving, ROADMAP A9b).  The
 collectives are library calls: no kernel of the port runs here.
 """
@@ -50,7 +63,6 @@ import os
 import time
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -62,10 +74,20 @@ FEATURE_AXIS = "feature"
 
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
+# Comm.all_reduce's ops: (torch op, the JAX collective's kind)
+_REDUCE_OPS = {"sum": (dist.ReduceOp.SUM, "psum"),
+               "max": (dist.ReduceOp.MAX, "pmax"),
+               "min": (dist.ReduceOp.MIN, "pmin")}
+
 # the process group this module created (and so destroys), and the
 # collective groups per device type
 _owned = False
 _comms: dict = {}
+
+# the wait clock (module docstring): seconds inside collectives, and
+# whether a collective on a CUDA tensor synchronizes the device around it
+_wait_s = 0.0
+_exact_waits = False
 
 
 def factor_machines(num_machines: int, feature_shards: int = 0,
@@ -164,13 +186,34 @@ def world_size(num_machines: int) -> int:
     return world
 
 
+def collective_seconds() -> float:
+    """The wait clock: host seconds this rank has spent in collectives
+    since it started (module docstring)."""
+    return _wait_s
+
+
+def exact_waits(on: bool) -> None:
+    """Synchronize the device around each collective on a CUDA tensor,
+    so that the wait clock holds the wait alone (the straggler drain
+    arms it; off, a collective costs no synchronization)."""
+    global _exact_waits
+    _exact_waits = bool(on)
+
+
+def _waited(t0: float) -> None:
+    global _wait_s
+    _wait_s += time.perf_counter() - t0
+
+
 def all_gather_object(obj) -> list:
     """Every rank's ``obj``, in rank order (pickled, over the bootstrap
     group)."""
     if not initialized():
         return [obj]
     out = [None] * dist.get_world_size()
+    t0 = time.perf_counter()
     dist.all_gather_object(out, obj)
+    _waited(t0)
     return out
 
 
@@ -196,17 +239,6 @@ def sync_up_by_min(value):
     if get_num_machines() <= 1:
         return value
     return type(value)(min(all_gather_object(value)))
-
-
-def gather_ragged_rows(local, step: int = 1) -> np.ndarray:
-    """Every rank's host array concatenated along axis 0 in rank order,
-    lengths free (row shards, per-query counts); JAX mesh.py:303-322.
-    ``step``: take every step-th rank's only (a grid's data shards, once
-    each: ranks 0, fs, 2 fs, ...)."""
-    local = np.asarray(local)
-    if get_num_machines() <= 1:
-        return local
-    return np.concatenate(all_gather_object(local)[::step], axis=0)
 
 
 def rank_device(device: torch.device) -> torch.device:
@@ -239,8 +271,8 @@ class Comm:
         """``op(*out, t)`` on the group, filed at ``site`` (over ``axis``,
         the JAX package's mesh axis of the same collective) with ``t``'s
         bytes, the payload this rank sends, as the JAX package files the
-        collective's input; gloo on a CUDA tensor stages the op kinds it
-        refuses through pinned host copies."""
+        collective's input, and on the wait clock; gloo on a CUDA tensor
+        stages the op kinds it refuses through pinned host copies."""
         def direct(x):
             op(*out, x)
 
@@ -255,30 +287,39 @@ class Comm:
             if not out:
                 x.copy_(hx)
 
-        if self.backend == "gloo" and t.is_cuda:
-            if kind not in self._staged:
-                try:
-                    return telemetry.collective_span(
-                        site, direct, kind=kind, axis=axis)(t)
-                except RuntimeError as e:
-                    log.warning("gloo runs no %s on CUDA tensors (%s); "
-                                "staging it through host memory"
-                                % (kind, str(e).splitlines()[0]))
-                    self._staged.add(kind)
-            return telemetry.collective_span(
-                site + "/host_staged", staged, kind=kind, axis=axis)(t)
-        return telemetry.collective_span(site, direct, kind=kind,
-                                         axis=axis)(t)
+        sync = _exact_waits and t.is_cuda
+        if sync:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        try:
+            if self.backend == "gloo" and t.is_cuda:
+                if kind not in self._staged:
+                    try:
+                        return telemetry.collective_span(
+                            site, direct, kind=kind, axis=axis)(t)
+                    except RuntimeError as e:
+                        log.warning("gloo runs no %s on CUDA tensors (%s); "
+                                    "staging it through host memory"
+                                    % (kind, str(e).splitlines()[0]))
+                        self._staged.add(kind)
+                return telemetry.collective_span(
+                    site + "/host_staged", staged, kind=kind, axis=axis)(t)
+            return telemetry.collective_span(site, direct, kind=kind,
+                                             axis=axis)(t)
+        finally:
+            if sync:
+                torch.cuda.synchronize(t.device)
+            _waited(t0)
 
     def all_reduce(self, t: torch.Tensor, site: str, op: str = "sum",
                    axis: str = DATA_AXIS) -> torch.Tensor:
-        """The sum (or ``op="max"``) of ``t`` over the world, in a new
-        tensor."""
+        """The sum (or ``op="max"``, ``"min"``) of ``t`` over the world,
+        in a new tensor."""
         t = t.contiguous().clone()
         if self.group is None:
             return t
-        rop = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
-        self._run(site, "psum" if op == "sum" else "pmax", axis,
+        rop, kind = _REDUCE_OPS[op]
+        self._run(site, kind, axis,
                   lambda x: dist.all_reduce(x, op=rop, group=self.group), t)
         return t
 
@@ -308,6 +349,17 @@ class Comm:
         self._run(site, "all_gather", axis,
                   lambda o, x: fn(o, x, group=self.group), flat, out)
         return out.view((self.size,) + tuple(t.shape))
+
+
+def host_comm() -> Comm:
+    """The world's collectives on host (CPU) tensors, over the gloo
+    bootstrap group: the small exchanges every rank makes whatever its
+    learner (the elastic seconds and votes).  A world of one rank
+    without a process group runs each op as the identity."""
+    if not initialized():
+        return Comm(None, "none", 0, 1)
+    return Comm(dist.group.WORLD, "gloo", dist.get_rank(),
+                dist.get_world_size())
 
 
 def _backend(device: torch.device) -> "tuple[str, str]":
@@ -394,6 +446,8 @@ def grid_for(device: torch.device, ds: int, fs: int) -> Grid:
 
 __all__ = ["Comm", "DATA_AXIS", "FEATURE_AXIS", "Grid", "all_gather_object",
            "clock_handshake", "comm_for", "factor_machines",
-           "gather_ragged_rows", "get_rank", "get_num_machines", "grid_for",
+           "collective_seconds", "exact_waits", "get_rank",
+           "get_num_machines", "grid_for",
+           "host_comm",
            "init_distributed", "initialized", "rank_device", "shutdown",
            "sync_up_by_min", "world_size"]

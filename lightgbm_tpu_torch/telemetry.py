@@ -102,8 +102,14 @@ the registry takes one lock.  Each thread keeps its own span stack.
    ``.../root_stats``, ``.../splitinfo_allreduce``; the voting learner's
    ``voting/<policy>/votes_allgather``, ``.../voted_hist_allreduce``,
    ``.../splitinfo_allreduce`` and their ``root_`` twins, and
-   ``.../root_stats``; a gloo collective staged through host memory adds
-   ``/host_staged``), over the axis it reduces (``data`` or, for a
+   ``.../root_stats``; GOSS's row scores in serial row order,
+   ``dp/goss_score_allgather``, 4 bytes a row of the largest shard; the
+   checkpoint's scores, ``ckpt/score_allgather``, 4·K bytes a row of it;
+   the straggler drain's ``elastic/times_allgather``, 4 bytes, and
+   ``elastic/survivor_pmin``, 4 bytes a rank, both under the ``elastic``
+   span, which ``elastic/shrinks`` counts the drains of; a gloo
+   collective staged through host memory adds ``/host_staged``), over
+   the axis it reduces (``data`` or, for a
    grid's split records and int8 root stats, ``feature``), with the
    payload this rank sends a call (a best-first split's two children
    in one call under voting).  The port runs eagerly, so a record is
@@ -115,7 +121,8 @@ the registry takes one lock.  Each thread keeps its own span stack.
    cross-rank sums of parallel/learners.aggregate_telemetry under
    ``allhosts/`` keys.
 
-Left to later work: timeline shards and ``record_collective_sync``.
+Left to later work (ROADMAP A9b.7): timeline shards and
+``record_collective_sync``.
 Pure stdlib at import (torch is imported where a span or gauge
 first needs it): the exec'd ingest workers import this module without
 torch.

@@ -106,11 +106,12 @@ def test_default_device_needs_cuda():
             lgt.train(dict(params, num_iterations=1), qds)
 
 
-# the other keys a case needs (a grid of ranks of the hybrid learner)
+# the other keys a case needs (a grid of ranks of the hybrid learner;
+# GOSS over it, whose rates are still checked)
 CASE_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid",
                                           "num_machines": "4"},
-                ("goss", "true"): {"tree_learner": "hybrid",
-                                   "num_machines": "4"}}
+                ("other_rate", "0"): {"tree_learner": "hybrid",
+                                      "num_machines": "4", "goss": "true"}}
 
 
 @pytest.mark.parametrize("key,value", [
@@ -126,7 +127,7 @@ CASE_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid",
     ("ingest_workers", "0"), ("ingest_chunk_rows", "0"),
     ("use_two_round_loading", "often"), ("checkpoint_keep", "0"),
     ("elastic_shrink", "true"), ("top_k", "0"),
-    ("feature_shards", "3"), ("goss", "true"), ("straggler_k", "2"),
+    ("feature_shards", "3"), ("other_rate", "0"), ("straggler_k", "0"),
     ("dp_schedule", "ring"), ("time_out", "0"),
 ])
 def test_out_of_slice_config_is_fatal(key, value):

@@ -7,13 +7,16 @@
   CLI's model file in int8;
 - its metric lines (training metrics over the world's rows, validation
   metrics on every rank) equal the serial CLI's, rtol 1e-6;
+- GOSS through a CLI world: the rank files are byte-equal to the serial
+  CLI's GOSS model file in int8;
 - every key and route still refused (ROADMAP A9b) is a named ``Fatal``:
-  the elastic keys, ``serve_shards > 1``, ``timeline=true``, GOSS and
-  checkpoints under a world of more than one rank (GOSS through a CLI
-  world, every rank exiting 1; under hybrid and voting already in the
-  config), the non-resident load routes under a shard draw; and the
-  hybrid and voting keys' own faults (a ``feature_shards`` that does not
-  divide the world, ``top_k`` below 1).
+  ``serve_shards > 1``, ``timeline=true``, the non-resident load routes
+  under a shard draw; so are the hybrid and voting keys' own faults (a
+  ``feature_shards`` that does not divide the world, ``top_k`` below
+  1), GOSS with bagging under hybrid, ``elastic_shrink`` under the
+  serial learner and ``straggler_k`` below 1, and what a rank's booster
+  cannot restore across a topology change: host-stream bagging and a
+  pre-partitioned world.
 """
 import glob
 import os
@@ -26,6 +29,7 @@ import numpy as np
 import pytest
 
 import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch import checkpoint as ckpt
 from lightgbm_tpu_torch import cli
 from lightgbm_tpu_torch.utils import log
 from test_torch_parallel import BASE, REPO, WORLD_TIMEOUT, write_table
@@ -75,6 +79,19 @@ def metric_lines(text):
     return out
 
 
+def _serial_cli(d, args):
+    """The serial CLI in ``d``, its output to serial.log."""
+    old, cwd = sys.stdout, os.getcwd()
+    with open(d / "serial.log", "w") as f:
+        sys.stdout = f
+        os.chdir(d)
+        try:
+            return cli.main(args)
+        finally:
+            sys.stdout = old
+            os.chdir(cwd)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("cli")
@@ -85,18 +102,8 @@ def runs(tmp_path_factory):
                                          "num_machines=2",
                                          "output_model=dp.txt"])
     assert rc == 0, out[-4000:]
-    serial_log = d / "serial.log"
-    old, cwd = sys.stdout, os.getcwd()
-    with open(serial_log, "w") as f:
-        sys.stdout = f
-        os.chdir(d)
-        try:
-            serial_rc = cli.main(args + ["output_model=serial.txt"])
-        finally:
-            sys.stdout = old
-            os.chdir(cwd)
-    assert serial_rc == 0
-    return d, ranks, serial_log.read_text()
+    assert _serial_cli(d, args + ["output_model=serial.txt"]) == 0
+    return d, ranks, (d / "serial.log").read_text()
 
 
 def test_cli_rank_model_files_byte_equal(runs):
@@ -119,22 +126,30 @@ def test_cli_metric_lines_equal_serial(runs):
                                        err_msg=str(key))
 
 
-def test_cli_goss_refused_on_every_rank(tmp_path):
+def test_cli_goss_world_byte_equal_serial(tmp_path):
+    """GOSS on every rank of a CLI world: both rank files are the serial
+    CLI's GOSS model file, byte for byte (int8)."""
     write_table(tmp_path / "train.tsv", n=500)
-    rc, out, ranks = torchrun(tmp_path, ARGS + [
-        "data=train.tsv", "tree_learner=data", "num_machines=2",
-        "goss=true"])
-    assert rc != 0
+    goss = ARGS + ["data=train.tsv", "goss=true", "top_rate=0.3",
+                   "other_rate=0.2"]
+    rc, out, ranks = torchrun(tmp_path, goss + [
+        "tree_learner=data", "num_machines=2", "output_model=dp.txt"])
+    assert rc == 0, out[-4000:]
     assert len(ranks) == 2
-    for text in ranks:
-        assert "goss=true in multi-process training requires" in text
-        assert "ROADMAP A9b" in text
+    assert _serial_cli(tmp_path, goss + ["output_model=serial.txt"]) == 0
+    text = (tmp_path / "dp.txt").read_text()
+    assert text == (tmp_path / "dp.txt.rank1").read_text()
+    assert text == (tmp_path / "serial.txt").read_text()
+    for log_text in ranks:
+        assert "GOSS: keeping top 150 rows" in log_text
 
 
 # the other keys a case needs (the learner of a grid of ranks)
 REFUSED_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid"},
                    ("feature_shards", "4"): {"tree_learner": "voting"},
-                   ("goss", "true"): {"tree_learner": "hybrid"},
+                   ("goss", "true"): {"tree_learner": "hybrid",
+                                      "bagging_fraction": "0.5",
+                                      "bagging_freq": "1"},
                    ("topk", "2"): {"tree_learner": "voting_parallel",
                                    "feature_shards": "5"}}
 
@@ -147,9 +162,10 @@ REFUSED_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid"},
                             "num_machines=2"),
     ("top_k", "0", "top_k should be >= 1"),
     ("topk", "2", "feature_shards=5 does not divide num_machines=2"),
-    ("goss", "true", "goss=true under tree_learner=hybrid.*A9b"),
-    ("elastic_shrink", "true", "elastic_shrink.*A9b"),
-    ("straggler_k", "2", "straggler_k.*A9b"),
+    ("goss", "true", "Cannot use bagging in GOSS mode"),
+    ("elastic_shrink", "true", "elastic_shrink=true requires a parallel "
+                               "tree_learner"),
+    ("straggler_k", "0", "straggler_k should be >= 1"),
     ("timeline", "true", "timeline=true.*A9b"),
     ("serve_shards", "2", "serve_shards=2"),
     ("tree_learner", "ring", "Tree learner type error"),
@@ -220,24 +236,42 @@ class _World2:
     """A learner in a world of two ranks, refused before any collective."""
     world = 2
     shards_rows = True
+    comm = None
 
     def bind(self, device):
         return device
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"goss": "true"}, "goss=true in multi-process"),
-    ({"checkpoint_interval": "1", "checkpoint_dir": "ck"},
-     "checkpoint_interval > 0 under a world of 2"),
+    ({"bagging_fraction": "0.8", "bagging_freq": "1"},
+     "host-path bagging state is per-shard"),
+    ({"is_pre_partition": "true"},
+     "is_pre_partition=true cannot resume across a topology change"),
 ])
 def test_world_refusals_at_init(tmp_path, extra, match):
+    """A rank's booster refuses a serial run's checkpoint, before any
+    collective, where the topology change breaks it: host-stream bagging
+    (one state a shard) and a pre-partitioned world (its scores in rank
+    order)."""
     path = tmp_path / "train.tsv"
     write_table(path, n=300)
     cfg = lgt.OverallConfig()
     cfg.set(dict(BASE, data=str(path), **extra))
     from lightgbm_tpu_torch.objectives import create_objective
+
+    def booster(learner, shards):
+        b = lgt.GBDT()
+        b.init(cfg.boosting_config,
+               lgt.Dataset.load_train(cfg.io_config, rank=0,
+                                      num_machines=shards),
+               create_objective("binary", cfg.objective_config),
+               device="cpu", learner=learner)
+        return b
+
+    serial = booster(None, 1)
+    serial.run_training(1, is_eval=False)
+    payload = ckpt.serialize_state(serial.checkpoint_state())
+    rank = booster(_World2(), 2)
+    payload["dataset"] = rank._dataset_fingerprint()
     with pytest.raises(log.Fatal, match=match):
-        lgt.GBDT().init(cfg.boosting_config,
-                        lgt.Dataset.load_train(cfg.io_config),
-                        create_objective("binary", cfg.objective_config),
-                        device="cpu", learner=_World2())
+        rank.restore_checkpoint(payload)

@@ -306,8 +306,8 @@ def test_feature_groups_must_agree_on_rows(monkeypatch):
 @pytest.mark.parametrize("params,message", [
     ({"feature_shards": "3", "num_machines": "4"},
      "feature_shards=3 does not divide num_machines=4"),
-    ({"goss": "true", "num_machines": "4"}, "goss=true under "
-                                            "tree_learner=hybrid"),
+    ({"goss": "true", "num_machines": "4", "bagging_fraction": "0.5",
+      "bagging_freq": "1"}, "Cannot use bagging in GOSS mode"),
 ])
 def test_hybrid_config_refusals(params, message):
     cfg = lgt.OverallConfig()
