@@ -132,7 +132,19 @@ after the checkpoint and the survivors' 2-rank restart serial's text,
 all at the main path's 255 leaves;
 each rank's launches of both kernels are checked per path (see
 ``goss_elastic_phase``; ``chip_smoke.py --phase17`` runs the build and
-phase 17 alone).  Phase 9 also times int8 with stochastic
+phase 17 alone).  Phase 18 runs observability over worlds sharing the
+card over gloo, at 255 leaves, int8: a 2-rank ``tree_learner=data``
+world whose ``metrics_out`` rank 0 alone writes (every line JSON, the
+serial run's record count) and whose ``timeline=auto`` writes a headed
+shard a rank, read by ``scripts/port_timeline_report.py``; every rank's
+health blocks, ``quant_sat`` included, the serial run's there and in a
+hybrid 2 x 2 world; a 2-rank world whose rank 1 has NaN gradients
+stopped on both ranks at iteration 1 by ``on_anomaly=halt``; the ranks'
+trace dumps under the armed drain aligned by the port's podtrace
+(``scripts/port_pod_report.py --check``); each rank's launches of both
+kernels checked (see ``observability_world_phase``; ``chip_smoke.py
+--phase18`` runs the build and phase 18 alone).  Phase 9 also times
+int8 with stochastic
 rounding (the hash and quantization, then the launch) beside its plain
 version and ``scatter_add_`` of the same levels.  Every phase must
 pass; the last line of standard output is ``{"ok": true, "device":
@@ -442,7 +454,7 @@ def main() -> int:
             if "registers" in line or "bytes stack" in line:
                 say("  ptxas %s: %s" % (name, line.strip()))
     kernels = run(torch.device("cuda"), FULL)
-    say("chip_smoke: phases 1-17 in %.1f s" % (time.perf_counter() - t0))
+    say("chip_smoke: phases 1-18 in %.1f s" % (time.perf_counter() - t0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -456,7 +468,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-17 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-18 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -1025,6 +1037,11 @@ def run(dev, sizes, timer=None):
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
     # ---- phase 17: GOSS, checkpoints and the drain across worlds
     for path, counts in goss_elastic_phase(dev, sizes, x, y, sync).items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    # ---- phase 18: observability over worlds
+    for path, counts in observability_world_phase(dev, sizes, x, y,
+                                                  sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
     return list(kernels.values())
@@ -3520,15 +3537,21 @@ def parallel_worker(spec_path: str) -> int:
     and ``voting``, every row under ``feature``) with every kernel count
     set to 0 just before and read just after, and write the model text
     and what was measured, job by job.  Telemetry is armed (no sink) for
-    the collective sites and the route counters.  Phase 17's jobs may
-    arm a fault on some ranks (``fault``), expect an error, recorded
-    (``expect_error``), and slow one rank down (``slow``: [rank, seconds
-    of its own work before every iteration], a straggler as the drain
-    measures it); the restore of a resumed run is timed."""
+    the collective sites and the route counters, unless the job is
+    ``unarmed``; a job's own observability keys (a sink, ``timeline``,
+    ``health``, trace dumps) arm its session, their paths relative to
+    the world's directory.  Phase 17's jobs may arm a fault on some
+    ranks (``fault``), expect an error, recorded (``expect_error``), and
+    slow one rank down (``slow``: [rank, seconds of its own work before
+    every iteration], a straggler as the drain measures it); the restore
+    of a resumed run is timed.  Phase 18's may give some ranks NaN
+    gradients in their first rows (``poison``: the ranks) and end the
+    process with exit code 3 after the expected error (``halt``)."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import elastic, faults, parallel, telemetry
     from lightgbm_tpu_torch.config import OverallConfig
+    from lightgbm_tpu_torch.objectives import binary
     from lightgbm_tpu_torch.ops import compact, hist_cuda
     from lightgbm_tpu_torch.parallel import learners
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3549,8 +3572,8 @@ def parallel_worker(spec_path: str) -> int:
     lgt.GBDT.resume_latest = timed_resume
     exchanged, exchange = [], elastic.exchange_times
 
-    def kept_exchange(comm, seconds):
-        out = exchange(comm, seconds)
+    def kept_exchange(comm, seconds, iteration=None):
+        out = exchange(comm, seconds, iteration)
         exchanged.append([float(v) for v in out])
         return out
 
@@ -3563,7 +3586,15 @@ def parallel_worker(spec_path: str) -> int:
             return train_one_iter(self, *args, **kwargs)
         return slow_iter
 
-    sets, out = {}, {}
+    gradients = binary.BinaryLogloss.get_gradients
+
+    def poisoned(self, score):
+        grad, hess = gradients(self, score)
+        grad = grad.clone()
+        grad[..., :3] = float("nan")
+        return grad, hess
+
+    sets, out, halted = {}, {}, False
     for job in spec["jobs"]:
         cfg = OverallConfig()
         cfg.set({k: str(v) for k, v in job["params"].items()},
@@ -3593,13 +3624,16 @@ def parallel_worker(spec_path: str) -> int:
             faults.arm(fault["at"], fault["kind"])
         if job.get("slow", [None])[0] == rank:
             lgt.GBDT.train_one_iter = slowed(job["slow"][1])
-        telemetry.enable()
-        telemetry.reset()
+        binary.BinaryLogloss.get_gradients = (
+            poisoned if rank in job.get("poison", ()) else gradients)
+        if not job.get("unarmed"):
+            telemetry.enable()
+            telemetry.reset()
         reset_counts()
         del restore_s[:]
         del exchanged[:]
         sync()
-        clock[0] = time.perf_counter()
+        clock[0] = t_job = time.perf_counter()
         booster, error = None, None
         try:
             booster = lgt.train(job["params"], sets[shard], device=dev,
@@ -3608,6 +3642,7 @@ def parallel_worker(spec_path: str) -> int:
             if not job.get("expect_error"):
                 raise
             error = "%s: %s" % (type(e).__name__, e)
+            halted = halted or bool(job.get("halt"))
         finally:
             faults.disarm()
             lgt.GBDT.train_one_iter = train_one_iter
@@ -3629,6 +3664,7 @@ def parallel_worker(spec_path: str) -> int:
             "counters": {k: v for k, v in counters.items()
                          if k.startswith(("ckpt/", "elastic/", "goss/"))},
             "restore_s": list(restore_s), "error": error,
+            "job_s": time.perf_counter() - t_job,
             "busy_s": list(exchanged),
             "rows": sets[shard].num_data}
         if booster is not None:
@@ -3647,7 +3683,7 @@ def parallel_worker(spec_path: str) -> int:
                   "w") as f:
             json.dump(out, f)
     parallel.shutdown()
-    return 0
+    return 3 if halted else 0
 
 
 def run_world(tmp, name, nprocs, jobs, dev, data, phase=15,
@@ -3685,12 +3721,12 @@ def start_world(tmp, name, nprocs, jobs, dev, data,
     return world, wdir, name, t0
 
 
-def finish_world(started, phase, killed=()):
+def finish_world(started, phase, killed=(), rc_ok=0):
     """Wait for a ``start_world`` world: fails the phase if it runs past
-    its limit or a rank exits nonzero, but for the ranks of ``killed``
-    (rank 1 SIGKILLed) and, where one was, rank 0 (its peer gone mid
-    collective).  Returns ([rank] -> {job: record}, its directory, the
-    exit codes)."""
+    its limit or a rank exits with another code than ``rc_ok``, but for
+    the ranks of ``killed`` (rank 1 SIGKILLed) and, where one was, rank
+    0 (its peer gone mid collective).  Returns ([rank] -> {job: record},
+    its directory, the exit codes)."""
     from lightgbm_tpu_torch.parallel.launch import WorldTimeout
     world, wdir, name, t0 = started
     try:
@@ -3699,7 +3735,7 @@ def finish_world(started, phase, killed=()):
         fail("phase %d %s: %s" % (phase, name, e))
     rcs = [rc for rc, _ in ranks]
     for r, (rc, out) in enumerate(ranks):
-        if rc != 0 and not killed:
+        if rc != rc_ok and not killed:
             say(out[-6000:])
             fail("phase %d %s: rank %d exited %d" % (phase, name, r, rc))
     if killed and any(rcs[r] != -9 for r in killed):
@@ -4656,6 +4692,333 @@ def goss_elastic_phase(dev, sizes, x, y, sync):
             for k, v in by_path.items()}
 
 
+PHASE18_TIMEOUT_S = 300      # each of phase 18's worlds
+# phase 18's health sites: bytes a call (health.py, 3)
+HEALTH_SITES = {"health/vector_psum": 24, "health/score_pmax": 4,
+                "health/quant_sat_pmax": 8, "health/quant_sat_reduce": 8}
+
+
+def read_records(what, path):
+    """Every line of a sink file as JSON; fails the phase on a line that
+    does not parse."""
+    out = []
+    with open(path) as f:
+        for i, line in enumerate(f, 1):
+            try:
+                out.append(json.loads(line))
+            except ValueError as e:
+                fail("%s: %s line %d does not parse (%s)" % (what, path, i,
+                                                            e))
+    return out
+
+
+def health_blocks(records):
+    """(the per-iteration health blocks, the summary's) of a sink."""
+    return ([r.get("health") for r in records if "iter" in r],
+            [r.get("health") for r in records if r.get("summary")])
+
+
+def shard_files(what, wdir, base, nprocs):
+    """The shards of ``<wdir>/<base>``, one a rank, each headed by its
+    ``shard`` record naming the rank; and the base path itself unwritten
+    (no record went out before the world had formed).  Returns each
+    rank's records after the header."""
+    from lightgbm_tpu_torch import telemetry
+    path = os.path.join(wdir, base)
+    want = sorted(os.path.basename(telemetry.shard_path(path, r, nprocs))
+                  for r in range(nprocs))
+    got = sorted(p for p in os.listdir(wdir) if p.startswith(base))
+    if got != want:
+        fail("%s: files %s, expected the shards %s" % (what, got, want))
+    out = []
+    for r in range(nprocs):
+        records = read_records(what, telemetry.shard_path(path, r, nprocs))
+        head = records[0].get("shard", {})
+        if (head.get("process_index"), head.get("process_count")) != (
+                r, nprocs) or "clock_offset_s" not in head:
+            fail("%s rank %d: shard header %s" % (what, r, head))
+        out.append(records[1:])
+    return out
+
+
+def observability_world_phase(dev, sizes, x, y, sync):
+    """Phase 18: observability over worlds of worker processes sharing
+    the card over gloo, each rank through ``lightgbm_tpu_torch.train``
+    on its rows of phase 4's table at the main path's 255 leaves, int8
+    compacted, 3 iterations, launching both kernels on its own rows; (b)'s
+    hybrid world and (c) run side by side, beside the serial reference,
+    then (a) alone, so that its armed and unarmed jobs share the card
+    with nothing else:
+
+    (a) the sink, 2 ranks of ``tree_learner=data``: with ``metrics_out``
+        and ``timeline=false`` rank 0's file alone exists, every line
+        parses and it holds the serial run's record count (ROADMAP C12);
+        with ``timeline=auto`` one shard a rank, each headed by its
+        ``shard`` record, read by ``scripts/port_timeline_report.py
+        --json``; an unarmed job before and after the armed ones times
+        what arming costs;
+    (b) the world's health vector (``health=true``): every rank's
+        per-iteration and summary blocks equal the serial run's,
+        ``quant_sat`` included, under (a)'s shards and a hybrid 2 x 2
+        world's (ROADMAP C13), each health site one call an iteration;
+    (c) halt: 2 ranks, rank 1's gradients NaN in its first rows from
+        iteration 1, ``on_anomaly=halt``: both ranks raise
+        ``TrainingHealthError`` at iteration 1 and exit (code 3) well
+        inside the world's limit;
+    (d) (a)'s shards job also arms the drain (``elastic_shrink=true``,
+        checkpoints; ``straggler_k=10``, so none fires in 3 iterations)
+        and ``trace_dump_dir``: each rank's dump carries its rank, and
+        the port's ``podtrace.align`` over them is ``ok`` with a finite
+        bound (``scripts/port_pod_report.py --check`` passes).
+
+    Every armed job's model text is serial's int8 text on every rank;
+    each rank launches the histogram kernel once a leaf and the partition
+    kernel once a split (765 and 762 in 3 trees of 255 leaves).  Prints
+    the health sites' wire bytes and host seconds, and each job's
+    seconds an iteration against the unarmed job's.  Returns rank 0's
+    kernel launches per path."""
+    import math
+    import shutil
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import podtrace
+    card = card_name()
+    t_phase = time.perf_counter()
+    n_train = sizes["n_train"]
+    iters = 3
+    base = {"objective": "binary", "num_iterations": iters,
+            "learning_rate": 0.1, "max_bin": 255,
+            "num_leaves": sizes.get("parallel_leaves", 255),
+            "hist_dtype": "int8"}
+    armed = dict(base, health="true")
+    dp2 = {"tree_learner": "data", "num_machines": 2}
+    here = os.path.dirname(os.path.abspath(__file__))
+    rec, by_path = {"card": card}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        data = (os.path.join(tmp, "x.npy"), os.path.join(tmp, "y.npy"))
+        np.save(data[0], x[:n_train].astype(np.float32))
+        np.save(data[1], y[:n_train])
+        t_halt = time.perf_counter()
+        w3 = start_world(tmp, "halt", 2, [
+            {"name": "c_halt", "params": dict(armed, on_anomaly="halt",
+                                              **dp2),
+             "poison": [1], "expect_error": True, "halt": True}], dev, data,
+            PHASE18_TIMEOUT_S, threads=1)
+        w2 = start_world(tmp, "hybrid", 4, [
+            {"name": "b_hybrid", "params": dict(
+                armed, metrics_out="hy.jsonl", timeline="auto",
+                tree_learner="hybrid", num_machines=4, feature_shards=2)}],
+            dev, data, PHASE18_TIMEOUT_S, threads=1)
+        train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
+                                            max_bin=255)
+        serial_sink = os.path.join(tmp, "serial.jsonl")
+        booster, serial_s, _ = drive(dict(armed, metrics_out=serial_sink),
+                                     train_set, dev, sync)
+        serial_text = booster.model_to_string()
+        serial = read_records("phase 18 serial", serial_sink)
+        r3, d3, rc3 = finish_world(w3, 18, rc_ok=3)
+        rec["c_world_s"] = time.perf_counter() - t_halt
+        r2, d2, _ = finish_world(w2, 18)
+        unarmed = {"params": dict(base, **dp2), "unarmed": True}
+        r1, d1, _ = finish_world(start_world(tmp, "sink", 2, [
+            dict(unarmed, name="unarmed"),
+            {"name": "a_leader", "params": dict(
+                armed, metrics_out="leader.jsonl", timeline="false", **dp2)},
+            {"name": "a_shards", "params": dict(
+                armed, metrics_out="tl.jsonl", timeline="auto",
+                elastic_shrink="true", straggler_k=10, checkpoint_interval=1,
+                checkpoint_dir="ck", trace_dump_dir="dumps",
+                trace_run_id="phase18", **dp2)},
+            dict(unarmed, name="unarmed_after")], dev, data,
+            PHASE18_TIMEOUT_S, threads=2), 18)
+
+        # every path: serial's text on every rank, the launches per rank
+        want_health = health_blocks(serial)
+        if not want_health[0] or not want_health[0][0]["quant_sat"]:
+            fail("phase 18 serial: health blocks %s" % (want_health,))
+        for name, ranks, wdir in (("unarmed", r1, d1), ("a_leader", r1, d1),
+                                  ("a_shards", r1, d1),
+                                  ("unarmed_after", r1, d1),
+                                  ("b_hybrid", r2, d2)):
+            recs = [r[name] for r in ranks]
+            what = "phase 18 " + name
+            if set(rank_texts(wdir, name, len(ranks))) != {serial_text}:
+                fail("%s: a rank's model text differs from serial's int8 "
+                     "text" % what)
+            if name.startswith("unarmed"):
+                # no telemetry: the kernel counts alone (a CPU rehearsal
+                # launches nothing)
+                for r, one in enumerate(recs if dev.type == "cuda" else ()):
+                    leaves = one["leaves"]
+                    want = (sum(leaves), sum(leaves) - len(leaves))
+                    if (one["counts"]["hist"],
+                            one["counts"]["partition"]) != want:
+                        fail("%s rank %d: launches %s, expected %s"
+                             % (what, r, one["counts"], want))
+            else:
+                grown_launches(what, recs, dev)
+            by_path["obs_" + name] = recs[0]["counts"]
+            rec[name] = {
+                "s_per_iter": [one["iter_s"] for one in recs],
+                "hist": [one["counts"]["hist"] for one in recs],
+                "partition": [one["counts"]["partition"] for one in recs]}
+
+        # (a) the leader-only sink and the shards
+        got = sorted(p for p in os.listdir(d1) if p.startswith("leader"))
+        if got != ["leader.jsonl"]:
+            fail("phase 18a: sink files %s, expected rank 0's alone" % got)
+        leader = read_records("phase 18a", os.path.join(d1, "leader.jsonl"))
+        if len(leader) != len(serial):
+            fail("phase 18a: %d records, the serial run wrote %d"
+                 % (len(leader), len(serial)))
+        if health_blocks(leader) != want_health:
+            fail("phase 18a: rank 0's health blocks differ from serial's")
+        shards = shard_files("phase 18a", d1, "tl.jsonl", 2)
+        hybrid = shard_files("phase 18b", d2, "hy.jsonl", 4)
+        report = subprocess.run(
+            [sys.executable, os.path.join(here, "scripts",
+                                          "port_timeline_report.py"),
+             "--json", "--straggler-k", str(iters + 1), "--glob",
+             os.path.join(d1, "tl.jsonl.shard-*")],
+            capture_output=True, text=True, timeout=120)
+        if report.returncode != 0:
+            fail("phase 18a: port_timeline_report exited %d: %s"
+                 % (report.returncode, report.stderr[-2000:]))
+        skew = json.loads(report.stdout)
+        if skew["iterations_compared"] != iters or len(skew["hosts"]) != 2:
+            fail("phase 18a: port_timeline_report read %s" % skew)
+        rec["a_records"] = len(leader)
+        rec["a_skew"] = {"max_phase_skew": skew["max_phase_skew"],
+                         "barrier_wait_s": skew["barrier_wait_s"]}
+
+        # (b) every rank's health, the world's; the health sites
+        for what, ranks in (("phase 18a shards", shards),
+                            ("phase 18b hybrid", hybrid)):
+            for r, records in enumerate(ranks):
+                if health_blocks(records) != want_health:
+                    fail("%s rank %d: health blocks differ from serial's: "
+                         "%s against %s" % (what, r, health_blocks(records),
+                                            want_health))
+        for name, ranks in (("a_leader", r1), ("a_shards", r1),
+                            ("b_hybrid", r2)):
+            for r, one in enumerate(rk[name] for rk in ranks):
+                got = {k.replace("/host_staged", ""):
+                       (v["calls"], v["bytes_per_call"], v["axis"])
+                       for k, v in one["sites"].items()
+                       if k.startswith("health/")}
+                want = {k: (iters, b, "data")
+                        for k, b in HEALTH_SITES.items()}
+                if got != want:
+                    fail("phase 18b %s rank %d: health sites %s, expected %s"
+                         % (name, r, got, want))
+        health_sites = {k: v for k, v in r1[0]["a_leader"]["sites"].items()
+                        if k.startswith("health/")}
+        rec["health_sites"] = health_sites
+
+        # (c) halt: every rank at iteration 1
+        for r, one in enumerate(rk["c_halt"] for rk in r3):
+            if "TrainingHealthError" not in (one["error"] or "") or \
+                    "at iteration 1:" not in one["error"]:
+                fail("phase 18c rank %d: %r" % (r, one["error"]))
+        check_ranks("phase 18c c_halt", [rk["c_halt"] for rk in r3], dev)
+        by_path["obs_c_halt"] = r3[0]["c_halt"]["counts"]
+        rec["c_halt"] = {"rcs": rc3,
+                         "hist": [rk["c_halt"]["counts"]["hist"]
+                                  for rk in r3],
+                         "partition": [rk["c_halt"]["counts"]["partition"]
+                                       for rk in r3]}
+
+        # (d) the ranks' dumps align
+        ddir = os.path.join(d1, "dumps")
+        paths = sorted(os.path.join(ddir, p) for p in os.listdir(ddir))
+        dumps = [podtrace.load_dump(p) for p in paths]
+        ids = sorted((d["header"].get("process_index"),
+                      d["header"].get("process_count")) for d in dumps)
+        if ids != [(0, 2), (1, 2)]:
+            fail("phase 18d: dump identities %s" % ids)
+        al = podtrace.align(dumps)
+        off = al["offsets"].get("p1", {})
+        if not al["ok"] or off.get("bound_s") is None or \
+                not math.isfinite(off["bound_s"]):
+            fail("phase 18d: alignment %s" % al)
+        check = subprocess.run(
+            [sys.executable, os.path.join(here, "scripts",
+                                          "port_pod_report.py"),
+             "--check"] + paths, capture_output=True, text=True,
+            timeout=120)
+        if check.returncode != 0:
+            fail("phase 18d: port_pod_report --check: %s"
+                 % check.stdout[-2000:])
+        rec["d_alignment"] = off
+
+        # what was measured: each job's median s/iteration a rank over
+        # the mean of the two unarmed jobs' (a's world alone on the card)
+        unarmed = float(np.mean([np.median(s) for name in (
+            "unarmed", "unarmed_after") for s in rec[name]["s_per_iter"]]))
+        rec["unarmed_mean_s"] = unarmed
+        for name in ("unarmed", "a_leader", "a_shards", "unarmed_after",
+                     "b_hybrid"):
+            med = [float(np.median(s)) for s in rec[name]["s_per_iter"]]
+            rec[name]["median_s"] = med
+            ratio = ("" if name == "b_hybrid" else
+                     " (%.2f-%.2fx the unarmed jobs' %.4f)"
+                     % (min(med) / unarmed, max(med) / unarmed, unarmed))
+            say("phase 18 %s: median s/iteration per rank %s%s; launches "
+                "per rank hist %s, partition %s" % (
+                    name, ["%.4f" % m for m in med], ratio,
+                    rec[name]["hist"], rec[name]["partition"]))
+        say("phase 18 serial int8 (%s): median s/iteration %.4f"
+            % (dev.type, float(np.median(serial_s))))
+        rec["serial_s_per_iter"] = serial_s
+        say("phase 18a: rank 0's sink alone, %d records, every line JSON, "
+            "health blocks serial's; 2 shards headed; timeline report: "
+            "max phase skew %s, barrier wait %s"
+            % (len(leader), skew["max_phase_skew"], skew["barrier_wait_s"]))
+        say("phase 18b: every rank's health blocks serial's (data 2 ranks, "
+            "hybrid 2 x 2); quant_sat per iteration %s"
+            % [b["quant_sat"] for b in want_health[0]])
+        for site, v in sorted(health_sites.items()):
+            say(site_line(site, v) + " (%.3f ms a call)"
+                % (1e3 * v["seconds"] / max(v["calls"], 1)))
+        say("phase 18c: both ranks halted at iteration 1 (exit codes %s), "
+            "the world %.1f s from its start; jobs %s s"
+            % (rc3, rec["c_world_s"],
+               ["%.2f" % rk["c_halt"]["job_s"] for rk in r3]))
+        say("phase 18d: dumps of ranks %s aligned: offset %s s, bound %s s "
+            "over %d sync points" % ([i for i, _ in ids],
+                                     off["offset_s"], off["bound_s"],
+                                     off["sync_points"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say("phase 18 observability over worlds: %.1f s [%s]"
+        % (rec["phase_s"], card))
+    say(json.dumps({"observability_worlds": rec}))
+    return {k: {"hist": v["hist"], "partition": v["partition"]}
+            for k, v in by_path.items()}
+
+
+def phase18_rehearsal() -> int:
+    """``chip_smoke.py --phase18``: the build and phase 18 alone (a short
+    call for observability over worlds; the contract run is the script
+    without arguments)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lightgbm_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.build()
+    sizes = FULL
+    x, latent = make_table(sizes["n_train"] + sizes["n_test"], 28, SEED)
+    y = (latent > 0).astype(np.float32)
+    observability_world_phase(torch.device("cuda"), sizes, x, y,
+                              torch.cuda.synchronize)
+    say("chip_smoke --phase18: %.1f s" % (time.perf_counter() - t0))
+    return 0
+
+
 def phase17_rehearsal() -> int:
     """``chip_smoke.py --phase17``: the build and phase 17 alone (a short
     call for GOSS, checkpoints and the drain over worlds; the contract
@@ -4733,5 +5096,7 @@ if __name__ == "__main__":
         sys.exit(phase15_rehearsal())
     if sys.argv[1:] == ["--phase17"]:
         sys.exit(phase17_rehearsal())
+    if sys.argv[1:] == ["--phase18"]:
+        sys.exit(phase18_rehearsal())
     sys.exit(phase16_rehearsal() if sys.argv[1:] == ["--phase16"]
              else main())

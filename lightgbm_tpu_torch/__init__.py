@@ -21,7 +21,8 @@ the default, raises without one) unless the caller passes
   observability: ``telemetry`` (spans, counters,
   the JSONL sink, memory gauges, the stall watchdog), ``tracing`` (the
   flight recorder), ``health``, ``costmodel`` (the kernel roofline),
-  ``monitor`` (windows, SLO burn, score drift).
+  ``monitor`` (windows, SLO burn, score drift), ``podtrace`` (a world's
+  dumps on one clock).
 
 An exec'd parse worker of io/parallel_ingest.py (``WORKER_ENV`` there
 set to 1) imports only the numpy parse stack: the package skips torch.
@@ -56,7 +57,9 @@ def train(params: dict, train_set: Dataset, valid_sets=(), valid_names=None,
     observability keys arm the session as on the command line
     (``telemetry.arm_session``), and a session this call armed ends with
     it (lightgbm_tpu/__init__.py:48-103); ``profile_dir`` wraps the
-    training loop in ``torch.profiler``.  ``elastic_shrink`` arms the
+    training loop in ``torch.profiler``.  In a world, rank 0 alone writes
+    ``metrics_out``, or each rank its own shard under ``timeline=``
+    (``telemetry.resolve_world``, once the world has formed).  ``elastic_shrink`` arms the
     straggler drain under a parallel learner.
 
     A parallel learner (``tree_learner`` data, feature, hybrid or voting,

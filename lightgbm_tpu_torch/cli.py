@@ -22,8 +22,12 @@ config=...``: each rank joins the world, takes the world's smallest
 (lightgbm_tpu/cli.py:324-337), loads its shard under ``data``, its data
 index's shard under ``hybrid`` and ``voting`` (each with the distributed
 bin finder; ``learners.row_shard``) or every row under ``feature``, and
-trains the same trees.  Rank 0 writes ``output_model``; rank r > 0 writes the
-same text to ``<output_model>.rank<r>``.  Every rank resumes from the
+trains the same trees.  Once the world has formed, ``timeline=``
+resolves and the flight recorder takes the rank's identity
+(``telemetry.resolve_world``); the sink opens at the first record, so
+only rank 0 writes ``metrics_out``, or every rank its own shard.  Rank 0
+writes ``output_model``; rank r > 0 writes the same text to
+``<output_model>.rank<r>``.  Every rank resumes from the
 world's checkpoint (``GBDT.resume_latest``), whatever the world that
 wrote it.  ``main`` leaves the world on success and on a ``Fatal``
 alike.
@@ -141,9 +145,10 @@ class Application:
 
 def init_parallel(cfg):
     """Application::InitTrain's parallel part (lightgbm_tpu/cli.py:
-    324-337): join the world, take the world's smallest seeds and
-    feature fraction, and make the learner; None for the serial
-    learner."""
+    324-351): join the world, take the world's smallest seeds and
+    feature fraction, make the learner, and settle the timeline mode and
+    the rank identity of what the session records
+    (``telemetry.resolve_world``); None for the serial learner."""
     if not cfg.is_parallel:
         return None
     mesh.init_distributed()
@@ -152,7 +157,9 @@ def init_parallel(cfg):
     tree.feature_fraction_seed = mesh.sync_up_by_min(
         tree.feature_fraction_seed)
     tree.feature_fraction = mesh.sync_up_by_min(tree.feature_fraction)
-    return learners.create_parallel_learner(cfg)
+    learner = learners.create_parallel_learner(cfg)
+    telemetry.resolve_world(io)
+    return learner
 
 
 def arm_elastic(cfg, booster) -> None:

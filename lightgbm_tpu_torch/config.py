@@ -19,11 +19,11 @@ observability on one process: the telemetry sink (``metrics_out``,
 ``metrics_fence``, ``memory_stats``, ``profile_dir``), the flight
 recorder (``trace_*``, ``stall_timeout``), training health
 (``health``, ``on_anomaly``, ``health_divergence_rounds``) and the live
-monitor (``monitor_*``, ``slo_*``); ``timeline`` runs only at auto
-(which resolves off) and false; and the reference's two parallel
-learners (parallel/): ``tree_learner`` serial, data, feature, hybrid
-or voting (``voting_parallel``), ``num_machines``, ``dp_schedule``,
-``feature_shards``, ``top_k``, ``is_pre_partition``, and
+monitor (``monitor_*``, ``slo_*``), and over a world the leader-only
+sink or ``timeline`` shards (``IOConfig.timeline_enabled``); and the
+reference's two parallel learners (parallel/): ``tree_learner`` serial,
+data, feature, hybrid or voting (``voting_parallel``), ``num_machines``,
+``dp_schedule``, ``feature_shards``, ``top_k``, ``is_pre_partition``, and
 ``machine_list_file``, ``local_listen_port`` and ``time_out``, which
 are checked as the JAX package checks them and have no effect (torch's
 environment does their work, parallel/mesh.py); and the straggler
@@ -151,12 +151,6 @@ SLICE_KEYS = frozenset((
     # the straggler drain (elastic.py)
     "elastic_shrink", "straggler_k",
 ))
-
-# per-process timeline shards belong to the multi-process learners
-TIMELINE_REFUSED = ("Parameter timeline=true is not supported by "
-                    "lightgbm_tpu_torch yet: per-process timeline shards "
-                    "of the parallel learners are ROADMAP A9b "
-                    "(timeline=auto resolves to off)")
 
 # device_type values and the device each names (device.py's rule)
 DEVICE_TYPES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
@@ -287,8 +281,8 @@ class IOConfig:
     # observability (lightgbm_tpu/config.py:138-208): a torch.profiler
     # Chrome trace of the training loop; the per-iteration JSONL sink,
     # its stream fence and memory gauges ("auto": on with a sink); the
-    # timeline shard mode (auto or false: one process has one sink); the
-    # stall watchdog's timeout (0 off); the flight recorder's ring, dump
+    # timeline shard mode (timeline_enabled); the stall watchdog's
+    # timeout (0 off); the flight recorder's ring, dump
     # directory, sketch growth and run tag; the live monitor's JSONL and
     # window, and the serving SLO's p99 target (0 off) and budget window
     profile_dir: str = ""
@@ -311,6 +305,19 @@ class IOConfig:
         force (lightgbm_tpu/config.py:301-306)."""
         return (self.memory_stats == "true"
                 or (self.memory_stats == "auto" and bool(self.metrics_out)))
+
+    def timeline_enabled(self) -> bool:
+        """``timeline=`` (lightgbm_tpu/config.py:308-325): "auto" turns a
+        shard a rank on for a world of more than one rank with a sink,
+        "true" turns it on even for one process, "false" keeps the
+        leader-only sink.  Read once the world has formed
+        (``telemetry.resolve_world``), when its size is final."""
+        if self.timeline == "true":
+            return True
+        if self.timeline != "auto" or not self.metrics_out:
+            return False
+        from .parallel import mesh
+        return mesh.get_num_machines() > 1
 
     def predict_bucket_list(self) -> tuple:
         """The ``predict_buckets=`` ladder: sorted unique positive ints
@@ -415,7 +422,7 @@ class IOConfig:
 
     def _set_observability(self, params: Dict[str, str]) -> None:
         """The observability keys, with lightgbm_tpu/config.py:334-404's
-        checks and messages; ``timeline=true`` is TIMELINE_REFUSED."""
+        checks and messages."""
         self.profile_dir = params.get("profile_dir", self.profile_dir)
         self.metrics_out = params.get("metrics_out", self.metrics_out)
         self.metrics_fence = _get_bool(params, "metrics_fence",
@@ -429,8 +436,6 @@ class IOConfig:
             value = params["timeline"].lower()
             log.check(value in ("auto", "true", "false"),
                       "timeline must be auto, true or false")
-            if value == "true":
-                log.fatal(TIMELINE_REFUSED)
             self.timeline = value
         self.stall_timeout = _get_float(params, "stall_timeout",
                                         self.stall_timeout)

@@ -36,11 +36,17 @@ source, and loads of a library an earlier process built (cached).
 The JAX module's ``instrument()`` wraps a jitted program to capture its
 compiled cost analysis; the port runs eagerly and has no compiled
 program to wrap, so it has no counterpart here.
+
+:func:`host_fingerprint` describes the process for a timeline shard's
+header (telemetry.py): the device, the torch and CUDA versions, the
+world's size and the checkout's commit.
 """
 from __future__ import annotations
 
+import os
+import subprocess
 import threading
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 _enabled = False
 _lock = threading.Lock()
@@ -101,6 +107,36 @@ def resolve_peaks(kind: str) -> Optional[Dict[str, float]]:
         if any(s in k for s in subs):
             return dict(peaks)
     return None
+
+
+def host_fingerprint() -> dict:
+    """Self-describing host and run metadata (lightgbm_tpu/costmodel.py:
+    162-189, for the card): the device kind, the backend (``cuda`` or
+    ``cpu``), the torch and CUDA versions, the world's process count,
+    the local device count and the checkout's short commit, each left
+    out when it cannot be read."""
+    out: Dict[str, Any] = {}
+    try:
+        import torch
+        out["device_kind"] = device_kind()
+        out["backend"] = "cuda" if torch.cuda.is_available() else "cpu"
+        out["torch_version"] = torch.__version__
+        out["cuda_version"] = torch.version.cuda
+        out["local_device_count"] = torch.cuda.device_count()
+        from .parallel import mesh
+        out["process_count"] = mesh.get_num_machines()
+    except Exception:
+        pass
+    try:
+        sha = subprocess.run(
+            ["git", "-C", os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "rev-parse", "--short", "HEAD"],
+            capture_output=True, text=True, timeout=5)
+        if sha.returncode == 0 and sha.stdout.strip():
+            out["git_sha"] = sha.stdout.strip()
+    except Exception:
+        pass
+    return out
 
 
 def note_launch(phase: str, kernel: str, bytes: float,

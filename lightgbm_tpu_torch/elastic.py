@@ -28,7 +28,11 @@ other's by more than the drain could gain back.
 
 The collectives run over the world's ``parallel.mesh.Comm`` (the JAX
 module ``shard_map``s them over a 1-D mesh), each under an ``elastic``
-telemetry span and filed at its wire site:
+telemetry span, filed at its wire site and, given the iteration, as a
+``collective_sync`` event of the flight recorder with both edges of the
+call (``tracing.record_collective_sync``, ``pod`` in a world of more
+than one rank): the sync points on which podtrace.align puts the ranks'
+dumps on one clock.
 
 - ``exchange_times`` — every rank's iteration seconds, all-gathered
   (site ``elastic/times_allgather``), so every rank holds one vector and
@@ -36,17 +40,15 @@ telemetry span and filed at its wire site:
 - ``agree_survivors`` — the elementwise minimum of every rank's int32
   keep/drop votes (site ``elastic/survivor_pmin``): a rank that
   disagrees can only make the plan more conservative.
-
-Not ported: the ``collective_sync`` flight-recorder event of both calls
-(``tracing.record_collective_sync``, ROADMAP A9b.7).
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from . import telemetry
+from . import telemetry, tracing
 
 CANONICAL_PHASES = ("histogram", "split_find", "partition", "eval")
 
@@ -201,29 +203,41 @@ class StragglerMonitor:
         self._obs_n = 0
 
 
-def exchange_times(comm, seconds: float) -> np.ndarray:
+def exchange_times(comm, seconds: float,
+                   iteration: Optional[int] = None) -> np.ndarray:
     """Every rank's iteration ``seconds``, all-gathered over ``comm`` (a
     world's ``parallel.mesh.Comm``; collective): the same [world]
     float32 vector on every rank.  A world of one gives its own
-    seconds, and the strictly-slowest rule then never fires."""
+    seconds, and the strictly-slowest rule then never fires.
+    ``iteration`` files the call as a ``collective_sync`` event."""
     import torch
     with telemetry.span("elastic"):
-        # no collective_sync event here: ROADMAP A9b.7
+        t0 = time.time()
         out = comm.all_gather(torch.tensor([seconds], dtype=torch.float32),
                               "elastic/times_allgather")
+        if iteration is not None:
+            tracing.record_collective_sync("elastic/times_allgather",
+                                           iteration, t0, time.time(),
+                                           pod=comm.size > 1)
     return out.reshape(-1).numpy()
 
 
-def agree_survivors(comm, votes) -> np.ndarray:
+def agree_survivors(comm, votes,
+                    iteration: Optional[int] = None) -> np.ndarray:
     """The elementwise minimum of every rank's int32 ``votes`` (1 keep, 0
     drop, one a rank) over ``comm`` (collective): the plan every rank
-    acts on."""
+    acts on.  ``iteration`` files the call as a ``collective_sync``
+    event, as :func:`exchange_times` does."""
     import torch
     with telemetry.span("elastic"):
-        # no collective_sync event here: ROADMAP A9b.7
+        t0 = time.time()
         out = comm.all_reduce(
             torch.as_tensor(np.asarray(votes, np.int32)),
             "elastic/survivor_pmin", op="min")
+        if iteration is not None:
+            tracing.record_collective_sync("elastic/survivor_pmin",
+                                           iteration, t0, time.time(),
+                                           pod=comm.size > 1)
     return out.numpy()
 
 

@@ -14,6 +14,16 @@ phase timers moves.
    on the device and copied to the host once (``.cpu()``), beside the
    tree readback the boosting loop already pays; the tree-derived counts
    come from the host trees.
+3. **One vector for the world.**  Under a parallel learner whose rows
+   are sharded (``tree_learner=data``, and the data group of the
+   hybrid and voting grid), the six counts are summed over the ranks
+   (site ``health/vector_psum``, 24 bytes), the watermark max-reduced
+   (``health/score_pmax``, 4 bytes) and the int8 gauge taken under the
+   world's scale (``quant_saturation_count``'s two sites), as
+   lightgbm_tpu/health.py:75-120 does, so every rank's block is the
+   serial run's and an anomaly in one rank's rows stops every rank at
+   the same iteration.  ``tree_learner=feature`` reduces nothing: every
+   rank holds every row.  Every rank makes these calls in one order.
 
 :class:`HealthMonitor` assembles each iteration's ``health`` block,
 applies ``on_anomaly`` (``warn`` / ``halt`` / ``record``), tracks
@@ -57,28 +67,36 @@ class TrainingHealthError(log.LightGBMError):
     exits 1 on it, as on every LightGBMError)."""
 
 
-def health_vector(grad, hess, score, *, quantized: bool = False):
+def health_vector(grad, hess, score, *, quantized: bool = False,
+                  comm=None):
     """[8] f32 tensor on the arrays' device (HEALTH_VEC_KEYS): grad/hess
     [K, N] (or [N]) gradients and hessians, score [K, N] raw scores after
     this iteration's update.  ``quantized`` adds the int8 saturation
-    gauge (``hist_cuda.quant_saturation_count``)."""
+    gauge (``hist_cuda.quant_saturation_count``).  ``comm``: the group
+    of ranks whose rows are sharded (module docstring, 3); every rank
+    then holds the world's vector."""
     f32 = torch.float32
 
     def cnt(pred):
         return pred.to(f32).sum()
 
-    parts = [cnt(torch.isnan(grad)), cnt(torch.isinf(grad)),
-             cnt(torch.isnan(hess)), cnt(torch.isinf(hess)),
-             cnt(torch.isnan(score)), cnt(torch.isinf(score))]
-    parts.append(quant_saturation_count(grad, hess) if quantized
-                 else torch.zeros((), dtype=f32, device=grad.device))
+    counts = torch.stack([cnt(torch.isnan(grad)), cnt(torch.isinf(grad)),
+                          cnt(torch.isnan(hess)), cnt(torch.isinf(hess)),
+                          cnt(torch.isnan(score)), cnt(torch.isinf(score))])
+    # the gauge is the world's already: it stays out of the counts' sum
+    qsat = (quant_saturation_count(grad, hess, comm) if quantized
+            else torch.zeros((), dtype=f32, device=grad.device))
     # watermark over finite scores only: a NaN would poison the max and
     # hide the magnitude trend that precedes overflow
     finite = torch.isfinite(score)
-    parts.append(torch.where(finite, score.abs(),
-                             torch.zeros((), dtype=score.dtype,
-                                         device=score.device)).max().to(f32))
-    return torch.stack(parts)
+    smax = torch.where(finite, score.abs(),
+                       torch.zeros((), dtype=score.dtype,
+                                   device=score.device)).max().to(f32)
+    if comm is not None:
+        counts = comm.all_reduce(counts, "health/vector_psum")
+        smax = comm.all_reduce(smax.reshape(1), "health/score_pmax",
+                               op="max")[0]
+    return torch.cat([counts, qsat[None], smax[None]])
 
 
 def tree_health_counts(num_leaves: int, split_gain, leaf_count) -> dict:
@@ -108,10 +126,13 @@ class HealthMonitor:
     trees."""
 
     def __init__(self, on_anomaly: str = "warn",
-                 divergence_rounds: int = 0, quantized: bool = False):
+                 divergence_rounds: int = 0, quantized: bool = False,
+                 comm=None):
         self.on_anomaly = on_anomaly
         self.divergence_rounds = int(divergence_rounds)
         self.quantized = bool(quantized)
+        # the group the vector is reduced over (health_vector's comm)
+        self.comm = comm
         self.totals: Dict[str, float] = {}
         self.anomalous_iterations = 0
         self._iter_tree: Dict[str, int] = {}
@@ -121,8 +142,11 @@ class HealthMonitor:
         self._pending_divergence: list = []
 
     def vector(self, grad, hess, score):
-        """This iteration's [8] device vector (``health_vector``)."""
-        return health_vector(grad, hess, score, quantized=self.quantized)
+        """This iteration's [8] device vector (``health_vector``), the
+        world's under a ``comm`` (collective then: every rank calls it
+        at the same point)."""
+        return health_vector(grad, hess, score, quantized=self.quantized,
+                             comm=self.comm)
 
     def add_tree(self, num_leaves: int, split_gain, leaf_count) -> None:
         """Fold one tree into the current iteration's counts."""

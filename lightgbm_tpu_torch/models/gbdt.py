@@ -56,8 +56,9 @@ rows at their ``used_data_indices``, each data shard once), the rule
 the JAX package's single process keeps and its multi-process layout
 breaks (ROADMAP C9, C10).  Training metrics and the ``score_reference=``
 line read the scores and the metadata gathered in it, so they are the
-serial run's; the int8 row bound is checked on the world's N;
-lambdarank needs query-atomic shards.  The GOSS draw runs over the
+serial run's, and so is the health block (health.py, 3); the int8 row
+bound is checked on the world's N; lambdarank needs query-atomic
+shards.  The GOSS draw runs over the
 world's row scores gathered in that order, so a world's GOSS trees are
 the serial run's, and a checkpoint stores the scores in it, so a
 world's checkpoint is a serial one and a restore fits any number of
@@ -226,10 +227,13 @@ class GBDT:
                 metric.init("training", train_data.metadata, self.num_data)
         # "auto" follows the telemetry registry (lightgbm_tpu/models/
         # gbdt.py:437-449)
+        # in a world whose rows are sharded, the vector is the world's:
+        # reduced over the learner's group of those rows
         self._health_monitor = (health.HealthMonitor(
             on_anomaly=boosting_config.on_anomaly,
             divergence_rounds=boosting_config.health_divergence_rounds,
-            quantized=is_int8(self.tree_config.compute_dtype))
+            quantized=is_int8(self.tree_config.compute_dtype),
+            comm=learner.comm if self._sharded else None)
             if health.resolve_enabled(boosting_config.health) else None)
 
     def _plan_packing(self, train_data, learner):
@@ -750,7 +754,8 @@ class GBDT:
         if self._in_world():
             busy = (time.perf_counter() - self._boundary_t) - (
                 mesh.collective_seconds() - self._boundary_wait)
-            gathered = elastic.exchange_times(mesh.host_comm(), busy)
+            gathered = elastic.exchange_times(mesh.host_comm(), busy,
+                                              iteration=self.iter)
             mon.observe(self.iter, elastic.clear_lead(
                 elastic.host_times_from_gather(gathered)))
         self._stamp_boundary()
@@ -792,7 +797,8 @@ class GBDT:
             drop = cur - 1
         votes = np.ones(cur, np.int32)
         votes[min(max(drop, 0), cur - 1)] = 0
-        agreed = elastic.agree_survivors(mesh.host_comm(), votes)
+        agreed = elastic.agree_survivors(mesh.host_comm(), votes,
+                                         iteration=self.iter)
         survivors = max(min(int(agreed.sum()), cur - 1), 1)
         telemetry.count("elastic/shrinks")
         if tracing.active():

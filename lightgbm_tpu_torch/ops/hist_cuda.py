@@ -155,7 +155,7 @@ def quantize_values(grad, hess, col_ok, stochastic: bool = False,
     return vals, torch.stack([gs, hs, torch.ones_like(gs)])
 
 
-def quant_saturation_count(grad, hess):
+def quant_saturation_count(grad, hess, comm=None):
     """Health gauge (hist_pallas.py:272-303, bit for bit): how many
     grad/hess entries quantize to the ±127 ceiling under
     ``quantize_values``' scale from the finite maximum (``|x|·127 >
@@ -164,15 +164,24 @@ def quant_saturation_count(grad, hess):
     means the magnitudes have collapsed onto the ceiling (iteration 0's
     uniform hessians are the usual case).  Histogram passes quantize
     with masked scales at most this maximum, so read it as a floor.
-    Kept beside ``quantize_values`` so the two cannot drift."""
+    ``comm`` (the learner's group over ranks of sharded rows): each
+    channel's maximum is max-reduced before the comparison
+    (``health/quant_sat_pmax``) and the counts summed after it
+    (``health/quant_sat_reduce``), so every rank reports the serial
+    run's gauge.  Kept beside ``quantize_values`` so the two cannot
+    drift."""
     f32 = torch.float32
-    total = torch.zeros((), dtype=f32, device=grad.device)
-    for x in (grad, hess):
-        ax = torch.where(torch.isfinite(x), x.abs(),
-                         torch.zeros((), dtype=x.dtype, device=x.device))
-        m = ax.max()
-        total = total + (ax * 127.0 > m * 126.5).to(f32).sum()
-    return total
+    axs = [torch.where(torch.isfinite(x), x.abs(),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+           for x in (grad, hess)]
+    m = torch.stack([ax.max() for ax in axs])
+    if comm is not None:
+        m = comm.all_reduce(m, "health/quant_sat_pmax", op="max")
+    sat = torch.stack([(ax * 127.0 > m[i] * 126.5).to(f32).sum()
+                       for i, ax in enumerate(axs)])
+    if comm is not None:
+        sat = comm.all_reduce(sat, "health/quant_sat_reduce")
+    return sat[0] + sat[1]
 
 
 def group_width(num_bins_max: int) -> int:

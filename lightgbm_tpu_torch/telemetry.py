@@ -119,10 +119,26 @@ the registry takes one lock.  Each thread keeps its own span stack.
    leader-relative clock offset of parallel/mesh.clock_handshake;
    ``merge_host_counters`` and ``merge_host_memory`` install the
    cross-rank sums of parallel/learners.aggregate_telemetry under
-   ``allhosts/`` keys.
+   ``allhosts/`` keys.  A site's ``est_bytes`` and ``est_calls`` (the
+   JAX block's estimates, which report scripts read) are its executed
+   bytes and calls.
 
-Left to later work (ROADMAP A9b.7): timeline shards and
-``record_collective_sync``.
+8. **The sink in a world** (lightgbm_tpu/telemetry.py:1425-1469).  The
+   sink opens at the first record, after the world has formed.  Without
+   timeline mode only rank 0 opens ``metrics_out``; a rank other than 0
+   builds its records and writes none.  In timeline mode (``timeline=``,
+   :func:`set_timeline`) every rank opens its own shard,
+   ``<metrics_out>.shard-<i>of<n>.jsonl`` (:func:`shard_path`), headed
+   by a ``shard`` record (rank, world size, pid, host, the clock offset
+   of parallel/mesh.clock_handshake, costmodel.host_fingerprint), and
+   iteration and summary records carry a wall-clock ``t``.
+   :func:`resolve_world` settles the mode and the flight recorder's
+   rank identity once the world has formed.  ``profile_dir`` writes one
+   trace a rank in a world (``trace.rank<r>.json``).  :func:`disable`
+   stamps the session's per-site wire model into the flight recorder's
+   ring (a ``wire_model`` event) before its close dump, so a dump
+   carries what podtrace.seam_roofline joins its spans against.
+
 Pure stdlib at import (torch is imported where a span or gauge
 first needs it): the exec'd ingest workers import this module without
 torch.
@@ -185,6 +201,12 @@ _fence = False
 _sink_path: Optional[str] = None
 _sink_file = None
 _sink_error = False
+# timeline mode (module docstring, 8): one shard a rank, records stamped
+# with a wall-clock "t"; the path the open shard took; an override of
+# the shard identity (tests simulate ranks from one process)
+_timeline = False
+_shard_path_used: Optional[str] = None
+_shard_identity: "Optional[tuple]" = None
 
 _counters: Dict[str, int] = {}
 _phase_times: Dict[str, float] = {}
@@ -253,12 +275,17 @@ def enabled() -> bool:
 
 
 def enable(jsonl_path: Optional[str] = None, fence: bool = False,
-           memory: Optional[bool] = None) -> None:
+           memory: Optional[bool] = None,
+           timeline: Optional[bool] = None) -> None:
     """Arm the registry (and optionally a JSONL sink at ``jsonl_path``,
-    opened at the first record).  Idempotent; a second call can attach a
-    sink or toggle fence mode.  ``memory`` arms or disarms the memory
-    gauges (None leaves them)."""
+    opened at the first record: by rank 0 alone in a world, or by every
+    rank into its own shard in timeline mode).  Idempotent; a second call
+    can attach a sink or toggle fence mode.  ``memory`` arms or disarms
+    the memory gauges and ``timeline`` the shard mode (None leaves
+    them)."""
     global _enabled, _fence, _sink_path, _sink_error, _sink_file, _memory
+    if timeline is not None:
+        set_timeline(timeline)
     with _lock:
         _enabled = True
         _fence = bool(fence)
@@ -281,13 +308,25 @@ def disable() -> None:
     """Stop recording and close the sink.  Also disarms the watchdog
     (joining its thread), the live monitor (its tail window first: it
     files events into the trace ring) and the flight recorder (which
-    dumps its ring when a dump dir is set)."""
+    dumps its ring when a dump dir is set, after the ``wire_model``
+    event), and leaves timeline mode and the rank identity."""
     global _enabled, _fence, _sink_file, _sink_path, _memory
-    global _wd_timeout_cfg
+    global _wd_timeout_cfg, _timeline, _shard_path_used
     disarm_watchdog()
     from . import costmodel, monitor, tracing
     monitor.disarm()
+    snap = interconnect_snapshot()
+    if snap and tracing.active():
+        tracing.event("wire_model", sites={
+            site: {"est_bytes": rec["est_bytes"],
+                   "bytes_per_call": rec["bytes_per_call"],
+                   "est_calls": rec["est_calls"], "kind": rec["kind"],
+                   "axis": rec["axis"]}
+            for site, rec in snap["sites"].items()})
     tracing.disarm()
+    _timeline = False
+    _shard_path_used = None
+    set_shard_identity(None)
     with _lock:
         _wd_timeout_cfg = 0.0
         _enabled = False
@@ -343,7 +382,10 @@ def arm_session(io_config) -> bool:
     armed = False
     mem_on = io.memory_stats_enabled()
     if io.metrics_out or mem_on:
-        enable(io.metrics_out or None, fence=io.metrics_fence, memory=mem_on)
+        # timeline=auto settles once the world has formed (resolve_world);
+        # a forced true arms the shard mode at once
+        enable(io.metrics_out or None, fence=io.metrics_fence, memory=mem_on,
+               timeline=io.timeline == "true")
         reset()
         tracing.set_identity(run_id=io.trace_run_id)
         tracing.arm(ring_events=io.trace_ring_events,
@@ -366,22 +408,40 @@ def arm_session(io_config) -> bool:
     return armed
 
 
+def resolve_world(io_config) -> None:
+    """Once the world has formed and before its first record (the CLI
+    and ``train`` call it from ``init_parallel``), as lightgbm_tpu/
+    cli.py:337-351 does: turn timeline mode on where ``timeline=``
+    resolves on over the world (``IOConfig.timeline_enabled``), and give
+    the flight recorder this rank's identity, which its dumps carry."""
+    from . import tracing
+    from .parallel import mesh
+    if io_config.timeline_enabled():
+        set_timeline(True)
+    tracing.set_identity(process_index=mesh.get_rank(),
+                         process_count=mesh.get_num_machines())
+
+
 class profile:
     """``profile_dir``: run the body under ``torch.profiler.profile``
     with the CPU and (with a card) CUDA activities, and write its Chrome
     trace to ``<profile_dir>/trace.json`` (lightgbm_tpu/cli.py:471-503
-    writes a ``jax.profiler`` trace there).  A no-op for an empty
-    ``profile_dir``."""
+    writes a ``jax.profiler`` trace there), or in a world of more than
+    one rank to ``<profile_dir>/trace.rank<r>.json``, one file a rank.
+    A no-op for an empty ``profile_dir``."""
 
     def __init__(self, profile_dir: str):
         self.profile_dir = profile_dir
         self._prof = None
-        self.path = (os.path.join(profile_dir, "trace.json")
-                     if profile_dir else None)
+        self.path = None
 
     def __enter__(self):
         if not self.profile_dir:
             return self
+        from .parallel import mesh
+        self.path = os.path.join(self.profile_dir, "trace.json"
+                                 if mesh.get_num_machines() <= 1
+                                 else "trace.rank%d.json" % mesh.get_rank())
         torch = _torch()
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
@@ -928,6 +988,8 @@ def interconnect_snapshot() -> Optional[dict]:
         entry = {"kind": rec["kind"], "axis": rec["axis"],
                  "bytes_per_call": int(rec["bytes_per_call"]),
                  "calls": int(rec["calls"]), "bytes": int(rec["bytes"]),
+                 "est_calls": int(rec["calls"]),
+                 "est_bytes": int(rec["bytes"]),
                  "seconds": round(secs, 6),
                  "attained_gb_per_s": (round(rec["bytes"] / secs / 1e9, 6)
                                        if secs > 0 else None)}
@@ -939,6 +1001,7 @@ def interconnect_snapshot() -> Optional[dict]:
             ph["collective_seconds"] += secs
         sites[site] = entry
     for name, ph in phases.items():
+        ph["est_bytes"] = ph["bytes"]
         ph["collective_seconds"] = round(ph["collective_seconds"], 6)
         ph["span_seconds"] = round(phase_times.get(name, 0.0), 6)
     return {"sites": sites, "phases": dict(sorted(phases.items())),
@@ -954,6 +1017,55 @@ def set_clock_offset(offset_s: float, rtt_s: Optional[float] = None) -> None:
     global _clock_offset, _clock_rtt
     _clock_offset = float(offset_s)
     _clock_rtt = None if rtt_s is None else float(rtt_s)
+
+
+# ------------------------------------------------------------ timeline mode
+
+def set_timeline(on: bool) -> None:
+    """Arm or disarm the shard mode (module docstring, 8).  It takes
+    effect at the next sink open; an open sink keeps its file."""
+    global _timeline
+    _timeline = bool(on)
+
+
+def timeline_enabled() -> bool:
+    return _timeline
+
+
+def set_shard_identity(index: Optional[int] = None,
+                       count: Optional[int] = None) -> None:
+    """Override the (rank, world size) a shard is named by, so a test
+    can write several ranks' shards from one process; ``None`` returns
+    to the world's own.  The flight recorder's identity follows, so
+    dumps and shards name a rank alike (podtrace's merge key)."""
+    global _shard_identity
+    from . import tracing
+    _shard_identity = (None if index is None or count is None
+                       else (int(index), int(count)))
+    if _shard_identity is None:
+        tracing.set_identity(process_index=None, process_count=None)
+    else:
+        tracing.set_identity(process_index=_shard_identity[0],
+                             process_count=_shard_identity[1])
+
+
+def _shard_suffix() -> "tuple":
+    """(rank, world size) of this process's shard."""
+    if _shard_identity is not None:
+        return _shard_identity
+    from .parallel import mesh
+    return mesh.get_rank(), mesh.get_num_machines()
+
+
+def shard_path(base: str, index: int, count: int) -> str:
+    """A rank's shard file: one file a rank for the run, named so that
+    ``<base>.shard-*.jsonl`` globs a run's shards."""
+    return "%s.shard-%05dof%05d.jsonl" % (base, index, count)
+
+
+def sink_path() -> Optional[str]:
+    """The file records land in: the shard's in timeline mode."""
+    return _shard_path_used if _timeline else _sink_path
 
 
 
@@ -1004,19 +1116,57 @@ def take_phase_deltas() -> "tuple[Dict[str, float], Dict[str, float]]":
 # -------------------------------------------------------------------- sink
 
 def _ensure_sink():
-    """Open the sink on the first write, line-buffered."""
-    global _sink_file, _sink_error
+    """Open the sink on the first write, line-buffered (module
+    docstring, 8): rank 0's ``metrics_out``, or in timeline mode this
+    rank's shard, headed by its ``shard`` record.  A rank other than 0
+    without timeline mode never opens it."""
+    global _sink_file, _sink_error, _shard_path_used
     if _sink_file is not None or _sink_path is None or _sink_error:
         return _sink_file
+    path, header = _sink_path, None
+    if _timeline:
+        idx, count = _shard_suffix()
+        path = _shard_path_used = shard_path(_sink_path, idx, count)
+        header = _shard_header(idx, count)
+    else:
+        from .parallel import mesh
+        if mesh.get_rank() != 0:
+            _sink_error = True          # not the leader: never write
+            return None
     try:
-        _sink_file = open(_sink_path, "w", buffering=1)
+        # line-buffered: a killed rank's shard reads up to its last
+        # whole record
+        _sink_file = open(path, "w", buffering=1)
     except OSError:
         from .utils import log
         log.warning("telemetry: cannot open metrics_out=%s; sink disabled"
-                    % _sink_path)
+                    % path)
         _sink_error = True
         return None
+    if header is not None:
+        try:
+            _sink_file.write(json.dumps(header) + "\n")
+        except OSError:
+            pass
     return _sink_file
+
+
+def _shard_header(idx: int, count: int) -> dict:
+    """A shard's first record: the rank that wrote it and the clock
+    offset that maps its ``t`` stamps onto rank 0's clock."""
+    import socket
+    from . import costmodel
+    info = {"process_index": int(idx), "process_count": int(count),
+            "pid": os.getpid(), "clock_offset_s": round(_clock_offset, 6),
+            "started_unix": round(time.time(), 6)}
+    if _clock_rtt is not None:
+        info["clock_rtt_s"] = round(_clock_rtt, 6)
+    try:
+        info["host"] = socket.gethostname()
+    except OSError:
+        info["host"] = "unknown"
+    info["fingerprint"] = costmodel.host_fingerprint()
+    return {"shard": info}
 
 
 def _round_times(d: Dict[str, float]) -> Dict[str, float]:
@@ -1066,6 +1216,10 @@ def emit_iteration(iteration: int, phase_times: Dict[str, float],
         "eval_metrics": eval_metrics or {},
         "trace_times": {},
     }
+    if _timeline:
+        # this rank's wall clock; the shard header's clock_offset_s maps
+        # it onto rank 0's
+        record["t"] = round(time.time(), 6)
     if _ring_armed:
         _ring_event("iteration", str(iteration))
     from . import tracing
@@ -1092,6 +1246,8 @@ def emit_summary(extra: Optional[dict] = None) -> dict:
             "trace_times": {},
             "counters": dict(sorted(_counters.items())),
         }
+    if _timeline:
+        record["t"] = round(time.time(), 6)
     mem = memory_snapshot()
     if mem is not None:
         record["memory"] = mem

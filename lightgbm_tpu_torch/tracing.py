@@ -36,11 +36,14 @@ writes and drops, GOSS and bagging draws; ingest attribution
 (:func:`record_ingest_chunk` / :func:`record_ingest_pass`) and the small
 monotone :func:`bump` counters (serialized in the header) too.
 
-Every dump header carries the recording host's identity (hostname, pid,
-the operator-assigned ``run_id`` of :func:`set_identity`).  One process
-only: ``process_index``/``process_count`` stay None, and the blocking
-collective stamps of the JAX package (``record_collective_sync``) belong
-to the parallel learners, not ported.
+Every dump header carries the recording process's identity (hostname,
+pid, the operator-assigned ``run_id`` and, in a world, the rank as
+``process_index`` of ``process_count``: :func:`set_identity`, which
+``telemetry.resolve_world`` calls once the world has formed), so
+podtrace.py can align the ranks' clocks on matched ``collective_sync``
+events (:func:`record_collective_sync` stamps both edges of a blocking
+collective, the offset's error bound) and merge their rings into one
+timeline.
 
 The recorder mirrors ``trace/dropped`` (ring overwrites) and
 ``trace/dumps`` (dump files written) into the telemetry registry; the
@@ -361,6 +364,31 @@ def bump(name: str, n: int = 1) -> None:
     with _lock:
         if _armed:
             _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def record_collective_sync(site: str, iteration: int,
+                           t_begin_s: float, t_end_s: float,
+                           pod: bool = False) -> None:
+    """File one executed blocking collective with both wall-clock edges
+    of the host's block (lightgbm_tpu/tracing.py:393-417).  Every rank
+    leaves a collective within its own blocked window of the last
+    arrival, so the exit stamps of one ``(site, iter)`` on two ranks
+    estimate their clock offset within ``max(duration_a, duration_b)``,
+    the bound podtrace records.  ``pod=True`` marks a collective over
+    more than one process, the only kind that is a sync point.  Its
+    duration goes to the ``collective_sync_us`` sketch."""
+    if not _armed:
+        return
+    t0, t1 = float(t_begin_s), float(t_end_s)
+    dur_us = max(t1 - t0, 0.0) * 1e6
+    ev = {"kind": "collective_sync", "t": round(t1, 6),
+          "site": str(site), "iter": int(iteration),
+          "t0": round(t0, 6), "t1": round(t1, 6),
+          "dur_us": round(dur_us, 1), "pod": bool(pod)}
+    with _lock:
+        if _armed:
+            _append_locked(ev)
+            _observe_locked("collective_sync_us", dur_us)
 
 
 def record_ingest_pass(pass_no: int, seconds: float, rows: int) -> None:

@@ -121,7 +121,7 @@ CASE_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid",
     ("predict_leaf_index", "maybe"), ("is_save_binary_file", "maybe"),
     ("max_bin", "0"), ("quant_rounding", "dither"),
     ("mixed_bin", "sometimes"), ("streaming", "sometimes"),
-    ("checkpoint_interval", "-1"), ("timeline", "true"),
+    ("checkpoint_interval", "-1"), ("timeline", "sometimes"),
     ("metric", "auc,map"), ("pipeline", "readback"),
     ("is_pre_partition", "maybe"), ("save_binary_format", "parquet"),
     ("ingest_workers", "0"), ("ingest_chunk_rows", "0"),

@@ -353,8 +353,9 @@ def test_early_stop_agrees_across_ranks(worlds, table, grower):
 def test_collective_sites(worlds, table, dtype, schedule):
     """Each collective a rank ran files its JAX site name with its calls
     and the payload it sent (a histogram F*B*3*4 bytes, B the table's
-    widest feature's bins), and the route counters summed over the ranks
-    land under ``allhosts/``."""
+    widest feature's bins; the health vector's sites beside them,
+    ``split_health_sites``), and the route counters summed over the
+    ranks land under ``allhosts/``."""
     cfg = lgt.OverallConfig()
     cfg.set(dict(BASE, data=str(table[0])))
     ds = lgt.Dataset.load_train(cfg.io_config)
@@ -363,7 +364,7 @@ def test_collective_sites(worlds, table, dtype, schedule):
                 for rank in worlds[2]):
         leaves = rec["num_leaves"]
         splits, trees = sum(leaves) - len(leaves), len(leaves)
-        sites = rec["sites"]
+        sites = split_health_sites(rec["sites"], trees, dtype == "int8")
         if schedule == "psum":
             pre = "dp_psum/leafcompact/"
             want = {pre + "hist_allreduce": (splits, F * B * 12),
@@ -386,6 +387,25 @@ def test_collective_sites(worlds, table, dtype, schedule):
         assert plain == sum(leaves)
         assert counters["allhosts/partition/plain"] == \
             2 * counters["partition/plain"]
+
+
+def split_health_sites(sites, iterations, int8):
+    """``sites`` without the health vector's, once those are checked: the
+    world's vector (health.py, 3) makes one call of each site an
+    iteration over the data axis in the ``model_readback`` span (the
+    counts 24 bytes, the watermark 4), and the int8 gauge two more (its
+    scales' maxima and its counts, 8 bytes each)."""
+    want = {"health/vector_psum": 24, "health/score_pmax": 4}
+    if int8:
+        want.update({"health/quant_sat_pmax": 8,
+                     "health/quant_sat_reduce": 8})
+    got = {k: v for k, v in sites.items() if k.startswith("health/")}
+    assert set(got) == set(want)
+    for site, per_call in want.items():
+        v = got[site]
+        assert (v["calls"], v["bytes_per_call"], v["axis"], v["phase"]) \
+            == (iterations, per_call, "data", "model_readback"), site
+    return {k: v for k, v in sites.items() if k not in got}
 
 
 class _StackComm:

@@ -10,10 +10,11 @@
 - GOSS through a CLI world: the rank files are byte-equal to the serial
   CLI's GOSS model file in int8;
 - every key and route still refused (ROADMAP A9b) is a named ``Fatal``:
-  ``serve_shards > 1``, ``timeline=true``, the non-resident load routes
+  ``serve_shards > 1``, the non-resident load routes
   under a shard draw; so are the hybrid and voting keys' own faults (a
   ``feature_shards`` that does not divide the world, ``top_k`` below
-  1), GOSS with bagging under hybrid, ``elastic_shrink`` under the
+  1), a ``timeline`` other than auto, true or false, GOSS with bagging
+  under hybrid, ``elastic_shrink`` under the
   serial learner and ``straggler_k`` below 1, and what a rank's booster
   cannot restore across a topology change: host-stream bagging and a
   pre-partitioned world.
@@ -166,7 +167,7 @@ REFUSED_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid"},
     ("elastic_shrink", "true", "elastic_shrink=true requires a parallel "
                                "tree_learner"),
     ("straggler_k", "0", "straggler_k should be >= 1"),
-    ("timeline", "true", "timeline=true.*A9b"),
+    ("timeline", "sometimes", "timeline must be auto, true or false"),
     ("serve_shards", "2", "serve_shards=2"),
     ("tree_learner", "ring", "Tree learner type error"),
     ("dp_schedule", "ring", "dp_schedule must be"),

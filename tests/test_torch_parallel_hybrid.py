@@ -36,7 +36,7 @@ from lightgbm_tpu_torch.parallel import learners, mesh
 from lightgbm_tpu_torch.utils import log
 from test_torch_parallel import (BASE, F32_ATOL, GROWERS, TrainWorld,
                                  assert_alike, jax_booster, port_serial,
-                                 write_table)
+                                 split_health_sites, write_table)
 
 F = 9
 GRID = {"tree_learner": "hybrid", "num_machines": "4",
@@ -194,7 +194,9 @@ def test_hybrid_packed_equals_uniform(world, tables, started, grower):
 def test_hybrid_collective_sites(world, tables):
     """Each site a rank ran, with its calls and the payload it sent (JAX
     site names): the owned block (5 features, padded) a split, the whole
-    histogram at the root, the split records over the feature group."""
+    histogram at the root, the split records over the feature group;
+    the health vector's sites over the data group
+    (``split_health_sites``)."""
     cfg = lgt.OverallConfig()
     cfg.set(dict(BASE, data=str(tables["plain"][0])))
     B = int(lgt.Dataset.load_train(cfg.io_config).num_bins.max())
@@ -208,7 +210,7 @@ def test_hybrid_collective_sites(world, tables):
                 pre + "root_hist": (trees, F * B * 12),
                 pre + "splitinfo_allreduce": (trees + splits, 88),
                 "hist/quant_scale_pmax": (trees + splits, 8)}
-        _check_sites(rec["sites"], want, r)
+        _check_sites(split_health_sites(rec["sites"], trees, True), want, r)
         assert rec["counters"]["allhosts/partition/plain"] == \
             4 * rec["counters"]["partition/plain"]
         assert rec["counters"]["learner/hybrid_leafcompact"] == 1
@@ -221,7 +223,8 @@ def test_hybrid_collective_sites(world, tables):
                 pre + "root_hist": (trees, Fb * B * 12),
                 pre + "root_stats": (trees, 24),
                 pre + "splitinfo_allreduce": (trees + splits, 88)}
-        _check_sites(rec["sites"], want, r)
+        _check_sites(split_health_sites(rec["sites"], trees, False), want,
+                     r)
 
 
 def _check_sites(sites, want, r):

@@ -35,7 +35,7 @@ from lightgbm_tpu_torch.ops.split import per_feature_best_scores
 from lightgbm_tpu_torch.parallel import learners, mesh
 from test_torch_parallel import (BASE, F32_ATOL, GROWERS, TrainWorld,
                                  assert_alike, jax_booster, port_serial,
-                                 trees_of, write_table)
+                                 split_health_sites, trees_of, write_table)
 from test_torch_parallel_hybrid import write_mixed
 
 F = 9
@@ -208,7 +208,8 @@ def test_voting_collective_sites(world, tables):
     (k = 2 ids) and voted histograms (V = 4 features) at ``root_`` sites,
     a split's pair of children in one call of each (2 lanes), the split
     records over the feature group, the root stats over the data
-    group."""
+    group; the health vector's sites over the data group
+    (``split_health_sites``)."""
     cfg = lgt.OverallConfig()
     cfg.set(dict(BASE, data=str(tables["plain"][0])))
     B = int(lgt.Dataset.load_train(cfg.io_config).num_bins.max())
@@ -228,7 +229,7 @@ def test_voting_collective_sites(world, tables):
                 pre + "splitinfo_allreduce": (splits, 88, "feature"),
                 pre + "root_stats": (trees, 24, "data")}
         assert rec["counters"]["learner/voting_leafcompact"] == 1
-        sites = rec["sites"]
+        sites = split_health_sites(rec["sites"], trees, False)
         assert set(sites) == set(want), r
         for site, (calls, per_call, axis) in want.items():
             assert sites[site]["calls"] == calls, (r, site)
