@@ -143,7 +143,17 @@ stopped on both ranks at iteration 1 by ``on_anomaly=halt``; the ranks'
 trace dumps under the armed drain aligned by the port's podtrace
 (``scripts/port_pod_report.py --check``); each rank's launches of both
 kernels checked (see ``observability_world_phase``; ``chip_smoke.py
---phase18`` runs the build and phase 18 alone).  Phase 9 also times
+--phase18`` runs the build and phase 18 alone).  Phase 19 loads a 1M-row
+CSV of about 281 MB through every load route in one 2-rank
+``tree_learner=data`` world sharing the card over gloo: resident text,
+``streaming=auto``, two byte-range workers a rank, two-round writing a
+reference-format cache, resident writing the native cache (rank 0
+alone, byte-equal to a serial load's), that cache as ``data=`` and as
+the sibling, and the reference-format sibling; every rank's rows, bins,
+labels and weights (a)'s, one int8 model text at 255 leaves from every
+route, each rank's launches of both kernels checked (see
+``world_ingest_phase``; ``chip_smoke.py --phase19`` runs the build and
+phase 19 alone).  Phase 9 also times
 int8 with stochastic
 rounding (the hash and quantization, then the launch) beside its plain
 version and ``scatter_add_`` of the same levels.  Every phase must
@@ -181,6 +191,7 @@ FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
         "int8_cols": (1, 8, 32, 64), "n_es": 40_000, "n_cli": 100_000,
         "class_cols": (1, 8, 64), "wide_cols": (1, 8, 64),
         "n_ingest": 2_000_000, "ingest_parse_rows": 200_000,
+        "n_world_ingest": 1_000_000,
         "obs_front_s": 2.0, "stall_timeout": 1.5, "stall_s": 3.5,
         "monitor_interval_s": 0.5}
 
@@ -454,7 +465,7 @@ def main() -> int:
             if "registers" in line or "bytes stack" in line:
                 say("  ptxas %s: %s" % (name, line.strip()))
     kernels = run(torch.device("cuda"), FULL)
-    say("chip_smoke: phases 1-18 in %.1f s" % (time.perf_counter() - t0))
+    say("chip_smoke: phases 1-19 in %.1f s" % (time.perf_counter() - t0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -468,7 +479,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-18 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-19 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -1042,6 +1053,10 @@ def run(dev, sizes, timer=None):
     # ---- phase 18: observability over worlds
     for path, counts in observability_world_phase(dev, sizes, x, y,
                                                   sync).items():
+        kernels["hist"]["launches_by_path"][path] = counts["hist"]
+        kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    # ---- phase 19: every load route in a world
+    for path, counts in world_ingest_phase(dev, sizes, sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
     return list(kernels.values())
@@ -3528,8 +3543,43 @@ PARALLEL_TIMEOUT_S = 240     # a world's limit: killed, and the phase fails
 PHASE16_TIMEOUT_S = 420      # phase 16's one world of 4 ranks and 6 jobs
 
 
+def world_load(cfg, shard, dev, sync, job):
+    """A phase-19 job's dataset: this rank's shard of the job's file by
+    the route its keys choose (``Dataset.load_train`` with the world's
+    bin finder; ``streaming=auto`` at the parent's threshold, the job's
+    ``auto_min_bytes``), and what it loaded: seconds, sizes, the sha256
+    of its row indices, bins (read back from where they live), labels and
+    weights, where the bins live, the cache gather's bytes and seconds."""
+    import hashlib
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.io import streaming
+    from lightgbm_tpu_torch.parallel import learners
+    streaming.AUTO_MIN_BYTES = job["auto_min_bytes"]
+
+    def digest(a):
+        return None if a is None else hashlib.sha256(
+            np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    sync()
+    t0 = time.perf_counter()
+    ds = lgt.Dataset.load_train(
+        cfg.io_config, rank=shard[1], num_machines=shard[2], device=dev,
+        bin_finder=learners.distributed_bin_finder()
+        if cfg.is_parallel_find_bin else None)
+    sync()
+    md = ds.metadata
+    return ds, {
+        "s": time.perf_counter() - t0, "num_data": int(ds.num_data),
+        "global_num_data": int(ds.global_num_data),
+        "rows": digest(ds.used_data_indices), "bins": digest(ds.read_bins()),
+        "label": digest(md.label), "weights": digest(md.weights),
+        "bins_on": ("host" if ds.bins is not None
+                    else ds.device_bins.device.type),
+        "world_cache": ds.world_cache}
+
+
 def parallel_worker(spec_path: str) -> int:
-    """One rank of a phase-15, 16 or 17 world (``chip_smoke.py
+    """One rank of a phase-15, 16, 17, 18 or 19 world (``chip_smoke.py
     --parallel-worker spec.json``, under torch's environment): join the
     world, train each job of the spec through ``lightgbm_tpu_torch.train``
     on this rank's rows of the job's table (``learners.row_shard``: its
@@ -3546,7 +3596,10 @@ def parallel_worker(spec_path: str) -> int:
     every iteration], a straggler as the drain measures it); the restore
     of a resumed run is timed.  Phase 18's may give some ranks NaN
     gradients in their first rows (``poison``: the ranks) and end the
-    process with exit code 3 after the expected error (``halt``)."""
+    process with exit code 3 after the expected error (``halt``).  Phase
+    19's load their rows by a route of ``Dataset.load_train`` (``load``:
+    the job's keys name the file and the route; ``world_load``), job by
+    job, and record what they loaded."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import elastic, faults, parallel, telemetry
@@ -3601,7 +3654,10 @@ def parallel_worker(spec_path: str) -> int:
                 require_data=False)
         table = job.get("table", "main")
         shard = (table,) + learners.row_shard(cfg)
-        if shard not in sets:
+        loaded = None
+        if job.get("load"):
+            loaded = world_load(cfg, shard, dev, sync, job)
+        elif shard not in sets:
             t0 = time.perf_counter()
             x = np.load(tables[table][0]).astype(np.float64)
             sets[shard] = lgt.Dataset.from_arrays(
@@ -3636,7 +3692,8 @@ def parallel_worker(spec_path: str) -> int:
         clock[0] = t_job = time.perf_counter()
         booster, error = None, None
         try:
-            booster = lgt.train(job["params"], sets[shard], device=dev,
+            booster = lgt.train(job["params"], sets[shard] if loaded is None
+                                else loaded[0], device=dev,
                                 progress_fn=progress)
         except Exception as e:
             if not job.get("expect_error"):
@@ -3666,7 +3723,11 @@ def parallel_worker(spec_path: str) -> int:
             "restore_s": list(restore_s), "error": error,
             "job_s": time.perf_counter() - t_job,
             "busy_s": list(exchanged),
-            "rows": sets[shard].num_data}
+            "rows": (sets[shard] if loaded is None
+                     else loaded[0]).num_data}
+        if loaded is not None:
+            rec["load"] = loaded[1]
+            loaded = None
         if booster is not None:
             path = os.path.join(spec["dir"], "%s.rank%d.txt" % (job["name"],
                                                                 rank))
@@ -4998,6 +5059,187 @@ def observability_world_phase(dev, sizes, x, y, sync):
             for k, v in by_path.items()}
 
 
+PHASE19_TIMEOUT_S = 360      # phase 19's one world of 8 routes
+
+
+def world_ingest_phase(dev, sizes, sync):
+    """Phase 19: every load route in a world.  make_data's table of
+    ``n_world_ingest`` rows (1M, phase 4's row count) written as CSV text
+    with a header, the label as column 3, a weight and an ignored column
+    (about 281 MB, so ``streaming=auto`` streams it), loaded by one
+    2-rank ``tree_learner=data`` world sharing the card over gloo, job by
+    job, each rank its shard through ``Dataset.load_train`` with the
+    distributed bin finder, then trained at the main path's 255 leaves,
+    int8 compacted, 2 iterations:
+
+    (a) resident text, the reference;
+    (b) ``streaming=auto``: the serial passes onto each rank's device;
+    (c) ``streaming=true ingest_workers=2``: each rank's byte-range
+        workers parse only its rows in pass 2;
+    (d) ``use_two_round_loading=true``, writing a reference-format cache
+        (``save_binary_format=reference``) of a second name of the file;
+    (e) (a) with ``is_save_binary_file=true``: rank 0 alone writes the
+        whole table's native cache, gathered from both ranks;
+    (f) (e)'s cache as ``data=``; (g) as the ``<data>.bin`` sibling;
+    (h) (d)'s reference-format cache as the sibling.
+
+    Every route's rank must load (a)'s rank's rows, bins (read back from
+    where they live), labels and weights, and write (a)'s model text on
+    both ranks; each rank launches the histogram once a leaf and the
+    partition once a split (510 and 508 in 2 trees of 255 leaves).  (e)
+    must leave one ``<data>.bin`` and no temp file, equal byte for byte
+    (``cmp``) to the cache a serial load of the same file writes in this
+    process.  Prints each route's load seconds a rank, the file's rows a
+    second, the gather's bytes and seconds.  Returns rank 0's kernel
+    launches per route."""
+    import filecmp
+    import glob
+    import shutil
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.config import IOConfig
+    from lightgbm_tpu_torch.io import parallel_ingest, streaming
+    from lightgbm_tpu_torch.io.dataset import Dataset
+    card = card_name()
+    t_phase = time.perf_counter()
+    n = sizes["n_world_ingest"]
+    rec, by_path = {"card": card, "rows": n, "routes": {}}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_ingest_")
+    try:
+        data = os.path.join(tmp, "ingest.csv")
+        t0 = time.perf_counter()
+        write_ingest_csv(data, n, SEED + 19)
+        rec["write_s"] = time.perf_counter() - t0
+        rec["file_bytes"] = os.path.getsize(data)
+        if rec["file_bytes"] < streaming.AUTO_MIN_BYTES:
+            fail("phase 19: the file is %d bytes, under streaming=auto's "
+                 "%d" % (rec["file_bytes"], streaming.AUTO_MIN_BYTES))
+        # other names of the file, for the caches beside them
+        e, h, serial = (os.path.join(tmp, name)
+                        for name in ("e.csv", "h.csv", "serial.csv"))
+        for name in (e, h, serial):
+            os.link(data, name)
+        cols = {"has_header": "true", "label_column": "name:label",
+                "weight_column": "name:weight", "ignore_column": "name:skip"}
+        t0 = time.perf_counter()
+        Dataset.load_train(IOConfig(
+            data_filename=serial, has_header=True, max_bin=255,
+            label_column="name:label", weight_column="name:weight",
+            ignore_column="name:skip", streaming="false",
+            is_save_binary_file=True))
+        rec["serial_cache_s"] = time.perf_counter() - t0
+        say("phase 19: %d rows x 31 columns written as CSV, %d bytes in "
+            "%.1f s; the serial load and cache %.1f s [%s]" % (
+                n, rec["file_bytes"], rec["write_s"], rec["serial_cache_s"],
+                card))
+        base = dict(cols, objective="binary", num_iterations=2,
+                    learning_rate=0.1, max_bin=255, hist_dtype="int8",
+                    num_leaves=sizes.get("parallel_leaves", 255),
+                    tree_learner="data", num_machines=2)
+        save = {"is_save_binary_file": "true"}
+        routes = [
+            ("a_resident", data, {"streaming": "false"}),
+            ("b_streamed_auto", data, {}),
+            ("c_workers2", data, {"streaming": "true", "ingest_workers": 2}),
+            ("d_two_round", h, dict(save, streaming="false",
+                                    use_two_round_loading="true",
+                                    save_binary_format="reference")),
+            ("e_save", e, dict(save, streaming="false")),
+            ("f_cache_direct", e + ".bin", {}),
+            ("g_cache_sibling", e, {}),
+            ("h_reference_sibling", h, {})]
+        jobs = [{"name": name, "load": True,
+                 "auto_min_bytes": streaming.AUTO_MIN_BYTES,
+                 "params": dict(base, data=path, **kw)}
+                for name, path, kw in routes]
+        ranks, wdir, _ = finish_world(start_world(
+            tmp, "routes", 2, jobs, dev, {}, PHASE19_TIMEOUT_S, threads=4),
+            19)
+
+        want = [rk["a_resident"]["load"] for rk in ranks]
+        text = rank_texts(wdir, "a_resident", 2)[0]
+        for name, _, _ in routes:
+            what = "phase 19 " + name
+            recs = [rk[name] for rk in ranks]
+            if set(rank_texts(wdir, name, 2)) != {text}:
+                fail("%s: a rank's model text differs from (a)'s" % what)
+            for r, one in enumerate(recs):
+                got = one["load"]
+                for key in ("rows", "bins", "label", "weights", "num_data",
+                            "global_num_data"):
+                    if got[key] != want[r][key]:
+                        fail("%s rank %d: its %s differ from (a)'s rank's"
+                             % (what, r, key))
+            on = {one["load"]["bins_on"] for one in recs}
+            if on != ({dev.type} if name[0] in "bc" else {"host"}):
+                fail("%s: bins on %s" % (what, on))
+            grown_launches(what, recs, dev)
+            by_path["world_ingest_" + name] = recs[0]["counts"]
+            secs = [one["load"]["s"] for one in recs]
+            rec["routes"][name] = {
+                "load_s": secs, "rows_per_s": [n / v for v in secs],
+                "s_per_iter": [one["iter_s"] for one in recs],
+                "hist": [one["counts"]["hist"] for one in recs],
+                "partition": [one["counts"]["partition"] for one in recs]}
+            say("%s: load s per rank %s (%s rows/s of the file), shard "
+                "rows %s, bins on %s; s/iteration %s; launches per rank "
+                "hist %s, partition %s [%s]" % (
+                    what, ["%.3f" % v for v in secs],
+                    ["%.0f" % (n / v) for v in secs],
+                    [one["load"]["num_data"] for one in recs], sorted(on),
+                    [["%.3f" % v for v in one["iter_s"]] for one in recs],
+                    rec["routes"][name]["hist"],
+                    rec["routes"][name]["partition"], card))
+
+        # (e) one cache, rank 0's, the serial run's bytes; (d) one
+        # reference-format cache
+        left = sorted(os.path.basename(p) for p in glob.glob(
+            os.path.join(tmp, "*.bin*")))
+        if left != ["e.csv.bin", "h.csv.bin", "serial.csv.bin"]:
+            fail("phase 19: cache files %s, expected e.csv.bin, h.csv.bin "
+                 "and serial.csv.bin alone" % left)
+        if not filecmp.cmp(e + ".bin", serial + ".bin", shallow=False):
+            fail("phase 19 (e): the world's cache differs from the serial "
+                 "load's")
+        if Dataset._classify_binary_cache(h + ".bin") != "foreign":
+            fail("phase 19 (d): h.csv.bin is not a reference-format cache")
+        gather = ranks[0]["e_save"]["load"]["world_cache"]
+        if not gather or ranks[1]["e_save"]["load"]["world_cache"]:
+            fail("phase 19 (e): rank 0 alone must gather and write: %s"
+                 % [rk["e_save"]["load"]["world_cache"] for rk in ranks])
+        rec["e_gather"] = gather
+        rec["e_cache_bytes"] = os.path.getsize(e + ".bin")
+        say("phase 19 (e): one cache, rank 0's, %d bytes, cmp-equal to the "
+            "serial load's; gathered %d bytes in %.3f s, written in %.3f s "
+            "[%s]" % (rec["e_cache_bytes"], gather["gather_bytes"],
+                      gather["gather_s"], gather["write_s"], card))
+    finally:
+        parallel_ingest.shutdown_workers()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say("phase 19 every load route in a world: %.1f s [%s]"
+        % (rec["phase_s"], card))
+    say(json.dumps({"world_ingest": rec}))
+    return {k: {"hist": v["hist"], "partition": v["partition"]}
+            for k, v in by_path.items()}
+
+
+def phase19_rehearsal() -> int:
+    """``chip_smoke.py --phase19``: the build and phase 19 alone (a short
+    call for the load routes in a world; the contract run is the script
+    without arguments)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lightgbm_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.build()
+    world_ingest_phase(torch.device("cuda"), FULL, torch.cuda.synchronize)
+    say("chip_smoke --phase19: %.1f s" % (time.perf_counter() - t0))
+    return 0
+
+
 def phase18_rehearsal() -> int:
     """``chip_smoke.py --phase18``: the build and phase 18 alone (a short
     call for observability over worlds; the contract run is the script
@@ -5098,5 +5340,7 @@ if __name__ == "__main__":
         sys.exit(phase17_rehearsal())
     if sys.argv[1:] == ["--phase18"]:
         sys.exit(phase18_rehearsal())
+    if sys.argv[1:] == ["--phase19"]:
+        sys.exit(phase19_rehearsal())
     sys.exit(phase16_rehearsal() if sys.argv[1:] == ["--phase16"]
              else main())

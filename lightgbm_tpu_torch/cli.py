@@ -5,7 +5,8 @@ Counterpart of lightgbm_tpu/cli.py for ``task=train`` and
 the command line says ``device=cpu``.  ``num_threads`` caps the native
 parser's OpenMP pool; the training and validation loads take the
 command line's ingest keys (columns, header, caches, streaming), and a
-load with ``is_save_binary_file`` writes the cache.  A ``checkpoint_dir``
+load with ``is_save_binary_file`` writes the cache (in a world, rank 0
+alone writes the whole table's).  A ``checkpoint_dir``
 that holds a checkpoint resumes training from the latest one, and the
 run trains what is left of ``num_iterations``; ``elastic_shrink`` arms
 the straggler drain.  The observability keys
@@ -21,8 +22,8 @@ config=...``: each rank joins the world, takes the world's smallest
 ``data_random_seed``, ``feature_fraction_seed`` and ``feature_fraction``
 (lightgbm_tpu/cli.py:324-337), loads its shard under ``data``, its data
 index's shard under ``hybrid`` and ``voting`` (each with the distributed
-bin finder; ``learners.row_shard``) or every row under ``feature``, and
-trains the same trees.  Once the world has formed, ``timeline=``
+bin finder; ``learners.row_shard``) or every row under ``feature``, by
+any load route, and trains the same trees.  Once the world has formed, ``timeline=``
 resolves and the flight recorder takes the rank's identity
 (``telemetry.resolve_world``); the sink opens at the first record, so
 only rank 0 writes ``metrics_out``, or every rank its own shard.  Rank 0

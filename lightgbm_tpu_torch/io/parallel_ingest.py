@@ -32,9 +32,15 @@ microseconds measured in its worker, ``ingest/worker_wait_us`` (the
 parent's time blocked on a result), and the flight recorder's pass and
 chunk events tagged with the worker's pid.
 
-Not ported: the multi-process shard cut (pass 2 over owned rows only)
-and the in-process pool of ``ingest_workers=1`` under ``num_machines >
-1``, which belong to the parallel learners (ROADMAP A9).
+Under a shard draw (``rank`` of ``num_machines``) the parent draws the
+rank's rows up front (lightgbm_tpu/io/parallel_ingest.py:445-453): the
+draw reads only the seed, the row count and the side file's query
+boundaries, so it is the serial passes' draw.  Pass 1 runs over every
+row as above; pass 2's job carries each range's owned rows
+(``sel_local``, by ``searchsorted``, :562-571), and a worker parses and
+bins only those.  With ``ingest_workers=1`` a world's rank runs
+io/streaming.py's serial passes, where the JAX package runs this range
+plan in-process (:115): the same dataset either way.
 """
 from __future__ import annotations
 
@@ -303,12 +309,16 @@ def _pass2_range(ridx: int) -> dict:
     t0 = time.perf_counter()
     s, e = job.ranges[ridx]
     lines = parser_mod.read_range_lines(job.filename, s, e)
+    rows = len(lines)
+    if job.sel_local is not None:
+        lines = [lines[i] for i in job.sel_local[ridx]]
     feats = (job.parser.parse(lines).features if lines
              else np.zeros((0, job.num_cols), dtype=np.float64))
     t1 = time.perf_counter()
     binned = bin_features(job.mappers, job.used_feature_map, feats,
                           job.dtype)
-    return {"ridx": ridx, "n": feats.shape[0], "binned": binned,
+    return {"ridx": ridx, "rows": rows, "n": feats.shape[0],
+            "binned": binned,
             "feats": feats if job.need_feats else None,
             "pid": os.getpid(), "parse_us": (t1 - t0) * 1e6,
             "bin_us": (time.perf_counter() - t1) * 1e6}
@@ -351,19 +361,24 @@ def _worker_main() -> int:
 
 def load_train_streaming_parallel(ds, io_config, parser, predict_fun,
                                   weight_idx, group_idx, ignore_set,
-                                  header_names, device, foreign_bin,
-                                  workers: int, depth: int = 2) -> None:
+                                  header_names, device, write_cache,
+                                  workers: int, depth: int = 2,
+                                  rank: int = 0, num_machines: int = 1,
+                                  bin_finder=None) -> None:
     """io/streaming.load_train_streaming with its passes on ``workers``
-    worker processes; the same dataset, bit for bit."""
+    worker processes; the same dataset, bit for bit, the rank's shard of
+    ``num_machines`` under a draw (module docstring)."""
     with telemetry.span("ingest"):
         _load_parallel(ds, io_config, parser, predict_fun, weight_idx,
                        group_idx, ignore_set, header_names, device,
-                       foreign_bin, workers, depth)
+                       write_cache, workers, depth, rank, num_machines,
+                       bin_finder)
 
 
 def _load_parallel(ds, io_config, parser, predict_fun, weight_idx,
-                   group_idx, ignore_set, header_names, device, foreign_bin,
-                   workers: int, depth: int) -> None:
+                   group_idx, ignore_set, header_names, device, write_cache,
+                   workers: int, depth: int, rank: int, num_machines: int,
+                   bin_finder) -> None:
     from . import streaming
     from .dataset import SAMPLE_CNT, pinned_sample_indices
 
@@ -381,6 +396,7 @@ def _load_parallel(ds, io_config, parser, predict_fun, weight_idx,
                                        SAMPLE_CNT)
     offsets = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
     k = len(ranges)
+    used = ds._draw_shard_mask(io_config, rank, num_machines, total_rows)
     pool = _POOL.get(workers)
 
     delim = (parser.delimiter if isinstance(parser, _DelimitedParser)
@@ -437,15 +453,21 @@ def _load_parallel(ds, io_config, parser, predict_fun, weight_idx,
     del sample_parts
     streaming.finish_pass1(ds, io_config, ignore_set, header_names, sample,
                            num_cols, total_rows, labels_parts, weight_parts,
-                           group_parts)
+                           group_parts, used, bin_finder)
     del sample
 
     sink = streaming.Pass2Sink(ds, io_config, predict_fun, device,
-                               foreign_bin, depth)
+                               write_cache, depth)
+    sel_local = None
+    if used is not None:
+        lo = np.searchsorted(used, offsets[:-1])
+        hi = np.searchsorted(used, offsets[1:])
+        sel_local = [used[a:b] - offsets[i]
+                     for i, (a, b) in enumerate(zip(lo, hi))]
     job2 = _Job(filename=filename, ranges=ranges, parser=parser,
                 mappers=ds.bin_mappers, used_feature_map=ds.used_feature_map,
                 dtype=sink.dtype, num_cols=num_cols or 0,
-                need_feats=predict_fun is not None)
+                need_feats=predict_fun is not None, sel_local=sel_local)
     start = 0
     t_pass = time.perf_counter()
     try:
@@ -459,7 +481,7 @@ def _load_parallel(ds, io_config, parser, predict_fun, weight_idx,
                 streaming.count_chunk(2, out["ridx"], out["n"],
                                       out["parse_us"], out["bin_us"],
                                       h2d_us, worker=out["pid"])
-                start += out["n"]
+                start += out["rows"]
         finally:
             if tasks.outstanding:
                 shutdown_workers()

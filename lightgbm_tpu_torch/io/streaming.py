@@ -48,10 +48,27 @@ Telemetry, as the JAX package files it: a streamed load runs under the
 ``ingest/double_buffer_on|off``; the flight recorder's
 ``record_ingest_pass`` and ``record_ingest_chunk`` events.
 
+Under a shard draw (``rank`` of ``num_machines``, lightgbm_tpu/io/
+streaming.py:333-585) every rank runs pass 0 and pass 1 over the whole
+file, as the resident load parses it whole: the binning sample is the
+whole file's, the mappers come from the world's ``bin_finder`` at one
+point of pass 1 on every rank, and the shard is drawn after pass 1 but
+before an in-file query column replaces the side file's boundaries
+(:456-466); pass 2 bins only the rank's rows (:527-529) into a
+``Pass2Sink`` of the shard's size, on the rank's own device
+(parallel/mesh.rank_device) or, two-round, in a host matrix.  In a world
+no rank writes a cache in pass 2: rank 0 writes the whole table's after
+the load (io/dataset.Dataset._save_world_cache).  With ``ingest_workers
+> 1`` the byte-range workers take these passes (io/parallel_ingest.py);
+with one, a world's rank runs them here, where the JAX package runs the
+workers' range plan in-process (io/parallel_ingest.py:115): both give
+the same dataset.
+
 Not ported: ``single_process()``, ``HostRowWriter`` and the mesh
-placement (``_placement``), which belong to the parallel learners
-(ROADMAP A9); the ``LGBM_TPU_INGEST_SYNC`` environment switch (the port
-adds none: chip_smoke.py builds its writer at depth 0 instead).
+placement (``_placement``): a JAX process may hold several devices of a
+mesh, a port rank holds one (above); the ``LGBM_TPU_INGEST_SYNC``
+environment switch (the port adds none: chip_smoke.py builds its writer
+at depth 0 instead).
 """
 from __future__ import annotations
 
@@ -233,15 +250,20 @@ class CacheWriter:
 
 def finish_pass1(ds, io_config, ignore_set, header_names, sample,
                  num_cols, total_rows, labels_parts, weight_parts,
-                 group_parts) -> None:
+                 group_parts, used=None, bin_finder=None) -> None:
     """Everything pass 1 decides, in the resident loader's order: the
-    feature names, the mappers, the in-file weight and query columns,
-    the labels; finalized before pass 2 (the streamed cache's header
-    needs the query boundaries)."""
+    feature names, the mappers (``bin_finder``'s, where given: every rank
+    of a world calls it here, as the resident load does), the in-file
+    weight and query columns, the labels; then the rank's rows ``used``
+    of a shard draw (``Dataset._draw_shard_mask``, drawn before the
+    query column overrides the side file's boundaries) kept of the side
+    data; finalized before pass 2 (the streamed cache's header needs the
+    query boundaries)."""
     ds.num_total_features = num_cols or 0
     ds.feature_names = _make_feature_names(header_names, ds.label_idx,
                                            ds.num_total_features)
-    ds._build_bin_mappers(sample, io_config.max_bin, ignore_set)
+    ds.used_data_indices = used
+    ds._build_bin_mappers(sample, io_config.max_bin, ignore_set, bin_finder)
     if weight_parts is not None:
         log.info("using weight in data file, and ignore additional "
                  "weight file")
@@ -254,16 +276,22 @@ def finish_pass1(ds, io_config, ignore_set, header_names, sample,
     ds.metadata.set_label(np.concatenate(labels_parts) if labels_parts
                           else np.zeros((0,), np.float32))
     ds.num_data = total_rows
+    if used is not None:
+        ds._partition_rows(used, total_rows)
+        ds.num_data = used.size
     ds.metadata.finalize(ds.num_data)
 
 
 class Pass2Sink:
-    """Where pass 2's binned chunks go, in row order: the cache, the
-    device writer (or, for two-round, a host matrix), the continued
-    training scores."""
+    """Where pass 2's binned chunks go, in row order: the cache where
+    ``write_cache`` asks (a serial load's; a world's rank 0 writes the
+    whole table's after the load, io/dataset.Dataset._save_world_cache),
+    the device writer (or, for two-round, a host matrix), the continued
+    training scores.  It holds the rows the dataset keeps: a rank's
+    shard under a draw."""
 
-    def __init__(self, ds, io_config, predict_fun, device, foreign_bin,
-                 depth: int = 2):
+    def __init__(self, ds, io_config, predict_fun, device,
+                 write_cache: bool, depth: int = 2):
         self.ds = ds
         F, N = len(ds.bin_mappers), ds.num_data
         self.dtype = ds.bin_dtype()
@@ -275,7 +303,7 @@ class Pass2Sink:
             self.host = None
             self.writer = DeviceRowWriter(F, N, self.dtype, device, depth)
             self.cache = _open_cache(ds, io_config, self.dtype, (F, N),
-                                     foreign_bin)
+                                     write_cache)
         self.predict_fun = predict_fun
         self.init_scores: Optional[List[np.ndarray]] = (
             [] if predict_fun is not None else None)
@@ -319,10 +347,18 @@ class Pass2Sink:
 
 def load_train_streaming(ds, io_config, parser, predict_fun, weight_idx,
                          group_idx, ignore_set, header_names, device,
-                         foreign_bin: bool = False, depth: int = 2) -> None:
+                         write_cache: bool = False, depth: int = 2,
+                         rank: int = 0, num_machines: int = 1,
+                         bin_finder=None) -> None:
     """Fill ``ds`` with the resident loader's dataset through the passes
     of the module docstring.  ``device``: the torch.device the matrix
-    lands on, or None for a host matrix (two-round, always serial)."""
+    lands on, or None for a host matrix (two-round, always serial
+    passes).  ``write_cache``: write the native cache in pass 2 (a
+    serial streamed load's).  ``rank`` of ``num_machines``: the shard to
+    keep, as the resident load draws it; ``bin_finder``: the world's
+    mappers."""
+    shard = dict(rank=rank, num_machines=num_machines,
+                 bin_finder=bin_finder)
     if device is not None:
         workers = int(io_config.ingest_workers or 1)
         if workers > 1:
@@ -331,20 +367,22 @@ def load_train_streaming(ds, io_config, parser, predict_fun, weight_idx,
                 return parallel_ingest.load_train_streaming_parallel(
                     ds, io_config, parser, predict_fun, weight_idx,
                     group_idx, ignore_set, header_names, device,
-                    foreign_bin, workers, depth)
+                    write_cache, workers, depth, **shard)
             log.warning("ingest_workers=%d requested but no worker "
                         "interpreter can be exec'd — parsing serially"
                         % workers)
     with telemetry.span("ingest"):
         _load_serial(ds, io_config, parser, predict_fun, weight_idx,
                      group_idx, ignore_set, header_names, device,
-                     foreign_bin, depth)
+                     write_cache, depth, **shard)
 
 
 def _load_serial(ds, io_config, parser, predict_fun, weight_idx,
-                 group_idx, ignore_set, header_names, device, foreign_bin,
-                 depth) -> None:
-    """The passes of ``load_train_streaming`` in this process."""
+                 group_idx, ignore_set, header_names, device, write_cache,
+                 depth, rank, num_machines, bin_finder) -> None:
+    """The passes of ``load_train_streaming`` in this process; pass 2
+    bins only the rows of the shard drawn after pass 1
+    (lightgbm_tpu/io/streaming.py:456-466, :527-529)."""
     filename = io_config.data_filename
     chunk_rows = io_config.ingest_chunk_rows
 
@@ -405,11 +443,17 @@ def _load_serial(ds, io_config, parser, predict_fun, weight_idx,
         sample = (np.concatenate(sample_parts) if sample_parts
                   else np.zeros((0, 0), np.float64))
     del sample_parts
+    used = ds._draw_shard_mask(io_config, rank, num_machines, total_rows)
     finish_pass1(ds, io_config, ignore_set, header_names, sample, num_cols,
-                 total_rows, labels_parts, weight_parts, group_parts)
+                 total_rows, labels_parts, weight_parts, group_parts, used,
+                 bin_finder)
     del sample
+    keep = None
+    if used is not None:
+        keep = np.zeros(total_rows, dtype=bool)
+        keep[used] = True
 
-    sink = Pass2Sink(ds, io_config, predict_fun, device, foreign_bin, depth)
+    sink = Pass2Sink(ds, io_config, predict_fun, device, write_cache, depth)
     start = 0
     t_pass = time.perf_counter()
     try:
@@ -417,6 +461,9 @@ def _load_serial(ds, io_config, parser, predict_fun, weight_idx,
             with telemetry.span("ingest_bin"):
                 t0 = time.perf_counter()
                 feats = parser.parse(lines).features
+                c = feats.shape[0]
+                if keep is not None:
+                    feats = feats[keep[start:start + c]]
                 t1 = time.perf_counter()
                 binned = ds.bin_chunk(feats, sink.dtype)
                 t2 = time.perf_counter()
@@ -424,7 +471,7 @@ def _load_serial(ds, io_config, parser, predict_fun, weight_idx,
                 t3 = time.perf_counter()
             count_chunk(2, chunk_no, feats.shape[0], (t1 - t0) * 1e6,
                         (t2 - t1) * 1e6, (t3 - t2) * 1e6)
-            start += feats.shape[0]
+            start += c
         log.check(start == total_rows and sink.cursor == ds.num_data,
                   "Input file changed between the streaming passes "
                   f"(pass 1: {total_rows} rows, pass 2: {start})")
@@ -449,9 +496,8 @@ def count_chunk(pass_no: int, chunk_no: int, n: int, parse_us: float,
 
 
 def _open_cache(ds, io_config, dtype, shape,
-                foreign_bin: bool) -> Optional[CacheWriter]:
-    if not io_config.is_save_binary_file or foreign_bin:
-        # a foreign .bin beside the data file is never overwritten
+                write_cache: bool) -> Optional[CacheWriter]:
+    if not write_cache:
         return None
     if io_config.save_binary_format == "reference":
         log.warning("save_binary_format=reference is not supported by "

@@ -22,7 +22,8 @@ does their work.
   with a warning, and its telemetry site gains ``/host_staged``.
 
 The bootstrap group is always gloo: host-side exchanges (seeds, bin
-mappers, metric rows, the clock handshake) ride it as pickled objects,
+mappers, metric rows, the clock handshake, the load route, the table of
+a world's cache, ``gather_object`` to rank 0) ride it as pickled objects,
 and ``host_comm`` runs small host tensors over it (the elastic
 exchanges).
 
@@ -213,6 +214,18 @@ def all_gather_object(obj) -> list:
     out = [None] * dist.get_world_size()
     t0 = time.perf_counter()
     dist.all_gather_object(out, obj)
+    _waited(t0)
+    return out
+
+
+def gather_object(obj) -> list:
+    """Every rank's ``obj`` in rank order on rank 0, None on the others
+    (pickled, over the bootstrap group); ``[obj]`` without a world."""
+    if not initialized():
+        return [obj]
+    out = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+    t0 = time.perf_counter()
+    dist.gather_object(obj, out, dst=0)
     _waited(t0)
     return out
 
@@ -446,7 +459,7 @@ def grid_for(device: torch.device, ds: int, fs: int) -> Grid:
 
 __all__ = ["Comm", "DATA_AXIS", "FEATURE_AXIS", "Grid", "all_gather_object",
            "clock_handshake", "comm_for", "factor_machines",
-           "collective_seconds", "exact_waits", "get_rank",
+           "collective_seconds", "exact_waits", "gather_object", "get_rank",
            "get_num_machines", "grid_for",
            "host_comm",
            "init_distributed", "initialized", "rank_device", "shutdown",

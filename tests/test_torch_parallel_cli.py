@@ -9,15 +9,18 @@
   metrics on every rank) equal the serial CLI's, rtol 1e-6;
 - GOSS through a CLI world: the rank files are byte-equal to the serial
   CLI's GOSS model file in int8;
-- every key and route still refused (ROADMAP A9b) is a named ``Fatal``:
-  ``serve_shards > 1``, the non-resident load routes
-  under a shard draw; so are the hybrid and voting keys' own faults (a
+- every key still refused (ROADMAP A9b) is a named ``Fatal``:
+  ``serve_shards > 1``; so are the hybrid and voting keys' own faults (a
   ``feature_shards`` that does not divide the world, ``top_k`` below
   1), a ``timeline`` other than auto, true or false, GOSS with bagging
   under hybrid, ``elastic_shrink`` under the
   serial learner and ``straggler_k`` below 1, and what a rank's booster
   cannot restore across a topology change: host-stream bagging and a
-  pre-partitioned world.
+  pre-partitioned world;
+- the load routes once refused under a shard draw (the caches, streamed,
+  worker and two-round loads) each load the resident shard, and
+  ``is_save_binary_file`` under one without a world is the ``Fatal``
+  that names it (tests/test_torch_world_ingest.py holds them in worlds).
 """
 import glob
 import os
@@ -32,6 +35,7 @@ import pytest
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import checkpoint as ckpt
 from lightgbm_tpu_torch import cli
+from lightgbm_tpu_torch.io import parallel_ingest
 from lightgbm_tpu_torch.utils import log
 from test_torch_parallel import BASE, REPO, WORLD_TIMEOUT, write_table
 
@@ -212,25 +216,47 @@ def _io(path, **extra):
                                    "sibling_cache", "cache_as_data",
                                    "pre_partition_streaming"])
 def test_sharded_load_routes_refused(tmp_path, route):
+    """Each route that was refused under ``num_machines > 1`` before the
+    port took the other load routes into a world (ROADMAP A.2): it now
+    loads rank 0's resident shard (a pre-partitioned rank every row of
+    its file), and writing a cache under a shard draw needs a world."""
     path = tmp_path / "train.tsv"
     write_table(path, n=300)
+    want = lgt.Dataset.load_train(_io(path), rank=0, num_machines=2)
     extra = {}
     if route == "streaming":
         extra = {"streaming": "true", "ingest_workers": "2"}
     elif route == "pre_partition_streaming":
-        # each rank's own file: still the resident load alone (the
-        # world's mappers come through the resident route)
+        # each rank's own file: every row, the resident load's
         extra = {"streaming": "true", "is_pre_partition": "true"}
+        want = lgt.Dataset.load_train(_io(path))
     elif route == "two_round":
         extra = {"use_two_round_loading": "true"}
     elif route == "save_binary":
-        extra = {"is_save_binary_file": "true"}
+        with pytest.raises(log.Fatal, match="num_machines=2 needs a world"):
+            lgt.Dataset.load_train(_io(path, is_save_binary_file="true"),
+                                   rank=0, num_machines=2)
+        assert not os.path.exists(str(path) + ".bin")
+        return
     else:
         _cache(path)
         if route == "cache_as_data":
             path = tmp_path / "train.tsv.bin"
-    with pytest.raises(log.Fatal, match="num_machines > 1.*A9b"):
-        lgt.Dataset.load_train(_io(path, **extra), rank=0, num_machines=2)
+    try:
+        got = lgt.Dataset.load_train(_io(path, **extra), rank=0,
+                                     num_machines=2, device="cpu")
+    finally:
+        parallel_ingest.shutdown_workers()
+    if want.used_data_indices is None:
+        assert got.used_data_indices is None
+    else:
+        np.testing.assert_array_equal(got.used_data_indices,
+                                      want.used_data_indices)
+    assert got.read_bins().tobytes() == want.bins.tobytes()
+    np.testing.assert_array_equal(got.metadata.label, want.metadata.label)
+    assert got.num_data == want.num_data
+    assert want.num_data == (300 if route == "pre_partition_streaming"
+                             else want.used_data_indices.size)
 
 
 class _World2:
