@@ -71,7 +71,7 @@ int8, bitwise the CPU engine's; latency per bucket and the walk's device
 time beside its bound; a coalescing front with 8 clients and a hot swap,
 no request lost or misrouted; and ``task=predict`` result files on the
 card byte-equal to ``device=cpu``'s; it launches neither kernel (see
-``serving_phase``).  Phase 12 runs the ingest layer on a 2M-row CSV
+``serving_phase``).  Phase 12 runs the ingest layer on a 1M-row CSV
 file of make_data's table over 256 MB (a header, the label mid-file, a
 weight and an ignored column): resident, ``streaming=auto``, four parse
 workers, two-round, the native cache direct and as a sibling, a
@@ -85,9 +85,9 @@ leaf and one partition a split from four routes, one float32 model text
 every float launch of phases 2, 6, 9 and 10 runs twice and must give
 the same bits.  Phase 13 checkpoints and resumes the main path
 (float32) and the sampled path (int8, threefry bagging) on phase 4's
-table: stopped by a raise at iteration 6 and resumed to the unbroken
+table: stopped by a raise at iteration 3 and resumed to the unbroken
 model text, launching the kernels for the remaining trees only, and a
-CLI run SIGKILLed at iteration 6 and rerun to the unbroken model file
+CLI run SIGKILLed at iteration 3 and rerun to the unbroken model file
 (see ``checkpoint_phase``).  Phase 14 arms the observability layer
 around the main path (the JSONL sink fenced, memory gauges, health, the
 profiler, the flight recorder, the stall watchdog with a stall injected)
@@ -101,7 +101,7 @@ by ``scripts/trace_report.py`` and ``scripts/monitor_report.py`` (see
 processes (this script with ``--parallel-worker``): a one-rank NCCL world
 on the main path under ``tree_learner=data`` (phase 4's model text), two
 ranks sharing the card over gloo under both data-parallel schedules
-(int8 byte-equal to serial, float32 alike to phase 4's model), the
+(int8 byte-equal to serial, float32 alike to serial's), the
 feature-parallel learner (byte-equal to serial), and the CLI under
 ``torch.distributed.run`` (rank files byte-equal); every rank launches
 the kernels on its own rows (see ``parallel_phase``;
@@ -144,8 +144,8 @@ trace dumps under the armed drain aligned by the port's podtrace
 (``scripts/port_pod_report.py --check``); each rank's launches of both
 kernels checked (see ``observability_world_phase``; ``chip_smoke.py
 --phase18`` runs the build and phase 18 alone).  Phase 19 loads a 1M-row
-CSV of about 281 MB through every load route in one 2-rank
-``tree_learner=data`` world sharing the card over gloo: resident text,
+CSV of about 281 MB through every load route in two 2-rank
+``tree_learner=data`` worlds sharing the card over gloo: resident text,
 ``streaming=auto``, two byte-range workers a rank, two-round writing a
 reference-format cache, resident writing the native cache (rank 0
 alone, byte-equal to a serial load's), that cache as ``data=`` and as
@@ -153,17 +153,36 @@ the sibling, and the reference-format sibling; every rank's rows, bins,
 labels and weights (a)'s, one int8 model text at 255 leaves from every
 route, each rank's launches of both kernels checked (see
 ``world_ingest_phase``; ``chip_smoke.py --phase19`` runs the build and
-phase 19 alone).  Phase 9 also times
-int8 with stochastic
-rounding (the hash and quantization, then the launch) beside its plain
-version and ``scatter_add_`` of the same levels.  Every phase must
-pass; the last line of standard output is ``{"ok": true, "device":
-{...}}``.  Exits nonzero,
-printing no result, when there is no CUDA device or the package is not
-beside this script.
+phase 19 alone).  Phase 20 runs in this process while phase 19's world
+loads and trains.  It serves every lane of the JAX engine on the
+card: phase 4's, phase 11's (b) and phase 7's multiclass models on 2, 3
+and 4 tree shards placed on the one card (``["cuda:0"] * k``; 5 trees
+at 4 shards leave one shard empty), float32 and int8, at every bucket,
+scores and leaf indices bitwise the one-device engine's and the CPU
+sharded engine's; ``scores()`` latency at 1, 2 and 4 shards; the
+``serve/tree_carry`` hops; the device rule (``shards`` past the device
+count fails with the JAX message, through the engine and
+``task=predict``); ``predict_algo=scan`` bitwise ``bfs``, timed beside
+it, and its ``task=predict`` file byte-equal to ``bfs``'s; a front
+hot-swapped from 2 float32 shards to 4 int8 shards; no kernel launch
+while serving (see ``sharded_phase``; ``chip_smoke.py --phase20`` runs
+the build, the three models trained anew and phase 20 alone).  Phase 9
+also times int8 with stochastic rounding (the hash and quantization,
+then the launch) beside its plain version and ``scatter_add_`` of the
+same levels.
+
+The worlds of phases 15-19 train ``WORLD_ITERS`` (2) trees a job where
+the check holds a world against a serial run (phase 19's routes one,
+phase 13 six iterations), and start before the serial runs they are held
+against, so that the script stays well inside its time limit; it prints
+each phase's wall seconds and a ``{"phase_seconds": ...}`` line.  Every
+phase must pass; the last line of standard output is ``{"ok": true,
+"device": {...}}``.  Exits nonzero, printing no result, when there is no
+CUDA device or the package is not beside this script.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import subprocess
@@ -182,15 +201,17 @@ SEED = 42
 # the main path's sizes; a rehearsal on the CPU may pass smaller ones.
 # hist_shapes: (F, N, B, C, offset); offset > 0 slices the bins out of
 # wider rows at that lane, as the grower slices the pane
-FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 200_000,
+FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 100_000,
         "serve_iters": 200, "serve_cpu_rows": 10_000, "front_s": 5.0,
+        "predict_rows": 20_000,
+        "shard_front_s": 3.0,
         "hist_shapes": ((28, 1_000_000, 256, 1, 0), (28, 1_000_000, 256, 42, 0),
                         (28, 1_000_000, 256, 64, 0), (200, 250_000, 256, 1, 0),
                         (28, 2047, 256, 1, 0), (28, 300_001, 256, 1, 13)),
         "pane_segment": (12_345, 300_001), "n_f200": 250_000,
         "int8_cols": (1, 8, 32, 64), "n_es": 40_000, "n_cli": 100_000,
         "class_cols": (1, 8, 64), "wide_cols": (1, 8, 64),
-        "n_ingest": 2_000_000, "ingest_parse_rows": 200_000,
+        "n_ingest": 1_000_000, "ingest_parse_rows": 200_000,
         "n_world_ingest": 1_000_000,
         "obs_front_s": 2.0, "stall_timeout": 1.5, "stall_s": 3.5,
         "monitor_interval_s": 0.5}
@@ -465,7 +486,7 @@ def main() -> int:
             if "registers" in line or "bytes stack" in line:
                 say("  ptxas %s: %s" % (name, line.strip()))
     kernels = run(torch.device("cuda"), FULL)
-    say("chip_smoke: phases 1-19 in %.1f s" % (time.perf_counter() - t0))
+    say("chip_smoke: phases 1-20 in %.1f s" % (time.perf_counter() - t0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -479,7 +500,7 @@ def main() -> int:
 
 
 def run(dev, sizes, timer=None):
-    """Phases 2-19 on ``dev``; returns the kernel records.  ``timer``
+    """Phases 2-20 on ``dev``; returns the kernel records.  ``timer``
     replaces the CUDA-event timer (a CPU rehearsal passes a host clock)."""
     import torch
     import lightgbm_tpu_torch as lgt
@@ -487,6 +508,14 @@ def run(dev, sizes, timer=None):
     from lightgbm_tpu_torch.ops.hist_cuda import quantize_values
     timer = timer or cuda_ms
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    laps, clock = {}, [time.perf_counter()]
+
+    def lap(phase):
+        """Print and keep the wall seconds of the phase that just ended."""
+        now = time.perf_counter()
+        laps[phase] = round(now - clock[0], 1)
+        clock[0] = now
+        say("phase %s wall: %.1f s" % (phase, laps[phase]))
 
     # ---- phase 2: histogram kernel vs its plain version
     gen = np.random.RandomState(SEED)
@@ -558,6 +587,7 @@ def run(dev, sizes, timer=None):
         "%.3g, two launches bitwise equal, counts exact" % (
             F, P, sstart, scnt, pane_err))
 
+    lap("2")
     # ---- phase 3: partition kernel vs its plain version, both entries
     n_train, n_test, F = sizes["n_train"], sizes["n_test"], 28
     R = compact.pane_rows(F)
@@ -635,6 +665,7 @@ def run(dev, sizes, timer=None):
         n200))
     del src200
 
+    lap("3")
     # ---- phase 4: full-width training through the user entry points
     x, latent = make_table(n_train + n_test, F, SEED)
     y = (latent > 0).astype(np.float32)
@@ -698,6 +729,7 @@ def run(dev, sizes, timer=None):
     # phase 11 serves this model, and phase 7's multiclass one
     served = {"a": booster.model_to_string()}
 
+    lap("4")
     # ---- phase 5: int8 end to end, kernels on the card vs plain on the CPU
     n5 = sizes["n_int8"]
     small = lgt.Dataset.from_arrays(x[:n5], y[:n5], max_bin=255)
@@ -809,6 +841,7 @@ def run(dev, sizes, timer=None):
         "card: equal in structure and leaf_count; leaf values max abs diff "
         "%g" % (n5, F, value_diff))
 
+    lap("5")
     # ---- phase 6: kernel times at the main-path shape
     N, B = n_train, 256
     kernels = {}
@@ -996,24 +1029,29 @@ def run(dev, sizes, timer=None):
     say("phase 6 hist first depthwise int8 tree replayed (%d launches): "
         "%.4f ms, bound %.4f ms" % (len(depthwise_first), dw_ms, dw_bound_ms))
 
+    lap("6")
     # ---- phase 7: the other objectives through the same kernels
     for path, counts in objectives_phase(dev, sizes, x, latent, train_set,
                                          sync, timer, served).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    lap("7")
     # ---- phase 8: sampling, early stopping and continued training
     for path, counts in sampling_phase(dev, sizes, x, y, train_set,
                                        sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    lap("8")
     # ---- phase 9: mixed-bin packing, bfloat16 and stochastic rounding
     by_path, records = mixed_phase(dev, sizes, sync, timer)
     for path, counts in by_path.items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
     kernels["hist"].update(records)
+    lap("9")
     # ---- phase 10: 16-bit bins (max_bin = 1023)
     kernels.update(wide_phase(dev, sizes, x, y, sync, timer))
+    lap("10")
     # ---- phase 11: serving, which launches neither kernel; (b)'s training
     # is an 8-bit path
     for path, counts in serving_phase(dev, sizes, x, train_set, served, sync,
@@ -1022,43 +1060,63 @@ def run(dev, sizes, timer=None):
             if path == "serving" or not name.endswith("16"):
                 k["launches_by_path"][path] = counts[
                     "hist" if name.startswith("hist") else "partition"]
+    lap("11")
     # ---- phase 12: the ingest layer, every load route onto the card
     for path, counts in ingest_phase(dev, sizes, sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    lap("12")
     # ---- phase 13: checkpoints and resume on phase 4's table
     for path, counts in checkpoint_phase(dev, sizes, train_set,
                                          sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    lap("13")
     # ---- phase 14: observability around the main path
     for path, counts in observability_phase(dev, sizes, x, y, train_set,
                                             served, sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    lap("14")
     # ---- phase 15: the parallel learners, worker processes on the card
     for path, counts in parallel_phase(dev, sizes, x, y, served,
                                        sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    lap("15")
     # ---- phase 16: the hybrid and voting learners, a grid of 4 ranks
     for path, counts in hybrid_voting_phase(dev, sizes, x, y,
                                             sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    lap("16")
     # ---- phase 17: GOSS, checkpoints and the drain across worlds
     for path, counts in goss_elastic_phase(dev, sizes, x, y, sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    lap("17")
     # ---- phase 18: observability over worlds
     for path, counts in observability_world_phase(dev, sizes, x, y,
                                                   sync).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
-    # ---- phase 19: every load route in a world
-    for path, counts in world_ingest_phase(dev, sizes, sync).items():
+    lap("18")
+    # ---- phase 19: every load route in a world, whose ranks load and
+    # train beside phase 20 in this process
+    # ---- phase 20: tree-sharded and per-tree replay serving, which
+    # launch neither kernel
+    by_path, serving_counts = world_ingest_phase(
+        dev, sizes, sync,
+        beside=lambda: sharded_phase(dev, sizes, x, served, sync))
+    for path, counts in by_path.items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    for path, counts in serving_counts.items():
+        for name, k in kernels.items():
+            k["launches_by_path"][path] = counts[
+                "hist" if name.startswith("hist") else "partition"]
+    lap("19-20")
+    say(json.dumps({"phase_seconds": laps}))
     return list(kernels.values())
 
 
@@ -2290,29 +2348,31 @@ def wide_phase(dev, sizes, x, y, sync, timer):
     return {"hist16": hist16, "partition16": part_rec}
 
 
+# served model (b): bench.py's headline configuration (bench.py:1277-1289)
+# on the main-path table, at a realistic ensemble size (``serve_iters``)
+SERVE_B = {"objective": "binary", "grow_policy": "depthwise",
+           "hist_dtype": "int8", "num_leaves": 255, "min_data_in_leaf": 100,
+           "min_sum_hessian_in_leaf": 10, "learning_rate": 0.1,
+           "max_bin": 255}
+
+
 def scan_vs_bfs(flat, codes, tables):
-    """The JAX package's ``predict_algo=scan`` walk
-    (lightgbm_tpu/ops/scoring.py:89-117), rebuilt from the port's
-    ``leaf_ids_by_replay``: each tree's splits replayed in turn, its leaf
-    values added into its class row in tree order.  The port refuses
-    ``scan``; this records why.  On all of ``codes``' rows the replay
-    must give the breadth-first walk's float32 scores bitwise; then both
-    are timed at 1, 1,024 and all the rows on the host clock with a
-    device synchronize (the better of 2 calls: one replay call launches
-    ~5 small operations a split)."""
+    """The per-tree replay (``predict_algo=scan``, served by the port's
+    engine since the walk of lightgbm_tpu/ops/scoring.py:89-117 was
+    ported): ``scoring.ensemble_scores``, each tree's splits replayed in
+    turn and its leaf values added into its class row in tree order.  At
+    1, 1,024 and all of ``codes``' rows it must give the breadth-first
+    walk's float32 scores bitwise; each replay call is timed on the host
+    clock between device synchronizes (one call launches ~5 small
+    operations a split), the walk as the better of 2 calls."""
     import torch
     from lightgbm_tpu_torch.ops import scoring
 
     def replay(c):
-        out = torch.zeros((flat.num_class, c.shape[1]), dtype=torch.float32,
-                          device=c.device)
-        for t in range(flat.num_trees):
-            n = int(flat.num_leaves[t]) - 1
-            leaf = scoring.leaf_ids_by_replay(
-                c, flat.split_feature[t, :n], flat.threshold_rank[t, :n],
-                flat.left_child[t, :n], flat.right_child[t, :n])
-            out[int(flat.tree_class[t])].add_(tables["lv"][t][leaf])
-        return out
+        return scoring.ensemble_scores(
+            c, flat.split_feature, flat.threshold_rank, flat.left_child,
+            flat.right_child, tables["lv"], flat.num_leaves,
+            flat.tree_class, num_class=flat.num_class)
 
     def bfs(c):
         return scoring.bfs_scores(
@@ -2320,30 +2380,141 @@ def scan_vs_bfs(flat, codes, tables):
             tables["lv"], tables["root"], flat.tree_class,
             max_depth=flat.max_depth, num_class=flat.num_class)
 
-    def wall_ms(fn, c):
-        times = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(c)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return min(times)
-
-    if not torch.equal(replay(codes), bfs(codes)):
-        fail("phase 11 (b): the per-tree replay's scores differ from the "
-             "breadth-first walk's")
     rec = {}
     for n in (1, 1024, codes.shape[1]):
         c = codes[:, :n].contiguous()
-        rec[str(n)] = {"scan_ms": wall_ms(replay, c),
-                       "bfs_ms": wall_ms(bfs, c)}
+        scan_ms, got = timed_call(replay, c)
+        if not torch.equal(got, bfs(c)):
+            fail("phase 11 (b): the per-tree replay's scores differ from "
+                 "the breadth-first walk's at %d rows" % n)
+        rec[str(n)] = {"scan_ms": scan_ms, "bfs_ms": wall_ms(bfs, c)}
     say("phase 11 (b) float32, the walk alone on the host clock, per-tree "
-        "replay (predict_algo=scan, refused) against breadth-first, equal "
-        "bitwise: %s" % " ".join(
+        "replay (predict_algo=scan) against breadth-first, equal bitwise: "
+        "%s" % " ".join(
             "%s rows %.3f / %.3f ms" % (n, v["scan_ms"], v["bfs_ms"])
             for n, v in rec.items()))
     return rec
+
+
+def timed_call(fn, *args):
+    """``(ms, fn(*args))``: one call on the host clock between two device
+    synchronizes."""
+    import torch
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def wall_ms(fn, *args, calls: int = 2) -> float:
+    """The better of ``calls`` ``timed_call``s of ``fn(*args)``, in ms."""
+    return min(timed_call(fn, *args)[0] for _ in range(calls))
+
+
+def front_swap(what, old, new, x_test, seconds, n_alone):
+    """A ServingFront over the ``old`` engine (a ``(name, engine)`` pair)
+    with 8 client threads for ``seconds``, each submitting 1-32 held-out
+    rows and waiting for them, hot-swapped to ``new`` half way: every
+    request must resolve, on ``old`` before the swap began and on
+    ``new`` after it ended, never back, and equal to its rows scored on
+    that engine: every request within one batch of all requests' rows,
+    and ``n_alone`` of them alone.  Returns the front's record."""
+    import threading
+    from lightgbm_tpu_torch import serving
+    n_test = len(x_test)
+    engines = dict((old, new))
+    front = serving.ServingFront(old[1].warmup())
+    logs = [[] for _ in range(8)]
+    errors = []
+    stop = threading.Event()
+
+    def client(i):
+        r = np.random.RandomState(SEED + 100 + i)
+        try:
+            while not stop.is_set():
+                n = r.randint(1, 33)
+                s0 = r.randint(0, n_test - n)
+                t0 = time.perf_counter()
+                got = front.submit(x_test[s0:s0 + n]).result(60)
+                logs[i].append((s0, n, t0, time.perf_counter(), got))
+        except Exception as e:  # reported and failed on below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(8)]
+    t_start = time.perf_counter()
+    for th in threads:
+        th.start()
+    time.sleep(seconds / 2)
+    t_swap0 = time.perf_counter()
+    drain_s = front.swap_engine(new[1], timeout=60)
+    t_swap1 = time.perf_counter()
+    time.sleep(seconds / 2)
+    stop.set()
+    for th in threads:
+        th.join(120)
+    elapsed = time.perf_counter() - t_start
+    front.close()
+    if errors or any(th.is_alive() for th in threads):
+        fail("%s: a client failed or hung: %r" % (what, errors[:3]))
+    reqs = [q for lg in logs for q in lg]
+    if front.stats["requests"] != len(reqs) or front.stats["swaps"] != 1:
+        fail("%s: %d submitted, %d resolved, %d swaps"
+             % (what, front.stats["requests"], len(reqs),
+                front.stats["swaps"]))
+    allrows = np.concatenate([x_test[s0:s0 + n] for s0, n, _, _, _ in reqs])
+    whole = {k: eng.scores(allrows) for k, eng in engines.items()}
+    ofs, routed = 0, []
+    for s0, n, t0, t1, got in reqs:
+        on = [k for k, v in whole.items()
+              if np.array_equal(got, v[:, ofs:ofs + n])]
+        if not on:
+            fail("%s: a request's scores match neither engine" % what)
+        routed.append(on)
+        ofs += n
+    k = 0
+    for lg in logs:
+        seen_new = False
+        for s0, n, t0, t1, got in lg:
+            on = routed[k]
+            k += 1
+            if on == [new[0]]:
+                seen_new = True
+            if (t1 < t_swap0 and old[0] not in on) \
+                    or (t0 > t_swap1 and new[0] not in on) \
+                    or (seen_new and new[0] not in on):
+                fail("%s: a request scored on the wrong engine" % what)
+    pick = np.random.RandomState(SEED).choice(len(reqs),
+                                              min(n_alone, len(reqs)), False)
+    for j in pick:
+        s0, n, _, _, got = reqs[j]
+        if not np.array_equal(got, engines[routed[j][0]].scores(
+                x_test[s0:s0 + n])):
+            fail("%s: request %d differs from its rows scored alone"
+                 % (what, j))
+    lat_ms = np.array([t1 - t0 for _, _, t0, t1, _ in reqs]) * 1e3
+    on_old = sum(r == [old[0]] for r in routed)
+    fr = {"clients": 8, "seconds": elapsed, "requests": len(reqs),
+          "rows": int(sum(n for _, n, _, _, _ in reqs)),
+          "requests_per_s": len(reqs) / elapsed,
+          "p50_ms": float(np.percentile(lat_ms, 50)),
+          "p99_ms": float(np.percentile(lat_ms, 99)),
+          "batches": front.stats["batches"], "swap_drain_ms": drain_s * 1e3,
+          "on_" + old[0]: on_old, "on_" + new[0]: len(reqs) - on_old,
+          "checked_alone": len(pick)}
+    say("%s, 8 clients, %.1f s: %d requests (%d rows) in %d batches, %.1f "
+        "requests/s, latency p50 %.3f ms p99 %.3f ms; swap %s -> %s "
+        "drained in %.3f ms, %d requests on %s and %d on %s, none lost or "
+        "routed back; every request equal to its rows in one batch, %d "
+        "scored alone" % (
+            what, elapsed, fr["requests"], fr["rows"], fr["batches"],
+            fr["requests_per_s"], fr["p50_ms"], fr["p99_ms"], old[0],
+            new[0], fr["swap_drain_ms"], on_old, old[0],
+            len(reqs) - on_old, new[0], fr["checked_alone"]))
+    return fr
 
 
 def serving_phase(dev, sizes, x, train_set, served, sync, timer):
@@ -2365,24 +2536,21 @@ def serving_phase(dev, sizes, x, train_set, served, sync, timer):
     beside its bound, the least it must move (the codes and node tables
     read once, the [K, N] scores written once) over the card's memory
     rate, and beside this implementation's own traffic (max_depth x 6
-    [T, N] int32 intermediates and the codes).  On (b) float32 the JAX
-    package's per-tree replay (``predict_algo=scan``, which the port
-    refuses) is timed beside the breadth-first walk at 1, 1,024 and
-    65,536 rows, and must give its scores bitwise.  Then a ServingFront
-    over (b) float32 with 8 client threads for ``front_s`` seconds, each
-    submitting 1-32 rows and waiting for them, swaps to (b) int8 half
-    way: every request must resolve, on float32 before the swap began
-    and on int8 after it ended, never back, and equal to its rows scored
-    on that engine: every request within one batch of all requests'
-    rows, and 1,000 of them alone.  Last, ``python -m lightgbm_tpu_torch
-    task=predict`` on the held-out rows with (b), with
-    ``predict_leaf_index=true`` and with ``predict_quantize=int8``: the
-    card's result files byte-equal to ``device=cpu``'s.  Neither kernel
+    [T, N] int32 intermediates and the codes).  On (b) float32 the
+    per-tree replay (``predict_algo=scan``, ``scoring.ensemble_scores``,
+    which the port serves) is timed beside the breadth-first walk at 1,
+    1,024 and 65,536 rows, and must give its scores bitwise.  Then a
+    ServingFront over (b) float32 with 8 client threads for ``front_s``
+    seconds swaps to (b) int8 half way (``front_swap``: no request lost
+    or routed back, each equal to its rows on its engine, 1,000 scored
+    alone).  Last, ``python -m lightgbm_tpu_torch
+    task=predict`` on the first ``predict_rows`` held-out rows with (b),
+    with ``predict_leaf_index=true`` and with ``predict_quantize=int8``:
+    the card's result files byte-equal to ``device=cpu``'s.  Neither kernel
     may launch in this process while it serves: the counts cover the
     engines and the front; the ``task=predict`` runs are subprocesses,
     whose launches these counts cannot see.  Prints a ``{"serving": ...}``
     line; returns the launch counts of (b)'s training and of serving."""
-    import threading
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import serving
@@ -2391,13 +2559,9 @@ def serving_phase(dev, sizes, x, train_set, served, sync, timer):
     x_test = x[n_train:]
     t_phase = time.perf_counter()
     by_path = {}
-    # (b): bench.py's headline configuration (bench.py:1277-1289) on the
-    # main-path table, at a realistic ensemble size
-    pd = {"objective": "binary", "grow_policy": "depthwise",
-          "hist_dtype": "int8", "num_leaves": 255, "min_data_in_leaf": 100,
-          "min_sum_hessian_in_leaf": 10, "learning_rate": 0.1,
-          "max_bin": 255, "num_iterations": sizes["serve_iters"]}
-    booster, iter_s, counts = drive(pd, train_set, dev, sync)
+    booster, iter_s, counts = drive(
+        dict(SERVE_B, num_iterations=sizes["serve_iters"]), train_set, dev,
+        sync)
     if len(booster.models) != sizes["serve_iters"] or counts["hist"] == 0 \
             or counts["partition"] != 0:
         fail("phase 11 (b): %d trees, launches hist %d partition %d"
@@ -2478,7 +2642,7 @@ def serving_phase(dev, sizes, x, train_set, served, sync, timer):
             # the walk alone on the device at the top bucket
             N = card.buckets[-1]
             codes = torch.as_tensor(flat.encode(x_test[:N]), device=dev)
-            t = card._device_tables()
+            (t,) = card._device_tables()
             if quantize == "int8":
                 walk = lambda: scoring.bfs_scores_int8(  # noqa: E731
                     codes, t["sf"], t["tr"], t["lc"], t["rc"], t["lv_q"],
@@ -2523,101 +2687,17 @@ def serving_phase(dev, sizes, x, train_set, served, sync, timer):
 
     # the front over (b), 8 clients, one swap half way
     flat_b = boosters["b"].export_flat()
-    f32 = serving.ServingEngine(flat_b, device=dev).warmup()
-    i8 = serving.ServingEngine(flat_b, quantize="int8", device=dev)
-    front = serving.ServingFront(f32)
-    logs = [[] for _ in range(8)]
-    errors = []
-    stop = threading.Event()
-
-    def client(i):
-        r = np.random.RandomState(SEED + 100 + i)
-        try:
-            while not stop.is_set():
-                n = r.randint(1, 33)
-                s0 = r.randint(0, n_test - n)
-                t0 = time.perf_counter()
-                got = front.submit(x_test[s0:s0 + n]).result(60)
-                logs[i].append((s0, n, t0, time.perf_counter(), got))
-        except Exception as e:  # reported and failed on below
-            errors.append(e)
-
-    threads = [threading.Thread(target=client, args=(i,), daemon=True)
-               for i in range(8)]
-    t_start = time.perf_counter()
-    for th in threads:
-        th.start()
-    time.sleep(sizes["front_s"] / 2)
-    t_swap0 = time.perf_counter()
-    drain_s = front.swap_engine(i8, timeout=60)
-    t_swap1 = time.perf_counter()
-    time.sleep(sizes["front_s"] / 2)
-    stop.set()
-    for th in threads:
-        th.join(120)
-    elapsed = time.perf_counter() - t_start
-    front.close()
-    if errors or any(th.is_alive() for th in threads):
-        fail("phase 11 front: a client failed or hung: %r" % errors[:3])
-    reqs = [q for lg in logs for q in lg]
-    if front.stats["requests"] != len(reqs) or front.stats["swaps"] != 1:
-        fail("phase 11 front: %d submitted, %d resolved, %d swaps"
-             % (front.stats["requests"], len(reqs), front.stats["swaps"]))
-    allrows = np.concatenate([x_test[s0:s0 + n] for s0, n, _, _, _ in reqs])
-    whole = {"float32": f32.scores(allrows), "int8": i8.scores(allrows)}
-    ofs, routed = 0, []
-    for s0, n, t0, t1, got in reqs:
-        on = [k for k, v in whole.items()
-              if np.array_equal(got, v[:, ofs:ofs + n])]
-        if not on:
-            fail("phase 11 front: a request's scores match neither engine")
-        routed.append(on)
-        ofs += n
-    k = 0
-    for lg in logs:
-        seen_int8 = False
-        for s0, n, t0, t1, got in lg:
-            on = routed[k]
-            k += 1
-            if on == ["int8"]:
-                seen_int8 = True
-            if (t1 < t_swap0 and "float32" not in on) \
-                    or (t0 > t_swap1 and "int8" not in on) \
-                    or (seen_int8 and "int8" not in on):
-                fail("phase 11 front: a request scored on the wrong engine")
-    pick = np.random.RandomState(SEED).choice(len(reqs),
-                                              min(1000, len(reqs)), False)
-    for j in pick:
-        s0, n, _, _, got = reqs[j]
-        eng = f32 if routed[j][0] == "float32" else i8
-        if not np.array_equal(got, eng.scores(x_test[s0:s0 + n])):
-            fail("phase 11 front: request %d differs from its rows scored "
-                 "alone" % j)
-    lat_ms = np.array([t1 - t0 for _, _, t0, t1, _ in reqs]) * 1e3
-    on_f32 = sum(r == ["float32"] for r in routed)
-    rec["front"] = {
-        "clients": 8, "seconds": elapsed, "requests": len(reqs),
-        "rows": int(sum(n for _, n, _, _, _ in reqs)),
-        "requests_per_s": len(reqs) / elapsed,
-        "p50_ms": float(np.percentile(lat_ms, 50)),
-        "p99_ms": float(np.percentile(lat_ms, 99)),
-        "batches": front.stats["batches"], "swap_drain_ms": drain_s * 1e3,
-        "on_float32": on_f32, "on_int8": len(reqs) - on_f32,
-        "checked_alone": len(pick)}
-    fr = rec["front"]
-    say("phase 11 front over (b), 8 clients, %.1f s: %d requests (%d rows) "
-        "in %d batches, %.1f requests/s, latency p50 %.3f ms p99 %.3f ms; "
-        "swap float32 -> int8 drained in %.3f ms, %d requests on float32 "
-        "and %d on int8, none lost or routed back; every request equal to "
-        "its rows in one batch, %d scored alone" % (
-            elapsed, fr["requests"], fr["rows"], fr["batches"],
-            fr["requests_per_s"], fr["p50_ms"], fr["p99_ms"],
-            fr["swap_drain_ms"], fr["on_float32"], fr["on_int8"],
-            fr["checked_alone"]))
+    rec["front"] = front_swap(
+        "phase 11 front over (b)",
+        ("float32", serving.ServingEngine(flat_b, device=dev)),
+        ("int8", serving.ServingEngine(flat_b, quantize="int8", device=dev)),
+        x_test, sizes["front_s"], 1000)
 
     # task=predict through the CLI, on the card and on the CPU at once
     data = os.path.join(tmp, "held_out.tsv")
-    np.savetxt(data, np.column_stack([np.zeros(n_test), x_test]),
+    n_predict = min(n_test, sizes["predict_rows"])
+    np.savetxt(data, np.column_stack([np.zeros(n_predict),
+                                      x_test[:n_predict]]),
                delimiter="\t", fmt="%.17g")
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep
@@ -2653,12 +2733,12 @@ def serving_phase(dev, sizes, x, train_set, served, sync, timer):
             texts[key] = f.read()
     for mode in ("predict_leaf_index=true", "predict_quantize=int8"):
         card_text, cpu_text = texts[(mode, "card")], texts[(mode, "cpu")]
-        if card_text != cpu_text or card_text.count(b"\n") != n_test:
+        if card_text != cpu_text or card_text.count(b"\n") != n_predict:
             fail("phase 11 task=predict %s: the card's result file differs "
                  "from device=cpu's" % mode)
         say("phase 11 task=predict %s, (b) on %d rows: the card's result "
             "file (%d bytes) byte-equal to device=cpu's" % (
-                mode, n_test, len(card_text)))
+                mode, n_predict, len(card_text)))
     rec["cli_s"] = cli_s
     # the engines and the front in this process; the CLI runs are not
     # counted here
@@ -2746,7 +2826,7 @@ def streamed_load(io, dev, depth: int):
 
 def ingest_phase(dev, sizes, sync):
     """Phase 12: the ingest layer on the card.  make_data's table of
-    ``n_ingest`` rows (2M, cut from the Higgs file's 11M to fit this
+    ``n_ingest`` rows (1M, cut from the Higgs file's 11M to fit this
     script's time limit) written as CSV text over 256 MB with a header,
     the label as column 3, a weight column and an ignored column, so
     ``streaming=auto`` streams it by itself; loaded through (a) resident,
@@ -2757,7 +2837,7 @@ def ingest_phase(dev, sizes, sync):
     (a)'s, with the same mappers, labels, weights and names; (b)'s
     streamed cache must be (a)'s byte for byte; (a)-(d) must parse in the
     native tier only; the main-path configuration (255 leaves, float32,
-    compacted, 5 iterations) from (a), (b), (c) and (e) must launch the
+    compacted, 3 iterations) from (a), (b), (c) and (e) must launch the
     histogram once a leaf and the partition once a split, and in int8
     (order-free sums) give one model text; the float32 models are held
     against (a)'s tree by tree, beside a second float32 run of (a) (the
@@ -2904,9 +2984,11 @@ def ingest_phase(dev, sizes, sync):
         # the main path from (a), (b), (c) and (e), in float32 and in
         # int8.  Both histogram modes sum in integers (the float mode in
         # fixed point), in an order-free way, so each mode must give one
-        # model text from every route, and from (a) trained twice.
+        # model text from every route, and from (a) trained twice.  Three
+        # iterations: each later tree grows from the scores of the ones
+        # before
         params = {"objective": "binary", "num_leaves": 255,
-                  "num_iterations": 5, "learning_rate": 0.1,
+                  "num_iterations": 3, "learning_rate": 0.1,
                   "hist_dtype": "float32", "max_bin": 255}
         texts = {"float32": {}, "int8": {}}
         for dtype in ("float32", "int8"):
@@ -2918,7 +3000,7 @@ def ingest_phase(dev, sizes, sync):
                     dict(params, hist_dtype=dtype), ds, dev, sync)
                 leaves = sum(t.num_leaves for t in booster.models)
                 splits = leaves - len(booster.models)
-                if not (len(booster.models) == 5
+                if not (len(booster.models) == params["num_iterations"]
                         and counts["hist"] == leaves
                         and counts["partition"] == splits):
                     fail("phase 12 (%s, %s): %d trees, %d histogram "
@@ -3004,21 +3086,24 @@ def checkpoint_phase(dev, sizes, train_set, sync):
     ``lightgbm_tpu_torch.train`` and the CLI.  Two paths in process: the
     main path (float32, compacted, 255 leaves) and the reference
     example's sampled path in int8 (63 leaves, bagging 0.8 every 5 with
-    the threefry draw on the card, feature_fraction 0.8), 10 iterations
-    each.  Each trains unbroken twice, the second time writing a
-    checkpoint every iteration: one model text (the float histogram's
-    sums are the same on every run).  Then a run with
-    ``checkpoint_interval=1`` is stopped by ``faults.arm(6, "raise")`` and
+    the threefry draw on the card, feature_fraction 0.8), 6 iterations
+    each (two bagging draws).  Each trains unbroken twice, the second
+    time writing a checkpoint every iteration: one model text (the float
+    histogram's sums are the same on every run).  Then a run with
+    ``checkpoint_interval=1`` is stopped by ``faults.arm(3, "raise")`` and
     the same call resumes it: the unbroken run's model text, with one
-    histogram launch a leaf and one partition a split of the four
-    remaining trees and no more.  Then a CLI run on the table's native
-    cache, SIGKILLed at iteration 6 (rc -9), and the same command again:
-    the unbroken CLI run's model file, byte for byte.  Recorded, not
+    histogram launch a leaf and one partition a split of the three
+    remaining trees (the second draw among them) and no more.  A CLI run
+    on the table's native cache, SIGKILLed at iteration 3 (rc -9; it runs
+    beside the unbroken CLI run, both beside the runs in this process),
+    and the same command again: the unbroken CLI run's model file, byte
+    for byte.  Recorded, not
     gated: checkpoint bytes, seconds per iteration with a checkpoint
     every iteration against none, restore seconds, the writer's written
     and dropped counts.  Returns the kernel launches of each resumed
     run."""
     import shutil
+    import threading
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import checkpoint, faults
     from lightgbm_tpu_torch.objectives import create_objective
@@ -3026,7 +3111,8 @@ def checkpoint_phase(dev, sizes, train_set, sync):
     t_phase = time.perf_counter()
     rec, by_path = {}, {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    iters, stop = sizes.get("ckpt_iters", 10), 6
+    clis = []     # every CLI run started, stopped by the end of the phase
+    iters, stop = sizes.get("ckpt_iters", 6), 3
     main_path = {"objective": "binary", "num_leaves": 255,
                  "num_iterations": iters, "learning_rate": 0.1,
                  "hist_dtype": "float32", "max_bin": 255}
@@ -3036,6 +3122,56 @@ def checkpoint_phase(dev, sizes, train_set, sync):
                "bagging_fraction": 0.8, "bagging_freq": 5,
                "feature_fraction": 0.8}
     try:
+        # the CLI on the table's native cache: SIGKILLed at ``stop``, then
+        # the same command again
+        cache = os.path.join(tmp, "train.bin")
+        train_set.save_binary(cache)
+
+        def cli_args(out, ckdir):
+            return (["task=train", "data=" + cache, "objective=binary",
+                     "num_leaves=255", "num_iterations=%d" % iters,
+                     "learning_rate=0.1", "max_bin=255",
+                     "device=" + dev.type, "output_model=" + out,
+                     "checkpoint_interval=1", "checkpoint_dir=" + ckdir])
+
+        def start_cli(args, arm=None):
+            code = ("import sys\n"
+                    "from lightgbm_tpu_torch import cli, faults\n"
+                    + ("faults.arm(%d, 'kill')\n" % arm if arm else "")
+                    + "sys.exit(cli.main(%r))\n" % (args,))
+            run = {"t0": time.perf_counter(), "proc": subprocess.Popen(
+                [sys.executable, "-c", code],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+
+            def wait():
+                try:
+                    run["out"] = run["proc"].communicate(timeout=600)
+                except subprocess.TimeoutExpired:
+                    run["proc"].kill()
+                    run["out"] = run["proc"].communicate()
+                run["s"] = time.perf_counter() - run["t0"]
+
+            run["waiter"] = threading.Thread(target=wait, daemon=True)
+            run["waiter"].start()
+            clis.append(run)
+            return run
+
+        def finish_cli(run):
+            """(the run's CompletedProcess, its own seconds)."""
+            run["waiter"].join()
+            proc = run["proc"]
+            return subprocess.CompletedProcess(
+                proc.args, proc.returncode, *run["out"]), run["s"]
+
+        # the unbroken run and the one killed at ``stop`` side by side,
+        # beside the runs in this process
+        whole_out = os.path.join(tmp, "whole.txt")
+        model, ckdir = os.path.join(tmp, "model.txt"), os.path.join(tmp,
+                                                                    "cli1")
+        cli_whole = start_cli(cli_args(whole_out, os.path.join(tmp, "cli0")))
+        cli_killed = start_cli(cli_args(model, ckdir), arm=stop)
+
         for name, params in (("float32_main", main_path),
                              ("int8_sampled", sampled)):
             what = "phase 13 %s" % name
@@ -3125,45 +3261,18 @@ def checkpoint_phase(dev, sizes, train_set, sync):
                     writer.dropped, card))
             del whole, resumed
 
-        # the CLI on the table's native cache: SIGKILLed at iteration 6,
-        # then the same command again
-        cache = os.path.join(tmp, "train.bin")
-        train_set.save_binary(cache)
-
-        def cli_args(out, ckdir):
-            return (["task=train", "data=" + cache, "objective=binary",
-                     "num_leaves=255", "num_iterations=%d" % iters,
-                     "learning_rate=0.1", "max_bin=255",
-                     "device=" + dev.type, "output_model=" + out,
-                     "checkpoint_interval=1", "checkpoint_dir=" + ckdir])
-
-        def run_cli(args, arm=None):
-            code = ("import sys\n"
-                    "from lightgbm_tpu_torch import cli, faults\n"
-                    + ("faults.arm(%d, 'kill')\n" % arm if arm else "")
-                    + "sys.exit(cli.main(%r))\n" % (args,))
-            t0 = time.perf_counter()
-            out = subprocess.run([sys.executable, "-c", code],
-                                 cwd=os.path.dirname(os.path.abspath(
-                                     __file__)), capture_output=True,
-                                 text=True, timeout=600)
-            return out, time.perf_counter() - t0
-
-        whole_out = os.path.join(tmp, "whole.txt")
-        out, whole_cli_s = run_cli(cli_args(whole_out,
-                                            os.path.join(tmp, "cli0")))
+        out, whole_cli_s = finish_cli(cli_whole)
+        killed_out, killed_s = finish_cli(cli_killed)
         if out.returncode != 0:
             fail("phase 13 CLI unbroken run exited %d: %s"
                  % (out.returncode, out.stderr[-2000:]))
-        model, ckdir = os.path.join(tmp, "model.txt"), os.path.join(tmp,
-                                                                    "cli1")
-        out, killed_s = run_cli(cli_args(model, ckdir), arm=stop)
+        out = killed_out
         if out.returncode != -9:
             fail("phase 13 CLI run armed to kill at %d exited %d: %s"
                  % (stop, out.returncode, out.stderr[-2000:]))
         at_kill = checkpoint.load_checkpoint(
             checkpoint.latest_checkpoint(ckdir))["iteration"]
-        out, resumed_cli_s = run_cli(cli_args(model, ckdir))
+        out, resumed_cli_s = finish_cli(start_cli(cli_args(model, ckdir)))
         if out.returncode != 0 or "resuming from checkpoint" not in \
                 out.stdout + out.stderr:
             fail("phase 13 CLI rerun exited %d without resuming: %s"
@@ -3182,6 +3291,10 @@ def checkpoint_phase(dev, sizes, train_set, sync):
                                          killed_s, resumed_cli_s, card))
     finally:
         faults.disarm()
+        for run in clis:
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+            run["waiter"].join()
         shutil.rmtree(tmp, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t_phase
     say("phase 13 checkpoints: %.1f s [%s]" % (rec["phase_s"], card))
@@ -3540,6 +3653,9 @@ def observability_phase(dev, sizes, x, y, train_set, served, sync):
 
 PARALLEL_WORKER = "--parallel-worker"
 PARALLEL_TIMEOUT_S = 240     # a world's limit: killed, and the phase fails
+# the iterations of most world jobs of phases 15-18: the second tree
+# grows from the scores the first left on every rank
+WORLD_ITERS = 2
 PHASE16_TIMEOUT_S = 420      # phase 16's one world of 4 ranks and 6 jobs
 
 
@@ -3779,7 +3895,20 @@ def start_world(tmp, name, nprocs, jobs, dev, data,
     t0 = time.perf_counter()
     world = LocalWorld([sys.executable, os.path.abspath(__file__),
                         PARALLEL_WORKER, spec], nprocs, wdir, timeout, env)
+    if not STARTED_WORLDS:
+        atexit.register(stop_started_worlds)
+    STARTED_WORLDS.append(world)
     return world, wdir, name, t0
+
+
+# every world start_world started: a phase that fails while one runs
+# (``fail`` exits the script) leaves no rank behind
+STARTED_WORLDS = []
+
+
+def stop_started_worlds():
+    for world in STARTED_WORLDS:
+        world.kill()
 
 
 def finish_world(started, phase, killed=(), rc_ok=0):
@@ -3883,18 +4012,24 @@ def parallel_phase(dev, sizes, x, y, served, sync):
         leaves, 5 iterations) under ``tree_learner=data``: phase 4's
         model text;
     (b) two ranks sharing the card over gloo, ``tree_learner=data`` at
-        main-path width under both schedules: int8 model text byte-equal
-        to a serial int8 run on the card; float32 against phase 4's
-        model: the first tree's structure exact and leaf values within
-        rtol 1e-5, held-out AUC within 1e-4 (a later split that parts at
-        a near-tie is printed with both gains); both ranks' texts equal;
-        each rank's route counters equal its own launches (``hist/cuda_*``
-        and ``partition/cuda``, one histogram a leaf and one partition a
+        main-path width under both schedules, ``WORLD_ITERS`` iterations:
+        int8 model text byte-equal to a serial int8 run on the card;
+        float32 against a serial float32 run of as many iterations: the
+        first tree's structure exact and leaf values within rtol 1e-5,
+        held-out AUC within 1e-4 (a later split that parts at a near-tie
+        is printed with both gains); both ranks' texts equal; each rank's
+        route counters equal its own launches (``hist/cuda_*`` and
+        ``partition/cuda``, one histogram a leaf and one partition a
         split), no ``*/plain*``;
-    (c) two ranks, ``tree_learner=feature``: masked float32 and
-        depth-wise int8, byte-equal to serial on the card;
+    (c) two ranks, ``tree_learner=feature``: masked float32
+        (``WORLD_ITERS`` iterations) and depth-wise int8 (5), byte-equal
+        to serial on the card;
     (d) the CLI through ``torch.distributed.run`` on the first n_cli rows
-        of the table: the two ranks' model files byte-equal.
+        of the table, ``WORLD_ITERS`` trees: the two ranks' model files
+        byte-equal.
+
+    The worlds of (a), (b) and (c) and (d)'s run side by side, and beside
+    the serial runs they are held against.
 
     Prints each rank's seconds per iteration against serial, collective
     seconds per iteration and wire bytes per site, and each world's
@@ -3912,53 +4047,41 @@ def parallel_phase(dev, sizes, x, y, served, sync):
                    "num_iterations": 5, "learning_rate": 0.1,
                    "hist_dtype": "float32", "max_bin": 255}
     dp = {"tree_learner": "data", "num_machines": 2}
-    int8_params = dict(main_params, hist_dtype="int8", num_iterations=3)
-    masked = dict(main_params, leafwise_compact="false", num_iterations=3)
+    float32_params = dict(main_params, num_iterations=WORLD_ITERS)
+    int8_params = dict(main_params, hist_dtype="int8",
+                       num_iterations=WORLD_ITERS)
+    masked = dict(main_params, leafwise_compact="false",
+                  num_iterations=WORLD_ITERS)
     depthwise = dict(main_params, grow_policy="depthwise", hist_dtype="int8")
     rec, by_path = {"card": card}, {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    cli = None
     try:
         data = (os.path.join(tmp, "x.npy"), os.path.join(tmp, "y.npy"))
         # the table is float32 at heart (make_table): exact as float32
         np.save(data[0], x[:n_train].astype(np.float32))
         np.save(data[1], y[:n_train])
-        train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
-                                            max_bin=255)
 
-        # the serial runs to hold the worlds against, armed as the workers
-        serial, serial_s = {}, {}
-        for name, params in (("float32", main_params), ("int8", int8_params),
-                             ("masked", masked), ("depthwise", depthwise)):
-            telemetry.enable()
-            booster, iter_s, _ = drive(params, train_set, dev, sync)
-            telemetry.disable()
-            telemetry.reset()
-            serial[name] = booster.model_to_string()
-            serial_s[name] = iter_s
-        if serial["float32"] != served["a"]:
-            fail("phase 15: the serial main path differs from phase 4's")
-
-        # (a) one rank, NCCL on the card (CPU: gloo)
-        ranks, wdir = run_world(tmp, "one_rank", 1, [
+        # (a) one rank, NCCL on the card (CPU: gloo), (b) and (c) two
+        # ranks sharing the card, and (d)'s CLI world, side by side
+        one_started = start_world(tmp, "one_rank", 1, [
             {"name": "main", "params": dict(main_params, **dp)}], dev, data)
-        a = ranks[0]["main"]
-        want_backend = "nccl" if dev.type == "cuda" else "gloo"
-        if a["backend"] != want_backend or a["world"] != 1:
-            fail("phase 15a: backend %s, world %d" % (a["backend"],
-                                                      a["world"]))
-        if rank_texts(wdir, "main", 1)[0] != served["a"]:
-            fail("phase 15a: the one-rank data-parallel model text differs "
-                 "from phase 4's")
-        check_ranks("phase 15a", [a], dev)
-        by_path["parallel_dp1_nccl"] = a["counts"]
-        say("phase 15a one-rank %s world, tree_learner=data: phase 4's model "
-            "text; seconds per iteration %s (serial %s)" % (
-                a["backend"], ["%.3f" % v for v in a["iter_s"]],
-                ["%.3f" % v for v in serial_s["float32"]]))
+        # (d) the CLI under torch.distributed.run, device as the phase's
+        n_cli = sizes["n_cli"]
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        np.savetxt(os.path.join(cli_dir, "train.tsv"),
+                   np.column_stack([y[:n_cli], x[:n_cli]]), delimiter="\t",
+                   fmt="%.9g")
+        cli = start_cli_world(cli_dir, 2, [
+            "task=train", "data=train.tsv", "objective=binary",
+            "num_leaves=255", "num_trees=%d" % WORLD_ITERS,
+            "hist_dtype=int8", "tree_learner=data", "num_machines=2",
+            "output_model=m.txt", "device=%s" % dev.type])
 
         # (b) and (c): two ranks sharing the card
         jobs = [{"name": "dp_%s_%s" % (dt, s),
-                 "params": dict(main_params if dt == "float32"
+                 "params": dict(float32_params if dt == "float32"
                                 else int8_params, dp_schedule=s, **dp)}
                 for dt in ("int8", "float32")
                 for s in ("psum", "reduce_scatter")]
@@ -3968,9 +4091,46 @@ def parallel_phase(dev, sizes, x, y, served, sync):
                  {"name": "fp_depthwise_int8",
                   "params": dict(depthwise, tree_learner="feature",
                                  num_machines=2)}]
-        ranks, wdir = run_world(tmp, "two_ranks", 2, jobs, dev, data)
+        two_started = start_world(tmp, "two_ranks", 2, jobs, dev, data)
+
+        # the serial runs to hold the worlds against, armed as the workers
+        train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
+                                            max_bin=255)
+        serial, serial_s = {}, {}
+        for name, params in (("main", main_params),
+                             ("float32", float32_params),
+                             ("int8", int8_params), ("masked", masked),
+                             ("depthwise", depthwise)):
+            telemetry.enable()
+            booster, iter_s, _ = drive(params, train_set, dev, sync)
+            telemetry.disable()
+            telemetry.reset()
+            serial[name] = booster.model_to_string()
+            serial_s[name] = iter_s
+        del train_set
+        if serial["main"] != served["a"]:
+            fail("phase 15: the serial main path differs from phase 4's")
+        one, one_dir = finish_world(one_started, 15)[:2]
+        ranks, wdir = finish_world(two_started, 15)[:2]
+
+        # (a)'s checks
+        a = one[0]["main"]
+        want_backend = "nccl" if dev.type == "cuda" else "gloo"
+        if a["backend"] != want_backend or a["world"] != 1:
+            fail("phase 15a: backend %s, world %d" % (a["backend"],
+                                                      a["world"]))
+        if rank_texts(one_dir, "main", 1)[0] != served["a"]:
+            fail("phase 15a: the one-rank data-parallel model text differs "
+                 "from phase 4's")
+        check_ranks("phase 15a", [a], dev)
+        by_path["parallel_dp1_nccl"] = a["counts"]
+        say("phase 15a one-rank %s world, tree_learner=data: phase 4's model "
+            "text; seconds per iteration %s (serial %s)" % (
+                a["backend"], ["%.3f" % v for v in a["iter_s"]],
+                ["%.3f" % v for v in serial_s["main"]]))
+
         want_backend = "gloo"
-        auc_serial = held_out_auc(served["a"], x_test, y_test, dev)
+        auc_serial = held_out_auc(serial["float32"], x_test, y_test, dev)
         for job in jobs:
             name = job["name"]
             recs = [r[name] for r in ranks]
@@ -4005,14 +4165,14 @@ def parallel_phase(dev, sizes, x, y, served, sync):
                 got = lgt.GBDT()
                 got.models_from_string(texts[0])
                 want = lgt.GBDT()
-                want.models_from_string(served["a"])
+                want.models_from_string(serial["float32"])
                 ta, tb = got.models[0], want.models[0]
                 for field in ("split_feature_real", "threshold",
                               "left_child", "right_child", "leaf_parent"):
                     if not np.array_equal(getattr(ta, field),
                                           getattr(tb, field)):
                         fail("phase 15b %s: first tree's %s differs from "
-                             "phase 4's" % (name, field))
+                             "serial's" % (name, field))
                 rel = float(np.max(np.abs(ta.leaf_value - tb.leaf_value)
                                    / np.maximum(np.abs(tb.leaf_value),
                                                 1e-30)))
@@ -4021,9 +4181,9 @@ def parallel_phase(dev, sizes, x, y, served, sync):
                          % (name, rel))
                 auc = held_out_auc(texts[0], x_test, y_test, dev)
                 if abs(auc - auc_serial) > 1e-4:
-                    fail("phase 15b %s: held-out AUC %.6f against phase 4's "
+                    fail("phase 15b %s: held-out AUC %.6f against serial's "
                          "%.6f" % (name, auc, auc_serial))
-                part = first_parting_split(texts[0], served["a"])
+                part = first_parting_split(texts[0], serial["float32"])
                 verdict = ("first tree alike (leaf rtol %.3g), AUC %.6f vs "
                            "%.6f; %s" % (rel, auc, auc_serial,
                                          "every split equal" if part is None
@@ -4073,54 +4233,84 @@ def parallel_phase(dev, sizes, x, y, served, sync):
                     site, v["calls"], v["bytes"], v["bytes"] //
                     max(v["calls"], 1), v["seconds"]))
 
-        # (d) the CLI under torch.distributed.run, device as the phase's
-        n_cli = sizes["n_cli"]
-        cli_dir = os.path.join(tmp, "cli")
-        os.makedirs(cli_dir)
-        np.savetxt(os.path.join(cli_dir, "train.tsv"),
-                   np.column_stack([y[:n_cli], x[:n_cli]]), delimiter="\t",
-                   fmt="%.9g")
-        here = os.path.dirname(os.path.abspath(__file__))
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", "2", "-m", "lightgbm_tpu_torch",
-               "task=train", "data=train.tsv", "objective=binary",
-               "num_leaves=255", "num_trees=5", "hist_dtype=int8",
-               "tree_learner=data", "num_machines=2", "output_model=m.txt",
-               "device=%s" % dev.type]
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=cli_dir, env=env,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True,
-                                start_new_session=True)
-        try:
-            out, _ = proc.communicate(timeout=PARALLEL_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, 9)
-            proc.communicate()
-            fail("phase 15d: torch.distributed.run ran past %d s"
-                 % PARALLEL_TIMEOUT_S)
-        cli_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            say(out[-6000:])
-            fail("phase 15d: torch.distributed.run exited %d"
-                 % proc.returncode)
+        # (d)'s CLI world
+        out, cli_s = finish_cli_world(cli, "phase 15d")
         files = [open(os.path.join(cli_dir, f)).read()
                  for f in ("m.txt", "m.txt.rank1")]
-        if files[0] != files[1] or files[0].count("Tree=") != 5:
+        if files[0] != files[1] or files[0].count("Tree=") != WORLD_ITERS:
             fail("phase 15d: the ranks' model files differ or lack trees")
         rec["cli_s"] = cli_s
         say("phase 15d CLI under torch.distributed.run, 2 ranks, %d rows: "
             "rank files byte-equal (%d bytes), %.1f s" % (
                 n_cli, len(files[0]), cli_s))
     finally:
+        stop_cli_world(cli)
         shutil.rmtree(tmp, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t_phase
     say("phase 15 parallel learners: %.1f s [%s]" % (rec["phase_s"], card))
     say(json.dumps({"parallel": rec}))
     return {k: {"hist": v["hist"], "partition": v["partition"]}
             for k, v in by_path.items()}
+
+
+def start_cli_world(cli_dir, nprocs, args, threads=None):
+    """``python -m torch.distributed.run --standalone`` of ``nprocs``
+    ranks of the CLI with ``args`` in ``cli_dir``, started in its own
+    session and not waited for (it runs beside a phase's world); a
+    thread reaps it, killing it past PARALLEL_TIMEOUT_S, and notes its
+    own seconds."""
+    import threading
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nprocs), "-m", "lightgbm_tpu_torch"] \
+        + list(args)
+    run = {"t0": time.perf_counter(), "timed_out": False,
+           "proc": subprocess.Popen(cmd, cwd=cli_dir, env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True,
+                                    start_new_session=True)}
+
+    def wait():
+        proc = run["proc"]
+        try:
+            run["out"] = proc.communicate(timeout=PARALLEL_TIMEOUT_S)[0]
+        except subprocess.TimeoutExpired:
+            run["timed_out"] = True
+            os.killpg(proc.pid, 9)
+            run["out"] = proc.communicate()[0]
+        run["s"] = time.perf_counter() - run["t0"]
+
+    run["waiter"] = threading.Thread(target=wait, daemon=True)
+    run["waiter"].start()
+    return run
+
+
+def finish_cli_world(run, what):
+    """Wait for a ``start_cli_world`` world: fails ``what`` past
+    PARALLEL_TIMEOUT_S or on a nonzero exit.  Returns (its output, its
+    own seconds)."""
+    run["waiter"].join()
+    if run["timed_out"]:
+        fail("%s: torch.distributed.run ran past %d s"
+             % (what, PARALLEL_TIMEOUT_S))
+    if run["proc"].returncode != 0:
+        say(run["out"][-6000:])
+        fail("%s: torch.distributed.run exited %d"
+             % (what, run["proc"].returncode))
+    return run["out"], run["s"]
+
+
+def stop_cli_world(run):
+    """Kill a ``start_cli_world`` world still running (a phase that
+    failed before waiting for it), and reap it."""
+    if run is not None:
+        if run["proc"].poll() is None:
+            os.killpg(run["proc"].pid, 9)
+        run["waiter"].join(60)
 
 
 def site_line(site, v):
@@ -4137,22 +4327,26 @@ def hybrid_voting_phase(dev, sizes, x, y, sync):
     ``lightgbm_tpu_torch.train`` on its data index's rows of phase 4's
     table (or ``make_mixed``'s), launching both kernels on its own rows:
 
-    (a) hybrid 2 x 2, compacted float32, 255 leaves, 3 iterations: the
-        structure of a serial run's trees, leaf values within rtol 1e-5,
-        held-out AUC within 1e-4;
-    (b) hybrid 2 x 2, compacted int8, 3 iterations: the serial int8 text;
+    (a) hybrid 2 x 2, compacted float32, 255 leaves, ``WORLD_ITERS``
+        iterations: the structure of a serial run's trees, leaf values
+        within rtol 1e-5, held-out AUC within 1e-4;
+    (b) hybrid 2 x 2, compacted int8, ``WORLD_ITERS`` iterations: the
+        serial int8 text;
     (c) hybrid 2 x 2, ``mixed_bin=true`` int8 on a mixed table (narrow
-        and wide columns in each block), masked and compacted, 3
-        iterations: the rank log names the block-local plan, and the text
-        is the serial int8 text under the uniform and the packed layout;
+        and wide columns in each block), masked and compacted,
+        ``WORLD_ITERS`` iterations: the rank log names the block-local
+        plan, and the text is the serial int8 text under the uniform and
+        the packed layout;
     (d) voting 4 x 1, ``top_k=20`` (2·top_k >= 28: exact), depth-wise
         int8, 5 iterations: the serial text;
     (e) voting 2 x 2, ``top_k=4`` (V = 8 < Fb = 14: PV-tree), compacted
-        float32, 255 leaves, 3 iterations: held-out AUC within 0.01 of
-        serial's, recorded beside it;
+        float32, 255 leaves, ``WORLD_ITERS`` iterations: held-out AUC
+        within 0.01 of serial's, recorded beside it;
     (f) the CLI under ``torch.distributed.run``, 4 ranks,
-        ``tree_learner=hybrid`` on n_cli rows: the four rank files
-        byte-equal.
+        ``tree_learner=hybrid`` on n_cli rows, ``WORLD_ITERS`` trees,
+        beside the grid: the four rank files byte-equal.
+
+    The grid and (f)'s world run beside the serial twins.
 
     Every rank's text equals every other rank's; each rank launches the
     histogram kernel as its serial twin does (one a leaf, twice under
@@ -4171,8 +4365,9 @@ def hybrid_voting_phase(dev, sizes, x, y, sync):
     n_train = sizes["n_train"]
     x_test, y_test = x[n_train:], y[n_train:]
     nl = sizes.get("parallel_leaves", 255)
-    f32 = {"objective": "binary", "num_leaves": nl, "num_iterations": 3,
-           "learning_rate": 0.1, "hist_dtype": "float32", "max_bin": 255}
+    f32 = {"objective": "binary", "num_leaves": nl,
+           "num_iterations": WORLD_ITERS, "learning_rate": 0.1,
+           "hist_dtype": "float32", "max_bin": 255}
     int8 = dict(f32, hist_dtype="int8")
     masked = dict(int8, leafwise_compact="false")
     depthwise = dict(int8, grow_policy="depthwise", num_iterations=5)
@@ -4192,6 +4387,7 @@ def hybrid_voting_phase(dev, sizes, x, y, sync):
               feature_shards=2, top_k=4))]
     rec, by_path = {"card": card}, {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_hybrid_")
+    cli = None
     try:
         xm, ym = make_mixed(n_train, 28, SEED + 1, 24)
         data = {}
@@ -4201,6 +4397,24 @@ def hybrid_voting_phase(dev, sizes, x, y, sync):
                           os.path.join(tmp, name + "_y.npy")]
             np.save(data[name][0], a.astype(np.float32))
             np.save(data[name][1], b)
+        # (f) the CLI under torch.distributed.run, 4 ranks, hybrid,
+        # beside the grid
+        n_cli = sizes["n_cli"]
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        np.savetxt(os.path.join(cli_dir, "train.tsv"),
+                   np.column_stack([y[:n_cli], x[:n_cli]]), delimiter="\t",
+                   fmt="%.9g")
+        cli = start_cli_world(cli_dir, 4, [
+            "task=train", "data=train.tsv", "objective=binary",
+            "num_leaves=%d" % nl, "num_trees=%d" % WORLD_ITERS,
+            "hist_dtype=int8",
+            "tree_learner=hybrid", "num_machines=4", "output_model=m.txt",
+            "device=%s" % dev.type], threads=2)
+        grid = start_world(tmp, "grid", 4, [
+            {"name": n, "table": t, "params": p} for _, n, t, p in jobs],
+            dev, data, PHASE16_TIMEOUT_S, threads=2)
+
         sets = {"main": lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
                                                 max_bin=255),
                 "mixed": lgt.Dataset.from_arrays(xm, ym, max_bin=255)}
@@ -4236,9 +4450,7 @@ def hybrid_voting_phase(dev, sizes, x, y, sync):
                 "voting_depthwise_int8": "depthwise",
                 "voting_compacted_float32": "float32"}
 
-        ranks, wdir = run_world(tmp, "grid", 4, [
-            {"name": n, "table": t, "params": p} for _, n, t, p in jobs],
-            dev, data, phase=16, timeout=PHASE16_TIMEOUT_S, threads=2)
+        ranks, wdir = finish_world(grid, 16)[:2]
         logs = [open(os.path.join(wdir, "rank%d.log" % r)).read()
                 for r in range(4)]
         if not all("mixed-bin packing (block-local, block=14)" in t
@@ -4394,45 +4606,12 @@ def hybrid_voting_phase(dev, sizes, x, y, sync):
             for site, v in sorted(recs[0]["sites"].items()):
                 say(site_line(site, v))
 
-        # (f) the CLI under torch.distributed.run, 4 ranks, hybrid
-        n_cli = sizes["n_cli"]
-        cli_dir = os.path.join(tmp, "cli")
-        os.makedirs(cli_dir)
-        np.savetxt(os.path.join(cli_dir, "train.tsv"),
-                   np.column_stack([y[:n_cli], x[:n_cli]]), delimiter="\t",
-                   fmt="%.9g")
-        here = os.path.dirname(os.path.abspath(__file__))
-        env = dict(os.environ, OMP_NUM_THREADS="2",
-                   PYTHONPATH=os.pathsep.join(
-                       [here] + [p for p in [os.environ.get("PYTHONPATH")]
-                                 if p]))
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", "4", "-m", "lightgbm_tpu_torch",
-               "task=train", "data=train.tsv", "objective=binary",
-               "num_leaves=%d" % nl, "num_trees=3", "hist_dtype=int8",
-               "tree_learner=hybrid", "num_machines=4",
-               "output_model=m.txt", "device=%s" % dev.type]
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=cli_dir, env=env,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True,
-                                start_new_session=True)
-        try:
-            out, _ = proc.communicate(timeout=PARALLEL_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, 9)
-            proc.communicate()
-            fail("phase 16f: torch.distributed.run ran past %d s"
-                 % PARALLEL_TIMEOUT_S)
-        cli_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            say(out[-6000:])
-            fail("phase 16f: torch.distributed.run exited %d"
-                 % proc.returncode)
+        # (f)'s CLI world
+        out, cli_s = finish_cli_world(cli, "phase 16f")
         files = [open(os.path.join(cli_dir, f)).read()
                  for f in ("m.txt", "m.txt.rank1", "m.txt.rank2",
                            "m.txt.rank3")]
-        if len(set(files)) != 1 or files[0].count("Tree=") != 3:
+        if len(set(files)) != 1 or files[0].count("Tree=") != WORLD_ITERS:
             fail("phase 16f: the ranks' model files differ or lack trees")
         if "a 2 x 2 grid of ranks" not in out:
             fail("phase 16f: the CLI world did not run a 2 x 2 grid")
@@ -4441,6 +4620,7 @@ def hybrid_voting_phase(dev, sizes, x, y, sync):
             "tree_learner=hybrid, %d rows: rank files byte-equal (%d "
             "bytes), %.1f s" % (n_cli, len(files[0]), cli_s))
     finally:
+        stop_cli_world(cli)
         shutil.rmtree(tmp, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t_phase
     say("phase 16 hybrid and voting learners: %.1f s [%s]"
@@ -4477,11 +4657,13 @@ def goss_elastic_phase(dev, sizes, x, y, sync):
     each other run side by side:
 
     (a) GOSS at full width (255 leaves, compacted, ``top_rate=0.2
-        other_rate=0.1``), 2 ranks of ``tree_learner=data``, 3
-        iterations: int8 byte-equal to a serial GOSS run on the card;
+        other_rate=0.1``), 2 ranks of ``tree_learner=data``,
+        ``WORLD_ITERS`` iterations: int8 byte-equal to a serial GOSS run
+        on the card;
         float32: the first tree serial's structure, held-out AUC within
         1e-4 of serial's, recorded beside it;
-    (b) GOSS under hybrid 2 x 2, int8: byte-equal to serial;
+    (b) GOSS under hybrid 2 x 2, int8, ``WORLD_ITERS`` iterations:
+        byte-equal to serial;
     (c) checkpoints every iteration, rank 1 SIGKILLed at iteration 2
         (rank 0 fails in its next collective), the world restarted from
         the checkpoint directory: int8 and float32 byte-equal to the
@@ -4514,7 +4696,7 @@ def goss_elastic_phase(dev, sizes, x, y, sync):
     base = {"objective": "binary", "num_iterations": 3, "learning_rate": 0.1,
             "max_bin": 255}
     goss = dict(base, num_leaves=nl, goss="true", top_rate=0.2,
-                other_rate=0.1)
+                other_rate=0.1, num_iterations=WORLD_ITERS)
     small = dict(base, num_leaves=nl, hist_dtype="int8")
     dp2 = {"tree_learner": "data", "num_machines": 2}
     rec, by_path = {"card": card}, {}
@@ -4533,22 +4715,24 @@ def goss_elastic_phase(dev, sizes, x, y, sync):
         data = (os.path.join(tmp, "x.npy"), os.path.join(tmp, "y.npy"))
         np.save(data[0], x[:n_train].astype(np.float32))
         np.save(data[1], y[:n_train])
-        # round 1: (a), the unbroken float32 world of (c) and (c)'s int8
-        # kill; (b) beside it
-        w1 = start_world(tmp, "goss_ck", 2, [
+        # round 1: (a); the unbroken float32 world of (c) and (c)'s int8
+        # kill; (b); side by side
+        w1 = start_world(tmp, "goss", 2, [
             {"name": "a_goss_int8", "params": dict(goss, hist_dtype="int8",
                                                    **dp2)},
             {"name": "a_goss_float32",
-             "params": dict(goss, hist_dtype="float32", **dp2)},
+             "params": dict(goss, hist_dtype="float32", **dp2)}], dev, data,
+            PHASE17_TIMEOUT_S, threads=1)
+        w1c = start_world(tmp, "ck", 2, [
             {"name": "c_whole_float32",
              "params": dict(small, hist_dtype="float32", **dp2)},
             ckpt_job("c_int8", small, **kill)], dev, data,
-            PHASE17_TIMEOUT_S, threads=2)
+            PHASE17_TIMEOUT_S, threads=1)
         w3 = start_world(tmp, "goss_hybrid", 4, [
             {"name": "b_hybrid_goss_int8",
              "params": dict(goss, hist_dtype="int8", tree_learner="hybrid",
                             num_machines=4, feature_shards=2)}], dev, data,
-            PHASE17_TIMEOUT_S, threads=2)
+            PHASE17_TIMEOUT_S, threads=1)
         train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
                                             max_bin=255)
         serial, serial_s = {}, {}
@@ -4558,7 +4742,8 @@ def goss_elastic_phase(dev, sizes, x, y, sync):
                              ("int8", small)):
             booster, iter_s, _ = drive(params, train_set, dev, sync)
             serial[name], serial_s[name] = booster.model_to_string(), iter_s
-        r1, d1, rc1 = finish_world(w1, 17, killed=(1,))
+        r1, d1, _ = finish_world(w1, 17)
+        rc_, dc, rc1 = finish_world(w1c, 17, killed=(1,))
         r3, d3, _ = finish_world(w3, 17)
 
         # round 2: (c)'s int8 restart and float32 kill; (d) 2 -> 3 and
@@ -4613,7 +4798,7 @@ def goss_elastic_phase(dev, sizes, x, y, sync):
                 fail("%s: the ranks' model texts differ" % what)
             grown_launches(what, recs, dev)
             if want == "c_whole_float32":
-                want = rank_texts(d1, want, 2)[0]
+                want = rank_texts(dc, want, 2)[0]
             if name == "a_goss_float32":
                 got, ser = lgt.GBDT(), lgt.GBDT()
                 got.models_from_string(texts[0])
@@ -4645,11 +4830,11 @@ def goss_elastic_phase(dev, sizes, x, y, sync):
                 widest = max(r["rows"] for r in recs)
                 for r, one in enumerate(recs):
                     site = one["sites"].get("dp/goss_score_allgather")
-                    if site is None or site["calls"] != 3 or \
+                    if site is None or site["calls"] != WORLD_ITERS or \
                             site["bytes_per_call"] != 4 * widest:
                         fail("%s rank %d: dp/goss_score_allgather filed "
-                             "%s, predicted 3 calls of %d bytes"
-                             % (what, r, site, 4 * widest))
+                             "%s, predicted %d calls of %d bytes"
+                             % (what, r, site, WORLD_ITERS, 4 * widest))
             by_path["elastic_" + name] = recs[0]["counts"]
             per_rank = [{
                 "rank": r, "rows": one["rows"], "s_per_iter": one["iter_s"],
@@ -4680,8 +4865,8 @@ def goss_elastic_phase(dev, sizes, x, y, sync):
             rec["serial_" + name + "_s_per_iter"] = serial_s[name]
 
         # (c) the kills: rank 1 killed, rank 0 failed in its collective
-        for name, rcs, ranks in (("c_int8", rc1, r1), ("c_float32", rc2,
-                                                       r2)):
+        for name, rcs, ranks in (("c_int8", rc1, rc_), ("c_float32", rc2,
+                                                        r2)):
             if rcs[0] == 0 or rcs[1] != -9:
                 fail("phase 17c %s: exit codes %s" % (name, rcs))
             sizes_b = [os.path.getsize(p) for p in
@@ -4806,10 +4991,10 @@ def observability_world_phase(dev, sizes, x, y, sync):
     """Phase 18: observability over worlds of worker processes sharing
     the card over gloo, each rank through ``lightgbm_tpu_torch.train``
     on its rows of phase 4's table at the main path's 255 leaves, int8
-    compacted, 3 iterations, launching both kernels on its own rows; (b)'s
-    hybrid world and (c) run side by side, beside the serial reference,
-    then (a) alone, so that its armed and unarmed jobs share the card
-    with nothing else:
+    compacted, ``WORLD_ITERS`` iterations, launching both kernels on its
+    own rows; (a)'s, (b)'s hybrid and (c)'s worlds run side by side,
+    beside the serial reference (what arming a world costs alone is
+    ``scripts/telemetry_overhead.py --world 2``'s to measure):
 
     (a) the sink, 2 ranks of ``tree_learner=data``: with ``metrics_out``
         and ``timeline=false`` rank 0's file alone exists, every line
@@ -4827,14 +5012,15 @@ def observability_world_phase(dev, sizes, x, y, sync):
         ``TrainingHealthError`` at iteration 1 and exit (code 3) well
         inside the world's limit;
     (d) (a)'s shards job also arms the drain (``elastic_shrink=true``,
-        checkpoints; ``straggler_k=10``, so none fires in 3 iterations)
+        checkpoints; ``straggler_k=10``, so none fires in ``WORLD_ITERS``
+        iterations)
         and ``trace_dump_dir``: each rank's dump carries its rank, and
         the port's ``podtrace.align`` over them is ``ok`` with a finite
         bound (``scripts/port_pod_report.py --check`` passes).
 
     Every armed job's model text is serial's int8 text on every rank;
     each rank launches the histogram kernel once a leaf and the partition
-    kernel once a split (765 and 762 in 3 trees of 255 leaves).  Prints
+    kernel once a split (510 and 508 in 2 trees of 255 leaves).  Prints
     the health sites' wire bytes and host seconds, and each job's
     seconds an iteration against the unarmed job's.  Returns rank 0's
     kernel launches per path."""
@@ -4845,7 +5031,7 @@ def observability_world_phase(dev, sizes, x, y, sync):
     card = card_name()
     t_phase = time.perf_counter()
     n_train = sizes["n_train"]
-    iters = 3
+    iters = WORLD_ITERS
     base = {"objective": "binary", "num_iterations": iters,
             "learning_rate": 0.1, "max_bin": 255,
             "num_leaves": sizes.get("parallel_leaves", 255),
@@ -4870,6 +5056,18 @@ def observability_world_phase(dev, sizes, x, y, sync):
                 armed, metrics_out="hy.jsonl", timeline="auto",
                 tree_learner="hybrid", num_machines=4, feature_shards=2)}],
             dev, data, PHASE18_TIMEOUT_S, threads=1)
+        unarmed = {"params": dict(base, **dp2), "unarmed": True}
+        w1 = start_world(tmp, "sink", 2, [
+            dict(unarmed, name="unarmed"),
+            {"name": "a_leader", "params": dict(
+                armed, metrics_out="leader.jsonl", timeline="false", **dp2)},
+            {"name": "a_shards", "params": dict(
+                armed, metrics_out="tl.jsonl", timeline="auto",
+                elastic_shrink="true", straggler_k=10, checkpoint_interval=1,
+                checkpoint_dir="ck", trace_dump_dir="dumps",
+                trace_run_id="phase18", **dp2)},
+            dict(unarmed, name="unarmed_after")], dev, data,
+            PHASE18_TIMEOUT_S, threads=1)
         train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
                                             max_bin=255)
         serial_sink = os.path.join(tmp, "serial.jsonl")
@@ -4880,18 +5078,7 @@ def observability_world_phase(dev, sizes, x, y, sync):
         r3, d3, rc3 = finish_world(w3, 18, rc_ok=3)
         rec["c_world_s"] = time.perf_counter() - t_halt
         r2, d2, _ = finish_world(w2, 18)
-        unarmed = {"params": dict(base, **dp2), "unarmed": True}
-        r1, d1, _ = finish_world(start_world(tmp, "sink", 2, [
-            dict(unarmed, name="unarmed"),
-            {"name": "a_leader", "params": dict(
-                armed, metrics_out="leader.jsonl", timeline="false", **dp2)},
-            {"name": "a_shards", "params": dict(
-                armed, metrics_out="tl.jsonl", timeline="auto",
-                elastic_shrink="true", straggler_k=10, checkpoint_interval=1,
-                checkpoint_dir="ck", trace_dump_dir="dumps",
-                trace_run_id="phase18", **dp2)},
-            dict(unarmed, name="unarmed_after")], dev, data,
-            PHASE18_TIMEOUT_S, threads=2), 18)
+        r1, d1, _ = finish_world(w1, 18)
 
         # every path: serial's text on every rank, the launches per rank
         want_health = health_blocks(serial)
@@ -5013,7 +5200,7 @@ def observability_world_phase(dev, sizes, x, y, sync):
         rec["d_alignment"] = off
 
         # what was measured: each job's median s/iteration a rank over
-        # the mean of the two unarmed jobs' (a's world alone on the card)
+        # the mean of the two unarmed jobs' (beside the other worlds)
         unarmed = float(np.mean([np.median(s) for name in (
             "unarmed", "unarmed_after") for s in rec[name]["s_per_iter"]]))
         rec["unarmed_mean_s"] = unarmed
@@ -5059,18 +5246,21 @@ def observability_world_phase(dev, sizes, x, y, sync):
             for k, v in by_path.items()}
 
 
-PHASE19_TIMEOUT_S = 360      # phase 19's one world of 8 routes
+PHASE19_TIMEOUT_S = 360      # each of phase 19's two worlds of routes
 
 
-def world_ingest_phase(dev, sizes, sync):
+def world_ingest_phase(dev, sizes, sync, beside=None):
     """Phase 19: every load route in a world.  make_data's table of
     ``n_world_ingest`` rows (1M, phase 4's row count) written as CSV text
     with a header, the label as column 3, a weight and an ignored column
-    (about 281 MB, so ``streaming=auto`` streams it), loaded by one
-    2-rank ``tree_learner=data`` world sharing the card over gloo, job by
-    job, each rank its shard through ``Dataset.load_train`` with the
+    (about 281 MB, so ``streaming=auto`` streams it), loaded by two
+    2-rank ``tree_learner=data`` worlds sharing the card over gloo side by
+    side ((a)-(c) in one, (d)-(h), whose caches the later routes read, in
+    the other), job by job, each rank its shard through
+    ``Dataset.load_train`` with the
     distributed bin finder, then trained at the main path's 255 leaves,
-    int8 compacted, 2 iterations:
+    int8 compacted, one iteration (the route is what is held; the tree
+    shows its bins serve), beside the serial load of the same file:
 
     (a) resident text, the reference;
     (b) ``streaming=auto``: the serial passes onto each rank's device;
@@ -5086,12 +5276,14 @@ def world_ingest_phase(dev, sizes, sync):
     Every route's rank must load (a)'s rank's rows, bins (read back from
     where they live), labels and weights, and write (a)'s model text on
     both ranks; each rank launches the histogram once a leaf and the
-    partition once a split (510 and 508 in 2 trees of 255 leaves).  (e)
+    partition once a split (255 and 254 in one tree of 255 leaves).  (e)
     must leave one ``<data>.bin`` and no temp file, equal byte for byte
     (``cmp``) to the cache a serial load of the same file writes in this
     process.  Prints each route's load seconds a rank, the file's rows a
-    second, the gather's bytes and seconds.  Returns rank 0's kernel
-    launches per route."""
+    second, the gather's bytes and seconds.  ``beside``, if given, is
+    called while the world runs (the whole script runs phase 20 there).
+    Returns rank 0's kernel launches per route, and what ``beside``
+    returned."""
     import filecmp
     import glob
     import shutil
@@ -5120,18 +5312,7 @@ def world_ingest_phase(dev, sizes, sync):
             os.link(data, name)
         cols = {"has_header": "true", "label_column": "name:label",
                 "weight_column": "name:weight", "ignore_column": "name:skip"}
-        t0 = time.perf_counter()
-        Dataset.load_train(IOConfig(
-            data_filename=serial, has_header=True, max_bin=255,
-            label_column="name:label", weight_column="name:weight",
-            ignore_column="name:skip", streaming="false",
-            is_save_binary_file=True))
-        rec["serial_cache_s"] = time.perf_counter() - t0
-        say("phase 19: %d rows x 31 columns written as CSV, %d bytes in "
-            "%.1f s; the serial load and cache %.1f s [%s]" % (
-                n, rec["file_bytes"], rec["write_s"], rec["serial_cache_s"],
-                card))
-        base = dict(cols, objective="binary", num_iterations=2,
+        base = dict(cols, objective="binary", num_iterations=1,
                     learning_rate=0.1, max_bin=255, hist_dtype="int8",
                     num_leaves=sizes.get("parallel_leaves", 255),
                     tree_learner="data", num_machines=2)
@@ -5151,16 +5332,35 @@ def world_ingest_phase(dev, sizes, sync):
                  "auto_min_bytes": streaming.AUTO_MIN_BYTES,
                  "params": dict(base, data=path, **kw)}
                 for name, path, kw in routes]
-        ranks, wdir, _ = finish_world(start_world(
-            tmp, "routes", 2, jobs, dev, {}, PHASE19_TIMEOUT_S, threads=4),
-            19)
+        worlds = [start_world(tmp, "routes_" + tag, 2, part, dev, {},
+                              PHASE19_TIMEOUT_S, threads=2)
+                  for tag, part in (("text", jobs[:3]),
+                                    ("caches", jobs[3:]))]
+        t0 = time.perf_counter()
+        Dataset.load_train(IOConfig(
+            data_filename=serial, has_header=True, max_bin=255,
+            label_column="name:label", weight_column="name:weight",
+            ignore_column="name:skip", streaming="false",
+            is_save_binary_file=True))
+        rec["serial_cache_s"] = time.perf_counter() - t0
+        say("phase 19: %d rows x 31 columns written as CSV, %d bytes in "
+            "%.1f s; the serial load and cache %.1f s, beside the world "
+            "[%s]" % (n, rec["file_bytes"], rec["write_s"],
+                      rec["serial_cache_s"], card))
+        beside_out = beside() if beside else None
+        ranks, wdirs = [{}, {}], {}
+        for world in worlds:
+            got, wdir, _ = finish_world(world, 19)
+            for rk, one in zip(ranks, got):
+                rk.update(one)
+            wdirs.update((name, wdir) for name in got[0])
 
         want = [rk["a_resident"]["load"] for rk in ranks]
-        text = rank_texts(wdir, "a_resident", 2)[0]
+        text = rank_texts(wdirs["a_resident"], "a_resident", 2)[0]
         for name, _, _ in routes:
             what = "phase 19 " + name
             recs = [rk[name] for rk in ranks]
-            if set(rank_texts(wdir, name, 2)) != {text}:
+            if set(rank_texts(wdirs[name], name, 2)) != {text}:
                 fail("%s: a rank's model text differs from (a)'s" % what)
             for r, one in enumerate(recs):
                 got = one["load"]
@@ -5216,11 +5416,374 @@ def world_ingest_phase(dev, sizes, sync):
         parallel_ingest.shutdown_workers()
         shutil.rmtree(tmp, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t_phase
-    say("phase 19 every load route in a world: %.1f s [%s]"
-        % (rec["phase_s"], card))
+    say("phase 19 every load route in a world: %.1f s%s [%s]"
+        % (rec["phase_s"], " (with what ran beside it)" if beside else "",
+           card))
     say(json.dumps({"world_ingest": rec}))
     return {k: {"hist": v["hist"], "partition": v["partition"]}
-            for k, v in by_path.items()}
+            for k, v in by_path.items()}, beside_out
+
+
+def sharded_phase(dev, sizes, x, served, sync):
+    """Phase 20: every serving lane of the JAX engine, on the card at full
+    width (28 features, 255 leaves), over three models: (a) phase 4's
+    5-tree main-path model (at 4 shards a shard of no trees), (b) phase
+    11's 200-tree depth-wise int8 model and (c) phase 7's multiclass K =
+    5 model (a carry of 5 rows).
+
+    Tree-axis sharding: for each model and leaf table (float32, int8),
+    engines on ``["cuda:0"] * k`` (one card holds every shard) for k = 2,
+    3 and 4 score every bucket of the default ladder on the held-out rows
+    (the last bucket all of them, in two chunks): scores and leaf indices
+    bitwise the card's one-device engine's, and on ``serve_cpu_rows``
+    rows the CPU sharded engine's; each shard's node-table bytes are
+    recorded.  ``scores()`` p50 at 1, 1,024 and 65,536 rows for k = 1, 2
+    and 4 on (b) float32 (20, 20 and 5 calls), and ``serve/tree_carry``
+    (calls, bytes a call, host seconds) over (b)'s 4-shard ladder.  The
+    device rule: ``ServingEngine(flat, shards=device_count + 1)`` and
+    ``task=predict serve_shards=<device_count + 1>`` fail with the JAX
+    package's message.  The per-tree replay: ``algo="scan"`` bitwise
+    ``bfs`` at 1, 1,024 and 65,536 rows for (a) and (c), float32 and int8
+    (leaf indices too), and (b) int8 at 1,024 rows, each timed beside
+    ``bfs`` (``scores()``, the better of 2 calls; (b)'s replay once);
+    ``task=predict predict_algo=scan``'s result file byte-equal to
+    ``bfs``'s on (c).  A
+    front over (b) on 2 shards, float32, hot-swapped to 4 shards, int8
+    (``front_swap``, 8 clients for ``shard_front_s`` seconds, 300
+    requests scored alone).  Neither kernel may launch in this process
+    while it serves (the ``task=predict`` subprocesses are not counted).
+    Prints a ``{"serving_sharded": ...}`` line; returns the launch
+    counts of serving."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import serving, telemetry
+    from lightgbm_tpu_torch.ops import compact, hist_cuda
+    from lightgbm_tpu_torch.utils import log
+    n_train, cpu_rows = sizes["n_train"], sizes["serve_cpu_rows"]
+    x_test = x[n_train:]
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    ladder = serving.DEFAULT_BUCKETS
+
+    def place(k):
+        return [torch.device("cuda", 0) if on_card else dev] * k
+
+    def ladder_rows(b):
+        return x_test if b == ladder[-1] else x_test[:b]
+
+    def table_bytes(eng):
+        return [sum(v.numel() * v.element_size() for v in t.values())
+                for t in eng._device_tables()]
+
+    rec = {"card": card_name(), "models": {}}
+    paths, flats = {}, {}
+    reset_counts()
+    for name in ("a", "b", "c"):
+        paths[name] = os.path.join(tmp, "model_%s.txt" % name)
+        with open(paths[name], "w") as f:
+            f.write(served[name])
+        flats[name] = lgt.GBDT.from_model_file(
+            paths[name], device=dev).export_flat()
+
+    # tree-axis sharding, every model, table and shard count
+    ones = {}
+    for name, flat in flats.items():
+        K = flat.num_class
+        mrec = {"trees": flat.num_trees, "num_class": K,
+                "max_depth": flat.max_depth, "engines": {}}
+        t0 = time.perf_counter()
+        for quantize in ("float32", "int8"):
+            one = ones[(name, quantize)] = serving.ServingEngine(
+                flat, quantize=quantize, device=dev)
+            want = {b: one.scores(ladder_rows(b)) for b in ladder}
+            want_leaves = ({b: one.leaf_indices(ladder_rows(b))
+                            for b in ladder} if quantize == "float32"
+                           else {})
+            mrec["engines"]["%s_1" % quantize] = {
+                "table_bytes": table_bytes(one)}
+            for k in (2, 3, 4):
+                what = "phase 20 (%s) %s at %d shards" % (name, quantize, k)
+                eng = serving.ServingEngine(flat, quantize=quantize,
+                                            shards=k, device=place(k))
+                cpu = serving.ServingEngine(flat, quantize=quantize,
+                                            shards=k, device="cpu")
+                for b in ladder:
+                    rows = ladder_rows(b)
+                    got = eng.scores(rows)
+                    if not (got.shape == (K, len(rows))
+                            and np.isfinite(got).all()):
+                        fail("%s bucket %d: scores not finite [K, N]"
+                             % (what, b))
+                    if not np.array_equal(got, want[b]):
+                        fail("%s bucket %d: scores differ from the "
+                             "one-device engine's" % (what, b))
+                    n_cmp = min(len(rows), cpu_rows)
+                    if not np.array_equal(got[:, :n_cmp],
+                                          cpu.scores(rows[:n_cmp])):
+                        fail("%s bucket %d: card scores differ from the "
+                             "CPU sharded engine's" % (what, b))
+                    if quantize == "float32":
+                        leaves = eng.leaf_indices(rows)
+                        if not np.array_equal(leaves, want_leaves[b]):
+                            fail("%s bucket %d: leaf indices differ from "
+                                 "the one-device engine's" % (what, b))
+                        if not np.array_equal(
+                                leaves[:n_cmp],
+                                cpu.leaf_indices(rows[:n_cmp])):
+                            fail("%s bucket %d: card leaf indices differ "
+                                 "from the CPU sharded engine's"
+                                 % (what, b))
+                mrec["engines"]["%s_%d" % (quantize, k)] = {
+                    "tree_blocks": eng.tree_blocks,
+                    "table_bytes": table_bytes(eng)}
+        mrec["check_s"] = time.perf_counter() - t0
+        rec["models"][name] = mrec
+        say("phase 20 (%s): %d trees, K = %d: at 2, 3 and 4 shards on one "
+            "card, float32 and int8, scores bitwise the one-device "
+            "engine's at buckets %s (%d held-out rows) and the CPU sharded "
+            "engine's on %d, leaf indices too; table bytes a shard at 4 "
+            "shards %s (float32), one device %d; %.1f s" % (
+                name, flat.num_trees, K, list(ladder), len(x_test),
+                min(len(x_test), cpu_rows),
+                mrec["engines"]["float32_4"]["table_bytes"],
+                mrec["engines"]["float32_1"]["table_bytes"][0],
+                mrec["check_s"]))
+    blocks_a = rec["models"]["a"]["engines"]["float32_4"]["tree_blocks"]
+    if flats["a"].num_trees == 5 and blocks_a[-1][0] != blocks_a[-1][1]:
+        fail("phase 20 (a): 5 trees at 4 shards left no shard empty: %s"
+             % blocks_a)
+
+    # scores() latency at k = 1, 2 and 4 on (b) float32
+    flat_b = flats["b"]
+    lat_engines = {1: ones[("b", "float32")]}
+    for k in (2, 4):
+        lat_engines[k] = serving.ServingEngine(flat_b, shards=k,
+                                               device=place(k)).warmup()
+    lat = {}
+    for n, reps in ((1, 20), (1024, 20), (65536, 5)):
+        rows = x_test[:n]
+        for k, eng in lat_engines.items():
+            eng.scores(rows)
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                eng.scores(rows)
+                times.append(time.perf_counter() - t0)
+            lat.setdefault(str(k), {})[str(n)] = {
+                "calls": reps, "p50_ms": float(np.median(times)) * 1e3}
+    rec["latency_b_float32"] = lat
+    say("phase 20 (b) float32 scores() p50 ms on the host clock at 1 / "
+        "1,024 / 65,536 rows: %s" % "; ".join(
+            "%s shard%s %s" % (k, "" if k == "1" else "s", " / ".join(
+                "%.3f" % v["p50_ms"] for v in by_n.values()))
+            for k, by_n in lat.items()))
+
+    # serve/tree_carry over (b)'s 4-shard ladder
+    telemetry.enable()
+    telemetry.reset()
+    try:
+        for b in ladder:
+            lat_engines[4].scores(ladder_rows(b))
+        snap = telemetry.interconnect_snapshot()
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    site = (snap or {}).get("sites", {}).get("serve/tree_carry")
+    # a top-bucket chunk at a time past the ladder's other buckets
+    chunks = list(ladder[:-1]) \
+        + [ladder[-1]] * -(-len(x_test) // ladder[-1])
+    row_bytes = 4 * flat_b.num_class
+    if not site or site["calls"] != 3 * len(chunks) \
+            or site["bytes"] != 3 * row_bytes * sum(chunks) \
+            or site["bytes_per_call"] != row_bytes * ladder[-1]:
+        fail("phase 20: serve/tree_carry %r, expected 3 calls a chunk of "
+             "%s bytes" % (site, [row_bytes * c for c in chunks]))
+    rec["tree_carry"] = dict(site, calls_per_chunk=3,
+                             seconds_per_call=site["seconds"]
+                             / site["calls"])
+    say("phase 20 serve/tree_carry, (b) at 4 shards over %d chunks: %d "
+        "calls, %d bytes (%d a top-bucket call), %.6f host s (%.2f us a "
+        "call)" % (len(chunks), site["calls"], site["bytes"],
+                   site["bytes_per_call"], site["seconds"],
+                   rec["tree_carry"]["seconds_per_call"] * 1e6))
+
+    # the device rule
+    if on_card:
+        count = torch.cuda.device_count()
+        want_msg = ("serve_shards=%d exceeds available devices (%d) — the "
+                    "tree-sharded engine never silently shrinks its mesh"
+                    % (count + 1, count))
+        try:
+            serving.ServingEngine(flats["a"], shards=count + 1)
+            fail("phase 20: shards=%d built on %d devices" % (count + 1,
+                                                              count))
+        except log.Fatal as e:
+            if str(e) != want_msg:
+                fail("phase 20: over-subscribed shards said %r" % str(e))
+        rec["device_rule"] = want_msg
+
+    # the per-tree replay against bfs
+    scan = {}
+    ladder3 = (1, 1024, 65536)
+    for name, quantize, sizes_n in (
+            ("a", "float32", ladder3), ("a", "int8", ladder3),
+            ("c", "float32", ladder3), ("c", "int8", ladder3),
+            ("b", "int8", (1024,))):
+        bfs = ones[(name, quantize)]
+        eng = serving.ServingEngine(flats[name], quantize=quantize,
+                                    algo="scan", device=dev)
+        for n in sizes_n:
+            rows = x_test[:n]
+            what = "phase 20 (%s) %s scan at %d rows" % (name, quantize, n)
+            scan_ms, got = timed_call(eng.scores, rows)
+            if not np.array_equal(got, bfs.scores(rows)):
+                fail("%s: scores differ from bfs" % what)
+            if quantize == "float32" and not np.array_equal(
+                    eng.leaf_indices(rows), bfs.leaf_indices(rows)):
+                fail("%s: leaf indices differ from bfs" % what)
+            if name != "b":          # (b)'s replay takes seconds a call
+                scan_ms = min(scan_ms, wall_ms(eng.scores, rows, calls=1))
+            scan["%s_%s_%d" % (name, quantize, n)] = {
+                "scan_ms": scan_ms, "bfs_ms": wall_ms(bfs.scores, rows)}
+    rec["scan_vs_bfs"] = scan
+    say("phase 20 predict_algo=scan bitwise bfs (leaf indices too in "
+        "float32); scores() ms scan / bfs: %s" % "; ".join(
+            "%s %.3f / %.3f" % (k, v["scan_ms"], v["bfs_ms"])
+            for k, v in scan.items()))
+
+    # a front over (b): 2 shards float32, hot-swapped to 4 shards int8
+    rec["front"] = front_swap(
+        "phase 20 front over (b)",
+        ("float32_2shards", serving.ServingEngine(flat_b, shards=2,
+                                                  device=place(2))),
+        ("int8_4shards", serving.ServingEngine(flat_b, quantize="int8",
+                                               shards=4, device=place(4))),
+        x_test, sizes["shard_front_s"], 300)
+    by_path = {"serving_sharded": {"hist": hist_cuda.launches,
+                                   "partition": compact.launches}}
+    if hist_cuda.launches or compact.launches:
+        fail("phase 20: a kernel launched while serving: %s"
+             % by_path["serving_sharded"])
+
+    # task=predict on (c): scan against bfs, and the device rule, at once
+    data = os.path.join(tmp, "held_out.tsv")
+    np.savetxt(data, np.column_stack([np.zeros(len(x_test)), x_test]),
+               delimiter="\t", fmt="%.17g")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    modes = {"bfs": [], "scan": ["predict_algo=scan"]}
+    if on_card:
+        modes["over"] = ["serve_shards=%d" % (torch.cuda.device_count() + 1)]
+    runs, outs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for mode, extra in modes.items():
+            out = os.path.join(tmp, "%s.txt" % mode)
+            runs[mode] = (out, subprocess.Popen(
+                [sys.executable, "-m", "lightgbm_tpu_torch", "task=predict",
+                 "data=" + data, "input_model=" + paths["c"],
+                 "output_result=" + out, "device=" + dev.type] + extra,
+                env=env, cwd=tmp, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT))
+        for mode, (out, proc) in runs.items():
+            outs[mode] = proc.communicate(timeout=600)[0].decode()
+    finally:
+        for _out, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rec["cli_s"] = time.perf_counter() - t0
+    for mode in ("bfs", "scan"):
+        if runs[mode][1].returncode != 0:
+            fail("phase 20 task=predict %s exited %d: %s" % (
+                mode, runs[mode][1].returncode, outs[mode][-2000:]))
+    with open(runs["bfs"][0], "rb") as f:
+        bfs_text = f.read()
+    with open(runs["scan"][0], "rb") as f:
+        scan_text = f.read()
+    if scan_text != bfs_text or bfs_text.count(b"\n") != len(x_test):
+        fail("phase 20 task=predict predict_algo=scan: the result file "
+             "differs from bfs's")
+    if on_card:
+        over = runs["over"][1]
+        if over.returncode == 0 or rec["device_rule"] not in outs["over"]:
+            fail("phase 20 task=predict %s exited %d without the device "
+                 "rule's message: %s" % (modes["over"][0], over.returncode,
+                                         outs["over"][-2000:]))
+    say("phase 20 task=predict on (c), %d rows: predict_algo=scan's file "
+        "(%d bytes) byte-equal to bfs's%s; %.1f s" % (
+            len(x_test), len(bfs_text),
+            "; %s exited %d with the device rule's message" % (
+                modes["over"][0], runs["over"][1].returncode)
+            if on_card else "", rec["cli_s"]))
+    for out, _proc in runs.values():
+        if os.path.exists(out):
+            os.unlink(out)
+    for path in paths.values():
+        os.unlink(path)
+    os.unlink(data)
+    os.rmdir(tmp)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say("phase 20 every serving lane: %.1f s, no kernel launch by the "
+        "engines and the front in this process [%s]" % (rec["phase_s"],
+                                                        rec["card"]))
+    say(json.dumps({"serving_sharded": rec}))
+    return by_path
+
+
+def phase20_rehearsal() -> int:
+    """``chip_smoke.py --phase20``: the build, the three served models
+    trained anew (phase 4's main path, phase 11's (b) and phase 7's
+    multiclass K = 5) and phase 20 alone (a short call for the serving
+    lanes; the contract run is the script without arguments)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lightgbm_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.build()
+    dev, sizes = torch.device("cuda"), FULL
+    x, latent = make_table(sizes["n_train"] + sizes["n_test"], 28, SEED)
+    served = train_served(dev, sizes, x, latent, torch.cuda.synchronize)
+    sharded_phase(dev, sizes, x, served, torch.cuda.synchronize)
+    say("chip_smoke --phase20: %.1f s" % (time.perf_counter() - t0))
+    return 0
+
+
+def train_served(dev, sizes, x, latent, sync):
+    """The three models phase 20 serves, trained on ``dev``: (a) phase
+    4's main path (5 iterations), (b) ``SERVE_B`` (``serve_iters``) and
+    (c) phase 7's multiclass K = 5 (3 iterations, its labels)."""
+    import lightgbm_tpu_torch as lgt
+    n_train, F, K = sizes["n_train"], x.shape[1], 5
+    y = (latent > 0).astype(np.float32)
+    train_set = lgt.Dataset.from_arrays(x[:n_train], y[:n_train],
+                                        max_bin=255)
+    rng = np.random.RandomState(SEED + 7)
+    proj = rng.randn(F, K) / np.sqrt(F)
+    y_multi = np.argmax(x @ proj + 0.5 * rng.randn(len(x), K), 1) \
+        .astype(np.float32)
+    multi_set = lgt.Dataset.from_arrays(x[:n_train], y_multi[:n_train],
+                                        max_bin=255, reference=train_set)
+    base = {"num_leaves": 255, "learning_rate": 0.1,
+            "hist_dtype": "float32", "max_bin": 255}
+    served = {}
+    for name, params, ds in (
+            ("a", dict(base, objective="binary", num_iterations=5),
+             train_set),
+            ("b", dict(SERVE_B, num_iterations=sizes["serve_iters"]),
+             train_set),
+            ("c", dict(base, objective="multiclass", num_class=K,
+                       num_iterations=3), multi_set)):
+        booster, iter_s, _ = drive(params, ds, dev, sync)
+        served[name] = booster.model_to_string()
+        say("phase 20 model (%s): %d trees in %.1f s" % (
+            name, len(booster.models), sum(iter_s)))
+    return served
 
 
 def phase19_rehearsal() -> int:
@@ -5342,5 +5905,7 @@ if __name__ == "__main__":
         sys.exit(phase18_rehearsal())
     if sys.argv[1:] == ["--phase19"]:
         sys.exit(phase19_rehearsal())
+    if sys.argv[1:] == ["--phase20"]:
+        sys.exit(phase20_rehearsal())
     sys.exit(phase16_rehearsal() if sys.argv[1:] == ["--phase16"]
              else main())

@@ -11,8 +11,9 @@ objectives regression, binary, multiclass (``num_class``) and lambdarank
 mixed-bin layout (``mixed_bin``) and every histogram mode
 (``hist_dtype`` float32, bfloat16 and int8, ``quant_rounding`` nearest
 and stochastic), the serving engine's ``predict_*`` keys with
-``predict_leaf_index``, and the ingest keys: the column selectors,
-caches, two-round and streamed loads, parse workers, ``num_threads``;
+``predict_leaf_index`` and ``serve_shards``, and the ingest keys: the
+column selectors, caches, two-round and streamed loads, parse workers,
+``num_threads``;
 checkpoints (``checkpoint_interval``, ``checkpoint_dir``,
 ``checkpoint_keep``), ``device_type`` and ``histogram_pool_size``; and
 observability on one process: the telemetry sink (``metrics_out``,
@@ -31,9 +32,8 @@ drain (``elastic_shrink``, ``straggler_k``, elastic.py).  As in the JAX
 package, ``num_machines`` of 1 makes any learner serial.
 The difference is the slice rule: a key the port does not run raises
 ``Fatal`` naming it, instead of being parsed and silently ignored.
-Keys whose JAX-package default is the only value the port runs (one
-serving device) are accepted at that value and refused at any other,
-naming ROADMAP A9b where the parallel work still to come runs them.
+Keys whose JAX-package default is the only value the port runs
+(``boosting_type``) are accepted at that value and refused at any other.
 Growth runs under all three policies of the JAX package: compacted
 leaf-wise (the default), masked leaf-wise (``leafwise_compact=false``)
 and depth-wise (``grow_policy=depthwise``).
@@ -127,6 +127,7 @@ SLICE_KEYS = frozenset((
     # the serving engine (serving.py)
     "predict_leaf_index", "predict_buckets", "predict_quantize",
     "predict_donate", "predict_algo", "predict_linger_us", "predict_queue",
+    "serve_shards",
     # the ingest layer (io/): column selectors, caches, two-round and
     # streamed loads, the native parser's thread cap
     "label_column", "weight_column", "group_column", "ignore_column",
@@ -157,11 +158,6 @@ DEVICE_TYPES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 OBJECTIVES = ("regression", "binary", "multiclass", "lambdarank")
 
-# the JAX package's per-tree replay walk, refused by the config and the
-# engine alike (PERF.md section 5 times it against the breadth-first walk)
-SCAN_REFUSED = ("predict_algo=scan is not served by lightgbm_tpu_torch: the "
-                "per-tree replay is the JAX package's A/B lane, and on the "
-                "H100 it is slower than predict_algo=bfs at every bucket")
 # metric.cpp:9-28
 METRICS = ("l1", "l2", "binary_logloss", "binary_error", "auc", "ndcg",
            "multi_logloss", "multi_error")
@@ -169,8 +165,6 @@ METRICS = ("l1", "l2", "binary_logloss", "binary_error", "auc", "ndcg",
 # keys of the JAX package whose default is the only value the slice runs
 DEFAULT_ONLY = {
     "boosting_type": ("gbdt", "gbrt"),
-    # one device serves every tree: tree-axis sharding is ROADMAP A9b
-    "serve_shards": ("0", "1"),
 }
 
 
@@ -251,8 +245,9 @@ class IOConfig:
     # the serving engine (serving.py; lightgbm_tpu/config.py:209-255):
     # the ladder of batch shapes a batch is padded to, the leaf table
     # ("float32", or "int8" with a per-tree scale), buffer donation
-    # (checked; no torch counterpart), the walk (only "bfs", breadth-first:
-    # "scan" is SCAN_REFUSED), one device (serve_shards 0 or 1), and the
+    # (checked; no torch counterpart), the walk ("bfs", breadth-first, or
+    # "scan", the per-tree replay), the tree shards (0/1 one device; > 1
+    # one device per contiguous tree block, bfs only), and the
     # ServingFront's coalescing wait and queue bound in top-bucket batches
     # (also predict_file's chunks parsed ahead)
     predict_buckets: str = "1,32,1024,65536"
@@ -374,11 +369,14 @@ class IOConfig:
             value = params["predict_algo"].lower()
             log.check(value in ("bfs", "scan"),
                       "predict_algo must be bfs or scan")
-            if value == "scan":
-                log.fatal(SCAN_REFUSED)
             self.predict_algo = value
         self.serve_shards = _get_int(params, "serve_shards",
                                      self.serve_shards)
+        log.check(self.serve_shards >= 0,
+                  "serve_shards should be >= 0 (0 = single-device)")
+        if self.serve_shards > 1 and self.predict_algo == "scan":
+            log.fatal("serve_shards > 1 requires predict_algo=bfs (the "
+                      "per-tree scan replay is a single-device A/B path)")
         self.predict_linger_us = _get_int(params, "predict_linger_us",
                                           self.predict_linger_us)
         log.check(self.predict_linger_us >= 0,

@@ -19,7 +19,12 @@ the ensemble's stacked node tables ([T, max_nodes] int32):
   rows one tree after another, in tree order — the f32 add sequence of
   the JAX package's scorers, so the scores are bitwise theirs.  A
   ``cumsum``, ``sum(dim=0)`` or ``index_add_`` over trees would regroup
-  the sum.
+  the sum;
+- ``bfs_scores_sharded`` and ``bfs_leaf_indices_sharded`` walk contiguous
+  tree blocks, each on its own device (see the sharding comment below);
+- ``ensemble_scores`` and ``ensemble_leaf_indices`` are the per-tree
+  replay (``predict_algo=scan``, lightgbm_tpu/ops/scoring.py:89-135):
+  each tree's splits replayed in creation order by ``leaf_ids_by_replay``.
 
 The JAX package's byte-split one-hot lookups (ops/lookup.py) work around
 slow TPU gathers; their CPU route is the plain gather used here, for
@@ -27,9 +32,12 @@ f32 and int8 leaf tables alike.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from .. import telemetry
 from .bins import widen
 
 
@@ -106,31 +114,37 @@ def bfs_leaf_state(codes, split_feature, threshold_rank, left_child,
     return ~state
 
 
-def accumulate_tree_scores(vals, tree_class, num_class: int) -> torch.Tensor:
+def accumulate_tree_scores(vals, tree_class, num_class: int,
+                           total=None) -> torch.Tensor:
     """[num_class, N] f32: tree t's values ``vals[t]`` added to row
     ``tree_class[t]`` (a host array), one tree after another in tree
-    order (lightgbm_tpu/ops/scoring.py:181-192)."""
-    out = torch.zeros((num_class, vals.shape[1]), dtype=torch.float32,
-                      device=vals.device)
+    order (lightgbm_tpu/ops/scoring.py:181-192), onto ``total`` (the
+    running sums of the trees before these, updated in place) or onto
+    zeros."""
+    if total is None:
+        total = torch.zeros((num_class, vals.shape[1]), dtype=torch.float32,
+                            device=vals.device)
     for t in range(vals.shape[0]):
-        out[int(tree_class[t])].add_(vals[t])
-    return out
+        total[int(tree_class[t])].add_(vals[t])
+    return total
 
 
 def bfs_scores(codes, split_feature, threshold_rank, left_child, right_child,
                leaf_value, root_state, tree_class, *, max_depth: int,
-               num_class: int) -> torch.Tensor:
+               num_class: int, total=None) -> torch.Tensor:
     """[num_class, N] f32 ensemble sums, breadth-first, over the [T, L]
-    f32 leaf table (lightgbm_tpu/ops/scoring.py:195-208)."""
+    f32 leaf table (lightgbm_tpu/ops/scoring.py:195-208), onto
+    ``total`` as ``accumulate_tree_scores`` adds."""
     leaf = bfs_leaf_state(codes, split_feature, threshold_rank, left_child,
                           right_child, root_state, max_depth)
     vals = torch.gather(leaf_value, 1, leaf.long())
-    return accumulate_tree_scores(vals, tree_class, num_class)
+    return accumulate_tree_scores(vals, tree_class, num_class, total)
 
 
 def bfs_scores_int8(codes, split_feature, threshold_rank, left_child,
                     right_child, leaf_q, leaf_scale, root_state, tree_class,
-                    *, max_depth: int, num_class: int) -> torch.Tensor:
+                    *, max_depth: int, num_class: int,
+                    total=None) -> torch.Tensor:
     """The int8 ensemble (lightgbm_tpu/ops/scoring.py:211-225): each leaf
     reads back as ``float(q) * scale[t]``, ``leaf_q`` [T, L] int8 and
     ``leaf_scale`` [T] f32; the read is exact, and the sums are the f32
@@ -139,7 +153,7 @@ def bfs_scores_int8(codes, split_feature, threshold_rank, left_child,
                           right_child, root_state, max_depth)
     qvals = torch.gather(leaf_q.float(), 1, leaf.long())
     vals = qvals * leaf_scale[:, None]
-    return accumulate_tree_scores(vals, tree_class, num_class)
+    return accumulate_tree_scores(vals, tree_class, num_class, total)
 
 
 def bfs_leaf_indices(codes, split_feature, threshold_rank, left_child,
@@ -149,3 +163,109 @@ def bfs_leaf_indices(codes, split_feature, threshold_rank, left_child,
     lightgbm_tpu/ops/scoring.py:228-231)."""
     return bfs_leaf_state(codes, split_feature, threshold_rank, left_child,
                           right_child, root_state, max_depth)
+
+
+# ------------------------------------------------------- tree-axis sharding
+#
+# The JAX package's tree-sharded engine (lightgbm_tpu/ops/scoring.py:
+# 235-330) walks a contiguous tree block on each device of a 1-D ("tree",)
+# mesh and carries the [C, N] partial sums from shard to shard: the
+# single-device sum is a left fold over the trees in tree order, and f32
+# addition is not associative, so summing per-shard partials would
+# regroup it.  Here a shard is a tree block whose tables live on one
+# torch device of this process.  Shard s folds its trees' values onto the
+# running total of shards 0..s-1, and the total then moves to shard
+# s+1's device (an exact copy): the single-device add sequence, so the
+# scores are bitwise the one-device engine's.  Each hop is filed as the
+# JAX site ``serve/tree_carry``; the host reads the last shard's total,
+# so the JAX package's broadcast ``serve/tree_psum`` has no counterpart
+# in one process.
+
+
+def _on(codes, device, placed: dict):
+    """``codes`` on ``device``, copied once a call per device."""
+    c = placed.get(device)
+    if c is None:
+        c = placed[device] = codes.to(device)
+    return c
+
+
+def bfs_scores_sharded(codes, shards, tree_classes, *, max_depth: int,
+                       num_class: int) -> torch.Tensor:
+    """[num_class, N] f32 ensemble sums over tree blocks, in shard order:
+    ``shards[s]`` holds block s's node tables on its device (``sf``,
+    ``tr``, ``lc``, ``rc``, ``root``, and ``lv``, or ``lv_q`` and
+    ``lv_scale``), ``tree_classes[s]`` its host slice of the class map.
+    A block of no trees adds nothing to the total.  Returns the
+    total on the last shard's device; each of the ``len(shards) - 1``
+    hops files ``serve/tree_carry`` with C·N·4 bytes and its host
+    seconds (the enqueue of the copy)."""
+    placed: dict = {}
+    total = None
+    for s, (t, tc) in enumerate(zip(shards, tree_classes)):
+        device = t["sf"].device
+        if s:
+            t0 = time.perf_counter()
+            total = total.to(device)
+            telemetry.record_collective(
+                "serve/tree_carry", "ppermute", "tree",
+                total.numel() * total.element_size(),
+                time.perf_counter() - t0, phase="predict")
+        c = _on(codes, device, placed)
+        if "lv_q" in t:
+            total = bfs_scores_int8(
+                c, t["sf"], t["tr"], t["lc"], t["rc"], t["lv_q"],
+                t["lv_scale"], t["root"], tc, max_depth=max_depth,
+                num_class=num_class, total=total)
+        else:
+            total = bfs_scores(
+                c, t["sf"], t["tr"], t["lc"], t["rc"], t["lv"], t["root"],
+                tc, max_depth=max_depth, num_class=num_class, total=total)
+    return total
+
+
+def bfs_leaf_indices_sharded(codes, shards, *,
+                             max_depth: int) -> torch.Tensor:
+    """[T, N] int32 leaf indices: each block's [T_s, N] walk on its
+    device, joined along the tree axis on the first shard's device (no
+    exchange between the blocks)."""
+    placed: dict = {}
+    first = shards[0]["sf"].device
+    return torch.cat([
+        bfs_leaf_indices(_on(codes, t["sf"].device, placed), t["sf"],
+                         t["tr"], t["lc"], t["rc"], t["root"],
+                         max_depth=max_depth).to(first)
+        for t in shards])
+
+
+# ------------------------------------------------------ the per-tree replay
+
+
+def ensemble_leaf_indices(codes, split_feature, threshold_rank, left_child,
+                          right_child, num_leaves) -> torch.Tensor:
+    """[T, N] int64 leaf index per tree by the per-tree replay
+    (lightgbm_tpu/ops/scoring.py:120-135): tree t's ``num_leaves[t] - 1``
+    splits replayed in creation order.  The node tables are the
+    FlatEnsemble's host arrays; ``codes`` [F, N] int32 on the device."""
+    out = torch.zeros((len(num_leaves), codes.shape[1]), dtype=torch.int64,
+                      device=codes.device)
+    for t in range(len(num_leaves)):
+        n = int(num_leaves[t]) - 1
+        out[t] = leaf_ids_by_replay(
+            codes, split_feature[t, :n], threshold_rank[t, :n],
+            left_child[t, :n], right_child[t, :n])
+    return out
+
+
+def ensemble_scores(codes, split_feature, threshold_rank, left_child,
+                    right_child, leaf_value, num_leaves, tree_class, *,
+                    num_class: int) -> torch.Tensor:
+    """[num_class, N] f32 ensemble sums by the per-tree replay
+    (lightgbm_tpu/ops/scoring.py:89-117): tree by tree, its leaves by
+    ``leaf_ids_by_replay``, its values from ``leaf_value`` [T, L] (a
+    device tensor) added into its class row in tree order — the add
+    sequence of the breadth-first walk, so the scores are bitwise its."""
+    leaf = ensemble_leaf_indices(codes, split_feature, threshold_rank,
+                                 left_child, right_child, num_leaves)
+    return accumulate_tree_scores(torch.gather(leaf_value, 1, leaf),
+                                  tree_class, num_class)

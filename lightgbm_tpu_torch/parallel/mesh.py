@@ -51,11 +51,15 @@ sums, votes) and one over its feature group (the ranks of the same
 ``d``: the split record's reduction).  Every rank creates every group,
 data groups first, in the same order, as ``new_group`` requires.
 
+**The serving shards** (``serving_devices``): the JAX package's
+``get_serving_mesh`` is a 1-D ``("tree",)`` mesh of the devices of one
+process.  Here a shard is a contiguous tree block whose tables live on
+one torch device, in one process: no rank of a world serves.
+
 Not ported: ``global_row_layout``, ``make_global_rows`` and
 ``gather_ragged_rows`` (each rank holds its own rows; no padded global
-array exists, and ``models.gbdt.SerialRows`` places a world's rows) and
-``get_serving_mesh`` (tree-sharded serving, ROADMAP A9b).  The
-collectives are library calls: no kernel of the port runs here.
+array exists, and ``models.gbdt.SerialRows`` places a world's rows).
+The collectives are library calls: no kernel of the port runs here.
 """
 from __future__ import annotations
 
@@ -68,10 +72,12 @@ import torch
 import torch.distributed as dist
 
 from .. import telemetry
+from ..device import resolve_device
 from ..utils import log
 
 DATA_AXIS = "data"
 FEATURE_AXIS = "feature"
+TREE_AXIS = "tree"
 
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -112,6 +118,41 @@ def factor_machines(num_machines: int, feature_shards: int = 0,
         if n % d == 0:
             fs = d
     return n // fs, fs
+
+
+def serving_devices(shards: int, device=None) -> "list[torch.device]":
+    """One torch device per serving shard, shard ``s`` at ``[s]``
+    (lightgbm_tpu/parallel/mesh.py:192-213, ``get_serving_mesh``).
+
+    ``device`` names one device (``device.resolve_device``'s rule): on
+    CUDA the ``shards`` consecutive devices from its index (``cuda:0``
+    by default), and a ``Fatal`` when they pass
+    ``torch.cuda.device_count()``, since the engine never shrinks its
+    shards silently; on the CPU ``shards`` copies of the one CPU device
+    torch has (the JAX package's CPU mesh is the 8 virtual devices its
+    tests force, ``tests/conftest.py``).  A sequence of devices is taken
+    as the placement, one per shard, so several shards may share one
+    card; its length must be ``shards``.  Placement never changes the
+    tree blocks or a score."""
+    shards = int(shards)
+    if shards < 1:
+        log.fatal("serve_shards must be >= 1 to build a serving mesh "
+                  "(got %d)" % shards)
+    if isinstance(device, (list, tuple)):
+        if len(device) != shards:
+            raise ValueError("%d devices given for %d serving shards"
+                             % (len(device), shards))
+        return [resolve_device(d) for d in device]
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev] * shards
+    start = dev.index or 0
+    available = torch.cuda.device_count() - start
+    if shards > available:
+        log.fatal("serve_shards=%d exceeds available devices (%d) — the "
+                  "tree-sharded engine never silently shrinks its mesh"
+                  % (shards, available))
+    return [torch.device("cuda", start + s) for s in range(shards)]
 
 
 def _reduce_scatter():

@@ -40,10 +40,18 @@ model's ``score_reference=`` histogram (carried on the FlatEnsemble).
 The JAX engine's cost-model capture of its compiled walks has no
 counterpart: the walk is eager torch code.
 
-Not ported: tree-axis sharding (``shards > 1``, a ``Fatal``; ROADMAP
-A9), and the per-tree replay ``algo="scan"`` (a ``Fatal``: the JAX
-package keeps it as bench.py's A/B lane, and on the H100 it loses to the
-breadth-first walk at every bucket; PERF.md section 5).
+Tree-axis sharding (``shards > 1``, lightgbm_tpu/serving.py:219-345):
+shard s holds trees ``[s·Tb, min((s+1)·Tb, T))``, ``Tb = ceil(T /
+shards)``, the JAX layout without its pad rows, with its node tables on
+its own device (``parallel.mesh.serving_devices``: consecutive cards,
+copies of the CPU, or a device list, so several shards may share one
+card).  The codes go to every shard's device, each shard walks its
+block, and the [C, N] partial sums are carried from shard to shard in
+tree order (``ops/scoring.bfs_scores_sharded``): the scores are bitwise
+the one-device engine's.  A shard may hold no trees.  ``algo="scan"``
+serves the per-tree replay (``ops/scoring.ensemble_scores``) on one
+device, from the dequantized table under ``quantize="int8"``; it cannot
+shard.
 """
 from __future__ import annotations
 
@@ -57,10 +65,9 @@ import numpy as np
 import torch
 
 from . import lifecycle, monitor, telemetry, tracing
-from .config import SCAN_REFUSED
 from .device import resolve_device
 from .ops import scoring
-from .utils import log
+from .parallel.mesh import serving_devices
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (1, 32, 1024, 65536)
 
@@ -193,9 +200,10 @@ class FlatEnsemble:
 
 
 class ServingEngine:
-    """Bucketed batch prediction over one FlatEnsemble on ``device`` (see
-    the module docstring).  One engine per model; calls are serialized by
-    the caller (a ServingFront's worker, or one thread)."""
+    """Bucketed batch prediction over one FlatEnsemble on ``device``, or
+    on one device per tree shard (see the module docstring).  One engine
+    per model; calls are serialized by the caller (a ServingFront's
+    worker, or one thread)."""
 
     def __init__(self, flat: FlatEnsemble,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -218,16 +226,26 @@ class ServingEngine:
             raise ValueError("queue must be >= 1 (in-flight batches)")
         if donate not in ("auto", "true", "false"):
             raise ValueError("donate must be auto, true or false")
-        if algo == "scan":
-            log.fatal(SCAN_REFUSED)
-        if shards > 1:
-            log.fatal("serve_shards=%d: tree-axis sharding is not ported to "
-                      "lightgbm_tpu_torch yet (one device serves every "
-                      "tree; ROADMAP A9)" % shards)
         self.flat = flat
         self.buckets = buckets
         self.quantize = quantize
-        self.device = resolve_device(device)
+        self.algo = algo
+        # 0/1 = the one-device engine; the shards' devices are resolved
+        # here, so an over-subscribed count fails at construction
+        self.shards = shards if shards > 1 else 1
+        if self.shards > 1 and algo == "scan":
+            raise ValueError(
+                "predict_algo=scan cannot tree-shard (the per-tree "
+                "replay is a single-device A/B path); use bfs")
+        if self.shards > 1 or isinstance(device, (list, tuple)):
+            self.devices = serving_devices(self.shards, device)
+        else:
+            self.devices = [resolve_device(device)]
+        self.device = self.devices[0]
+        T = flat.num_trees
+        per = -(-T // self.shards)
+        self.tree_blocks = [(min(s * per, T), min((s + 1) * per, T))
+                            for s in range(self.shards)]
         # the ServingFront's defaults, carried on the engine so
         # engine_options_from_config stays the one config mapping
         self.linger_us = int(linger_us)
@@ -235,41 +253,53 @@ class ServingEngine:
         self._tables = None
         telemetry.set_device(self.device)
 
-    def _device_tables(self) -> dict:
-        """The flattened tables on the device, pushed once; every call
-        after that moves only its codes."""
+    def _device_tables(self) -> List[dict]:
+        """Each shard's node tables on its device, pushed once (one dict
+        for the one-device engine); every call after that moves only its
+        codes.  ``algo="scan"`` reads a float32 leaf table, the
+        dequantized one under ``quantize="int8"``."""
         if self._tables is None:
             f = self.flat
-            put = lambda a: torch.as_tensor(a, device=self.device)  # noqa
-            t = {"sf": put(f.split_feature), "tr": put(f.threshold_rank),
-                 "lc": put(f.left_child), "rc": put(f.right_child),
-                 "root": put(f.root_state)}
-            if self.quantize == "int8":
-                q, scale = f.int8_tables()
-                t["lv_q"] = put(q)
-                t["lv_scale"] = put(scale)
-            else:
-                t["lv"] = put(f.leaf_value)
-            self._tables = t
+            tables = []
+            for (a, b), device in zip(self.tree_blocks, self.devices):
+                def put(arr):
+                    return torch.as_tensor(arr[a:b], device=device)
+                t = {"sf": put(f.split_feature), "tr": put(f.threshold_rank),
+                     "lc": put(f.left_child), "rc": put(f.right_child),
+                     "root": put(f.root_state)}
+                if self.algo == "scan" and self.quantize == "int8":
+                    t["lv"] = put(f.dequantized_leaf_value())
+                elif self.quantize == "int8":
+                    q, scale = f.int8_tables()
+                    t["lv_q"] = put(q)
+                    t["lv_scale"] = put(scale)
+                else:
+                    t["lv"] = put(f.leaf_value)
+                tables.append(t)
+            self._tables = tables
         return self._tables
 
     def _run_scores(self, chunk: np.ndarray) -> torch.Tensor:
-        t, f = self._device_tables(), self.flat
-        codes = torch.from_numpy(chunk).to(self.device)
-        if self.quantize == "int8":
-            return scoring.bfs_scores_int8(
-                codes, t["sf"], t["tr"], t["lc"], t["rc"], t["lv_q"],
-                t["lv_scale"], t["root"], f.tree_class,
-                max_depth=f.max_depth, num_class=f.num_class)
-        return scoring.bfs_scores(
-            codes, t["sf"], t["tr"], t["lc"], t["rc"], t["lv"], t["root"],
-            f.tree_class, max_depth=f.max_depth, num_class=f.num_class)
+        tables, f = self._device_tables(), self.flat
+        codes = torch.from_numpy(chunk)
+        if self.algo == "scan":
+            return scoring.ensemble_scores(
+                codes.to(self.device), f.split_feature, f.threshold_rank,
+                f.left_child, f.right_child, tables[0]["lv"], f.num_leaves,
+                f.tree_class, num_class=f.num_class)
+        return scoring.bfs_scores_sharded(
+            codes, tables, [f.tree_class[a:b] for a, b in self.tree_blocks],
+            max_depth=f.max_depth, num_class=f.num_class)
 
     def _run_leaves(self, chunk: np.ndarray) -> torch.Tensor:
-        t = self._device_tables()
-        return scoring.bfs_leaf_indices(
-            torch.from_numpy(chunk).to(self.device), t["sf"], t["tr"],
-            t["lc"], t["rc"], t["root"], max_depth=self.flat.max_depth)
+        tables, f = self._device_tables(), self.flat
+        codes = torch.from_numpy(chunk)
+        if self.algo == "scan":
+            return scoring.ensemble_leaf_indices(
+                codes.to(self.device), f.split_feature, f.threshold_rank,
+                f.left_child, f.right_child, f.num_leaves)
+        return scoring.bfs_leaf_indices_sharded(codes, tables,
+                                                max_depth=f.max_depth)
 
     def bucket_for(self, n: int) -> int:
         """Smallest bucket that holds ``n`` rows (callers chunk at the
@@ -341,6 +371,7 @@ class ServingEngine:
         if self.flat.num_trees == 0:
             return self
         F = max(len(self.flat.used), 1)
+        # every bucket through every shard: the carry ends on the last
         with telemetry.span("predict_warmup"):
             for b in (buckets if buckets is not None else self.buckets):
                 self._run_scores(np.zeros((F, int(b)), np.int32)).cpu()

@@ -812,6 +812,51 @@ def test_serving_front_round_trip_on_card(cuda, serving_model):
         np.testing.assert_array_equal(got, i8.scores(x[i:i + 7]))
 
 
+@pytest.mark.parametrize("shards", [2, 3, 4])
+@pytest.mark.parametrize("quantize", ["float32", "int8"])
+def test_sharded_serving_on_card(cuda, serving_model, quantize, shards):
+    """Tree shards on the one card (a device list): every block's tables
+    there, scores and leaf indices bitwise the card's one-device engine's
+    and the CPU sharded engine's, and no kernel launch."""
+    from lightgbm_tpu_torch import serving
+    booster, x = serving_model
+    flat = booster.export_flat()
+    card = serving.ServingEngine(flat, quantize=quantize, shards=shards,
+                                 device=[cuda] * shards)
+    one = serving.ServingEngine(flat, quantize=quantize, device=cuda)
+    cpu = serving.ServingEngine(flat, quantize=quantize, shards=shards,
+                                device="cpu")
+    before = (hist_cuda.launches, compact.launches)
+    for n in (1, 31, 1000):
+        got = card.scores(x[:n])
+        np.testing.assert_array_equal(got, one.scores(x[:n]))
+        np.testing.assert_array_equal(got, cpu.scores(x[:n]))
+        np.testing.assert_array_equal(card.leaf_indices(x[:n]),
+                                      cpu.leaf_indices(x[:n]))
+    assert (hist_cuda.launches, compact.launches) == before
+    assert all(t["sf"].is_cuda for t in card._device_tables())
+
+
+@pytest.mark.parametrize("quantize", ["float32", "int8"])
+def test_scan_serving_on_card(cuda, serving_model, quantize):
+    """``algo="scan"`` on the card: scores and leaf indices bitwise the
+    breadth-first engine's and the CPU scan engine's."""
+    from lightgbm_tpu_torch import serving
+    booster, x = serving_model
+    flat = booster.export_flat()
+    scan = serving.ServingEngine(flat, quantize=quantize, algo="scan",
+                                 device=cuda)
+    bfs = serving.ServingEngine(flat, quantize=quantize, device=cuda)
+    cpu = serving.ServingEngine(flat, quantize=quantize, algo="scan",
+                                device="cpu")
+    for n in (1, 1000):
+        got = scan.scores(x[:n])
+        np.testing.assert_array_equal(got, bfs.scores(x[:n]))
+        np.testing.assert_array_equal(got, cpu.scores(x[:n]))
+        np.testing.assert_array_equal(scan.leaf_indices(x[:n]),
+                                      bfs.leaf_indices(x[:n]))
+
+
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
 @pytest.mark.parametrize("depth", [0, 2])
 def test_device_row_writer_on_card(cuda, depth, dtype):

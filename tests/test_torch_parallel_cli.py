@@ -9,8 +9,9 @@
   metrics on every rank) equal the serial CLI's, rtol 1e-6;
 - GOSS through a CLI world: the rank files are byte-equal to the serial
   CLI's GOSS model file in int8;
-- every key still refused (ROADMAP A9b) is a named ``Fatal``:
-  ``serve_shards > 1``; so are the hybrid and voting keys' own faults (a
+- every key still refused is a named ``Fatal``: ``serve_shards > 1``
+  under ``predict_algo=scan``, as in the JAX package; so are the hybrid
+  and voting keys' own faults (a
   ``feature_shards`` that does not divide the world, ``top_k`` below
   1), a ``timeline`` other than auto, true or false, GOSS with bagging
   under hybrid, ``elastic_shrink`` under the
@@ -156,7 +157,8 @@ REFUSED_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid"},
                                       "bagging_fraction": "0.5",
                                       "bagging_freq": "1"},
                    ("topk", "2"): {"tree_learner": "voting_parallel",
-                                   "feature_shards": "5"}}
+                                   "feature_shards": "5"},
+                   ("serve_shards", "2"): {"predict_algo": "scan"}}
 
 
 @pytest.mark.parametrize("key,value,match", [
@@ -172,7 +174,8 @@ REFUSED_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid"},
                                "tree_learner"),
     ("straggler_k", "0", "straggler_k should be >= 1"),
     ("timeline", "sometimes", "timeline must be auto, true or false"),
-    ("serve_shards", "2", "serve_shards=2"),
+    pytest.param("serve_shards", "2", "serve_shards > 1 requires "
+                 "predict_algo=bfs", id="serve_shards-2-serve_shards=2"),
     ("tree_learner", "ring", "Tree learner type error"),
     ("dp_schedule", "ring", "dp_schedule must be"),
     ("local_listen_port", "0", "local_listen_port should be > 0"),

@@ -320,22 +320,24 @@ def test_empty_ensemble_and_warmup(models):
 
 
 def test_engine_option_checks(models):
-    """The JAX engine's value checks and messages; tree-axis sharding is
-    a named Fatal, and so is the per-tree replay ``algo=scan``."""
-    path, _ = models["binary"]
+    """The JAX engine's value checks and messages; tree-axis sharding and
+    the per-tree replay ``algo=scan`` are served, and score as the JAX
+    engine does."""
+    path, x = models["binary"]
     jflat, tflat = _flats(path)
     for kwargs in ({"quantize": "int4"}, {"algo": "dfs"}, {"buckets": ()},
                    {"buckets": (0, 8)}, {"shards": -1}, {"linger_us": -1},
-                   {"queue": 0}, {"donate": "maybe"}):
+                   {"queue": 0}, {"donate": "maybe"},
+                   {"shards": 2, "algo": "scan"}):
         with pytest.raises(ValueError) as want:
             jserving.ServingEngine(jflat, **kwargs)
         with pytest.raises(ValueError) as got:
             serving.ServingEngine(tflat, device="cpu", **kwargs)
         assert str(got.value) == str(want.value)
-    with pytest.raises(log.Fatal, match="serve_shards=2.*not ported"):
-        serving.ServingEngine(tflat, shards=2, device="cpu")
-    with pytest.raises(log.Fatal, match="predict_algo=scan is not served"):
-        serving.ServingEngine(tflat, algo="scan", device="cpu")
+    for kwargs in ({"shards": 2}, {"algo": "scan"}):
+        np.testing.assert_array_equal(
+            serving.ServingEngine(tflat, device="cpu", **kwargs).scores(x),
+            jserving.ServingEngine(jflat, **kwargs).scores(x))
     eng = serving.ServingEngine(tflat, shards=1, buckets=[32, 1, 32],
                                 device="cpu")
     assert eng.buckets == (1, 32)
@@ -387,20 +389,56 @@ def test_config_predict_key_fatals_match_jax(key, value):
 
 
 @pytest.mark.parametrize("value", ["scan", "SCAN"])
-def test_predict_algo_scan_refused_by_name(value):
-    """The JAX package takes the per-tree replay; the port refuses it by
-    name rather than serve a second walk."""
-    assert _config(JConfig, {"predict_algo": value}).io_config \
-        .predict_algo == "scan"
-    with pytest.raises(log.Fatal, match="predict_algo=scan is not served"):
-        _config(OverallConfig, {"predict_algo": value})
+def test_predict_algo_scan_refused_by_name(value, models):
+    """Once refused by name: the port takes the per-tree replay as the
+    JAX package takes it, and its engine scores bitwise the JAX scan
+    engine's and the port's breadth-first walk's."""
+    j, t = _configs({"predict_algo": value})
+    assert t.io_config.predict_algo == j.io_config.predict_algo == "scan"
+    got = serving.engine_options_from_config(t.io_config)
+    assert got == jserving.engine_options_from_config(j.io_config)
+    path, x = models["binary"]
+    jflat, tflat = _flats(path)
+    scan = serving.ServingEngine(tflat, device="cpu", **got).scores(x)
+    np.testing.assert_array_equal(
+        scan, jserving.ServingEngine(
+            jflat, **jserving.engine_options_from_config(j.io_config))
+        .scores(x))
+    np.testing.assert_array_equal(
+        scan, serving.ServingEngine(tflat, device="cpu").scores(x))
 
 
 @pytest.mark.parametrize("value", ["2", "8", "-1"])
-def test_serve_shards_refused_by_name(value):
-    with pytest.raises(log.Fatal, match="serve_shards=%s" % value):
-        OverallConfig().set({"task": "predict", "data": "x.tsv",
-                             "serve_shards": value})
+def test_serve_shards_refused_by_name(value, models):
+    """Once refused by name: the port takes what the JAX package takes.
+    2 and 8 shards parse, and the engine serves them on the CPU bitwise
+    the JAX engine's; -1 is the JAX config's Fatal, and the JAX engine's
+    ValueError at the engine."""
+    params = {"serve_shards": value}
+    if int(value) < 0:
+        with pytest.raises(Exception) as want:
+            _config(JConfig, params)
+        with pytest.raises(log.Fatal) as got:
+            _config(OverallConfig, params)
+        assert str(got.value) == str(want.value)
+        path, _ = models["binary"]
+        jflat, tflat = _flats(path)
+        with pytest.raises(ValueError) as want:
+            jserving.ServingEngine(jflat, shards=int(value))
+        with pytest.raises(ValueError) as got:
+            serving.ServingEngine(tflat, shards=int(value), device="cpu")
+        assert str(got.value) == str(want.value)
+        return
+    j, t = _configs(params)
+    opts = serving.engine_options_from_config(t.io_config)
+    assert opts == jserving.engine_options_from_config(j.io_config)
+    assert opts["shards"] == int(value)
+    path, x = models["multiclass"]
+    jflat, tflat = _flats(path)
+    eng = serving.ServingEngine(tflat, device="cpu", **opts)
+    assert len(eng.devices) == int(value)
+    np.testing.assert_array_equal(
+        eng.scores(x), jserving.ServingEngine(jflat, **opts).scores(x))
 
 
 def _write_tsv(path, x, y):
