@@ -63,7 +63,19 @@ path at ``max_bin=1023`` (one histogram launch a leaf, one partition a
 split, held-out AUC, save and reload); int8 compacted and depth-wise
 trees on the card equal to the CPU's and compacted equal to masked; and
 the headline configuration packed (widths 64 and 1022) with the model
-text of ``mixed_bin=false``.  Phase 11 serves three models through
+text of ``mixed_bin=false``.  Phase 10d runs 32-bit bins (8 of the
+columns at ``max_bin=131072``, ``sample_cnt=200000``: about 131,071
+bins a column): the histogram kernel's float and int8 modes at C = 1, 8
+and 42, which add into global memory, timed beside the shared-slice
+plan they must equal bitwise, the pane entry on a 32-bit pane and the
+partition on a 32-bit key, each against its plain version; compacted
+float32 at 255 leaves (one histogram launch a leaf, one partition a
+split, the text predicting on the CPU as on the card); int8 depth-wise
+and masked card == CPU, compacted == masked; and phase 4's path under
+``pipeline=off`` and ``readback`` (phase 4's text) and ``train_chunk(2)``
+(two ``train_one_iter``'s text) (see ``bins32_phase``; ``chip_smoke.py
+--phase10d`` runs the build, phase 4's path and phase 10d alone).
+Phase 11 serves three models through
 ``lightgbm_tpu_torch.serving`` on the card (phase 4's, a depth-wise int8
 model of 200 trees trained there, and phase 7's multiclass one): scores
 and leaf indices at every bucket of the default ladder, float32 and
@@ -211,6 +223,9 @@ FULL = {"n_train": 1_000_000, "n_test": 100_000, "n_int8": 100_000,
         "pane_segment": (12_345, 300_001), "n_f200": 250_000,
         "int8_cols": (1, 8, 32, 64), "n_es": 40_000, "n_cli": 100_000,
         "class_cols": (1, 8, 64), "wide_cols": (1, 8, 64),
+        "bins32_features": 8, "bins32_max_bin": 131_072,
+        "bins32_sample": 200_000, "bins32_cols": (1, 8, 42),
+        "n_bins32_int8": 200_000,
         "n_ingest": 1_000_000, "ingest_parse_rows": 200_000,
         "n_world_ingest": 1_000_000,
         "obs_front_s": 2.0, "stall_timeout": 1.5, "stall_s": 3.5,
@@ -1052,12 +1067,18 @@ def run(dev, sizes, timer=None):
     # ---- phase 10: 16-bit bins (max_bin = 1023)
     kernels.update(wide_phase(dev, sizes, x, y, sync, timer))
     lap("10")
+    # ---- phase 10d: 32-bit bins; pipeline and train_chunk on phase 4's
+    # path
+    kernels.update(bins32_phase(dev, sizes, x, y,
+                                (params, train_set, served["a"]), sync,
+                                timer))
+    lap("10d")
     # ---- phase 11: serving, which launches neither kernel; (b)'s training
     # is an 8-bit path
     for path, counts in serving_phase(dev, sizes, x, train_set, served, sync,
                                       timer).items():
         for name, k in kernels.items():
-            if path == "serving" or not name.endswith("16"):
+            if path == "serving" or not name.endswith(("16", "32")):
                 k["launches_by_path"][path] = counts[
                     "hist" if name.startswith("hist") else "partition"]
     lap("11")
@@ -2160,7 +2181,7 @@ def wide_phase(dev, sizes, x, y, sync, timer):
         left = compact.partition_pane(pane, got_d, F, feat, thr_, start, cnt,
                                       2)
         want_left = compact.pane_plain(pane, want_d, feat, thr_, start, cnt,
-                                       F + feat)
+                                       F, 2)
         sync()
         if not (torch.equal(got_d, want_d)
                 and int(left) == int(want_left)):
@@ -2177,7 +2198,7 @@ def wide_phase(dev, sizes, x, y, sync, timer):
         "ms": timer(lambda: compact.partition_pane(pane, dst0, F, feat, thr,
                                                    0, N, 2)),
         "plain_ms": timer(lambda: compact.pane_plain(pane, dst0, feat, thr,
-                                                     0, N, F + feat)),
+                                                     0, N, F, 2)),
         "bound_ms": 2 * R * N / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": timer(lambda: pane[:, :N][:, torch.sort(
             keys, stable=True).indices])}
@@ -2346,6 +2367,396 @@ def wide_phase(dev, sizes, x, y, sync, timer):
         tree_ms=part_tree[0], tree_bound_ms=part_tree[1],
         launches_by_path={k: v["partition"] for k, v in by_path.items()})
     return {"hist16": hist16, "partition16": part_rec}
+
+
+def bins32_phase(dev, sizes, x, y, main, sync, timer):
+    """Phase 10d, 32-bit bins, on the first ``bins32_features`` (8)
+    columns of phase 4's table binned by ``Dataset.from_arrays(max_bin=
+    131072, sample_cnt=200000)`` (about 131,071 bins a column, a uint32
+    matrix carried as int32):
+
+    (a) the histogram kernel's float and int8 modes at C = 1, 8 and 42
+        on all rows, which add straight into global memory (no shared
+        accumulator: csrc/hist.cu's header), each also timed under the
+        shared-slice plan (``GLOBAL_BINS`` raised past B; 14 to 560 cell
+        slices) and required bitwise equal to it; the pane entry over a
+        32-bit pane (four byte rows a bin) and the partition on a 32-bit
+        key, root and offset segments: each against its plain version
+        (int8, counts and partition bytes exact; float within 1e-5 of
+        each cell's absolute sum, and bitwise equal to itself run to
+        run), timed beside its bound (4 bytes a bin) and the library call
+        (``scatter_add_`` on a prebuilt index; a stable ``torch.sort``
+        and gather);
+    (b) compacted float32, 255 leaves, 2 trees: one histogram launch a
+        leaf and one partition a split, held-out AUC, falling logloss,
+        the saved text reloaded on the CPU predicting the held-out rows
+        as the card does; the first tree's launches replayed
+        (``tree_ms``); then at ``n_bins32_int8`` rows, binned with the
+        1M-row set as ``reference``, int8 depth-wise and masked model
+        text on the card equal to the CPU's, and compacted int8 equal to
+        masked int8 on the card;
+    (c) ``main`` = (params, dataset, model text) of phase 4: the same run
+        under ``pipeline=off`` and ``pipeline=readback`` writes phase 4's
+        text (``auto``), and ``train_chunk(2)`` the text of two
+        ``train_one_iter`` calls, each through both kernels.
+
+    Returns (the records of the 32-bit modes for the kernels line, the
+    launches of each path)."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import compact, hist_cuda
+    from lightgbm_tpu_torch.ops.bins import widen
+    from lightgbm_tpu_torch.ops.hist_cuda import quantize_values
+    n_train, n_test = sizes["n_train"], sizes["n_test"]
+    F, N = sizes["bins32_features"], n_train
+    max_bin = sizes["bins32_max_bin"]
+    x8 = np.ascontiguousarray(x[:, :F])
+    t0 = time.perf_counter()
+    train_set = lgt.Dataset.from_arrays(x8[:n_train], y[:n_train],
+                                        max_bin=max_bin,
+                                        sample_cnt=sizes["bins32_sample"])
+    B = int(train_set.num_bins.max())
+    bins = train_set.to_device(dev)["bins"]
+    if train_set.bins.dtype != np.uint32 or bins.dtype != torch.int32 \
+            or B <= 65536:
+        fail("phase 10d: %s bins (%s), num_bin max %d; expected 32-bit bins"
+             % (train_set.bins.dtype, bins.dtype, B))
+    say("phase 10d dataset: %d x %d binned at max_bin=%d, sample %d, in "
+        "%.1f s (uint32, num_bin max %d)" % (
+            N, F, max_bin, sizes["bins32_sample"],
+            time.perf_counter() - t0, B))
+    gen = np.random.RandomState(SEED + 32)
+    grad = torch.as_tensor(gen.randn(N).astype(np.float32), device=dev)
+    hess = torch.as_tensor(gen.rand(N).astype(np.float32), device=dev)
+    tree_e = hist_cuda.fixed_exponent(grad, hess, N)
+
+    def hbound(n, Fc, Bc, C, side):
+        return (4 * n * Fc + side * n + Fc * Bc * 3 * C * 4) \
+            / HBM_BYTES_PER_S * 1e3
+
+    def sliced(fn):
+        """``fn`` under the shared-slice plan: GLOBAL_BINS past B."""
+        keep = hist_cuda.GLOBAL_BINS
+        hist_cuda.GLOBAL_BINS = 1 << 31
+        hist_cuda._shape_plan.cache_clear()
+        try:
+            return fn()
+        finally:
+            hist_cuda.GLOBAL_BINS = keep
+            hist_cuda._shape_plan.cache_clear()
+
+    def kernel_shape(C, mode):
+        """One launch of a mode at (F, N, B, C) against its plain version
+        and its shared-slice plan, timed; returns its record."""
+        cid = torch.as_tensor(np.where(gen.rand(N) < 0.9,
+                                       gen.randint(0, C, N), -1)
+                              .astype(np.int32), device=dev)
+        ok = cid >= 0
+        if mode == "int8":
+            levels, _ = quantize_values(grad, hess, ok)
+            src = levels.t().to(torch.int32)
+            run_k = lambda: hist_cuda.hist_int8(bins, levels, cid, C, B)
+            got = run_k()
+            if not torch.equal(got, hist_cuda.hist_plain(bins, src, cid, C,
+                                                          B)):
+                fail("phase 10d hist int8 B=%d C=%d not bitwise" % (B, C))
+            err = 0.0
+        else:
+            src = torch.stack([grad, hess, torch.ones_like(grad)], 1)
+            run_k = lambda: hist_cuda.hist_float(bins, grad, hess, cid, C, B,
+                                                 tree_e)
+            what = "phase 10d B=%d C=%d" % (B, C)
+            got = twice(what, run_k)
+            err = float64_err(what, got, bins, grad, hess, cid, C, B)
+        if not torch.equal(sliced(run_k), got):
+            fail("phase 10d hist %s C=%d: the shared-slice plan differs "
+                 "from global accumulation" % (mode, C))
+        del got
+        plain = lambda: hist_cuda.hist_plain(bins, src, cid, C, B)
+        cell = hist_cuda.CELL_BYTES["int8" if mode == "int8" else "float"]
+        rec = {"F": F, "N": N, "B": B, "C": C, "mode": mode,
+               "max_abs_err": err, "ms": timer(run_k),
+               "sliced_ms": sliced(lambda: timer(run_k, reps=3)),
+               "slices": -(-B * C * cell // hist_cuda.SLICE_BYTES),
+               "plain_ms": timer(plain, reps=5),
+               "bound_ms": hbound(N, F, B, C, 7 if mode == "int8" else 12),
+               "bound_by": "bytes"}
+        idx = (torch.arange(F, device=dev)[:, None] * B
+               + widen(bins).long()) * C + cid.long().clamp(0, C - 1)[None, :]
+        idx = torch.where(ok[None, :], idx, F * B * C)
+        idx3 = idx.reshape(-1, 1).expand(-1, 3)
+        src3 = src[None].expand(F, N, 3).reshape(-1, 3)
+        acc = torch.zeros((F * B * C + 1, 3), dtype=src.dtype, device=dev)
+        rec["library_ms"] = timer(lambda: acc.scatter_add_(0, idx3, src3),
+                                  reps=5)
+        del idx, idx3, src3, acc
+        say("phase 10d hist %s F=%d N=%d B=%d C=%d: %.4f ms global (shared "
+            "slices: %d, %.4f ms), plain %.4f, library %.4f, bound %.4f, "
+            "max abs err %.3g" % (mode, F, N, B, C, rec["ms"], rec["slices"],
+                                  rec["sliced_ms"], rec["plain_ms"],
+                                  rec["library_ms"], rec["bound_ms"], err))
+        return rec
+
+    # ---- 10d (a): the kernels at 32-bit widths
+    t_a = time.perf_counter()
+    shapes = [kernel_shape(C, mode) for C in sizes["bins32_cols"]
+              for mode in ("float32", "int8")]
+    # the split search at this width: one split's search over both
+    # children, and its f64 cumsum along the innermost axis (ops/split.py)
+    # against along the bins' strided axis
+    from lightgbm_tpu_torch.ops.split import find_best_split
+    pair = hist_cuda.hist_float(bins, grad, hess, torch.zeros(
+        N, dtype=torch.int32, device=dev), 1, B, tree_e)
+    pair = torch.stack([pair, pair * 0.5])
+    tot = pair[:, 0].sum((1,))                        # [2, 3]
+    nb_t = torch.as_tensor(train_set.num_bins, device=dev)
+    fm = torch.ones(F, dtype=torch.bool, device=dev)
+    h64 = pair.to(torch.float64)
+    split_rec = {
+        "shape": [2, F, B, 3],
+        "ms": timer(lambda: find_best_split(pair, tot[:, 0], tot[:, 1],
+                                            tot[:, 2], nb_t, fm, 20.0, 1e-3),
+                    reps=5),
+        "cumsum_inner_ms": timer(lambda: torch.cumsum(
+            h64.transpose(-1, -2).contiguous(), dim=-1), reps=5),
+        "cumsum_strided_ms": timer(lambda: torch.cumsum(h64, dim=-2),
+                                   reps=3)}
+    del pair, h64
+    say("phase 10d split search, both children [2, %d, %d, 3]: %.4f ms; its "
+        "f64 cumsum along the innermost axis %.4f ms, along the strided "
+        "bin axis %.4f ms" % (F, B, split_rec["ms"],
+                              split_rec["cumsum_inner_ms"],
+                              split_rec["cumsum_strided_ms"]))
+    P = compact.bucket_table(N)[0]
+    pane = compact.pack_planes(bins, grad, hess,
+                               torch.ones(N, dtype=torch.bool, device=dev), P)
+    R = pane.shape[0]
+    if R != compact.pane_rows(F, 4):
+        fail("phase 10d: 32-bit pane of %d rows" % R)
+    n = N - 2000
+    got = twice("phase 10d pane", lambda: hist_cuda.hist_pane_float(
+        pane, F, 1001, n, B, None, 4, tree_e))
+    pb, pg, ph, pvalid = compact.unpack_values(pane[:, 1001:1001 + n], F, 4)
+    if not torch.equal(pb, bins[:, 1001:1001 + n]):
+        fail("phase 10d: the 32-bit pane does not unpack to the bins")
+    pane_err = float64_err("phase 10d pane", got.reshape(F, B, 3), pb, pg,
+                           ph, torch.where(pvalid, 0, -1).to(torch.int32),
+                           1, B)
+    del pb, got
+    pane_rec = {
+        "F": F, "N": n, "B": B, "C": 1, "max_abs_err": pane_err,
+        "ms": timer(lambda: hist_cuda.hist_pane_float(pane, F, 1001, n, B,
+                                                      None, 4, tree_e)),
+        "plain_ms": timer(lambda: hist_cuda.pane_plain(
+            pane[:, 1001:1001 + n], F, B, None, 4), reps=5),
+        "bound_ms": (n * (4 * F + 9) + F * B * 3 * 4)
+        / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": pane_library_ms(timer, pane[:, 1001:1001 + n], F, B,
+                                      None, 4)}
+    say("phase 10d hist pane, 32-bit pane of %d rows, %d lanes: %.4f ms "
+        "(plain %.4f, library %.4f, bound %.4f), max abs err %.3g" % (
+            R, n, pane_rec["ms"], pane_rec["plain_ms"],
+            pane_rec["library_ms"], pane_rec["bound_ms"], pane_err))
+    # the partition on a 32-bit key: thresholds past 65,535, whose low
+    # bytes alone would split the rows otherwise
+    feat, thr = 3, 70_000
+    dst0 = torch.as_tensor(gen.randint(-128, 128, (R, P)).astype(np.int8),
+                           device=dev)
+    for what, start, cnt, thr_ in (("root", 0, N, thr),
+                                   ("offset", 1001, N // 2, 100_000),
+                                   ("one launch", 3,
+                                    compact.ONE_LAUNCH_TILES * compact.TILE
+                                    - 3, 65_536),
+                                   ("one tile", 13, compact.TILE - 13, 300)):
+        got_d, want_d = dst0.clone(), dst0.clone()
+        left = compact.partition_pane(pane, got_d, F, feat, thr_, start, cnt,
+                                      4)
+        want_left = compact.pane_plain(pane, want_d, feat, thr_, start, cnt,
+                                       F, 4)
+        sync()
+        if not (torch.equal(got_d, want_d)
+                and int(left) == int(want_left)):
+            fail("phase 10d partition 32-bit %s not byte-exact" % what)
+        say("phase 10d partition pane 32-bit %s R=%d start=%d cnt=%d "
+            "thr=%d: byte-exact, left %d, other lanes untouched" % (
+                what, R, start, cnt, thr_, int(left)))
+    del got_d, want_d
+    keys = (widen(bins[feat]) > thr).to(torch.int8)
+    part_rec = {
+        "name": "partition32", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/partition.cu",
+        "replaces": "lightgbm_tpu/ops/compact.py:393",
+        "max_abs_err": 0,
+        "ms": timer(lambda: compact.partition_pane(pane, dst0, F, feat, thr,
+                                                   0, N, 4)),
+        "plain_ms": timer(lambda: compact.pane_plain(pane, dst0, feat, thr,
+                                                     0, N, F, 4), reps=5),
+        "bound_ms": 2 * R * N / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": timer(lambda: pane[:, :N][:, torch.sort(
+            keys, stable=True).indices], reps=5)}
+    say("phase 10d partition32 root R=%d cnt=%d: %.4f ms (plain %.4f, "
+        "library %.4f, bound %.4f)" % (R, N, part_rec["ms"],
+                                       part_rec["plain_ms"],
+                                       part_rec["library_ms"],
+                                       part_rec["bound_ms"]))
+    del dst0, keys
+    say("phase 10d (a) kernels: %.1f s" % (time.perf_counter() - t_a))
+
+    # ---- 10d (b): compacted float32 at 255 leaves
+    t_b = time.perf_counter()
+    params = {"objective": "binary", "num_leaves": 255, "num_iterations": 2,
+              "learning_rate": 0.1, "hist_dtype": "float32",
+              "max_bin": max_bin}
+    booster, main_s, counts = drive(params, train_set, dev, sync)
+    leaves = [t.num_leaves for t in booster.models]
+    splits = sum(leaves) - len(leaves)
+    if len(leaves) != 2 or booster.bins_device.dtype != torch.int32:
+        fail("phase 10d: %d trees on %s bins" % (len(leaves),
+                                                 booster.bins_device.dtype))
+    if not (counts["hist"] == len(counts["hist_rows"]) == sum(leaves)
+            and counts["partition"] == len(counts["part_rows"]) == splits):
+        fail("phase 10d: launches hist %d partition %d, expected %d and %d"
+             % (counts["hist"], counts["partition"], sum(leaves), splits))
+    say("phase 10d compacted float32 at max_bin=%d: %d trees, leaves %s, "
+        "seconds per iteration %s; launches: hist %d (one a leaf), "
+        "partition %d (one a split), %d partition kernels" % (
+            max_bin, len(leaves), leaves, " ".join("%.3f" % v
+                                                   for v in main_s),
+            counts["hist"], counts["partition"],
+            counts["partition_kernels"]))
+    check_model("phase 10d", booster, x8, y, n_train, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.txt")
+        with open(path, "w") as f:
+            f.write(booster.model_to_string())
+        on_cpu = lgt.GBDT.from_model_file(path, device="cpu")
+    if not np.allclose(on_cpu.predict(x8[n_train:]),
+                       booster.predict(x8[n_train:]), rtol=0, atol=1e-12):
+        fail("phase 10d: the saved model predicts otherwise on the CPU")
+    say("phase 10d saved text reloaded on the CPU: held-out predictions "
+        "equal the card's")
+    by_path = {"leafcompact_float32_bins32": counts}
+    first_rows = counts["hist_rows"][:leaves[0]]
+    first_parts = counts["part_rows"][:leaves[0] - 1]
+    hist_tree = [0.0, 0.0]
+    for n_ in first_rows:
+        start = min(1001, P - n_)
+        hist_tree[0] += timer(lambda: hist_cuda.hist_pane_float(
+            pane, F, start, n_, B, None, 4, tree_e), reps=3)
+        hist_tree[1] += (n_ * (4 * F + 9) + F * B * 3 * 4) \
+            / HBM_BYTES_PER_S * 1e3
+    dst = torch.empty_like(pane)
+    part_tree = [0.0, 0.0]
+    for n_ in first_parts:
+        start = min(1001, P - n_)
+        part_tree[0] += timer(lambda: compact.partition_pane(
+            pane, dst, F, feat, thr, start, n_, 4), reps=3)
+        part_tree[1] += 2 * R * n_ / HBM_BYTES_PER_S * 1e3
+    del dst, pane, bins, booster
+    say("phase 10d first tree replayed: hist %d launches %.4f ms (bound "
+        "%.4f), partition %d launches %.4f ms (bound %.4f)" % (
+            len(first_rows), hist_tree[0], hist_tree[1], len(first_parts),
+            part_tree[0], part_tree[1]))
+    # int8 at n_bins32_int8 rows, binned by the 1M-row set's mappers (the
+    # validation route): depth-wise and masked card == CPU, compacted ==
+    # masked on the card
+    n5 = sizes["n_bins32_int8"]
+    small = lgt.Dataset.from_arrays(x8[:n5], y[:n5], reference=train_set)
+    if small.bins.dtype != np.uint32:
+        fail("phase 10d int8: %s bins" % small.bins.dtype)
+    p5 = {"objective": "binary", "num_leaves": 31, "num_iterations": 2,
+          "hist_dtype": "int8", "min_data_in_leaf": 100, "max_bin": max_bin}
+    models = {}
+    for name, extra in (("depthwise", {"grow_policy": "depthwise"}),
+                        ("masked", {"leafwise_compact": "false"}),
+                        ("compacted", {})):
+        on_card, _, c = drive(dict(p5, **extra), small, dev, sync)
+        if c["hist"] == 0 or (c["partition"] == 0) != (name != "compacted"):
+            fail("phase 10d int8 %s: launches %s" % (
+                name, {k: c[k] for k in ("hist", "partition")}))
+        by_path["%s_int8_bins32" % name] = c
+        models[name] = on_card.model_to_string()
+        if name != "compacted":
+            on_cpu = lgt.train(dict(p5, **extra), small, device="cpu")
+            if models[name] != on_cpu.model_to_string():
+                fail("phase 10d int8 %s: card and CPU models differ" % name)
+            say("phase 10d int8 %s %d x %d, leaves %s, 2 trees: model text "
+                "on the card equals the CPU's; launches hist %d, partition "
+                "%d" % (name, n5, F, [t.num_leaves for t in on_card.models],
+                        c["hist"], c["partition"]))
+    if models["compacted"] != models["masked"]:
+        fail("phase 10d int8: compacted and masked models differ")
+    say("phase 10d int8 compacted and masked: model text equal on the card "
+        "(launches hist %d, partition %d)" % (
+            by_path["compacted_int8_bins32"]["hist"],
+            by_path["compacted_int8_bins32"]["partition"]))
+    del small, train_set
+    say("phase 10d (b) trained paths: %.1f s" % (time.perf_counter() - t_b))
+
+    # ---- 10d (c): pipeline=readback and train_chunk on phase 4's path
+    t_c = time.perf_counter()
+    main_params, main_set, main_text = main
+    for value in ("off", "readback"):
+        booster, _, c = drive(dict(main_params, pipeline=value), main_set,
+                              dev, sync)
+        if booster.model_to_string() != main_text \
+                or booster.pipeline_on() != (value == "readback"):
+            fail("phase 10d: pipeline=%s wrote another model than phase "
+                 "4's (pipeline=auto), or resolved otherwise" % value)
+        if c["hist"] == 0 or c["partition"] == 0:
+            fail("phase 10d pipeline=%s: launches %s" % (value, c))
+        by_path["pipeline_" + value] = c
+        say("phase 10d pipeline=%s on phase 4's path: phase 4's model "
+            "text; launches hist %d, partition %d" % (value, c["hist"],
+                                                     c["partition"]))
+    texts = {}
+    for how in ("train_chunk", "train_one_iter"):
+        b = lgt.train(dict(main_params, num_iterations=0), main_set,
+                      device=dev)
+        reset_counts()
+        if how == "train_chunk":
+            stop = b.train_chunk(2)
+        else:
+            stop = b.train_one_iter(False) or b.train_one_iter(False)
+        sync()
+        c = {"hist": hist_cuda.launches, "partition": compact.launches}
+        lv = sum(t.num_leaves for t in b.models)
+        if stop or len(b.models) != 2 or c["hist"] != lv \
+                or c["partition"] != lv - 2:
+            fail("phase 10d %s: stop %s, %d trees, launches %s" % (
+                how, stop, len(b.models), c))
+        by_path[how] = c
+        texts[how] = b.model_to_string()
+    if texts["train_chunk"] != texts["train_one_iter"]:
+        fail("phase 10d: train_chunk(2) differs from two train_one_iter")
+    say("phase 10d train_chunk(2): the text of two train_one_iter calls; "
+        "launches hist %d, partition %d" % (by_path["train_chunk"]["hist"],
+                                            by_path["train_chunk"]
+                                            ["partition"]))
+
+    say("phase 10d (c) pipeline and train_chunk: %.1f s"
+        % (time.perf_counter() - t_c))
+    main_rec = next(r for r in shapes if r["C"] == 1 and r["mode"] ==
+                    "float32")
+    path = "leafcompact_float32_bins32"
+    hist32 = dict(
+        {"name": "hist32", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/hist.cu",
+         "replaces": "lightgbm_tpu/ops/hist_pallas.py:86",
+         "launches": by_path[path]["hist"]},
+        **{k: main_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+        shapes=shapes, pane=pane_rec, split_search=split_rec,
+        tree_ms=hist_tree[0],
+        tree_bound_ms=hist_tree[1],
+        launches_by_path={k: v["hist"] for k, v in by_path.items()},
+        seconds_by_path={path: main_s})
+    part_rec.update(
+        launches=by_path[path]["partition"],
+        kernel_launches=by_path[path]["partition_kernels"],
+        tree_ms=part_tree[0], tree_bound_ms=part_tree[1],
+        launches_by_path={k: v["partition"] for k, v in by_path.items()})
+    return {"hist32": hist32, "partition32": part_rec}
 
 
 # served model (b): bench.py's headline configuration (bench.py:1277-1289)
@@ -5733,6 +6144,44 @@ def sharded_phase(dev, sizes, x, served, sync):
     return by_path
 
 
+def phase10d_rehearsal() -> int:
+    """``chip_smoke.py --phase10d``: the build, phase 4's main path
+    trained anew and phase 10d alone, with its records printed (a short
+    call for the 32-bit layouts; the contract run is the script without
+    arguments)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.build()
+    say("phase 1 build: %.1f s" % (time.perf_counter() - t0))
+    for name, text in sorted(cuda_build.build_log.items()):
+        for line in text.splitlines():
+            if "registers" in line or "bytes stack" in line:
+                say("  ptxas %s: %s" % (name, line.strip()))
+    dev, sizes, sync = torch.device("cuda"), FULL, torch.cuda.synchronize
+    x, latent = make_table(sizes["n_train"] + sizes["n_test"], 28, SEED)
+    y = (latent > 0).astype(np.float32)
+    train_set = lgt.Dataset.from_arrays(x[:sizes["n_train"]],
+                                        y[:sizes["n_train"]], max_bin=255)
+    params = {"objective": "binary", "num_leaves": 255, "num_iterations": 5,
+              "learning_rate": 0.1, "hist_dtype": "float32", "max_bin": 255}
+    booster, _, _ = drive(params, train_set, dev, sync)
+    t1 = time.perf_counter()
+    records = bins32_phase(dev, sizes, x, y,
+                           (params, train_set, booster.model_to_string()),
+                           sync, cuda_ms)
+    say("phase 10d wall: %.1f s" % (time.perf_counter() - t1))
+    say(card_name())
+    say(json.dumps({"kernels": list(records.values())}))
+    say("chip_smoke --phase10d: %.1f s" % (time.perf_counter() - t0))
+    return 0
+
+
 def phase20_rehearsal() -> int:
     """``chip_smoke.py --phase20``: the build, the three served models
     trained anew (phase 4's main path, phase 11's (b) and phase 7's
@@ -5907,5 +6356,7 @@ if __name__ == "__main__":
         sys.exit(phase19_rehearsal())
     if sys.argv[1:] == ["--phase20"]:
         sys.exit(phase20_rehearsal())
+    if sys.argv[1:] == ["--phase10d"]:
+        sys.exit(phase10d_rehearsal())
     sys.exit(phase16_rehearsal() if sys.argv[1:] == ["--phase16"]
              else main())

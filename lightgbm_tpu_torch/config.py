@@ -28,8 +28,10 @@ data, feature, hybrid or voting (``voting_parallel``), ``num_machines``,
 ``machine_list_file``, ``local_listen_port`` and ``time_out``, which
 are checked as the JAX package checks them and have no effect (torch's
 environment does their work, parallel/mesh.py); and the straggler
-drain (``elastic_shrink``, ``straggler_k``, elastic.py).  As in the JAX
-package, ``num_machines`` of 1 makes any learner serial.
+drain (``elastic_shrink``, ``straggler_k``, elastic.py); and
+``pipeline`` (auto, off or readback), checked and resolved as the JAX
+package does, with the loop kept synchronous.  As in the JAX package,
+``num_machines`` of 1 makes any learner serial.
 The difference is the slice rule: a key the port does not run raises
 ``Fatal`` naming it, instead of being parsed and silently ignored.
 Keys whose JAX-package default is the only value the port runs
@@ -145,6 +147,9 @@ SLICE_KEYS = frozenset((
     "trace_sketch_growth", "trace_run_id", "monitor_out",
     "monitor_interval_s", "slo_p99_us", "slo_window_s", "health",
     "on_anomaly", "health_divergence_rounds",
+    # pipelined boosting (checked, resolved and logged; the loop stays
+    # synchronous)
+    "pipeline",
     # the parallel learners (parallel/); the last three have no effect
     "tree_learner", "num_machines", "dp_schedule", "is_pre_partition",
     "feature_shards", "top_k",
@@ -738,6 +743,13 @@ class BoostingConfig:
     health: str = "auto"
     on_anomaly: str = "warn"
     health_divergence_rounds: int = 0
+    # pipelined boosting (lightgbm_tpu/config.py:726-738): auto, off or
+    # readback, resolved by GBDT.pipeline_on as the JAX package resolves
+    # it.  The JAX package's readback moves only host waits (trees,
+    # scores and metrics are identical); the port's loop has no
+    # iteration-level wait to defer yet, so every value trains
+    # synchronously
+    pipeline: str = "auto"
     # serial, data, feature, hybrid or voting (parallel/learners.py)
     tree_learner: str = "serial"
     tree_config: TreeConfig = dataclasses.field(default_factory=TreeConfig)
@@ -782,6 +794,12 @@ class BoostingConfig:
             params, "health_divergence_rounds", self.health_divergence_rounds)
         log.check(self.health_divergence_rounds >= 0,
                   "health_divergence_rounds should be >= 0")
+        # lightgbm_tpu/config.py:825-829
+        if "pipeline" in params:
+            value = params["pipeline"].lower()
+            log.check(value in ("auto", "off", "readback"),
+                      "pipeline must be auto, off or readback")
+            self.pipeline = value
         if "tree_learner" in params:
             value = params["tree_learner"].lower()
             if value == "serial":

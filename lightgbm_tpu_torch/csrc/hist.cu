@@ -83,13 +83,30 @@
 //          assembled from their four little-endian byte planes (bit-equal
 //          to Tensor.view(float32)), and the validity plane gives column 0
 //          or "dropped".  C = 1.  Fixed point as the float mode.
-// and three bin layouts: uint8 rows, uint16 rows (the 16-bit bin matrix of
-// max_bin > 256, read as 2-byte elements, 16 rows a 32-byte load), and, for
-// the pane entry, 16-bit bins as two byte planes (the low bytes in the
-// pane's bin rows, the high bytes hi_off bytes further on).  Bins are read
-// unsigned, so values >= 128 need no masking (the TPU kernel carries uint8
-// bins as int8 and masks with & 255, :79; it has no 16-bit mode: the JAX
-// package computes B > 256 outside Pallas, ops/histogram.py:34-56).
+// and the bin layouts: uint8 rows, uint16 rows (the 16-bit bin matrix of
+// max_bin > 256, read as 2-byte elements, 16 rows a 32-byte load), uint32
+// rows (the 32-bit matrix of a feature with more than 65,536 bins, 4-byte
+// elements, 4 rows a 16-byte load), and, for the pane entry, 16-bit and
+// 32-bit bins as two or four byte planes (the low bytes in the pane's bin
+// rows, byte k plane_off * k bytes further on).  Bins are read unsigned,
+// so values >= 128 need no masking (the TPU kernel carries uint8 bins as
+// int8 and masks with & 255, :79; it has no 16-bit or 32-bit mode: the
+// JAX package computes B > 256 outside Pallas, ops/histogram.py:34-56).
+//
+// Accumulators far larger than shared memory (32-bit bins: B > 65,536).
+// At B = 131,072 a feature's cells are 2.6 MB in the float mode at C = 1
+// and 66 MB in the int8 mode at C = 42: slices of 192 KB would read every
+// row 8 to 560 times (on the H100 the sliced plan took 3 to 38 times the
+// global adds' time at F = 8, N = 1M, C = 1 to 42; PERF.md).  Such a pass
+// (copies = 0 in the launch plan) keeps no accumulator in shared memory:
+// each kept row adds straight into the global sums with native global
+// atomics (int8: three 32-bit adds into the int32 output; float, pane:
+// two 64-bit fixed-point adds and a 32-bit count), so each row is read
+// once and the bins spread the adds over millions of cells; the side band
+// is still staged once a tile for the block's g features.  The sums stay
+// order-free integers, so the result is the sliced kernel's bit for bit.
+// Offsets into the output are 64-bit: F * B * 3C cells pass 2^31 bytes
+// at F = 8, B = 131,072, C = 42.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -100,13 +117,21 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kMaxSmem = 232448;  // 227 KB per block on sm_90
 constexpr int kFloat = 0, kInt8 = 1, kPane = 2;
-// bin layouts: uint8 rows, uint16 rows, 16-bit bins as lo/hi byte planes
-constexpr int kU8 = 1, kU16 = 2, kPlanes16 = 3;
+// bin layouts: uint8 rows, uint16 rows, 16-bit bins as lo/hi byte planes,
+// uint32 rows, 32-bit bins as four byte planes
+constexpr int kU8 = 1, kU16 = 2, kPlanes16 = 3, kU32 = 4, kPlanes32 = 5;
+
+// bytes of one bin element in the matrix (the pane's planes are bytes)
+template <int kBin>
+__host__ __device__ constexpr int elem_bytes() {
+  return kBin == kU16 ? 2 : kBin == kU32 ? 4 : 1;
+}
 
 struct Args {
   const uint8_t* bins;   // bin row f starts at element f * ld of bins
-  long long ld;          // in elements (bytes, or 2 bytes for kU16)
-  long long hi_off;      // kPlanes16: high-byte plane of a row, in bytes
+  long long ld;          // in elements (bytes, 2 for kU16, 4 for kU32)
+  long long plane_off;   // kPlanes16/32: byte plane k of a row lies
+                         // k * plane_off bytes after its low bytes
   const float* grad;     // float
   const float* hess;
   const int8_t* q;       // int8: [3, qld] levels
@@ -118,7 +143,8 @@ struct Args {
   int g;                 // features per block
   int slices;            // cell slices per feature (blocks per group)
   int slice_cells;       // (bin, column) cells per slice, the last fewer
-  int copies;            // private accumulator copies per block
+  int copies;            // private accumulator copies per block; 0: none,
+                         // the block adds into the global sums
   int tile;              // rows per staged tile, a multiple of 16
   int shift;             // rows start at -shift: bins + r is 16-aligned
                          // at every tile start
@@ -188,17 +214,23 @@ __device__ __forceinline__ void load_bins(const Args& a, const uint8_t* row,
 #pragma unroll
     for (int k = 0; k < kVec; ++k)
       b[k] = (int)((w[k >> 1] >> (16 * (k & 1))) & 0xFFFFu);
-  } else {
-    uint32_t w[kVec / 4];
-    load_bytes<kVec>(row, lo, hi, w);
+  } else if constexpr (kBin == kU32) {
+    uint32_t w[kVec];
+    load_bytes<4 * kVec>(row, 4 * lo, 4 * hi, w);
 #pragma unroll
-    for (int k = 0; k < kVec; ++k)
-      b[k] = (int)((w[k >> 2] >> (8 * (k & 3))) & 0xFFu);
-    if constexpr (kBin == kPlanes16) {
-      load_bytes<kVec>(row + a.hi_off, lo, hi, w);
+    for (int k = 0; k < kVec; ++k) b[k] = (int)w[k];  // < 2^31: the carry
+  } else {
+    constexpr int kPlanes =
+        kBin == kPlanes16 ? 2 : kBin == kPlanes32 ? 4 : 1;
+    uint32_t w[kVec / 4];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) b[k] = 0;
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) {
+      load_bytes<kVec>(row + p * a.plane_off, lo, hi, w);
 #pragma unroll
       for (int k = 0; k < kVec; ++k)
-        b[k] |= (int)((w[k >> 2] >> (8 * (k & 3))) & 0xFFu) << 8;
+        b[k] |= (int)(((w[k >> 2] >> (8 * (k & 3))) & 0xFFu) << (8 * p));
     }
   }
 }
@@ -235,16 +267,20 @@ __device__ __forceinline__ float from_fixed(unsigned long long s,
   return (float)((double)__ll2float_rn((long long)s) * inv);
 }
 
-template <int kMode, int kVec, int kBin>
+// kGlobal: no accumulator in shared memory (copies = 0, one slice); each
+// kept row adds straight into the global sums (the header says when).
+template <int kMode, int kVec, int kBin, bool kGlobal>
 __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int group = blockIdx.x / a.slices;
   const int f0 = group * a.g;
   const int nf = min(a.g, a.num_f - f0);
-  const int fcells = a.num_b * a.num_c;  // (bin, column) cells per feature
+  // (bin, column) cells per feature
+  const long long fcells = (long long)a.num_b * a.num_c;
   // this block's slice of each feature's cells: [k0, k0 + kc)
-  const int k0 = (blockIdx.x - group * a.slices) * a.slice_cells;
-  const int kc = min(a.slice_cells, fcells - k0);
+  const long long k0 =
+      (long long)(blockIdx.x - group * a.slices) * a.slice_cells;
+  const int kc = (int)min((long long)a.slice_cells, fcells - k0);
   const int cells = nf * kc;             // per copy
   // accumulator, cell_bytes per cell and copy.  int8: int
   // [copies][cells][3].  float, pane: fixed-point (grad, hess) sums as
@@ -256,18 +292,21 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
   //   float, pane: sg, sh (fixed point, 8 bytes), then sc (column or -1);
   //   int8: sc packs (q0, q1, q2, column or 0xFF) as bytes
   const long long acc_bytes =
-      ((long long)a.copies * a.g * a.slice_cells * cell_bytes<kMode>() + 15)
-      / 16 * 16;
+      kGlobal ? 0
+              : ((long long)a.copies * a.g * a.slice_cells
+                     * cell_bytes<kMode>() + 15) / 16 * 16;
   const int pt = padded<kVec>(a.tile);
   unsigned long long* sg =
       reinterpret_cast<unsigned long long*>(smem_raw + acc_bytes);
   unsigned long long* sh = sg + pt;
   int* sc = kMode == kInt8 ? reinterpret_cast<int*>(sg)
                            : reinterpret_cast<int*>(sh + pt);
-  for (int i = threadIdx.x; i < a.copies * cells * cell_bytes<kMode>() / 4;
-       i += blockDim.x)
-    acc[i] = 0;
-  const int copy = (threadIdx.x >> 5) % a.copies;
+  if constexpr (!kGlobal) {
+    for (int i = threadIdx.x; i < a.copies * cells * cell_bytes<kMode>() / 4;
+         i += blockDim.x)
+      acc[i] = 0;
+  }
+  const int copy = kGlobal ? 0 : (threadIdx.x >> 5) % a.copies;
   double scale = 0.0;  // 2^e
   if constexpr (kMode != kInt8) scale = ldexp(1.0, *a.exponent);
 
@@ -320,8 +359,10 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
       const long long r0 = t0 + kVec * j;
       int bv[kVec];
       const long long e0 = (long long)(f0 + fi) * a.ld + r0;  // element
-      load_bins<kBin, kVec>(a, a.bins + e0 * (kBin == kU16 ? 2 : 1),
+      load_bins<kBin, kVec>(a, a.bins + e0 * elem_bytes<kBin>(),
                             (int)max(0LL, -r0), tn - kVec * j, bv);
+      // global mode: the feature's first output cell
+      const long long gbase = (long long)(f0 + fi) * fcells;
       const int fbase = copy * cells + fi * kc;
       const int base = (kVec + 1) * j;
       const int kmax = min(kVec, tn - kVec * j);
@@ -329,22 +370,39 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
       for (int k = 0; k < kVec; ++k) {
         if (k >= kmax) break;
         const int b = bv[k];
-        if (b >= a.num_b) continue;
+        if ((unsigned)b >= (unsigned)a.num_b) continue;
         const int side = sc[base + k];
-        if constexpr (kMode == kInt8) {
+        if constexpr (kGlobal) {
+          if constexpr (kMode == kInt8) {
+            const int c = (int)((uint32_t)side >> 24);
+            if (c == 0xFF) continue;
+            int* o = reinterpret_cast<int*>(a.out)
+                     + 3 * (gbase + (long long)b * a.num_c + c);
+            atomicAdd(o, (int)(int8_t)(side & 0xFF));
+            atomicAdd(o + 1, (int)(int8_t)((side >> 8) & 0xFF));
+            atomicAdd(o + 2, (int)(int8_t)((side >> 16) & 0xFF));
+          } else {
+            if (side < 0) continue;  // dropped: nothing to add
+            const long long o = gbase + (long long)b * a.num_c + side;
+            atomicAdd(a.fsum + 2 * o, sg[base + k]);
+            atomicAdd(a.fsum + 2 * o + 1, sh[base + k]);
+            atomicAdd(a.fcnt + o, 1);
+          }
+        } else if constexpr (kMode == kInt8) {
           const int c = (int)((uint32_t)side >> 24);
           if (c == 0xFF) continue;
-          const int local = b * a.num_c + c - k0;
-          if ((unsigned)local >= (unsigned)kc) continue;  // another slice
-          int* cell = acc + 3 * (fbase + local);
+          const long long lk = (long long)b * a.num_c + c - k0;
+          if (lk < 0 || lk >= kc) continue;  // another slice
+          int* cell = acc + 3 * (fbase + (int)lk);
           atomicAdd(cell, (int)(int8_t)(side & 0xFF));
           atomicAdd(cell + 1, (int)(int8_t)((side >> 8) & 0xFF));
           atomicAdd(cell + 2, (int)(int8_t)((side >> 16) & 0xFF));
         } else {
           // a dropped row (side -1) adds its staged zeros to column 0, as
           // a branch around the atomics costs more than the atomics
-          const int local = b * a.num_c + max(side, 0) - k0;
-          if ((unsigned)local >= (unsigned)kc) continue;  // another slice
+          const long long lk = (long long)b * a.num_c + max(side, 0) - k0;
+          if (lk < 0 || lk >= kc) continue;  // another slice
+          const int local = (int)lk;
           const int cell = fbase + local;
           add_fixed(sums + 4 * cell, sg[base + k]);
           add_fixed(sums + 4 * cell + 2, sh[base + k]);
@@ -353,6 +411,7 @@ __global__ void __launch_bounds__(kMaxThreads) hist_kernel(const Args a) {
       }
     }
   }
+  if constexpr (kGlobal) return;  // every add went to the global sums
   __syncthreads();
 
   // merge the copies; add each nonzero cell into the output
@@ -401,14 +460,14 @@ __global__ void fixed_to_f32(const unsigned long long* fsum,
 
 // The dynamic shared-memory limit is raised once per instantiation and
 // device, not on every launch.
-template <int kMode, int kVec, int kBin>
+template <int kMode, int kVec, int kBin, bool kGlobal>
 cudaError_t raise_smem_limit() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(hist_kernel<kMode, kVec, kBin>,
+  err = cudaFuncSetAttribute(hist_kernel<kMode, kVec, kBin, kGlobal>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMaxSmem);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
@@ -417,52 +476,59 @@ cudaError_t raise_smem_limit() {
 
 // vec (rows per thread and load: 16 or 4), threads (per block), groups
 // (feature groups), chunks, smem: the launch plan of ops/hist_cuda.plan.
-template <int kMode, int kVec, int kBin>
+template <int kMode, int kVec, int kBin, bool kGlobal>
 int launch_vec(const Args& a, int threads, int groups, int chunks, int smem,
                cudaStream_t stream) {
-  cudaError_t err = raise_smem_limit<kMode, kVec, kBin>();
+  cudaError_t err = raise_smem_limit<kMode, kVec, kBin, kGlobal>();
   if (err != cudaSuccess) return (int)err;
-  hist_kernel<kMode, kVec, kBin>
+  hist_kernel<kMode, kVec, kBin, kGlobal>
       <<<dim3(groups * a.slices, chunks), threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int kMode, int kBin>
+template <int kMode, int kBin, bool kGlobal = false>
 int launch_bin(const Args& a, int vec, int threads, int groups, int chunks,
                int smem, cudaStream_t stream) {
   if (vec == 16)
-    return launch_vec<kMode, 16, kBin>(a, threads, groups, chunks, smem,
-                                       stream);
+    return launch_vec<kMode, 16, kBin, kGlobal>(a, threads, groups, chunks,
+                                                smem, stream);
   if (vec == 4)
-    return launch_vec<kMode, 4, kBin>(a, threads, groups, chunks, smem,
-                                      stream);
+    return launch_vec<kMode, 4, kBin, kGlobal>(a, threads, groups, chunks,
+                                               smem, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// bin: the layout, kU8 or kU16 (float, int8), kU8 or kPlanes16 (pane)
+// bin: the layout, kU8, kU16 or kU32 (float, int8), kU8, kPlanes16 or
+// kPlanes32 (pane); copies = 0 (32-bit layouts only) accumulates in
+// global memory
 template <int kMode>
 int scatter(const Args& a, int bin, int vec, int threads, int groups,
             int chunks, int smem, cudaStream_t stream) {
   if (a.n <= 0 || a.num_f <= 0) return (int)cudaGetLastError();
+  const bool global = a.copies == 0;
   if (smem > kMaxSmem || threads % 64 != 0 || threads > kMaxThreads
       || a.tile % 16 != 0 || a.chunk % a.tile != 0
       || (long long)groups * a.g < a.num_f || a.slices < 1
-      || a.slice_cells < 1
+      || a.slice_cells < 1 || a.copies < 0
       || (long long)a.slices * a.slice_cells < (long long)a.num_b * a.num_c
+      || (global && a.slices != 1)
       || (long long)chunks * a.chunk < (long long)a.n + a.shift)
     return (int)cudaErrorInvalidValue;
+  constexpr int wide = kMode == kPane ? kPlanes32 : kU32;
+  if (bin == wide) {
+    if (global)
+      return launch_bin<kMode, wide, true>(a, vec, threads, groups, chunks,
+                                           smem, stream);
+    return launch_bin<kMode, wide>(a, vec, threads, groups, chunks, smem,
+                                   stream);
+  }
+  if (global) return (int)cudaErrorInvalidValue;
   if (bin == kU8)
     return launch_bin<kMode, kU8>(a, vec, threads, groups, chunks, smem,
                                   stream);
-  if constexpr (kMode == kPane) {
-    if (bin == kPlanes16)
-      return launch_bin<kMode, kPlanes16>(a, vec, threads, groups, chunks,
-                                          smem, stream);
-  } else {
-    if (bin == kU16)
-      return launch_bin<kMode, kU16>(a, vec, threads, groups, chunks, smem,
-                                     stream);
-  }
+  if (bin == (kMode == kPane ? kPlanes16 : kU16))
+    return launch_bin<kMode, kMode == kPane ? kPlanes16 : kU16>(
+        a, vec, threads, groups, chunks, smem, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -522,8 +588,10 @@ extern "C" {
 
 // Every entry: bin row f starts at element f * ld of bins, and bins is
 // shift rows past a 16-byte boundary; out is [num_f, num_b, 3 * num_c],
-// every cell written here.  bin is the layout (1: uint8, 2: uint16).  The arguments
-// vec .. slice_cells are the launch plan of ops/hist_cuda.plan.
+// every cell written here.  bin is the layout (1: uint8, 2: uint16, 4:
+// uint32 bins below 2^31).  The arguments vec .. slice_cells are the
+// launch plan of ops/hist_cuda.plan (copies = 0: global accumulation, for
+// 32-bit bins).
 
 // float32: rows with cid outside [0, num_c) are skipped.  exponent and
 // scratch: set_fixed's; out: f32.
@@ -565,24 +633,28 @@ int lgbm_hist_i8(const void* bins, long long ld, const void* q,
 
 // Plane-pane slice: bins = the pane's first bin row used, at the segment's
 // first lane (row stride ld bytes); planes = the pane's grad plane 0 at the
-// same lane.  hi_off: 0 for 8-bit bins, else the bytes from a bin row's
-// low-byte plane to its high-byte plane.  float32, num_c must be 1;
-// exponent and scratch as lgbm_hist_f32's.
-int lgbm_hist_pane(const void* bins, long long ld, long long hi_off,
-                   const void* planes, int n, int num_f, int num_b,
-                   int num_c, int shift, int vec, int threads, int g,
-                   int copies, int tile, long long chunk, int groups,
+// same lane.  bin_bytes: 1, 2 or 4, the byte planes of a bin; byte k of a
+// bin lies k * plane_off bytes after its low byte.  float32, num_c must be
+// 1; exponent and scratch as lgbm_hist_f32's.
+int lgbm_hist_pane(const void* bins, long long ld, long long plane_off,
+                   int bin_bytes, const void* planes, int n, int num_f,
+                   int num_b, int num_c, int shift, int vec, int threads,
+                   int g, int copies, int tile, long long chunk, int groups,
                    int chunks, int smem, int slices, int slice_cells,
                    const void* exponent, void* scratch, void* out,
                    void* stream) {
-  if (num_c != 1) return (int)cudaErrorInvalidValue;
+  if (num_c != 1 || (bin_bytes != 1 && bin_bytes != 2 && bin_bytes != 4))
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(bins, ld, n, num_f, num_b, num_c, g, copies, tile,
                      shift, chunk, slices, slice_cells, out);
   set_fixed(a, exponent, scratch);
-  a.hi_off = hi_off;
+  a.plane_off = plane_off;
   a.planes = static_cast<const uint8_t*>(planes);
-  return launch<kPane>(a, hi_off != 0 ? kPlanes16 : kU8, vec, threads,
-                       groups, chunks, smem, (cudaStream_t)stream);
+  return launch<kPane>(a,
+                       bin_bytes == 4 ? kPlanes32
+                       : bin_bytes == 2 ? kPlanes16 : kU8,
+                       vec, threads, groups, chunks, smem,
+                       (cudaStream_t)stream);
 }
 
 }  // extern "C"

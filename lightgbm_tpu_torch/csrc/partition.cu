@@ -15,8 +15,10 @@
 // One kernel, templated on where a lane's side comes from:
 //   pane:  right when its byte in the pane's row `feat`, read as uint8, is
 //          > thr (the grower's split; the mask is never materialised);
-//   pane16: the same on a 16-bit bin (max_bin > 256): the low byte in row
-//          `feat`, the high byte in row `hi`, thr up to 65535.  The JAX
+//   pane16, pane32: the same on a 16-bit or 32-bit bin (max_bin > 256, or
+//          a feature of more than 65,536 bins): byte k of the bin in row
+//          `feat + k * plane` (the pane keeps a bin's bytes F rows apart),
+//          thr up to 65535 or 2^31 - 1, compared unsigned.  The JAX
 //          package's compacted grower keys on the low byte alone there
 //          (lightgbm_tpu/ops/compact.py:463), a fault of its own (ROADMAP
 //          C3); the rows moved are the same byte rows either way;
@@ -28,7 +30,8 @@
 //
 // Bound on this card: bytes.  Each of the segment's R*cnt bytes is read
 // once and written once, 2*R*cnt bytes: 80 MB at the root of the main
-// path (R = 40, cnt = 1M; R = 72 with 16-bit bins), 24 us at 3.35 TB/s.
+// path (R = 40, cnt = 1M; R = 72 with 16-bit bins; R = 48 for 8 features
+// of 32-bit bins), 24 us at 3.35 TB/s.
 // Most splits are parents of a few thousand lanes, where the launch floor
 // bounds instead.  The design:
 //   - Tiles of 4096 lanes, 16 per thread, one 16-byte load per pane row.
@@ -70,7 +73,7 @@ constexpr int kMaxSmem = 232448;          // 227 KB per block on sm_90
 // dynamic shared memory of partition_move: the rest of kMaxSmem after
 // its static part[3][kWarps]
 constexpr int kMaxStage = kMaxSmem - 3 * kWarps * (int)sizeof(int);
-constexpr int kPane = 0, kMask = 1, kPane16 = 2;
+constexpr int kPane = 0, kMask = 1, kPane16 = 2, kPane32 = 4;
 
 struct Args {
   const uint8_t* src;  // the segment's lane 0; row r at src + r * lds
@@ -78,8 +81,8 @@ struct Args {
   uint8_t* dst;        // the same lane of the destination
   long long ldd;
   const uint8_t* key;  // pane: src + feat * lds;  mask: mask3 at lane 0
-  const uint8_t* key_hi;  // pane16: src + hi * lds, the bins' high bytes
-  int thr;
+  long long key_ld;    // pane16/32: byte k of a bin at key + k * key_ld
+  unsigned thr;
   int rows, cnt;
   int shift;           // src % 16: tile 0 starts at lane -shift
   int tiles, group;    // the launch plan (ops/compact.plan)
@@ -110,16 +113,21 @@ __device__ __forceinline__ void load16(const uint8_t* p, long long l0, int n,
 // Bit k: lane l0 + k lies in the segment and goes left.
 template <int kSrc>
 __device__ __forceinline__ unsigned left_bits(const Args& a, long long l0) {
-  uint32_t w[4], h[4];
-  load16(a.key + l0, l0, a.cnt, w);
-  if constexpr (kSrc == kPane16) load16(a.key_hi + l0, l0, a.cnt, h);
+  // byte planes of the key: the pane16/32 bins' bytes, little-endian
+  constexpr int kPlanes = kSrc == kPane32 ? 4 : kSrc == kPane16 ? 2 : 1;
+  unsigned b[kLanes] = {};
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p) {
+    uint32_t w[4];
+    load16(a.key + p * a.key_ld + l0, l0, a.cnt, w);
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k)
+      b[k] |= ((w[k >> 2] >> (8 * (k & 3))) & 0xFFu) << (8 * p);
+  }
   unsigned m = 0;
 #pragma unroll
   for (int k = 0; k < kLanes; ++k) {
-    unsigned b = (w[k >> 2] >> (8 * (k & 3))) & 0xFFu;
-    if constexpr (kSrc == kPane16)
-      b |= ((h[k >> 2] >> (8 * (k & 3))) & 0xFFu) << 8;
-    const bool left = kSrc == kMask ? b == 1u : (int)b <= a.thr;
+    const bool left = kSrc == kMask ? b[k] == 1u : b[k] <= a.thr;
     if (left && l0 + k >= 0 && l0 + k < a.cnt) m |= 1u << k;
   }
   return m;
@@ -390,22 +398,25 @@ extern "C" {
 // int32 scratch of `tiles` entries for a count pass (a second launch), or
 // null; left receives the segment's left count (int32).
 
-// The grower's split: a lane goes right when its bin is > thr: its byte in
-// row feat read as uint8, or, with hi >= 0 (16-bit bins), that byte plus
-// 256 times its byte in row hi.
+// The grower's split: a lane goes right when its bin is > thr (unsigned):
+// its key_bytes (1, 2 or 4) bytes, little-endian, byte k in row feat + k *
+// plane.
 int lgbm_partition_pane(const void* src, long long lds, void* dst,
-                        long long ldd, int rows, int cnt, int feat, int hi,
-                        int thr, int tiles, int group, void* counts,
-                        void* left, void* stream) {
-  if (feat < 0 || feat >= rows || hi >= rows)
+                        long long ldd, int rows, int cnt, int feat,
+                        int plane, int key_bytes, unsigned thr, int tiles,
+                        int group, void* counts, void* left, void* stream) {
+  if (feat < 0 || plane < 0 || (key_bytes != 1 && key_bytes != 2
+                                && key_bytes != 4)
+      || (long long)feat + (long long)(key_bytes - 1) * plane >= rows)
     return (int)cudaErrorInvalidValue;
   Args a = make_args(src, lds, dst, ldd, rows, cnt, tiles, group, counts,
                      left);
   a.key = a.src + (long long)feat * lds;
+  a.key_ld = (long long)plane * lds;
   a.thr = thr;
-  if (hi < 0) return launch<kPane>(a, (cudaStream_t)stream);
-  a.key_hi = a.src + (long long)hi * lds;
-  return launch<kPane16>(a, (cudaStream_t)stream);
+  if (key_bytes == 4) return launch<kPane32>(a, (cudaStream_t)stream);
+  if (key_bytes == 2) return launch<kPane16>(a, (cudaStream_t)stream);
+  return launch<kPane>(a, (cudaStream_t)stream);
 }
 
 // compact.py's contract: a lane goes left when mask[lane] == 1 (mask is

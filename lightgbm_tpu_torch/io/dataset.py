@@ -3,7 +3,8 @@
 A copy of lightgbm_tpu/io/dataset.py's single-process loads, so the port
 bins a table exactly as the JAX package does: the same ≤50k-row binning
 sample, trivial and ignored feature removal and ``[F, N]`` bin matrix
-(uint8 up to 256 bins a feature, uint16 up to 65,536; ``_bin_dtype``).
+(uint8 up to 256 bins a feature, uint16 up to 65,536, uint32 above;
+``_bin_dtype``).
 ``load_train`` dispatches as the JAX package does (:81-302):
 
 1. ``data=`` itself a native cache (``BINARY_MAGIC``);
@@ -58,8 +59,6 @@ byte, by rank 0 alone (``_save_world_cache``): rank 0 gathers each data
 index's rows once and writes the whole table (ROADMAP C14: every JAX
 rank writes its own shard to the one path, and the last rename wins).
 Under ``is_pre_partition`` each rank writes its own file's cache.
-
-Not ported: uint32 bin matrices (refused by name).
 """
 from __future__ import annotations
 
@@ -74,6 +73,7 @@ import torch
 
 from .. import telemetry
 from ..device import resolve_device
+from ..ops.bins import to_numpy as bins_to_numpy
 from ..ops.bins import to_tensor as bins_to_tensor
 from ..utils import log
 from . import parser as parser_mod
@@ -87,16 +87,13 @@ BINARY_MAGIC = b"LGBM_TPU_BIN_V1"   # the native cache's first bytes
 
 def _bin_dtype(max_num_bin: int):
     """lightgbm_tpu/io/dataset.py:32-38 (Bin::CreateDenseBin): uint8 up
-    to 256 bins, uint16 up to 65,536.  Its uint32 matrices (a feature of
-    more than 65,536 bins: ``sample_cnt`` and ``max_bin`` both above
-    65,536) are not ported, and refused by name."""
+    to 256 bins, uint16 up to 65,536, uint32 above (``sample_cnt`` and
+    ``max_bin`` both above 65,536; ops/bins.py carries them as int32)."""
     if max_num_bin <= 256:
         return np.uint8
     if max_num_bin <= 65536:
         return np.uint16
-    log.fatal("a feature has %d bins: bin matrices wider than 16 bits "
-              "(uint32 bins, more than 65536 bins a feature) are not "
-              "ported" % max_num_bin)
+    return np.uint32
 
 
 def draw_shard(total_rows: int, query_boundaries, seed: int, rank: int,
@@ -132,11 +129,12 @@ def pinned_sample_indices(total_rows: int, seed: int,
 class Dataset:
     """Binned dataset.
 
-    bins : np.ndarray uint8 or uint16 [num_features, num_data], or None
-        for a streamed load, whose matrix is ``device_bins`` alone
+    bins : np.ndarray uint8, uint16 or uint32 [num_features, num_data],
+        or None for a streamed load, whose matrix is ``device_bins`` alone
         (``read_bins`` reads either)
     device_bins : torch.Tensor [num_features, num_data] on the training
-        device (uint8, or the int16 view of uint16), streamed loads only
+        device (uint8, or the int16 or int32 view of uint16 or uint32,
+        ops/bins.py), streamed loads only
     bin_mappers : per used feature
     num_bins : np.ndarray int32 [num_features]
     real_feature_idx : used feature -> original column (split_feature_real)
@@ -723,15 +721,14 @@ class Dataset:
 
     def read_bins(self) -> np.ndarray:
         """The [F, N] bin matrix on the host: the resident one, or a
-        streamed one read back from its device (uint16 for 16-bit
-        bins)."""
+        streamed one read back from its device (uint16 or uint32 for
+        16-bit or 32-bit bins)."""
         if self.bins is not None:
             return self.bins
         log.check(self.device_bins is not None,
                   "this streamed dataset's bin matrix was consumed by a "
                   "mixed-bin GBDT.init — reload the dataset")
-        out = self.device_bins.cpu().numpy()
-        return out.view(np.uint16) if out.dtype == np.int16 else out
+        return bins_to_numpy(self.device_bins)
 
     def plan_packing(self, mode: str = "auto", block: int = 0,
                      shards: int = 0):
@@ -760,9 +757,10 @@ class Dataset:
         return out
 
     def to_device(self, device: torch.device) -> dict:
-        """The bin matrix (16-bit bins as an int16 view, ops/bins.py),
-        labels and weights as tensors on ``device`` (cached per device: a
-        dataset uploads once; a streamed one is there already)."""
+        """The bin matrix (16-bit or 32-bit bins as an int16 or int32
+        view, ops/bins.py), labels and weights as tensors on ``device``
+        (cached per device: a dataset uploads once; a streamed one is
+        there already)."""
         key = str(device)
         if key not in self._device_cache:
             md = self.metadata

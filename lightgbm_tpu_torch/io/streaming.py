@@ -20,7 +20,8 @@ binning sample, and gives the same dataset bit for bit:
 
 ``DeviceRowWriter`` is the device step (the JAX package's ``device_put``
 and donated ``dynamic_update_slice``, :138-268): a preallocated ``[F, N]``
-tensor on the card (uint8, or the int16 view of uint16, ops/bins.py),
+tensor on the card (uint8, or the int16 or int32 view of uint16 or
+uint32 bins, ops/bins.py),
 ``depth`` page-locked host staging buffers, and a side CUDA stream that
 copies each chunk into its column slice while the host parses and bins
 the next one.  A staging buffer is reused only after the event of its
@@ -81,6 +82,7 @@ import numpy as np
 import torch
 
 from .. import telemetry, tracing
+from ..ops.bins import carry, carry_dtype
 from ..utils import log
 from . import parser as parser_mod
 from .dataset import (SAMPLE_CNT, _make_feature_names, cache_prefix,
@@ -119,8 +121,7 @@ class DeviceRowWriter:
         self.wait_s = 0.0
         self.hidden_s = 0.0
         self._np_dtype = np.dtype(dtype)
-        self._dtype = (torch.int16 if self._np_dtype == np.uint16
-                       else torch.uint8)
+        self._dtype = carry_dtype(self._np_dtype)
         self.bins = torch.empty((self.num_features, self.num_rows),
                                 dtype=self._dtype, device=device)
         self._cuda = device.type == "cuda"
@@ -147,8 +148,7 @@ class DeviceRowWriter:
                   "DeviceRowWriter: chunk %s %s at %d does not fit [%d, %d]"
                   % (chunk.shape, chunk.dtype, start, self.num_features,
                      self.num_rows))
-        if self._np_dtype == np.uint16:
-            chunk = chunk.view(np.int16)
+        chunk = carry(chunk)
         src = torch.from_numpy(np.ascontiguousarray(chunk))
         self.h2d_bytes += chunk.nbytes
         telemetry.count("ingest/h2d_bytes", chunk.nbytes)

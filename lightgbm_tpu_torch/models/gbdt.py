@@ -43,7 +43,12 @@ the flight recorder's crash dump), ``run_training`` checks in with the
 stall watchdog, and the layout and bagging routes are counted once a
 booster.  None of it moves a tree.  The fused chunk programs and the
 deferred-readback pipeline are not ported; their telemetry goes with
-them.
+them.  Their API is (:684-699, :743-757, :1752-1850): ``pipeline=`` is
+resolved by the JAX rule (``pipeline_on``) and logged once a run, and
+``flush_pipeline``, ``train_chunk`` and ``chunk_supported`` keep the JAX
+calls and returns.  The JAX readback moves only host waits, so its trees,
+scores and metrics are the synchronous loop's; the port's loop has no
+iteration-level wait to defer, and runs synchronously at every value.
 
 Under a parallel learner (``init(..., learner=)``, parallel/learners.py)
 the booster is one rank's: N is the rank's own row count (its shard
@@ -140,6 +145,9 @@ class GBDT:
         # the clock and the wait clock of the last iteration boundary
         self._straggler = None
         self._boundary_t = self._boundary_wait = 0.0
+        # pipeline=auto resolves on inside run_training without a save_fn
+        # (set there, as the JAX package's _pipeline_auto)
+        self._pipeline_auto = False
 
     # ------------------------------------------------------------------ init
 
@@ -649,6 +657,9 @@ class GBDT:
         writes it marked ``aborted`` and then dumps the flight recorder's
         ring before re-raising."""
         bc = self.gbdt_config
+        self._pipeline_auto = save_fn is None
+        log.info("pipeline=%s resolves %s; the loop runs synchronously"
+                 % (bc.pipeline, "on" if self.pipeline_on() else "off"))
         wd_armed = telemetry.arm_watchdog()
         if wd_armed:
             telemetry.watchdog_checkin(phase="run_training",
@@ -723,6 +734,57 @@ class GBDT:
             if self._health_monitor is not None:
                 extra["health"] = self._health_monitor.summary()
             telemetry.emit_summary(extra=extra)
+
+    # ------------------------------------------------------ pipelined loop
+
+    def pipeline_on(self) -> bool:
+        """The ``pipeline=`` resolution rule (lightgbm_tpu/models/gbdt.py:
+        684-699): ``off`` off, ``readback`` on, ``auto`` on only inside
+        ``run_training`` without a ``save_fn``; a world of more than one
+        rank stays off.  The port reads no environment hatch.  Nothing is
+        deferred either way (module docstring)."""
+        mode = self.gbdt_config.pipeline
+        on = mode == "readback" or (mode == "auto" and self._pipeline_auto)
+        return on and not self._in_world()
+
+    def flush_pipeline(self) -> bool:
+        """Consume every deferred readback (lightgbm_tpu/models/gbdt.py:
+        743-757): True when the consumed work says training stopped.  The
+        port defers nothing, so every stop was returned by the call that
+        found it, and this returns False."""
+        return False
+
+    def chunk_supported(self, is_eval: bool) -> bool:
+        """Whether ``train_chunk`` runs (lightgbm_tpu/models/gbdt.py:
+        1752-1788): the JAX package needs a chunk-traceable objective and,
+        where evaluation is consumed, every metric with a device
+        formulation, under the serial, data (hybrid and voting are data
+        learners there) and feature learners.  Each of the port's
+        objectives and metrics has its JAX counterpart's, so the one
+        refusal left is a booster without an objective."""
+        return self.objective is not None
+
+    def train_chunk(self, k: int, limit: int = -1,
+                    is_eval: bool = False) -> bool:
+        """``k`` boosting iterations, or ``min(k, limit)`` where ``limit``
+        >= 0 (lightgbm_tpu/models/gbdt.py:1819-1876), through
+        ``train_one_iter``: the JAX chunk program's semantics, which keep
+        exactly that many iterations, roll the surplus back, and stop on
+        a degenerate tree or early stopping as those calls would.
+        Returns True when training must stop."""
+        if not self.chunk_supported(is_eval):
+            raise RuntimeError(
+                "train_chunk requires a chunk-traceable objective and the "
+                "serial, data-parallel or feature-parallel learner; any "
+                "configured metric "
+                "must have a device formulation (metrics/device.py) when "
+                "evaluation is consumed, and goss=true is per-iteration "
+                "only (see chunk_supported); use "
+                "train_one_iter / run_training")
+        for _ in range(k if limit < 0 else min(k, limit)):
+            if self.train_one_iter(is_eval=is_eval):
+                return True
+        return False
 
     # ------------------------------------------------------ straggler drain
 

@@ -3,10 +3,11 @@ grower's core op.  Counterpart of lightgbm_tpu/ops/compact.py.
 
 Every leaf's rows stay contiguous in an ``[R, P]`` int8 pane: F bin rows,
 the f32 grad and hess as four byte planes each, a validity row, zero rows
-up to a multiple of 8 (``pack_planes``).  With 16-bit bins (max_bin > 256)
-the F bin rows hold the bins' low bytes and F more rows after them their
-high bytes (``bin_bytes`` 2), so a split keys on the whole bin; the JAX
-package keeps only the low byte there (compact.py:463, ROADMAP C3).  Each
+up to a multiple of 8 (``pack_planes``).  With 16-bit or 32-bit bins
+(``bin_bytes`` 2 or 4) the F bin rows hold the bins' low bytes and each
+next F rows their next byte, little-endian, so a split keys on the whole
+bin; the JAX package keeps only the low byte there (compact.py:463,
+ROADMAP C3).  Each
 split stably partitions the parent's lane range, so the smaller child's
 histogram reads only that child's rows.  Two entries:
 
@@ -50,16 +51,16 @@ launch_rows = collections.deque(maxlen=1 << 16)
 
 
 def pane_rows(num_features: int, bin_bytes: int = 1) -> int:
-    """F bin rows (2F with 16-bit bins) + 8 grad/hess byte planes +
-    validity, padded to 8."""
+    """F bin rows (2F or 4F with 16-bit or 32-bit bins) + 8 grad/hess
+    byte planes + validity, padded to 8."""
     r = bin_bytes * num_features + 9
     return -(-r // 8) * 8
 
 
 def pack_planes(bins, grad, hess, row_mask, width: int) -> torch.Tensor:
     """[pane_rows(F, bin_bytes), width] int8 pane (compact.py:455-472)
-    of uint8 or 16-bit (int16) bins.  Lanes past N are zero; every
-    consumer masks by segment extent."""
+    of uint8, 16-bit (int16) or 32-bit (int32) bins.  Lanes past N are
+    zero; every consumer masks by segment extent."""
     F, N = bins.shape
     nb = bins_bytes(bins)
     pane = torch.zeros((pane_rows(F, nb), width), dtype=torch.int8,
@@ -68,9 +69,9 @@ def pack_planes(bins, grad, hess, row_mask, width: int) -> torch.Tensor:
         pane[:F, :N] = bins.view(torch.int8)
     else:
         # little-endian: byte 0 of each bin is its low byte
-        lohi = bins.contiguous().view(torch.int8).reshape(F, N, 2)
-        pane[:F, :N] = lohi[..., 0]
-        pane[F:2 * F, :N] = lohi[..., 1]
+        planes = bins.contiguous().view(torch.int8).reshape(F, N, nb)
+        for k in range(nb):
+            pane[k * F:(k + 1) * F, :N] = planes[..., k]
     v = nb * F
     pane[v:v + 4, :N] = grad.to(torch.float32).contiguous().view(
         torch.int8).reshape(N, 4).t()
@@ -84,12 +85,15 @@ def unpack_values(pane_slice, F: int, bin_bytes: int = 1):
     """(bins [F, W], grad f32 [W], hess f32 [W], valid bool [W]) from a
     pane slice (compact.py:475-490); byte k of a value sits in plane k,
     little-endian, as ``pack_planes`` put it.  The bins are a uint8 view,
-    or with ``bin_bytes`` 2 an int16 copy of the 16-bit bins."""
+    or with ``bin_bytes`` 2 or 4 an int16 or int32 copy of the 16-bit or
+    32-bit bins."""
     if bin_bytes == 1:
         bins = pane_slice[:F].view(torch.uint8)
     else:
-        bins = torch.stack([pane_slice[:F], pane_slice[F:2 * F]],
-                           -1).view(torch.int16)[..., 0]
+        carry = torch.int16 if bin_bytes == 2 else torch.int32
+        bins = torch.stack([pane_slice[k * F:(k + 1) * F]
+                            for k in range(bin_bytes)],
+                           -1).view(carry)[..., 0]
     v = bin_bytes * F
     grad = pane_slice[v:v + 4].t().contiguous().view(torch.float32)[:, 0]
     hess = pane_slice[v + 4:v + 8].t().contiguous().view(
@@ -164,9 +168,9 @@ def partition_pane(src, dst, F: int, feat: int, thr: int, start: int,
     """Stable partition of the lanes [start, start + cnt) of the [R, P]
     pane ``src`` into the same lanes of ``dst``: first the lanes whose bin
     of feature ``feat`` is <= ``thr``, in order, then the others, in
-    order.  The bin is row ``feat`` read as uint8, or with ``bin_bytes`` 2
-    (a 16-bit pane) that byte plus 256 times row ``F + feat``.  No other
-    lane of either pane is written.
+    order.  The bin is row ``feat`` read as uint8, or with ``bin_bytes``
+    2 or 4 (a 16-bit or 32-bit pane) the little-endian number whose byte
+    k is row ``feat + k * F``.  No other lane of either pane is written.
 
     Returns the left count as a 0-dim int32 tensor on the panes' device;
     reading it on the host is the caller's synchronisation."""
@@ -179,36 +183,35 @@ def partition_pane(src, dst, F: int, feat: int, thr: int, start: int,
     require(src.untyped_storage().data_ptr()
             != dst.untyped_storage().data_ptr(),
             "src and dst must be different buffers")
-    top = 255 if bin_bytes == 1 else 65535
-    require(bin_bytes in (1, 2) and 0 <= feat < F and bin_bytes * F <= R
+    top = {1: 255, 2: 65535, 4: (1 << 31) - 1}.get(bin_bytes, -1)
+    require(bin_bytes in (1, 2, 4) and 0 <= feat < F and bin_bytes * F <= R
             and 0 <= thr <= top,
-            "need 0 <= feat < F, %d*F <= R and 0 <= thr <= %d"
-            % (bin_bytes, top))
+            "need bin_bytes 1, 2 or 4, 0 <= feat < F, %d*F <= R and 0 <= "
+            "thr <= %d" % (bin_bytes, top))
     require(0 <= start and 0 <= cnt and start + cnt <= P,
             "segment out of range")
-    hi = F + feat if bin_bytes == 2 else -1
     if src.device.type == "cpu":
         _count_launch("partition/plain", R, cnt)
-        return pane_plain(src, dst, feat, thr, start, cnt, hi)
+        return pane_plain(src, dst, feat, thr, start, cnt, F, bin_bytes)
     if cnt == 0:                            # no lanes: nothing to launch
         return torch.zeros((), dtype=torch.int32, device=src.device)
     left = torch.empty((), dtype=torch.int32, device=src.device)
     lib = cuda_build.load("partition")
     _launch(lib.lgbm_partition_pane, src[:, start:], dst[:, start:],
-            (R, cnt, feat, hi, thr), cnt, left)
+            (R, cnt, feat, F, bin_bytes, thr), cnt, left)
     launch_rows.append(cnt)
     return left
 
 
 def pane_plain(src, dst, feat: int, thr: int, start: int, cnt: int,
-               hi: int = -1):
-    """Plain version of the pane entry: ``mask3`` from the bin row (and
-    the high-byte row ``hi`` of a 16-bit pane), then ``partition_plain``
+               F: int = 0, bin_bytes: int = 1):
+    """Plain version of the pane entry: ``mask3`` from the bin's byte
+    rows (row ``feat + k * F`` holds byte k), then ``partition_plain``
     on the segment alone."""
     seg = src[:, start:start + cnt]
-    key = seg[feat].view(torch.uint8).to(torch.int32)
-    if hi >= 0:
-        key = key | seg[hi].view(torch.uint8).to(torch.int32) << 8
+    key = torch.zeros(cnt, dtype=torch.int64, device=src.device)
+    for k in range(bin_bytes):
+        key |= seg[feat + k * F].view(torch.uint8).to(torch.int64) << 8 * k
     go_left = key <= thr
     if cnt:
         mask3 = go_left.to(torch.int8)

@@ -119,15 +119,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.lgbm_hist_f32.argtypes = [p, ll, p, p, p, i, i, i, i, i,
                                       i] + fixed
         lib.lgbm_hist_i8.argtypes = [p, ll, p, ll, p, i, i, i, i, i, i] + tail
-        lib.lgbm_hist_pane.argtypes = [p, ll, ll, p, i, i, i, i, i] + fixed
+        lib.lgbm_hist_pane.argtypes = [p, ll, ll, i, p, i, i, i, i,
+                                       i] + fixed
         for fn in (lib.lgbm_hist_f32, lib.lgbm_hist_i8, lib.lgbm_hist_pane):
             fn.restype = i
     elif name == "partition":
         # src, lds, dst, ldd, then the entry's own arguments, then the
         # plan (tiles, group), counts, left, stream
         tail = [i, i, p, p, p]
-        lib.lgbm_partition_pane.argtypes = [p, ll, p, ll, i, i, i, i,
-                                            i] + tail
+        lib.lgbm_partition_pane.argtypes = [p, ll, p, ll, i, i, i, i, i,
+                                            ctypes.c_uint] + tail
         lib.lgbm_partition_mask.argtypes = [p, ll, p, ll, p, i, i] + tail
         for fn in (lib.lgbm_partition_pane, lib.lgbm_partition_mask):
             fn.restype = i

@@ -13,8 +13,10 @@ with val = (grad, hess, 1) in the float mode and the int8 levels of
 with one column straight from a slice of the compacted grower's plane
 pane (ops/compact.py), over all its bin rows or one bin-width class of
 them, so the grower's per-split histogram needs no unpacking.  Bins are
-uint8 (B <= 256) or 16-bit (B <= 65,536, int16 views, ops/bins.py; in
-the pane, two byte planes a feature).  On a CUDA
+uint8 (B <= 256), 16-bit (B <= 65,536, int16 views, ops/bins.py) or
+32-bit (int32 views; in the pane, two or four byte planes a feature).  A
+pass wider than GLOBAL_BINS bins adds into global memory (``copies`` 0 in
+the plan; csrc/hist.cu's header says why).  On a CUDA
 tensor they launch csrc/hist.cu (its header says what bounds it and how
 it is laid out) with the launch plan of ``plan``;
 on a CPU tensor they run the plain version, an ``index_add_`` on
@@ -73,6 +75,9 @@ MIN_CHUNK_TILES = 1      # rows per block: at least this many tiles
 CELL_BYTES = {"float": 20, "int8": 12}
 SIDE_WORDS = {"float": 5, "int8": 1}
 FIXED_BITS = 62          # a fixed-point sum of N rows stays below 2^62
+GLOBAL_BINS = 65536      # a pass of more bins than this (32-bit bins
+                         # only) accumulates in global memory, not in
+                         # shared-memory cell slices (PERF.md times both)
 
 
 _M32 = 0xFFFFFFFF
@@ -211,13 +216,22 @@ def grouped(fn, bins, grad, hess, col_id, col_ok, num_cols, B,
     return torch.cat(parts, dim=0)
 
 
+def _check_width(nb: int, B: int, num_cols: int) -> None:
+    """The bin count a layout takes: B <= 256 for uint8 bins, <= 65,536
+    for 16-bit ones, below 2^31 cells a feature for 32-bit ones."""
+    top = {1: 256, 2: 65536}.get(nb, (1 << 31) - 1)
+    require(1 <= B <= top and B * max(num_cols, 1) < 1 << 31,
+            "need B <= 256 for uint8 bins, B <= 65536 for 16-bit bins, "
+            "B * num_cols < 2^31 for 32-bit bins")
+
+
 def _check(bins, cid, values, num_cols, B):
     F, N = bins.shape
-    require(bins.dtype in (torch.uint8, torch.int16) and bins.stride(1) == 1,
-            "bins must be uint8 or int16 (16-bit bins) [F, N] with "
-            "contiguous rows")
-    require(1 <= B <= (256 if bins.dtype == torch.uint8 else 65536),
-            "need B <= 256 for uint8 bins, B <= 65536 for 16-bit bins")
+    require(bins.dtype in (torch.uint8, torch.int16, torch.int32)
+            and bins.stride(1) == 1,
+            "bins must be uint8, int16 (16-bit bins) or int32 (32-bit "
+            "bins) [F, N] with contiguous rows")
+    _check_width(bin_bytes(bins), B, num_cols)
     require(cid.dtype == torch.int32 and cid.shape == (N,)
             and cid.is_contiguous(), "cid must be contiguous int32 [N]")
     for v in values:
@@ -249,13 +263,20 @@ def _shape_plan(F: int, B: int, C: int, mode: str, sms: int):
     (threads, g, copies, groups, slices, slice_cells, {vec: (tile, smem,
     blocks per SM)})."""
     cell, side_words = CELL_BYTES[mode], SIDE_WORDS[mode]
-    # a feature's B*C cells in slices of at most SLICE_BYTES of accumulator
-    slices = -(-B * C * cell // SLICE_BYTES)
-    slice_cells = -(-B * C // slices)
-    g = max(1, min(8, F, GROUP_CELLS // slice_cells))
+    if B > GLOBAL_BINS:
+        # no accumulator in shared memory: one slice of every cell, up to
+        # 8 features a block sharing the staged side band
+        slices, slice_cells, g = 1, B * C, min(8, F)
+    else:
+        # a feature's B*C cells in slices of at most SLICE_BYTES of
+        # accumulator
+        slices = -(-B * C * cell // SLICE_BYTES)
+        slice_cells = -(-B * C // slices)
+        g = max(1, min(8, F, GROUP_CELLS // slice_cells))
     groups = -(-F // g)
     g = -(-F // groups)
-    copies = 2 if 2 * g * slice_cells <= COPIES_CELLS else 1
+    copies = (0 if B > GLOBAL_BINS
+              else 2 if 2 * g * slice_cells <= COPIES_CELLS else 1)
     acc = -(-copies * g * slice_cells * cell // 16) * 16
     threads = 512 if 2 * (acc + 1024) > SM_SMEM else 256
     # side-band bytes that keep MIN_RESIDENT blocks on an SM, where the
@@ -286,7 +307,9 @@ def plan(n: int, F: int, B: int, C: int, mode: str, shift: int,
     blocks an SM where the accumulator allows); a feature whose
     accumulator passes SLICE_BYTES (16-bit bins at wide B or C, or the
     float mode at C > 38) is cut into ``slices`` ranges of
-    ``slice_cells`` (bin, column) cells, one block each.  Chunks are
+    ``slice_cells`` (bin, column) cells, one block each; a pass of more
+    than GLOBAL_BINS bins keeps none (``copies`` 0, one slice) and adds
+    into global memory.  Chunks are
     sized for BLOCKS_PER_SM resident blocks on each of ``sms`` SMs;
     ``mode`` ("float", which the pane entry shares, or "int8") sets the
     cell and side-band sizes.  Each thread takes ``vec`` rows of one
@@ -428,16 +451,17 @@ def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
     ``unpack_values(pane[:, sstart:sstart + scnt], F, bin_bytes)``, read
     in place.  ``rows`` = (first, count) takes the bin rows [first, first
     + count) of the F (one bin-width class of a packed pane), Fr = count;
-    all F by default.  ``bin_bytes`` 2: a 16-bit pane (ops/compact.py).
+    all F by default.  ``bin_bytes`` 2 or 4: a 16-bit or 32-bit pane
+    (ops/compact.py).
     ``exponent``: as ``hist_float``'s; by default from the segment's
     values."""
     R, P = pane.shape
     first, Fr = rows if rows is not None else (0, F)
     require(pane.dtype == torch.int8 and pane.stride(1) == 1,
             "pane must be int8 [R, P] with contiguous rows")
-    require(bin_bytes in (1, 2) and R >= bin_bytes * F + 9
-            and 1 <= B <= (256 if bin_bytes == 1 else 65536),
-            "pane has too few rows, or B > 256 (65536 for 16-bit bins)")
+    require(bin_bytes in (1, 2, 4) and R >= bin_bytes * F + 9,
+            "need bin_bytes 1, 2 or 4 and bin_bytes * F + 9 pane rows")
+    _check_width(bin_bytes, B, 1)
     require(0 <= first and 0 <= Fr and first + Fr <= F,
             "bin rows out of range")
     require(0 <= sstart and 0 <= scnt and sstart + scnt <= P,
@@ -452,7 +476,6 @@ def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
     out = torch.empty((Fr, B, 3), dtype=torch.float32, device=pane.device)
     lib = cuda_build.load("hist")
     planes = seg[bin_bytes * F:bin_bytes * F + 9]
-    hi_off = F * seg.stride(0) if bin_bytes == 2 else 0
     grad = hess = None
     if exponent is None:
         _, grad, hess, _ = unpack_values(seg, F, bin_bytes)
@@ -460,8 +483,9 @@ def hist_pane_float(pane, F: int, sstart: int, scnt: int, B: int,
                               scnt)
     return _launch(lib.lgbm_hist_pane,
                    seg[first:first + Fr].view(torch.uint8),
-                   (hi_off, planes.data_ptr()), 1, B, "float", out,
-                   "hist/cuda_pane", fixed=fixed, nb=bin_bytes)
+                   (F * seg.stride(0), bin_bytes, planes.data_ptr()), 1,
+                   B, "float", out, "hist/cuda_pane", fixed=fixed,
+                   nb=bin_bytes)
 
 
 def pane_plain(seg, F: int, B: int, rows=None, bin_bytes: int = 1):

@@ -17,6 +17,9 @@ One difference: the cumulative sums over bins run in float64 and round
 to f32.  A float32 ``torch.cumsum`` associates differently on CUDA than
 on the CPU, and a split decided by that last bit would make the two
 devices grow different trees; in f64 the int8 mode's sums are exact.
+They run along the innermost axis ([..., F, 3, B]): along a strided axis
+torch's CUDA scan walks each (feature, channel) column's B bins in one
+thread, which at B = 131,071 took tens of ms a split (PERF.md).
 
 Batched: ``hist`` may carry leading dimensions (both children of a split
 are searched in one call), with matching leading dims on the totals.
@@ -67,8 +70,9 @@ def _threshold_scan(hist, sum_grad, sum_hess, num_data, num_bins,
     B = hist.shape[-2]
     f32 = torch.float32
     eps = torch.tensor(K_EPSILON, dtype=f32, device=hist.device)
-    csum = torch.cumsum(hist.to(torch.float64), dim=-2).to(f32)
-    cg, ch, cc = csum[..., 0], csum[..., 1], csum[..., 2]   # [..., F, B]
+    csum = torch.cumsum(hist.to(torch.float64).transpose(-1, -2)
+                        .contiguous(), dim=-1).to(f32)       # [..., F, 3, B]
+    cg, ch, cc = csum[..., 0, :], csum[..., 1, :], csum[..., 2, :]
     total_g = sum_grad.to(f32)[..., None, None]
     total_h = sum_hess.to(f32)[..., None, None]
     total_c = num_data.to(f32)[..., None, None]

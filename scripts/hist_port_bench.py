@@ -143,7 +143,7 @@ def main() -> int:
     def pane_call(p, sstart, n):
         seg = p[:, sstart:sstart + n]
         return (lib.lgbm_hist_pane, seg[:F].view(torch.uint8),
-                (0, seg[F].data_ptr()), (), 1, "float", torch.float32)
+                (0, 1, seg[F].data_ptr()), (), 1, "float", torch.float32)
 
     def bound(n, f, c, row_bytes):
         return (n * (f + row_bytes) + f * B * 3 * c * 4) / HBM_BYTES_PER_S \

@@ -71,7 +71,7 @@ def main() -> int:
             def run(g=g):
                 rc = lib.lgbm_partition_pane(
                     s.data_ptr(), s.stride(0), d.data_ptr(), d.stride(0), R,
-                    cnt, feat, -1, thr, tiles, g, counts_ptr,
+                    cnt, feat, F, 1, thr, tiles, g, counts_ptr,
                     left.data_ptr(), stream)
                 cuda_build.check(rc, "partition kernel")
             times.append(cuda_ms(run))
@@ -96,7 +96,7 @@ def main() -> int:
                 def run(g=g, ptr=ptr):
                     rc = lib.lgbm_partition_pane(
                         s.data_ptr(), s.stride(0), d.data_ptr(), d.stride(0),
-                        R, cnt, 0, -1, 127, tiles, g, ptr, left.data_ptr(),
+                        R, cnt, 0, 28, 1, 127, tiles, g, ptr, left.data_ptr(),
                         stream)
                     cuda_build.check(rc, "partition kernel")
                 row.append(cuda_ms(run))

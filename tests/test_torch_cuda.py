@@ -755,6 +755,116 @@ def test_maxbin_compacted_equals_masked_on_card(cuda):
     assert compacted.model_to_string() == masked.model_to_string()
 
 
+# ------------------------------- 32-bit bins (a feature of > 65,536 bins)
+
+
+def _bins32(rng, F, N, B, offset=0):
+    """[F, N] 32-bit bins (an int32 view) over 0..B-1, sliced ``offset``
+    lanes into wider rows, so rows start off the 16-byte boundary."""
+    from lightgbm_tpu_torch.ops.bins import to_tensor
+    rows = rng.randint(0, B, (F, N + 2 * offset)).astype(np.uint32)
+    rows[:, offset:offset + 5] = B - 1
+    return to_tensor(rows, "cpu")[:, offset:offset + N]
+
+
+@pytest.mark.parametrize("B,C,offset", [
+    (131_072, 1, 0), (131_072, 8, 3), (131_072, 42, 1), (70_000, 1, 2),
+    (64, 8, 1), (1023, 42, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_hist32_kernel_matches_plain(cuda, dtype, B, C, offset):
+    """32-bit bins through the float and int8 modes: global accumulation
+    above 65,536 bins, shared cell slices at a narrow class's width, rows
+    at unaligned lanes."""
+    rng = np.random.RandomState(B % 1000 + C + offset)
+    F, N = 8, 60_001
+    bins = _bins32(rng, F, N, B, offset)
+    grad = torch.as_tensor((rng.randn(N) * 0.4).astype(np.float32))
+    hess = torch.as_tensor((rng.rand(N) * 0.25).astype(np.float32))
+    cid = torch.as_tensor(np.where(rng.rand(N) < 0.85,
+                                   rng.randint(0, C, N), -1).astype(np.int32))
+    if dtype == "int8":
+        levels, _ = hist_cuda.quantize_values(grad, hess, cid >= 0)
+        got = hist_cuda.hist_int8(bins.to(cuda), levels.to(cuda),
+                                  cid.to(cuda), C, B).cpu()
+        want = hist_cuda.hist_int8(bins, levels, cid, C, B)
+        assert torch.equal(got, want)
+    else:
+        run = lambda: hist_cuda.hist_float(bins.to(cuda), grad.to(cuda),
+                                           hess.to(cuda), cid.to(cuda), C,
+                                           B).cpu()
+        got = run()
+        assert torch.equal(run(), got)
+        want = hist_cuda.hist_float(bins, grad, hess, cid, C, B)
+        _assert_hist(got.numpy(), want.numpy(), "float32")
+
+
+@pytest.mark.parametrize("sstart,scnt,rows,B", [
+    (0, 60_000, None, 131_072), (13, 4097, None, 70_000),
+    (1001, 1, None, 131_072), (777, 30_000, (2, 5), 131_072),
+    (5, 20_000, (0, 3), 64)])
+def test_hist32_pane_matches_plain(cuda, sstart, scnt, rows, B):
+    """The pane entry on a 32-bit pane (four byte rows a bin), all bin
+    rows or a class of them."""
+    rng = np.random.RandomState(scnt + 32)
+    F, N, P = 8, 60_000, 61_440
+    bins = _bins32(rng, F, N, B)
+    grad = torch.as_tensor(rng.randn(N).astype(np.float32))
+    hess = torch.as_tensor(rng.rand(N).astype(np.float32))
+    pane = compact.pack_planes(bins, grad, hess,
+                               torch.as_tensor(rng.rand(N) < 0.8), P)
+    run = lambda: hist_cuda.hist_pane_float(pane.to(cuda), F, sstart, scnt,
+                                            B, rows, 4).cpu()
+    got = run()
+    assert torch.equal(run(), got)
+    want = hist_cuda.hist_pane_float(pane, F, sstart, scnt, B, rows, 4)
+    _assert_hist(got.numpy(), want.numpy(), "float32")
+
+
+@pytest.mark.parametrize("start,cnt,feat,thr", [
+    (0, 60_000, 0, 65_535), (1001, 30_000, 3, 70_000), (13, 4083, 5, 256),
+    (3, 6 * 4096 - 2, 7, 100_000), (7, 1, 2, 131_071),
+    (2048, 20_000, 1, 0), (777, 0, 0, 0)])
+def test_partition32_pane_matches_plain(cuda, start, cnt, feat, thr):
+    """The partition on a 32-bit key (byte k in row feat + k F):
+    byte-exact, every other lane untouched."""
+    rng = np.random.RandomState(start + cnt + 32)
+    F, N, P = 8, 60_000, 61_440
+    bins = _bins32(rng, F, N, 131_072)
+    pane = compact.pack_planes(bins, torch.as_tensor(
+        rng.randn(N).astype(np.float32)), torch.ones(N), torch.ones(
+            N, dtype=torch.bool), P)
+    dst0 = torch.as_tensor(rng.randint(-128, 128, tuple(pane.shape))
+                           .astype(np.int8))
+    got, want = dst0.to(cuda), dst0.clone()
+    left = compact.partition_pane(pane.to(cuda), got, F, feat, thr, start,
+                                  cnt, 4)
+    want_left = compact.partition_pane(pane, want, F, feat, thr, start, cnt,
+                                       4)
+    assert int(left) == int(want_left)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("policy", [
+    {}, {"leafwise_compact": "false"}, {"grow_policy": "depthwise"}],
+    ids=["compacted", "masked", "depthwise"])
+def test_bins32_int8_trees_equal_on_card_and_cpu(cuda, policy):
+    """A 70,000-row table binned at max_bin=131072 (uint32 bins): the
+    card's int8 model equals the CPU's byte for byte."""
+    rng = np.random.RandomState(32)
+    x = rng.randn(70_000, 3)
+    y = ((x[:, 0] - 0.5 * x[:, 1] + 0.3 * rng.randn(70_000)) > 0).astype(
+        np.float32)
+    ds = lgt.Dataset.from_arrays(x, y, max_bin=131_072, sample_cnt=70_000)
+    assert ds.bins.dtype == np.uint32
+    params = dict({"objective": "binary", "num_leaves": 15,
+                   "num_iterations": 2, "hist_dtype": "int8",
+                   "min_data_in_leaf": 20, "max_bin": 131_072}, **policy)
+    on_card = lgt.train(params, ds, device=cuda)
+    assert on_card.bins_device.dtype == torch.int32
+    on_cpu = lgt.train(params, ds, device="cpu")
+    assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
 @pytest.fixture(scope="module")
 def serving_model():
     """A multiclass (K = 3) port booster trained on the CPU: 2,000 rows,

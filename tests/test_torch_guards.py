@@ -122,7 +122,7 @@ CASE_CONTEXT = {("feature_shards", "3"): {"tree_learner": "hybrid",
     ("max_bin", "0"), ("quant_rounding", "dither"),
     ("mixed_bin", "sometimes"), ("streaming", "sometimes"),
     ("checkpoint_interval", "-1"), ("timeline", "sometimes"),
-    ("metric", "auc,map"), ("pipeline", "readback"),
+    ("metric", "auc,map"), ("pipeline", "sometimes"),
     ("is_pre_partition", "maybe"), ("save_binary_format", "parquet"),
     ("ingest_workers", "0"), ("ingest_chunk_rows", "0"),
     ("use_two_round_loading", "often"), ("checkpoint_keep", "0"),

@@ -59,7 +59,6 @@ from lightgbm_tpu_torch.ops import compact, hist_cuda
 from lightgbm_tpu_torch.ops import histogram as thist
 from lightgbm_tpu_torch.ops.bins import to_tensor, widen
 from lightgbm_tpu_torch.ops.scoring import split_leaf_sequence
-from lightgbm_tpu_torch.utils import log
 
 JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
              "int8": "int8", "int8_sr": "int8_sr"}
@@ -125,14 +124,17 @@ def test_narrow_columns_stay_uint8_at_high_max_bin():
 
 
 def test_uint32_bins_are_refused_by_name():
-    """More than 65,536 bins in a feature needs uint32 bins in the JAX
-    package; the port refuses them by name rather than truncate."""
+    """More than 65,536 bins in a feature needs uint32 bins: both
+    packages pick them (this test once asserted the port's refusal;
+    tests/test_torch_bins32.py holds the 32-bit layout end to end)."""
     n = 70_000
     x = np.arange(n, dtype=float)[:, None]
     y = (x[:, 0] > n / 2).astype(np.float32)
     assert jdataset._bin_dtype(n) == np.uint32
-    with pytest.raises(log.Fatal, match="wider than 16 bits"):
-        lgt.Dataset.from_arrays(x, y, max_bin=n, sample_cnt=n)
+    j = JDataset.from_arrays(x, y, max_bin=n, sample_cnt=n)
+    t = lgt.Dataset.from_arrays(x, y, max_bin=n, sample_cnt=n)
+    assert j.bins.dtype == t.bins.dtype == np.uint32
+    np.testing.assert_array_equal(t.bins, j.bins)
 
 
 @pytest.mark.parametrize("value", ["1023", "4096", "65535"])
@@ -318,8 +320,8 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         hist_cuda.hist_float(tb, g, g, cid, 1, 257)
     with pytest.raises(ValueError, match="B <= 65536"):
         hist_cuda.hist_float(t16, g, g, cid, 1, 65537)
-    with pytest.raises(ValueError, match="uint8 or int16"):
-        hist_cuda.hist_float(t16.to(torch.int32), g, g, cid, 1, 300)
+    with pytest.raises(ValueError, match="uint8, int16"):
+        hist_cuda.hist_float(t16.to(torch.int64), g, g, cid, 1, 300)
     assert hist_cuda.hist_float(t16, g, g, cid, 1, 65536).shape == \
         (2, 65536, 3)
 

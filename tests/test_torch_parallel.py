@@ -3,10 +3,15 @@
 the JAX package's live serial and ``tree_learner=data`` runs (the
 8-device virtual CPU mesh of tests/conftest.py).
 
-Each world runs in subprocesses (``World``, at most WORLD_TIMEOUT s,
-killed on expiry), so no pytest process joins a process group; one world
-trains every configuration of a file in turn and writes each rank's
-model text.
+Each world runs in subprocesses (``World``), so no pytest process joins
+a process group; one world trains every configuration of a file in turn
+and writes each rank's model text.  A world is killed, and its test
+fails with each rank's last output, once its ranks have used no CPU
+time for STALL_S s (a hung collective waits without computing) or past
+WORLD_TIMEOUT s.  Its wall time alone is no hang sign: under the full
+suite's six workers, sharing the host with its module's JAX runs, the
+4-rank world of 17 jobs of tests/test_torch_parallel_hybrid.py once ran
+past the 120 s that this limit was (it takes about 30 s alone).
 
 Tolerances:
 - int8, both schedules, all three growers: model text byte-equal to the
@@ -30,6 +35,7 @@ Tolerances:
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -48,7 +54,8 @@ from lightgbm_tpu_torch.parallel.launch import LocalWorld, WorldTimeout
 from lightgbm_tpu_torch.utils import log
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORLD_TIMEOUT = 120
+WORLD_TIMEOUT = 900   # a world's wall limit (module docstring)
+STALL_S = 60          # ... and its limit without CPU progress
 BASE = {"objective": "binary", "num_leaves": "15",
         "min_data_in_leaf": "20", "min_sum_hessian_in_leaf": "1.0",
         "learning_rate": "0.2", "num_iterations": "3", "max_bin": "32"}
@@ -115,29 +122,62 @@ parallel.shutdown()
 '''
 
 
+def _tree_cpu_ticks(pid: int) -> int:
+    """User and system clock ticks of ``pid`` and its live descendants
+    (a rank's parse workers), from /proc; 0 for a process gone."""
+    try:
+        with open("/proc/%d/stat" % pid) as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        ticks = int(fields[11]) + int(fields[12])
+        with open("/proc/%d/task/%d/children" % (pid, pid)) as f:
+            children = [int(c) for c in f.read().split()]
+    except (OSError, ValueError, IndexError):
+        return 0
+    return ticks + sum(_tree_cpu_ticks(c) for c in children)
+
+
 class World:
     """``argv`` as ranks 0..P-1 of one gloo world (parallel/launch.
     LocalWorld: torch's environment variables, each rank's output in
-    ``rank<r>.log`` under ``cwd``); ``wait`` gives the world ``timeout``
-    s from its start, then kills it and fails the test."""
+    ``rank<r>.log`` under ``cwd``); ``wait`` kills the world and fails
+    the test once its ranks have used no CPU for ``stall`` s, or
+    ``timeout`` s after its start (module docstring)."""
 
     def __init__(self, argv, P: int, cwd, timeout: float = WORLD_TIMEOUT,
-                 env=None):
+                 env=None, stall: float = STALL_S):
         # one intra-op thread a rank: P ranks of a core count's threads
         # each oversubscribe the host several times over (a 4-rank world
         # of the hybrid tests took 60 s so, 9 s with one thread a rank)
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
             **dict({"OMP_NUM_THREADS": "1"}, **(env or {})))
-        self.P = P
+        self.P, self.stall = P, stall
         self.world = LocalWorld(argv, P, str(cwd), timeout, env)
+
+    def _fail(self, why: str):
+        self.world.kill()
+        tails = "\n".join("rank %d (rc %s):\n%s" % (r, rc, out[-1500:])
+                          for r, (rc, out) in enumerate(self.world.wait()))
+        pytest.fail("%s\n%s" % (why, tails))
 
     def wait(self):
         """Each rank's (exit code, output)."""
+        procs = self.world.procs
+        last, since = None, time.monotonic()
+        while (any(p.poll() is None for p in procs)
+               and time.monotonic() < self.world.deadline):
+            ticks = sum(_tree_cpu_ticks(p.pid) for p in procs
+                        if p.poll() is None)
+            if ticks != last:
+                last, since = ticks, time.monotonic()
+            elif time.monotonic() - since > self.stall:
+                self._fail("a world of %d ranks used no CPU for %g s and "
+                           "was killed" % (self.P, self.stall))
+            time.sleep(0.5)
         try:
             return self.world.wait()
         except WorldTimeout as e:
-            pytest.fail(str(e))
+            self._fail(str(e))
 
 
 def write_table(path, n=4000, f=8, seed=7, queries=False):

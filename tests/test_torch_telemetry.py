@@ -333,8 +333,8 @@ def test_span_never_swallows_an_exception(armed_registry):
             raise ValueError("boom")
     assert telemetry.snapshot()["phase_counts"] == {"histogram": 1}
     # a wrapper's refusal still raises with telemetry armed
-    bins = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(ValueError, match="uint8 or int16"):
+    bins = torch.zeros((2, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match="uint8, int16"):
         with telemetry.span("histogram"):
             hist_cuda.hist_float(bins, torch.zeros(8), torch.zeros(8),
                                  torch.zeros(8, dtype=torch.int32), 1, 4)

@@ -39,9 +39,8 @@ from lightgbm_tpu_torch.config import IOConfig
 from lightgbm_tpu_torch.utils import log
 from scripts import (pod_report, port_pod_report, port_timeline_report,
                      timeline_report)
-from test_torch_parallel import BASE, World, write_table
+from test_torch_parallel import BASE, WORLD_TIMEOUT, World, write_table
 
-WORLD_TIMEOUT = 120
 HALT_S = 30.0            # a halted rank's whole job, raise included
 INT8 = dict(BASE, hist_dtype="int8", health="true")
 DP2 = {"tree_learner": "data", "num_machines": "2"}
