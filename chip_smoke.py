@@ -108,7 +108,7 @@ counts, fenced phases within each iteration's wall, a memory block and a
 roofline that read the H100, both kernels' events in the profiler trace,
 one flight dump, clean health blocks, and a ServingFront's monitor
 windows and drift against the model's ``score_reference=`` line, checked
-by ``scripts/trace_report.py`` and ``scripts/monitor_report.py`` (see
+by ``scripts/port_report.py`` and ``scripts/monitor_report.py`` (see
 ``observability_phase``).  Phase 15 runs the parallel learners in worker
 processes (this script with ``--parallel-worker``): a one-rank NCCL world
 on the main path under ``tree_learner=data`` (phase 4's model text), two
@@ -3761,15 +3761,15 @@ def observability_phase(dev, sizes, x, y, train_set, served, sync):
         kernel events of both kernels.
     (g) The stall left one flight record naming iteration 3 in the sink
         and a flight dump (reason ``stall``) that
-        ``scripts/trace_report.py --check`` accepts.
+        ``scripts/port_report.py --check`` accepts.
     (h) The health blocks: no NaN or Inf; then the int8 depth-wise
         headline with ``health=true`` reads ``quant_sat`` > 0.
     (i) Phase 11's ServingFront over model (b), loaded from its file,
         with ``monitor_out`` and ``slo_p99_us``: at least 2 windows that
         ``scripts/monitor_report.py --check`` accepts, drift computed
         against the file's ``score_reference=`` line, and the front's
-        request traces accepted by ``trace_report.py --check`` (the
-        components of every request sum to its wall time).
+        request traces accepted by ``port_report.py --check`` (the
+        seven components of every request sum to its wall time).
 
     Recorded, not gated: seconds an iteration armed against unarmed (host
     clock), the sink's bytes, the phase's seconds.  Returns the launch
@@ -3936,9 +3936,9 @@ def observability_phase(dev, sizes, x, y, train_set, served, sync):
             fail("phase 14g: %d stall dumps, %d flight records (%d at the "
                  "stall)" % (len(stall), len(flights), len(at_stall)))
         for path in stall:
-            report_check("trace_report.py", path)
+            report_check("port_report.py", path)
         say("phase 14g stall: %d flight dump(s), %d at the stall (in-flight "
-            "phase %s, iteration 3, %.1f s), accepted by trace_report.py "
+            "phase %s, iteration 3, %.1f s), accepted by port_report.py "
             "--check" % (len(stall), len(at_stall), at_stall[0]["phase"],
                          at_stall[0]["stalled_for_s"]))
         # (h)
@@ -4032,11 +4032,11 @@ def observability_phase(dev, sizes, x, y, train_set, served, sync):
             fail("phase 14i: %d monitor windows" % windows)
         report_check("monitor_report.py", mon_path)
         for name in sorted(os.listdir(serve_dumps)):
-            report_check("trace_report.py", os.path.join(serve_dumps, name))
+            report_check("port_report.py", os.path.join(serve_dumps, name))
         say("phase 14i monitor: %d requests, %d windows accepted by "
             "monitor_report.py --check, drift psi %.6f against the "
             "score_reference line (%d reference scores, %d live), "
-            "request traces accepted by trace_report.py --check" % (
+            "request traces accepted by port_report.py --check" % (
                 sum(served_n), windows, drift[0]["psi"],
                 drift[0]["ref_count"], drift[0]["live_count"]))
         left = lifecycle.leaks()

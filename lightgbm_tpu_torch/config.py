@@ -280,8 +280,8 @@ class IOConfig:
     ignore_column: str = ""
     # observability (lightgbm_tpu/config.py:138-208): a torch.profiler
     # Chrome trace of the training loop; the per-iteration JSONL sink,
-    # its stream fence and memory gauges ("auto": on with a sink); the
-    # timeline shard mode (timeline_enabled); the stall watchdog's
+    # its event-timed device spans and memory gauges ("auto": on with a
+    # sink); the timeline shard mode (timeline_enabled); the stall watchdog's
     # timeout (0 off); the flight recorder's ring, dump
     # directory, sketch growth and run tag; the live monitor's JSONL and
     # window, and the serving SLO's p99 target (0 off) and budget window

@@ -22,8 +22,9 @@ the same phase: attained GB/s and operations per second, and with a
 known device the fractions of its peaks.  The span of a phase holds more
 than its kernels (the growers' host loop, quantization, assembly), so
 the attained rate is a floor on the kernels' own; with
-``metrics_fence=true`` the spans wait on the stream, else they time the
-dispatch and the block says so.
+``metrics_fence=true`` on a card it divides by the spans' device time
+(CUDA events at their edges), else by their host wall time, which times
+the dispatch, and the block says which.
 
 Peak table keyed on ``torch.cuda.get_device_name()``; an unknown kind,
 the CPU included, reports ``peaks: "unavailable"`` and skips only the
@@ -170,12 +171,16 @@ def note_build(name: str, seconds: float, cached: bool) -> None:
 
 
 def roofline(phase_times: Dict[str, float], kind: Optional[str] = None,
-             fenced: Optional[bool] = None) -> dict:
+             device_times: Optional[Dict[str, float]] = None) -> dict:
     """The launch notes joined to the measured phase seconds (the JAX
     block's keys; ``traced_passes`` lists one entry per phase and kernel,
-    its ``traces`` counting launches)."""
+    its ``traces`` counting launches).  A phase's seconds are its device
+    time where ``device_times`` (telemetry's event-timed spans) has it,
+    else its host wall time; ``method`` and ``fenced_spans`` say which
+    divided."""
     kind = kind if kind is not None else device_kind()
     peaks = resolve_peaks(kind)
+    device_times = device_times or {}
     with _lock:
         notes = {k: dict(v) for k, v in _launch_notes.items()}
     agg: Dict[str, dict] = {}
@@ -188,7 +193,7 @@ def roofline(phase_times: Dict[str, float], kind: Optional[str] = None,
         a["bytes"] += n["bytes"]
     phases: Dict[str, dict] = {}
     for p, a in sorted(agg.items()):
-        secs = float(phase_times.get(p, 0.0))
+        secs = float(device_times.get(p, phase_times.get(p, 0.0)))
         blk = {"flops": round(a["flops"], 1),
                "bytes_accessed": round(a["bytes"], 1),
                "programs": a["programs"], "calls": a["calls"],
@@ -205,21 +210,21 @@ def roofline(phase_times: Dict[str, float], kind: Optional[str] = None,
                 blk["frac_of_peak_bw"] = round(
                     a["bytes"] / secs / peaks["hbm_bytes_per_sec"], 6)
         phases[p] = blk
+    timed = bool(device_times) and any(p in device_times for p in agg)
     out = {
         "device_kind": kind,
         "peaks": peaks if peaks else "unavailable",
         "phases": phases,
         "method": "analytic per-launch bytes and operations of the "
                   "hand-written kernels (PERF.md's bound formulas) over "
-                  "the measured phase spans; fractions of the HBM and "
-                  "FP32 peaks",
+                  + ("the device time of the phase spans (CUDA events at "
+                     "their edges, metrics_fence=true)" if timed else
+                     "the host wall time of the phase spans (on a card "
+                     "that times the dispatch, not the execution: "
+                     "metrics_fence=true times the device)")
+                  + "; fractions of the HBM and FP32 peaks",
+        "fenced_spans": timed,
     }
-    if fenced is not None:
-        out["fenced_spans"] = bool(fenced)
-        if not fenced:
-            out["method"] += ("; spans UNFENCED — on the card attained "
-                              "rates time dispatch, not execution "
-                              "(metrics_fence=true to fix)")
     if notes:
         out["traced_passes"] = [
             {"phase": phase, "key": [kernel], "traces": n["launches"],

@@ -418,7 +418,8 @@ class GBDT:
                     # the gradients may be why no split was found: record
                     # the block and apply the policy before stopping
                     with telemetry.span("model_readback"):
-                        hvec = mon.vector(grad, hess, self.score).cpu()
+                        hvec = telemetry.host_read(
+                            mon.vector(grad, hess, self.score))
                     block = mon.assemble(hvec.numpy())
                     if telemetry.sink_active():
                         dp, dt = telemetry.take_phase_deltas()
@@ -454,7 +455,8 @@ class GBDT:
                 if mon is not None and cls == self.num_class - 1:
                     # the health vector's one host read, over the raw
                     # gradients and the updated scores
-                    hvec = mon.vector(grad, hess, self.score).cpu()
+                    hvec = telemetry.host_read(
+                        mon.vector(grad, hess, self.score))
             tree.shrinkage(self.gbdt_config.learning_rate)
             self.models.append(tree)
         met_early_stopping = False
@@ -1210,7 +1212,7 @@ class GBDT:
         (lightgbm_tpu/models/gbdt.py:2376-2385); a side not asked for is
         None."""
         def flat(score):
-            score = score.cpu().numpy()
+            score = telemetry.host_read(score).numpy()
             return score.reshape(-1) if self.num_class > 1 else score[0]
 
         train_vals = valid_vals = None

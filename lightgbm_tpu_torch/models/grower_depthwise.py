@@ -202,7 +202,7 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
             slot_id = sp.fence(2 * slot_id + go_right.to(i64))
 
         # the level's one host read
-        n_chosen = int(csum[-1])
+        n_chosen = int(telemetry.host_read(csum[-1]))
         n_nodes += n_chosen
         if d + 1 >= D or n_chosen == 0 or n_nodes >= L - 1:
             break
@@ -227,10 +227,11 @@ def grow_tree_depthwise(bins, grad, hess, row_mask, feature_mask, num_bins,
                             torch.where(right, small, large))
 
     # ---- read the tree back once
-    ints = torch.cat([split_feature[:M], threshold_bin[:M], left_child[:M],
-                      right_child[:M], leaf_parent[:L], leaf_count[:L]]
-                     ).cpu().numpy()
-    floats = torch.cat([split_gain[:M], leaf_value[:L]]).cpu().numpy()
+    ints = telemetry.host_read(torch.cat([
+        split_feature[:M], threshold_bin[:M], left_child[:M],
+        right_child[:M], leaf_parent[:L], leaf_count[:L]])).numpy()
+    floats = telemetry.host_read(
+        torch.cat([split_gain[:M], leaf_value[:L]])).numpy()
     sf, tb, lc, rc = (ints[k * M:(k + 1) * M] for k in range(4))
     lp, cnt = ints[4 * M:4 * M + L], ints[4 * M + L:]
     return TreeArrays(n_nodes + 1, sf, tb, floats[:M], lc, rc, lp,

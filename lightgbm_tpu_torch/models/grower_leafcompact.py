@@ -74,8 +74,8 @@ class _Pane:
         start, cnt = int(self.seg_start[bl]), int(self.seg_cnt[bl])
         src, dst = self.panes[self.side[bl]], self.panes[1 - self.side[bl]]
         with telemetry.span("partition"):
-            plcnt = int(partition_pane(src, dst, F, feat, thr, start, cnt,
-                                       self.nb))
+            plcnt = int(telemetry.host_read(partition_pane(
+                src, dst, F, feat, thr, start, cnt, self.nb)))
         sstart = start if left_small else start + plcnt
         scnt = plcnt if left_small else cnt - plcnt
         self.seg_start[new] = start + plcnt

@@ -228,7 +228,7 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
                 hist, totals[0], totals[1], totals[2], num_bins,
                 feature_mask, float(min_data_in_leaf),
                 float(min_sum_hessian_in_leaf))
-            return res.packed().cpu().numpy()
+            return telemetry.host_read(res.packed()).numpy()
 
     with telemetry.span("histogram") as sp:
         full = s.float_reduce(build_histogram(
@@ -237,8 +237,8 @@ def grow_best_first(bins, grad, hess, row_mask, feature_mask, num_bins,
             compute_dtype, root=True)
         root_hist = sp.fence(full if s.own_slice is None
                              else s.own_slice(full, 0))
-    root_g, root_h, root_c = root_stats_of(full, compute_dtype, grad, hess,
-                                           row_mask, s).cpu().numpy()
+    root_g, root_h, root_c = telemetry.host_read(root_stats_of(
+        full, compute_dtype, grad, hess, row_mask, s)).numpy()
     best = search(root_hist[None], [root_g], [root_h], [root_c],
                   root=True)[0]
 

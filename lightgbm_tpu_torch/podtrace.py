@@ -437,8 +437,11 @@ def seam_roofline(dumps: List[dict],
 
 # ----------------------------------------------------------------- validation
 
-# mirrors tracing.COMPONENTS — the merged-timeline identity re-check
-_COMPONENTS = ("queue", "linger", "coalesce", "dispatch", "walk", "scatter")
+# mirrors tracing.COMPONENTS — the merged-timeline identity re-check; a
+# JAX package's dump has no ``encode`` (its ``coalesce`` holds it)
+_COMPONENTS = ("queue", "linger", "coalesce", "encode", "dispatch", "walk",
+               "scatter")
+_OPTIONAL_COMPONENTS = ("encode",)
 
 
 def check(dumps: List[dict], alignment: Optional[dict] = None,
@@ -481,13 +484,14 @@ def check(dumps: List[dict], alignment: Optional[dict] = None,
                        "components_ns/wall_ns"
                        % (ev.get("_host"), ev.get("trace")))
             continue
-        missing = [c for c in _COMPONENTS if c not in comps]
+        missing = [c for c in _COMPONENTS
+                   if c not in comps and c not in _OPTIONAL_COMPONENTS]
         if missing:
             bad.append("%s: merged trace %s missing component(s) %s"
                        % (ev.get("_host"), ev.get("trace"),
                           ",".join(missing)))
             continue
-        total = sum(int(comps[c]) for c in _COMPONENTS)
+        total = sum(int(comps[c]) for c in _COMPONENTS if c in comps)
         if total != wall:
             bad.append("%s: merged trace %s attribution identity broken: "
                        "sum(components)=%d != wall=%d"

@@ -30,10 +30,10 @@ Observability, as the JAX engine has it: the ``serve/*`` counters
 (flattens, calls, rows, pad rows, the bucket of each chunk, the front's
 intake, coalescing, linger, queue depth and swaps), the spans
 ``predict_encode`` (the host rank-encode), ``predict`` (the device walk,
-fenced under ``metrics_fence``) and ``predict_warmup``; with the flight
+event-timed under ``metrics_fence``) and ``predict_warmup``; with the flight
 recorder armed, per-request traces through the front — enqueue → queue
-→ linger → coalesce → dispatch → walk → scatter → complete, whose six
-components sum exactly to each request's wall time
+→ linger → coalesce → encode → dispatch → walk → scatter → complete,
+whose seven components sum exactly to each request's wall time
 (``tracing.record_serve_request``); with the monitor armed, every
 delivered score feeds the engine's live drift histogram against the
 model's ``score_reference=`` histogram (carried on the FlatEnsemble).
@@ -312,16 +312,21 @@ class ServingEngine:
     def _bucketed(self, features: np.ndarray, run) -> List[np.ndarray]:
         """encode → chunk at the largest bucket → pad to its bucket → run
         → strip the padding; one host array per chunk.  A ServingFront
-        batch being scored on this thread gets its dispatch and walk
-        marks (``tracing.current_batch``); a direct call sees None."""
+        batch being scored on this thread gets its encode, dispatch and
+        walk marks (``tracing.current_batch``); a direct call sees
+        None."""
+        bt = tracing.current_batch()
+        if bt is not None:
+            bt.mark_encode_begin()
         with telemetry.span("predict_encode"):
             codes = self.flat.encode(features)
+        if bt is not None:
+            bt.mark_encode_end()
         N = codes.shape[1]
         maxb = self.buckets[-1]
         outs = []
         telemetry.count("serve/predict_calls")
         telemetry.count("serve/rows", N)
-        bt = tracing.current_batch()
         with telemetry.span("predict") as sp:
             for s in range(0, max(N, 1), maxb):
                 chunk = codes[:, s:s + maxb]
@@ -337,13 +342,10 @@ class ServingEngine:
                 telemetry.count("serve/bucket_%d" % b)
                 if bt is not None:
                     bt.set_bucket(b)
-                    bt.mark_run_begin()
                 out = run(chunk)
                 if bt is not None:
                     bt.mark_dispatched()
                 outs.append(sp.fence(out)[:, :n].cpu().numpy())
-                if bt is not None:
-                    bt.mark_run_end()
         return outs
 
     def scores(self, features: np.ndarray) -> np.ndarray:
@@ -681,8 +683,8 @@ class ServingFront:
                 tracing.bump("serve/dispatch_bucket_%d" % bt.bucket)
                 tracing.bump("serve/dispatch_rows_bucket_%d" % bt.bucket,
                              total)
-                bounds = (t_linger_ns, t_form_ns, bt.run_begin_ns,
-                          bt.dispatched_ns, t_scores_ns)
+                bounds = (t_linger_ns, t_form_ns, bt.encode_begin_ns,
+                          bt.encode_end_ns, bt.dispatched_ns, t_scores_ns)
             ofs = 0
             for r in batch:
                 # per request: one client cancelling in the check→set
@@ -694,7 +696,7 @@ class ServingFront:
                     pass
                 ofs += r.rows
                 if bt is not None:
-                    # the complete stamp after the delivery: the six
+                    # the complete stamp after the delivery: the seven
                     # components telescope exactly to t_done - t_enq
                     tracing.record_serve_request(
                         r.trace_id, bt, r.t_enq_ns,

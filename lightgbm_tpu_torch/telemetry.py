@@ -8,25 +8,39 @@ package's sink.  What differs, and why:
 
 1. **Spans are host-side wall timers, and every span is an execution
    span.**  ``span("histogram")`` times the enclosed host call with
-   ``time.perf_counter``.  Nothing is traced here, so every span lands in
-   ``phase_times``; ``trace_times`` stays in every record as an empty
-   dict (the JAX package files spans entered while tracing there).  The
-   spans nest: ``grow`` holds ``histogram``, ``split_find`` and
-   ``partition`` (the growers' host loop), so a sum over all phases
-   counts those three twice; the per-iteration phases are ``gradient``,
-   ``bagging``, ``goss``, ``grow``, ``score_update``, ``valid_update``,
-   ``model_readback`` and ``eval``.  The canonical keys ``histogram``,
-   ``split_find``, ``partition`` and ``eval`` are always present.
+   ``time.perf_counter``: ``phase_times`` is host wall time, always.
+   Nothing is traced here, so every span lands in ``phase_times``;
+   ``trace_times`` stays in every record as an empty dict (the JAX
+   package files spans entered while tracing there).  The spans nest:
+   ``grow`` holds ``histogram``, ``split_find`` and ``partition`` (the
+   growers' host loop), so a sum over all phases counts those three
+   twice; the per-iteration phases are ``ITERATION_PHASES``
+   (``gradient``, ``bagging``, ``goss``, ``grow``, ``score_update``,
+   ``valid_update``, ``model_readback`` and ``eval``).  The canonical
+   keys ``histogram``, ``split_find``, ``partition`` and ``eval`` are
+   always present.
 
-2. **Fence** (``metrics_fence=true``, ``enable(fence=True)``):
-   ``Span.fence(x)`` hands the span a value; at exit, for a CUDA tensor
-   in it, the span waits on that device's current stream before the
-   timer stops, so the span times the device work queued inside it.
-   Without the fence a span on the card times the host's dispatch only:
-   the kernels it queued may still be running when it closes (the
-   best-first growers' per-split host reads hide this, the depth-wise
-   grower's one read a level does not).  The fence only waits; it
-   queues no work.
+2. **Device time** (``metrics_fence=true``, ``enable(fence=True)``): on
+   a CUDA telemetry device (``set_device``) each span records a CUDA
+   event on that device's current stream at its enter and another at
+   its exit, so ``device_times[name]`` sums the stream time between
+   them: the device work the span queued, and any idle stretch of the
+   stream inside it.  Nothing waits: once 64 pairs are pending, a span
+   exit reads those whose end event has completed (``Event.query()``),
+   and :func:`snapshot` and the iteration record wait for the rest.
+   Event pairs are pooled.  Snapshots carry ``device_times`` beside
+   ``phase_times``, iteration records their per-iteration deltas.
+   ``Span.fence(x)`` returns ``x`` and does nothing else (its call sites
+   mark the value a phase produced).
+   **Host waits**: :func:`host_read` is every device-to-host read of the
+   training iteration's path; armed, it counts ``sync/d2h_reads`` and
+   adds the seconds it blocked to ``wait_times`` under the innermost
+   span open on its thread.  **Span events**: while the flight recorder
+   (tracing.py) is armed, every span exit files a ``span`` event (name,
+   thread, start and end: the span's own ``perf_counter_ns`` stamps,
+   moved by one offset onto the clock ``torch.profiler`` stamps its
+   events with), so a ``profile_dir`` trace and a ``trace_dump_dir``
+   dump align.
 
 3. **Profiler alignment.**  An armed span runs its body under
    ``torch.profiler.record_function(name)`` and, on a CUDA device,
@@ -157,6 +171,10 @@ from . import lifecycle
 
 # Canonical per-iteration phase keys: always present in iteration records
 CANONICAL_PHASES = ("histogram", "split_find", "partition", "eval")
+# the top-level phases of a boosting iteration (module docstring, 1): the
+# others nest inside ``grow``
+ITERATION_PHASES = ("gradient", "bagging", "goss", "grow", "score_update",
+                    "valid_update", "model_readback", "eval")
 
 # the JAX package's route counter names -> the port's (module docstring);
 # None: no counterpart in the port
@@ -216,6 +234,20 @@ _phase_counts: Dict[str, int] = {}
 # helper calls do not count one phase twice
 _span_stacks: Dict[int, List[str]] = {}
 _mark_phase: Dict[str, float] = {}
+# event-timed spans (module docstring, 2): seconds by span name, the
+# marks of _take_device_deltas, the (name, start, end) event pairs not yet
+# read (oldest first) and the free pairs
+_device_times: Dict[str, float] = {}
+_mark_device: Dict[str, float] = {}
+_pending: "collections.deque" = collections.deque()
+_event_pool: list = []
+_streams: Dict[object, object] = {}
+# a span exit reads the completed pairs once this many are pending, and
+# waits on the oldest past _PENDING_CAP
+_READ_BATCH = 64
+_PENDING_CAP = 4096
+# seconds host_read blocked, by the innermost span open at the read
+_wait_times: Dict[str, float] = {}
 _route_state: Dict[str, str] = {}
 
 # memory gauges: armed separately so spans pay the allocator read only
@@ -258,6 +290,7 @@ _clock_rtt: Optional[float] = None
 _allhosts_mem_peak = 0
 
 _torch_mod = None
+_tracing_mod = None
 
 
 def _torch():
@@ -266,6 +299,14 @@ def _torch():
         import torch
         _torch_mod = torch
     return _torch_mod
+
+
+def _tracing():
+    global _tracing_mod
+    if _tracing_mod is None:
+        from . import tracing
+        _tracing_mod = tracing
+    return _tracing_mod
 
 
 # --------------------------------------------------------------- life cycle
@@ -356,6 +397,10 @@ def reset() -> None:
         _phase_times.clear()
         _phase_counts.clear()
         _mark_phase.clear()
+        _device_times.clear()
+        _mark_device.clear()
+        _pending.clear()
+        _wait_times.clear()
         _route_state.clear()
         _mem_phase_delta.clear()
         _mem_phase_peak.clear()
@@ -771,33 +816,57 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-def _fence_wait(value) -> None:
-    """Wait on the current stream of the device of the first CUDA tensor
-    in ``value`` (a tensor, or a tuple, list or NamedTuple of them)."""
+def _event_pair():
+    """A (start, end) pair of timing events, from the pool."""
+    if _event_pool:
+        return _event_pool.pop()
+    cuda = _torch().cuda
+    return cuda.Event(enable_timing=True), cuda.Event(enable_timing=True)
+
+
+def _current_stream(dev):
+    """``torch.cuda.current_stream(dev)``, one Stream object a stream:
+    building one for each span cost more than its two events."""
     torch = _torch()
-    stack = [value]
-    while stack:
-        v = stack.pop()
-        if isinstance(v, torch.Tensor):
-            if v.is_cuda:
-                torch.cuda.current_stream(v.device).synchronize()
-                return
-        elif isinstance(v, (tuple, list)):
-            stack.extend(v)
+    key = torch._C._cuda_getCurrentStream(
+        dev.index if dev.index is not None else torch.cuda.current_device())
+    stream = _streams.get(key)
+    if stream is None:
+        stream = _streams[key] = torch.cuda.current_stream(dev)
+    return stream
+
+
+def _read_events(wait: bool) -> None:
+    """Fold the device seconds of the pending pairs into
+    ``device_times``, oldest first, while their end events have
+    completed; with ``wait`` (or past ``_PENDING_CAP`` pairs) wait for
+    them.  The lock is held."""
+    while _pending:
+        name, start, end = _pending[0]
+        if wait or len(_pending) > _PENDING_CAP:
+            end.synchronize()
+        elif not end.query():
+            return
+        _pending.popleft()
+        _device_times[name] = (_device_times.get(name, 0.0)
+                               + start.elapsed_time(end) / 1e3)
+        _event_pool.append((start, end))
 
 
 class Span:
-    """Context-managed phase timer (module docstring: fence, profiler
-    ranges, memory gauges).  An exception in the body propagates: the
-    span records its time and re-raises nothing of its own."""
-    __slots__ = ("name", "_t0", "_fence_val", "_rf", "_nvtx", "_mem0",
-                 "_stack")
+    """Context-managed phase timer (module docstring: host time, device
+    time, span events, profiler ranges, memory gauges).  An exception in
+    the body propagates: the span records its time and re-raises nothing
+    of its own."""
+    __slots__ = ("name", "_t0", "_events", "_stream", "_rf", "_nvtx",
+                 "_mem0", "_stack")
 
     def __init__(self, name: str, stack: List[str]):
         self.name = name
         self._stack = stack
-        self._fence_val = None
-        self._t0 = 0.0
+        self._t0 = 0
+        self._events = None
+        self._stream = None
         self._rf = None
         self._nvtx = False
         self._mem0 = None
@@ -810,47 +879,56 @@ class Span:
         if dev is not None and dev.type == "cuda":
             torch.cuda.nvtx.range_push(self.name)
             self._nvtx = True
+            if _fence:
+                with _lock:
+                    self._events = _event_pair()
+                self._stream = _current_stream(dev)
+                self._events[0].record(self._stream)
         if _memory:
             self._mem0 = _mem_sample()
         self._stack.append(self.name)
         if _ring_armed:
             _ring_event("span_enter", self.name)
-        self._t0 = time.perf_counter()
+        self._t0 = time.perf_counter_ns()
         return self
 
     def fence(self, value):
-        self._fence_val = value
+        """``value``, unchanged (module docstring, 2)."""
         return value
 
     def __exit__(self, exc_type, exc, tb):
-        try:
-            if _fence and exc_type is None and self._fence_val is not None:
-                _fence_wait(self._fence_val)
-        finally:
-            dt = time.perf_counter() - self._t0
-            self._fence_val = None
-            if self._nvtx:
-                _torch().cuda.nvtx.range_pop()
-                self._nvtx = False
-            self._rf.__exit__(exc_type, exc, tb)
-            self._rf = None
-            if self._stack and self._stack[-1] == self.name:
-                self._stack.pop()
-            b1 = _mem_sample() if self._mem0 is not None else None
-            with _lock:
-                if b1 is not None:
-                    _mem_phase_delta[self.name] = (
-                        _mem_phase_delta.get(self.name, 0)
-                        + (b1 - self._mem0))
-                    _mem_phase_peak[self.name] = max(
-                        _mem_phase_peak.get(self.name, 0), b1, self._mem0)
-                _phase_times[self.name] = (_phase_times.get(self.name, 0.0)
-                                           + dt)
-                _phase_counts[self.name] = (_phase_counts.get(self.name, 0)
-                                            + 1)
-            self._mem0 = None
-            if _ring_armed:
-                _ring_event("span_exit", self.name)
+        t1 = time.perf_counter_ns()
+        events = self._events
+        if events is not None:
+            events[1].record(self._stream)
+            self._events = self._stream = None
+        tracing = _tracing()
+        if tracing.active():
+            tracing.record_span(self.name, self._t0, t1)
+        dt = (t1 - self._t0) * 1e-9
+        if self._nvtx:
+            _torch().cuda.nvtx.range_pop()
+            self._nvtx = False
+        self._rf.__exit__(exc_type, exc, tb)
+        self._rf = None
+        if self._stack and self._stack[-1] == self.name:
+            self._stack.pop()
+        b1 = _mem_sample() if self._mem0 is not None else None
+        with _lock:
+            if b1 is not None:
+                _mem_phase_delta[self.name] = (
+                    _mem_phase_delta.get(self.name, 0) + (b1 - self._mem0))
+                _mem_phase_peak[self.name] = max(
+                    _mem_phase_peak.get(self.name, 0), b1, self._mem0)
+            _phase_times[self.name] = _phase_times.get(self.name, 0.0) + dt
+            _phase_counts[self.name] = _phase_counts.get(self.name, 0) + 1
+            if events is not None:
+                _pending.append((self.name,) + events)
+                if len(_pending) >= _READ_BATCH:
+                    _read_events(False)
+        self._mem0 = None
+        if _ring_armed:
+            _ring_event("span_exit", self.name)
         return False
 
 
@@ -869,6 +947,24 @@ def span(name: str):
     if name in stack:
         return _NULL_SPAN
     return Span(name, stack)
+
+
+def host_read(t):
+    """``t.cpu()``: the host's read of a device result, which waits for
+    the work queued before it.  Armed, it counts ``sync/d2h_reads`` and
+    adds the seconds the call took to ``wait_times`` under the innermost
+    span open on this thread (``outside_spans`` when none)."""
+    if not _enabled:
+        return t.cpu()
+    t0 = time.perf_counter()
+    out = t.cpu()
+    dt = time.perf_counter() - t0
+    stack = _span_stacks.get(threading.get_ident())
+    name = stack[-1] if stack else "outside_spans"
+    with _lock:
+        _counters["sync/d2h_reads"] = _counters.get("sync/d2h_reads", 0) + 1
+        _wait_times[name] = _wait_times.get(name, 0.0) + dt
+    return out
 
 
 # ----------------------------------------------------------------- counters
@@ -1072,11 +1168,15 @@ def sink_path() -> Optional[str]:
 # ---------------------------------------------------------------- snapshots
 
 def snapshot() -> dict:
-    """Cumulative registry state for library users (no sink needed)."""
+    """Cumulative registry state for library users (no sink needed):
+    waits for the pending event pairs, so ``device_times`` is whole."""
     with _lock:
+        _read_events(True)
         out = {
             "phase_times": dict(_phase_times),
             "phase_counts": dict(_phase_counts),
+            "device_times": dict(_device_times),
+            "wait_times": dict(_wait_times),
             "trace_times": {},
             "counters": dict(_counters),
         }
@@ -1096,8 +1196,11 @@ def _attach_cost_blocks(record: dict) -> None:
     from . import costmodel
     if costmodel.active():
         with _lock:
+            _read_events(True)
             phases = dict(_phase_times)
-        record["roofline"] = costmodel.roofline(phases, fenced=_fence)
+            device = dict(_device_times)
+        record["roofline"] = costmodel.roofline(phases,
+                                                device_times=device or None)
         record["compile"] = costmodel.compile_block()
 
 
@@ -1111,6 +1214,19 @@ def take_phase_deltas() -> "tuple[Dict[str, float], Dict[str, float]]":
         _mark_phase.clear()
         _mark_phase.update(_phase_times)
     return dp, {}
+
+
+def _take_device_deltas() -> Dict[str, float]:
+    """``device_times`` accumulated since the previous call, and re-mark
+    (the iteration record's block; empty unless spans are event-timed)."""
+    with _lock:
+        _read_events(True)
+        dd = {k: v - _mark_device.get(k, 0.0)
+              for k, v in _device_times.items()
+              if v - _mark_device.get(k, 0.0) > 0.0}
+        _mark_device.clear()
+        _mark_device.update(_device_times)
+    return dd
 
 
 # -------------------------------------------------------------------- sink
@@ -1216,6 +1332,9 @@ def emit_iteration(iteration: int, phase_times: Dict[str, float],
         "eval_metrics": eval_metrics or {},
         "trace_times": {},
     }
+    device = _take_device_deltas()
+    if device:
+        record["device_times"] = _round_times(device)
     if _timeline:
         # this rank's wall clock; the shard header's clock_offset_s maps
         # it onto rank 0's
@@ -1246,6 +1365,11 @@ def emit_summary(extra: Optional[dict] = None) -> dict:
             "trace_times": {},
             "counters": dict(sorted(_counters.items())),
         }
+        _read_events(True)
+        for key, times in (("device_times", _device_times),
+                           ("wait_times", _wait_times)):
+            if times:
+                record[key] = _round_times(times)
     if _timeline:
         record["t"] = round(time.time(), 6)
     mem = memory_snapshot()

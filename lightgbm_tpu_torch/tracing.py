@@ -8,21 +8,25 @@ and mirrored into its counters:
 
 1. **Exact attribution.**  Every ``ServingFront`` request gets a trace
    id and a monotonic event timeline — enqueue → queue-wait →
-   linger-wait → coalesce (batch id, bucket, pad-waste rows) → dispatch
-   → device walk → scatter → complete.  All boundaries are integer
-   ``time.perf_counter_ns()`` stamps; :func:`attribute` clamps the
+   linger-wait → coalesce (batch id, bucket, pad-waste rows) → encode →
+   dispatch → device walk → scatter → complete.  All boundaries are
+   integer ``time.perf_counter_ns()`` stamps; :func:`attribute` clamps the
    batch-level boundaries into each request's [enqueue, complete] window
-   and takes consecutive differences, so the six named components
-   telescope to exactly the observed wall time.  Backpressure-block and
-   swap events ride the same timeline.
+   and takes consecutive differences, so the seven named components
+   telescope to exactly the observed wall time.  The port adds
+   ``encode`` (the engine's host rank-encode of the batch) between
+   ``coalesce`` (the batch's assembly) and ``dispatch``: the JAX
+   package's dumps have six components, its ``coalesce`` holding both.
+   Backpressure-block and swap events ride the same timeline.
 
 2. **Bounded overhead, crash-safe.**  The recorder is a preallocated ring
    (``trace_ring_events`` slots; drops oldest, counts ``trace/dropped``
    exactly).  ``trace_dump_dir=`` flushes the ring to JSONL atomically
    (tmp + rename) on clean close, from the faults.py raise hatch, from
    ``run_training``'s crash path and from the telemetry watchdog when
-   training stalls.  ``scripts/trace_report.py`` renders dumps and
-   ``--check``-validates the identity and the event ordering.
+   training stalls.  ``scripts/trace_report.py`` renders dumps;
+   ``scripts/port_report.py --check`` validates the identity over the
+   seven components and the event ordering.
 
 3. **Streaming percentiles.**  :class:`LatencySketch` is a fixed-memory
    log-bucket histogram: bucket ``i`` holds values in ``[g**i,
@@ -31,7 +35,10 @@ and mirrored into its counters:
    of the true sample quantile, and merging is plain count addition.
 
 Training events land in the same ring: per-iteration records
-(``record_train_iteration`` from ``telemetry.emit_iteration``), checkpoint
+(``record_train_iteration`` from ``telemetry.emit_iteration``), every
+telemetry span's host range (``record_span``: a ``span`` event stamped
+by :func:`clock_ns`, the clock ``torch.profiler`` stamps its events
+with, so the ring's spans line up with a profiler trace), checkpoint
 writes and drops, GOSS and bagging draws; ingest attribution
 (:func:`record_ingest_chunk` / :func:`record_ingest_pass`) and the small
 monotone :func:`bump` counters (serialized in the header) too.
@@ -74,9 +81,30 @@ DEFAULT_SKETCH_GROWTH = 1.05
 SKETCH_GROWTH_MIN = 1.0005
 SKETCH_GROWTH_MAX = 2.0
 
-# the six per-request latency components, in timeline order; attribute()
+# the seven per-request latency components, in timeline order; attribute()
 # guarantees their sum telescopes exactly to the request wall time
-COMPONENTS = ("queue", "linger", "coalesce", "dispatch", "walk", "scatter")
+COMPONENTS = ("queue", "linger", "coalesce", "encode", "dispatch", "walk",
+              "scatter")
+
+
+
+def _epoch_offset_ns() -> int:
+    """Unix-epoch ns less ``time.perf_counter_ns()``, read now."""
+    p0 = time.perf_counter_ns()
+    now = time.time_ns()
+    return now - (p0 + time.perf_counter_ns()) // 2
+
+
+# Span stamps are ``time.perf_counter_ns()`` readings moved by this offset
+# (read again at every arm()) onto Unix-epoch nanoseconds, the clock
+# torch.profiler's kineto events are stamped on, host ops and CUDA
+# runtime calls alike
+_offset_ns = _epoch_offset_ns()
+
+
+def clock_ns() -> int:
+    """Now, on the clock of the ``span`` events."""
+    return time.perf_counter_ns() + _offset_ns
 
 
 # ------------------------------------------------------------------ sketches
@@ -246,7 +274,7 @@ def arm(ring_events: int = DEFAULT_RING_EVENTS, dump_dir: str = "",
     ``sketch_growth`` the log-bucket factor.  Invalid values raise —
     config.py rejects them loudly before they ever reach here."""
     global _armed, _ring, _cap, _appended, _dropped_synced, _dump_dir
-    global _growth, _trace_seq, _batch_seq, _dumps, _default_ring
+    global _growth, _trace_seq, _batch_seq, _dumps, _default_ring, _offset_ns
     ring_events = int(ring_events)
     if ring_events <= 0:
         raise ValueError("trace_ring_events must be > 0, got %d"
@@ -268,6 +296,7 @@ def arm(ring_events: int = DEFAULT_RING_EVENTS, dump_dir: str = "",
         _trace_seq = 0
         _batch_seq = 0
         _dumps = 0
+        _offset_ns = _epoch_offset_ns()
         _armed = True
 
 
@@ -306,13 +335,23 @@ def _append_locked(ev: dict) -> None:
     _appended += 1
 
 
+def _event(e) -> dict:
+    """A ring entry as an event: a span is filed as the tuple
+    ``(name, thread, t0_ns, t1_ns)`` (record_span), the rest as dicts."""
+    if type(e) is not tuple:
+        return e
+    name, thread, t0, t1 = e
+    return {"kind": "span", "t": round(t1 / 1e9, 6), "name": name,
+            "thread": thread, "t0_ns": t0, "t1_ns": t1}
+
+
 def _events_locked() -> List[dict]:
     """Ring contents oldest-first (the deterministic oldest-drop
     contract the overflow test pins)."""
     if _appended <= _cap:
-        return [e for e in _ring[:_appended]]
+        return [_event(e) for e in _ring[:_appended]]
     start = _appended % _cap
-    return _ring[start:] + _ring[:start]
+    return [_event(e) for e in _ring[start:] + _ring[:start]]
 
 
 def _sync_dropped_locked() -> None:
@@ -389,6 +428,22 @@ def record_collective_sync(site: str, iteration: int,
         if _armed:
             _append_locked(ev)
             _observe_locked("collective_sync_us", dur_us)
+
+
+def record_span(name: str, t0_ns: int, t1_ns: int) -> None:
+    """File one closed telemetry span: its name, the native id of the
+    thread that ran it and its start and end, ``time.perf_counter_ns()``
+    readings that the event carries on :func:`clock_ns`'s clock.  A
+    span's event follows those of the spans it holds (filed at exit)."""
+    tid = getattr(_tls, "native_id", None)
+    if tid is None:
+        # a system call, made once a thread: read at every span exit it
+        # cost 4% of an mslr.train iteration on an H100 host
+        tid = _tls.native_id = threading.get_native_id()
+    ev = (name, tid, t0_ns + _offset_ns, t1_ns + _offset_ns)
+    with _lock:
+        if _armed:
+            _append_locked(ev)
 
 
 def record_ingest_pass(pass_no: int, seconds: float, rows: int) -> None:
@@ -483,26 +538,25 @@ class BatchTrace:
     (``begin_batch``) and consulted by ``ServingEngine._bucketed`` via
     ``current_batch()`` — direct engine calls see None and skip."""
 
-    __slots__ = ("batch_id", "bucket", "pad_rows", "run_begin_ns",
-                 "dispatched_ns", "run_end_ns")
+    __slots__ = ("batch_id", "bucket", "pad_rows", "encode_begin_ns",
+                 "encode_end_ns", "dispatched_ns")
 
     def __init__(self, batch_id: int):
         self.batch_id = batch_id
         self.bucket = 0
         self.pad_rows = 0
-        self.run_begin_ns: Optional[int] = None
+        self.encode_begin_ns: Optional[int] = None
+        self.encode_end_ns: Optional[int] = None
         self.dispatched_ns: Optional[int] = None
-        self.run_end_ns: Optional[int] = None
 
-    def mark_run_begin(self) -> None:
-        if self.run_begin_ns is None:
-            self.run_begin_ns = time.perf_counter_ns()
+    def mark_encode_begin(self) -> None:
+        self.encode_begin_ns = time.perf_counter_ns()
+
+    def mark_encode_end(self) -> None:
+        self.encode_end_ns = time.perf_counter_ns()
 
     def mark_dispatched(self) -> None:
         self.dispatched_ns = time.perf_counter_ns()
-
-    def mark_run_end(self) -> None:
-        self.run_end_ns = time.perf_counter_ns()
 
     def add_pad(self, rows: int) -> None:
         self.pad_rows += int(rows)
@@ -533,15 +587,16 @@ def end_batch() -> None:
 
 def attribute(t_enq_ns: int, t_done_ns: int,
               bounds_ns) -> Dict[str, int]:
-    """Decompose one request's wall time into the six COMPONENTS.
+    """Decompose one request's wall time into the seven COMPONENTS.
 
-    ``bounds_ns`` is the five batch-level boundary stamps
-    (linger_begin, batch_formed, run_begin, dispatched, scores_returned)
-    — any may be None (a missing mark inherits its predecessor).  Each
-    boundary is clamped monotonically into [t_enq_ns, t_done_ns]; the
-    components are consecutive INTEGER differences of the clamped
-    edges, so ``sum(components) == t_done_ns - t_enq_ns`` holds exactly
-    — the identity trace_report --check and the tests pin."""
+    ``bounds_ns`` is the six batch-level boundary stamps
+    (linger_begin, batch_formed, encode_begin, encode_end, dispatched,
+    scores_returned) — any may be None (a missing mark inherits its
+    predecessor).  Each boundary is clamped monotonically into
+    [t_enq_ns, t_done_ns]; the components are consecutive INTEGER
+    differences of the clamped edges, so ``sum(components) ==
+    t_done_ns - t_enq_ns`` holds exactly — the identity port_report.py
+    --check and the tests pin."""
     ts = int(t_enq_ns)
     td = max(int(t_done_ns), ts)
     prev = ts
@@ -590,12 +645,14 @@ def record_serve_request(trace_id: int, batch: Optional[BatchTrace],
 def record_train_iteration(iteration: int,
                            phase_times: Dict[str, float]) -> None:
     """File one boosting iteration into the ring (same record keys as
-    the timeline shards: iter / phase_times / t) and its total phase
-    seconds into the ``train_iter_us`` sketch.  Called from
+    the timeline shards: iter / phase_times / t) and the seconds of its
+    top-level phases (``telemetry.ITERATION_PHASES``: the others nest
+    inside ``grow``) into the ``train_iter_us`` sketch.  Called from
     ``telemetry.emit_iteration``."""
     if not _armed:
         return
-    total_us = 1e6 * float(sum(phase_times.values()))
+    total_us = 1e6 * float(sum(phase_times.get(k, 0.0)
+                               for k in telemetry.ITERATION_PHASES))
     ev = {"kind": "train_iter", "t": round(time.time(), 6),
           "iter": int(iteration), "phase_times": dict(phase_times)}
     with _lock:
@@ -628,6 +685,16 @@ def snapshot() -> dict:
                          for f, sk in sorted(_sketches.items())},
             "counters": dict(sorted(_counters.items())),
         }
+
+
+def events(kind: Optional[str] = None) -> List[dict]:
+    """The ring's retained events oldest-first (of ``kind`` alone, when
+    given), as a dump would write them; [] while disarmed."""
+    with _lock:
+        if not _armed:
+            return []
+        evs = _events_locked()
+    return [dict(e) for e in evs if kind is None or e["kind"] == kind]
 
 
 def dump(path: Optional[str] = None, reason: str = "close",

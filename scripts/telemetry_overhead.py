@@ -13,7 +13,8 @@ under each arming in turns, ``--reps`` times:
 - ``sink_nomem``: ``metrics_out`` with ``memory_stats=false`` (spans,
   counters, the flight recorder, one record an iteration);
 - ``sink``: ``metrics_out`` (memory gauges on, as ``auto`` resolves);
-- ``sink_fence``: ``metrics_out`` and ``metrics_fence=true``;
+- ``sink_fence``: ``metrics_out`` and ``metrics_fence=true`` (two CUDA
+  events a span, read without a wait);
 - ``full``: the sink fenced, ``health=true``, a trace dump directory.
 
 With ``--world P`` the armings run instead as the jobs of one world of
@@ -37,7 +38,7 @@ the spans an iteration opens, and the cost of one call of each thing a
 span does on the card, timed over 2,000 calls: an allocator read
 (``torch.cuda.memory_stats``, and the nested form it flattens), a
 ``record_function`` range, an NVTX range, an armed span on an idle
-stream with and without the fence.  Then the card's name and power
+stream with and without its events.  Then the card's name and power
 limit, and one JSON line; ``--out`` also writes the report to FILE.
 """
 from __future__ import annotations

@@ -85,8 +85,10 @@ def test_roofline_block_keys_match_jax(armed):
         for kind, fenced in (("cpu", False), (H100, True)):
             want = jcostmodel.roofline({"histogram": 0.5}, kind=kind,
                                        fenced=fenced)
-            got = costmodel.roofline({"histogram": 0.5}, kind=kind,
-                                     fenced=fenced)
+            # the port's spans are fenced by their device time
+            got = costmodel.roofline(
+                {"histogram": 2.0}, kind=kind,
+                device_times={"histogram": 0.5} if fenced else None)
             assert sorted(got) == sorted(want)
             assert _kinds(got) == _kinds(want) or kind == H100
             assert _kinds(got["traced_passes"][0]) == \
@@ -98,10 +100,33 @@ def test_roofline_block_keys_match_jax(armed):
         assert blk["attained_hbm_gbps"] == round(1e5 / 0.5 / 1e9, 4)
         assert blk["frac_of_peak_bw"] == round(1e5 / 0.5 / 3.35e12, 6)
         assert blk["calls"] == 1 and blk["programs"] == 1
-        assert "UNFENCED" not in got["method"]
+        assert got["fenced_spans"] is True
     finally:
         jcostmodel.disable()
         jcostmodel.reset()
+
+
+def test_roofline_method_names_its_divisor(armed):
+    """A phase's seconds are its device time where ``device_times`` has
+    it, else its host wall time; ``method`` and ``fenced_spans`` name
+    which divided."""
+    costmodel.note_launch("histogram", "hist/plain_float", bytes=1e9,
+                          flops=1e6)
+    host = costmodel.roofline({"histogram": 4.0}, kind=H100)
+    assert host["fenced_spans"] is False
+    assert "host wall time" in host["method"]
+    assert host["phases"]["histogram"]["seconds"] == 4.0
+    for device in (None, {}):
+        assert costmodel.roofline({"histogram": 4.0}, kind=H100,
+                                  device_times=device) == host
+    dev = costmodel.roofline({"histogram": 4.0}, kind=H100,
+                             device_times={"histogram": 0.5})
+    assert dev["fenced_spans"] is True
+    assert "device time" in dev["method"] and "CUDA events" in dev["method"]
+    blk = dev["phases"]["histogram"]
+    assert blk["seconds"] == 0.5
+    assert blk["attained_hbm_gbps"] == round(1e9 / 0.5 / 1e9, 4)
+    assert blk["frac_of_peak_bw"] == round(1e9 / 0.5 / 3.35e12, 6)
 
 
 def test_compile_block_keys_match_jax(armed):
@@ -185,7 +210,11 @@ def test_training_roofline_joins_the_spans(tmp_path):
                "metrics_fence": "true"}, ds, device="cpu")
     summary = [json.loads(line) for line in open(sink)][-1]
     roof, ctr = summary["roofline"], summary["counters"]
-    assert roof["fenced_spans"] is True and roof["peaks"] == "unavailable"
+    # metrics_fence on the CPU: no CUDA events, so the host wall time
+    # divides, and the block says so
+    assert roof["fenced_spans"] is False and roof["peaks"] == "unavailable"
+    assert "host wall time" in roof["method"]
+    assert "device_times" not in summary
     hist = roof["phases"]["histogram"]
     assert hist["calls"] == ctr["hist/plain_float"] + ctr["hist/plain_pane"]
     assert roof["phases"]["partition"]["calls"] == ctr["partition/plain"]

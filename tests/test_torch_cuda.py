@@ -1095,16 +1095,24 @@ def test_armed_training_on_card(cuda, tmp_path, extra):
 
 
 def test_fence_times_device_work_on_card(cuda):
-    """A fenced span waits on the stream, so it times the device work
-    queued inside it (CUDA events bound it from below); unfenced, the
-    same span closes after the host's enqueue, long before the work
-    ends."""
+    """A fenced span records CUDA events at its edges, so its
+    ``device_times`` time the device work queued inside it (the test's
+    own events inside the span bound it from below), and nothing waits:
+    its host ``phase_times`` close after the enqueue, long before the
+    work ends.  Unfenced, the span has no device time."""
     from lightgbm_tpu_torch import telemetry
     cycles = 200_000_000                    # about 0.1 s of sleep
+    # made before the timed spans: an allocation inside one may wait on
+    # the device
+    probe = torch.zeros(1, device=cuda)
     telemetry.set_device(cuda)
     try:
         for fence in (True, False):
             telemetry.enable(fence=fence)
+            telemetry.reset()
+            with telemetry.span("histogram"):   # first calls: events, ranges
+                pass
+            telemetry.snapshot()
             telemetry.reset()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1113,14 +1121,17 @@ def test_fence_times_device_work_on_card(cuda):
                 start.record()
                 torch.cuda._sleep(cycles)
                 end.record()
-                sp.fence(torch.zeros(1, device=cuda))
-            span_s = telemetry.snapshot()["phase_times"]["histogram"]
+                sp.fence(probe)
+            snap = telemetry.snapshot()
+            span_s = snap["phase_times"]["histogram"]
             torch.cuda.synchronize()
             device_s = start.elapsed_time(end) / 1e3
+            assert device_s > 0.01 and span_s < 0.5 * device_s, fence
             if fence:
-                assert span_s >= device_s > 0.01
+                got = snap["device_times"]["histogram"]
+                assert device_s <= got < device_s + 0.01
             else:
-                assert span_s < 0.5 * device_s
+                assert snap["device_times"] == {}
     finally:
         telemetry.disable()
         telemetry.reset()

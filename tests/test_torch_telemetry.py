@@ -12,18 +12,25 @@ compacted, masked and depth-wise:
   their values' types; keys a package writes only when they apply
   (memory deltas, roofline fractions, a compile record's analysis
   fields) may be absent on either side.  ``trace_times`` is always an
-  empty dict in the port (it runs eagerly: nothing is traced), so it is
-  the one key the port's records add.
+  empty dict in the port (it runs eagerly: nothing is traced); with it
+  the port's records add ``wait_times`` (what its host reads waited) and
+  ``device_times`` (its event-timed spans), which the JAX package has
+  no counterpart of.
 - ``eval_metrics`` agree within rtol 1e-5, and the counter names are
   equal after telemetry.JAX_COUNTER_NAMES (the pane entry's route folded
-  into the float route it serves: the JAX package has no name for it).
+  into the float route it serves: the JAX package has no name for it),
+  but for the port's count of its host reads, ``sync/d2h_reads``.
 - **Arming changes nothing.**  With every observability key armed, the
   port's model text is byte-equal to the unarmed run under all three
   growers, float32 and int8.
-- ``scripts/telemetry_report.py --json`` reads the port's sink.
-- Spans: the fence, nesting, exceptions, thread-safe counters, memory
-  gauges that never fall back to host RSS for a CUDA device, the
-  watchdog on a fake clock; and nothing leaks (``lifecycle.leaks()``).
+- ``scripts/telemetry_report.py --json`` reads the port's sink, and
+  ``scripts/port_report.py --json`` its host waits.
+- Spans: event-timed device time (on fake CUDA events: no card here),
+  host reads counted and their waits filed under the innermost span, a
+  disarmed path that makes no event, ring entry or counter, nesting,
+  exceptions, thread-safe counters, memory gauges that never fall back
+  to host RSS for a CUDA device, the watchdog on a fake clock; and
+  nothing leaks (``lifecycle.leaks()``).
 """
 import json
 import os
@@ -63,11 +70,11 @@ FOLD = {"hist/plain_pane": "hist/plain_float",
 # dicts keyed by data: their values' schemas are compared, not their keys
 DATA_KEYED = {"phase_times", "phase_counts", "counters", "eval_metrics",
               "phase_delta_bytes", "phase_peak_bytes", "sketches", "phases",
-              "trace_times"}
+              "trace_times", "wait_times", "device_times"}
 # keys written only where they apply, by the name of the dict (or of the
 # list whose entries they belong to)
 OPTIONAL = {
-    "": {"trace_times"},
+    "": {"trace_times", "wait_times", "device_times"},
     "memory": {"phase_delta_bytes"},
     "phases": {"compile_seconds_excluded", "cost_analysis",
                "attained_flops_per_sec", "attained_hbm_gbps",
@@ -205,7 +212,10 @@ def test_eval_metrics_and_counter_names_match_jax(pair):
     jnames = {telemetry.JAX_COUNTER_NAMES.get(n, n)
               for n in jrecs[-1]["counters"]} - {None}
     tnames = {FOLD.get(n, n) for n in trecs[-1]["counters"]}
-    assert tnames == jnames
+    assert tnames - {"sync/d2h_reads"} == jnames
+    # every grower reads its results through telemetry.host_read
+    assert trecs[-1]["counters"]["sync/d2h_reads"] > 0
+    assert trecs[-1]["wait_times"]
     # a CPU run counts only plain routes, one per wrapper call
     assert not any("/cuda" in n for n in trecs[-1]["counters"])
 
@@ -241,6 +251,14 @@ def test_telemetry_report_reads_the_port_sink(pair, table_files):
     assert out.returncode == 0, out.stderr
     rendered = json.loads(out.stdout)
     assert rendered
+    # the port's own blocks: the waits of the growers' host reads, by span
+    out = subprocess.run([sys.executable,
+                          os.path.join(REPO, "scripts", "port_report.py"),
+                          "--json", sink], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    blocks = json.loads(out.stdout)
+    assert blocks["iterations"] > 0 and blocks["wait_times"]
 
 
 ARMED = {"metrics_fence": "true", "memory_stats": "true", "health": "true",
@@ -312,6 +330,186 @@ def test_disarmed_span_is_a_shared_noop():
     with telemetry.span("histogram") as sp:
         assert sp.fence(3) == 3
     assert telemetry.snapshot()["phase_times"] == {}
+
+
+class FakeStream:
+    """A stream whose queued device time (ms) the test advances."""
+
+    def __init__(self):
+        self.t = 0.0
+
+
+class FakeEvent:
+    """torch.cuda.Event's surface the spans use; ``done`` is set by the
+    test (the device reached it) or by ``synchronize``."""
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        FakeEvent.made += 1
+        self.at, self.done = None, False
+
+    def record(self, stream):
+        self.at, self.done = stream.t, False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+    def elapsed_time(self, end):
+        return end.at - self.at
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """A CUDA telemetry device on fake events, streams and NVTX."""
+    stream = FakeStream()
+    FakeEvent.made = 0
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(telemetry, "_current_stream", lambda dev: stream)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", lambda name: None)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", lambda: None)
+    monkeypatch.setattr(telemetry, "_event_pool", [])
+    telemetry.set_device(torch.device("cuda"))
+    yield stream
+    telemetry.disable()
+    telemetry.reset()
+    telemetry.set_device(None)
+
+
+def test_fenced_spans_time_the_device_between_events(fake_card, tmp_path,
+                                                    monkeypatch):
+    """``fence=True`` on a CUDA device: each span records an event at
+    enter and at exit and nothing waits; once ``_READ_BATCH`` pairs are
+    pending (2 here), a span exit reads those whose end event has
+    completed; ``snapshot`` and the iteration record wait for the rest;
+    read pairs go back to the pool.  ``phase_times`` stays host time,
+    and an iteration record carries the iteration's ``device_times``."""
+    stream = fake_card
+    monkeypatch.setattr(telemetry, "_READ_BATCH", 2)
+    telemetry.enable(str(tmp_path / "m.jsonl"), fence=True)
+    telemetry.reset()
+    with telemetry.span("grow") as sp:
+        stream.t += 5.0
+        with telemetry.span("histogram"):
+            stream.t += 2.0
+        assert sp.fence(7) == 7
+    assert FakeEvent.made == 4 and len(telemetry._pending) == 2
+    assert telemetry._device_times == {}
+    snap = telemetry.snapshot()
+    assert snap["device_times"] == {"grow": 0.007, "histogram": 0.002}
+    assert set(snap["phase_times"]) == {"grow", "histogram"}
+    assert len(telemetry._event_pool) == 2 and not telemetry._pending
+    # completed pairs are read at the next span exit, without a wait
+    with telemetry.span("gradient"):
+        stream.t += 1.0
+    with telemetry.span("eval"):
+        telemetry._pending[0][2].done = True
+    assert FakeEvent.made == 4
+    assert telemetry._device_times["gradient"] == pytest.approx(0.001)
+    assert "eval" not in telemetry._device_times
+    telemetry.take_phase_deltas()
+    rec = telemetry.emit_iteration(1, {"grow": 0.5})
+    # the eval span queued no device time: its delta is 0 and left out
+    assert rec["device_times"] == {"gradient": 0.001, "grow": 0.007,
+                                   "histogram": 0.002}
+    with telemetry.span("gradient"):
+        stream.t += 3.0
+    assert telemetry.emit_iteration(2, {})["device_times"] == \
+        {"gradient": 0.003}
+    summary = telemetry.emit_summary()
+    assert summary["device_times"]["gradient"] == pytest.approx(0.004)
+    assert summary["roofline"]["fenced_spans"] is False   # no launch notes
+
+
+def test_unfenced_spans_make_no_events(fake_card):
+    telemetry.enable()
+    telemetry.reset()
+    with telemetry.span("grow"):
+        fake_card.t += 1.0
+    assert FakeEvent.made == 0
+    assert telemetry.snapshot()["device_times"] == {}
+
+
+def test_disarmed_run_makes_no_event_ring_entry_or_counter(fake_card,
+                                                          tmp_path):
+    """Disarmed, a span is the shared no-op and ``host_read`` a plain
+    ``.cpu()``: a training run and the spans and reads of a card make
+    no CUDA event, no ring event and no counter."""
+    from lightgbm_tpu_torch import tracing
+    telemetry.disable()
+    telemetry.reset()
+    assert not tracing.active()
+    x, y = make_table()
+    ds = lgt.Dataset.from_arrays(x[:N_TRAIN], y[:N_TRAIN], max_bin=255)
+    lgt.train({"objective": "binary", "num_leaves": 15,
+               "num_iterations": 2, "verbose": -1}, ds, device="cpu")
+    telemetry.set_device(torch.device("cuda"))
+    with telemetry.span("grow") as sp:
+        assert sp is telemetry._NULL_SPAN
+        assert telemetry.host_read(torch.ones(3)).sum() == 3
+    snap = telemetry.snapshot()
+    assert FakeEvent.made == 0 and not telemetry._pending
+    assert snap["counters"] == {} and snap["wait_times"] == {}
+    assert snap["device_times"] == {} and snap["phase_times"] == {}
+    assert tracing.events() == [] and tracing.snapshot() == {}
+
+
+class SlowRead:
+    """A device result whose read blocks ``delay`` seconds."""
+
+    def __init__(self, delay):
+        self.delay = delay
+
+    def cpu(self):
+        threading.Event().wait(self.delay)
+        return "read"
+
+
+def test_host_read_counts_reads_and_files_waits(armed_registry):
+    """Each read counts ``sync/d2h_reads`` and adds what it blocked to
+    ``wait_times`` under the innermost span open on its thread (its
+    host time stays in that span's ``phase_times``)."""
+    with telemetry.span("grow"):
+        assert telemetry.host_read(SlowRead(0.0)) == "read"
+        with telemetry.span("split_find"):
+            telemetry.host_read(SlowRead(0.05))
+            telemetry.host_read(SlowRead(0.0))
+        with telemetry.span("partition"):
+            telemetry.host_read(SlowRead(0.02))
+    telemetry.host_read(torch.arange(4))
+    snap = telemetry.snapshot()
+    assert snap["counters"] == {"sync/d2h_reads": 5}
+    waits = snap["wait_times"]
+    assert set(waits) == {"grow", "split_find", "partition",
+                          "outside_spans"}
+    assert 0.05 <= waits["split_find"] <= snap["phase_times"]["split_find"]
+    assert 0.02 <= waits["partition"] <= snap["phase_times"]["partition"]
+    assert waits["grow"] < 0.02
+    assert snap["phase_times"]["grow"] >= sum(
+        waits[k] for k in ("grow", "split_find", "partition"))
+
+
+def test_training_reads_go_through_host_read(armed_registry):
+    """The compacted grower's reads: the root's stats and split record,
+    then a partition count and a split record for each split; and the
+    health vector's one read an iteration (armed telemetry turns the
+    health monitor on)."""
+    x, y = make_table()
+    ds = lgt.Dataset.from_arrays(x[:N_TRAIN], y[:N_TRAIN], max_bin=255)
+    booster = lgt.train({"objective": "binary", "num_leaves": 15,
+                         "num_iterations": 1, "verbose": -1}, ds,
+                        device="cpu")
+    telemetry.reset()
+    booster.train_one_iter(is_eval=False)
+    splits = booster.models[-1].num_leaves - 1
+    snap = telemetry.snapshot()
+    health = booster._health_monitor is not None
+    assert snap["counters"]["sync/d2h_reads"] == 2 + 2 * splits + health
+    assert set(snap["wait_times"]) == {"grow", "split_find", "partition"} \
+        | ({"model_readback"} if health else set())
 
 
 def test_spans_nest_and_suppress_reentry(armed_registry):
