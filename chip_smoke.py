@@ -32,7 +32,11 @@ and predicts identically) and lambdarank over queries of 50-190
 documents (held-out NDCG@5 must rise), each with one histogram launch per
 leaf and one partition per split; then int8 regression and multiclass
 trees on the card against the CPU (equal) and lambdarank gradients on
-both (rtol 1e-5 / atol 1e-7).  Phase 8 runs the sampling slice at the
+both (rtol 1e-5 / atol 1e-7, one kernel launch a call); and the
+lambdarank kernel (csrc/rank.cu) at MSLR-WEB30K's shape, against the
+padded plain version on the card and timed beside it and its bound (see
+``rank_kernel_phase``; ``chip_smoke.py --rank`` runs the build and that
+alone).  Phase 8 runs the sampling slice at the
 main path's width: the reference binary example's hot path (63 leaves,
 feature_fraction 0.8, bagging 0.8 every 5 iterations, the threefry draw
 on the card; exactly 800,000 in-bag rows a draw, a new bag each redraw,
@@ -1050,6 +1054,7 @@ def run(dev, sizes, timer=None):
                                          sync, timer, served).items():
         kernels["hist"]["launches_by_path"][path] = counts["hist"]
         kernels["partition"]["launches_by_path"][path] = counts["partition"]
+    rank_record = rank_kernel_phase(dev, timer)
     lap("7")
     # ---- phase 8: sampling, early stopping and continued training
     for path, counts in sampling_phase(dev, sizes, x, y, train_set,
@@ -1138,7 +1143,7 @@ def run(dev, sizes, timer=None):
                 "hist" if name.startswith("hist") else "partition"]
     lap("19-20")
     say(json.dumps({"phase_seconds": laps}))
-    return list(kernels.values())
+    return list(kernels.values()) + [rank_record]
 
 
 def mixed_phase(dev, sizes, sync, timer):
@@ -1657,10 +1662,15 @@ def objectives_phase(dev, sizes, x, latent, train_set, sync, timer,
         objs[d.type].init(ds.metadata, n5, d)
     one = lgt.train(dict(small, objective="lambdarank", num_iterations=1,
                          hist_dtype="float32"), ds, device=dev)
+    from lightgbm_tpu_torch.objectives import rank
     for what, score in (("score 0", torch.zeros(n5)),
                         ("after one iteration", one.score[0].cpu())):
+        before = rank.launches
         on_card = [t.cpu() for t in objs[dev.type].get_gradients(
             score.to(dev))]
+        if dev.type == "cuda" and rank.launches != before + 1:
+            fail("phase 7 lambdarank gradients %s: not one kernel launch"
+                 % what)
         on_cpu = objs["cpu"].get_gradients(score)
         errs = []
         for a, b in zip(on_card, on_cpu):
@@ -1681,6 +1691,88 @@ def objectives_phase(dev, sizes, x, latent, train_set, sync, timer,
     say("phase 7 lambdarank int8 %d rows, 63 leaves, 2 trees: cuda and cpu "
         "models %s (not required)" % (n5, "equal" if same else "differ"))
     return by_path
+
+
+MSLR_QUERIES = {"count": 18_919, "median": 90, "sigma": 0.75, "max": 1_251}
+MSLR_LABEL_SHARES = (0.514, 0.325, 0.134, 0.019, 0.008)
+PAIR_FLOPS_PER_S = 66.9e12  # H100 SXM float32 outside the tensor cores
+
+
+def rank_kernel_phase(dev, timer):
+    """Phase 7, the lambdarank kernel (csrc/rank.cu) at MSLR-WEB30K's
+    shape: 18,919 queries of log-normal lengths (median 90, sigma 0.75, at
+    most 1,251 documents; about 2.27 M rows), relevance 0-4 at MSLR's
+    shares, scores N(0, 0.5), all drawn with numpy from a fixed seed.  The
+    kernel against the padded plain version on card tensors (the CPU
+    init's tables moved to the card; within rtol 1e-5 / atol 1e-7), one
+    launch a call, two calls bitwise equal; both timed, beside the pair
+    arithmetic's bound (``PAIR_FLOPS`` a pair of different labels at the
+    float32 rate) and the bytes' (16 a row)."""
+    import torch
+    from lightgbm_tpu_torch.config import OverallConfig
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective, rank
+    rng = np.random.RandomState(SEED + 71)
+    q = MSLR_QUERIES
+    sizes = np.clip(np.round(np.exp(np.log(q["median"]) + q["sigma"]
+                                    * rng.randn(q["count"]))), 1,
+                    q["max"]).astype(np.int64)
+    sizes[0] = q["max"]
+    qb = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    n = int(qb[-1])
+    label = rng.choice(5, n, p=MSLR_LABEL_SHARES).astype(np.float32)
+    md = Metadata()
+    md.set_label(label)
+    md.query_boundaries = qb
+    md.finalize(n)
+    cfg = OverallConfig()
+    cfg.set({"objective": "lambdarank"}, require_data=False)
+    objs = {}
+    for d in (dev, torch.device("cpu")):
+        objs[d.type] = create_objective("lambdarank", cfg.objective_config)
+        objs[d.type].init(md, n, d)
+    plain = objs["cpu"]
+    for name in ("row_pos", "doc_index", "valid", "labels", "inv_max_dcg",
+                 "discount", "gains"):
+        setattr(plain, name, getattr(plain, name).to(dev))
+    kernel = objs[dev.type]
+    score = torch.as_tensor(rng.normal(0.0, 0.5, n).astype(np.float32),
+                            device=dev)
+    before = rank.launches
+    got = kernel.get_gradients(score)
+    again = kernel.get_gradients(score)
+    if rank.launches != before + 2:
+        fail("phase 7 lambdarank kernel: %d launches in 2 calls"
+             % (rank.launches - before))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("phase 7 lambdarank kernel: two launches differ")
+    want = plain._plain(score)
+    errs = []
+    for a, b in zip(got, want):
+        err = (a - b).abs()
+        if not bool((err <= 1e-5 * b.abs() + 1e-7).all()):
+            fail("phase 7 lambdarank kernel at MSLR's shape: max abs err %g "
+                 "against the plain version outside rtol 1e-5 / atol 1e-7"
+                 % float(err.max()))
+        errs.append((float(err.max()), float((a == b).double().mean())))
+    ms = timer(lambda: kernel.get_gradients(score), reps=20)
+    plain_ms = timer(lambda: plain._plain(score), reps=2)
+    bound_ms = max(rank.PAIR_FLOPS * kernel.pairs / PAIR_FLOPS_PER_S,
+                   rank.BYTES_PER_ROW * n / HBM_BYTES_PER_S) * 1e3
+    rec = {"name": "lambdarank_mslr", "rows": n, "queries": int(sizes.size),
+           "qmax": int(sizes.max()), "pairs": kernel.pairs,
+           "padded_cells": int(sizes.size) * int(sizes.max()) ** 2,
+           "cells": int((sizes ** 2).sum()), "ms": round(ms, 4),
+           "plain_ms": round(plain_ms, 4), "bound_ms": round(bound_ms, 4),
+           "launches_per_call": 1, "max_abs_err": [e[0] for e in errs],
+           "bitwise_share": [round(e[1], 6) for e in errs]}
+    say("phase 7 lambdarank kernel, %d rows in %d queries (longest %d), %d "
+        "pairs of different labels: %.4f ms (plain on the card %.4f, bound "
+        "%.4f); against the plain version max abs err grad %g, hess %g, "
+        "bitwise equal share %.6f, %.6f" % (
+            n, sizes.size, sizes.max(), kernel.pairs, ms, plain_ms, bound_ms,
+            errs[0][0], errs[1][0], errs[0][1], errs[1][1]))
+    return rec
 
 
 def per_tree_launches(what, booster, counts, per_iter=1):
@@ -6182,6 +6274,30 @@ def phase10d_rehearsal() -> int:
     return 0
 
 
+def rank_rehearsal() -> int:
+    """``chip_smoke.py --rank``: the build and phase 7's lambdarank kernel
+    at MSLR's shape alone (a short call for csrc/rank.cu; the contract run
+    is the script without arguments)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lightgbm_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.build()
+    say("phase 1 build: %.1f s" % (time.perf_counter() - t0))
+    for name, text in sorted(cuda_build.build_log.items()):
+        for line in text.splitlines():
+            if "registers" in line or "bytes stack" in line:
+                say("  ptxas %s: %s" % (name, line.strip()))
+    rec = rank_kernel_phase(torch.device("cuda"), cuda_ms)
+    say(card_name())
+    say(json.dumps({"kernels": [rec]}))
+    say("chip_smoke --rank: %.1f s" % (time.perf_counter() - t0))
+    return 0
+
+
 def phase20_rehearsal() -> int:
     """``chip_smoke.py --phase20``: the build, the three served models
     trained anew (phase 4's main path, phase 11's (b) and phase 7's
@@ -6358,5 +6474,7 @@ if __name__ == "__main__":
         sys.exit(phase20_rehearsal())
     if sys.argv[1:] == ["--phase10d"]:
         sys.exit(phase10d_rehearsal())
+    if sys.argv[1:] == ["--rank"]:
+        sys.exit(rank_rehearsal())
     sys.exit(phase16_rehearsal() if sys.argv[1:] == ["--phase16"]
              else main())

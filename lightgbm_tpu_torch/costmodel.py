@@ -4,18 +4,21 @@ The port's counterpart of lightgbm_tpu/costmodel.py.  The JAX module
 gets each program's flops and bytes from XLA's ``cost_analysis()`` and
 files analytic per-pass costs for its Pallas kernels, which XLA cannot
 see into (``note_traced_pass``).  The port's device work that matters is
-its two hand-written kernels, so every launch files analytic costs
+its three hand-written kernels, so every launch files analytic costs
 (:func:`note_launch`, called beside the launch's route counter in
-ops/hist_cuda.py and ops/compact.py; a plain version files the same
-work under its ``*/plain*`` route), from the byte formulas PERF.md's
-kernel table bounds each kernel by, so the roofline reads the same work
-whatever implements it:
+ops/hist_cuda.py, ops/compact.py and objectives/rank.py; a plain version
+files the same work under its ``*/plain*`` route), from the byte and
+operation formulas PERF.md's kernel table bounds each kernel by, so the
+roofline reads the same work whatever implements it:
 
 - histogram: ``bin_bytes·N·F + side·N + F·B·3·C·4`` bytes (side 12 for
   the float mode, 7 for int8, 9 for the pane entry: its grad, hess and
   validity planes) and ``3·N·F`` adds;
 - partition: ``2·R·cnt`` bytes (the segment's pane rows read and
-  written), ``cnt`` compares.
+  written), ``cnt`` compares;
+- lambdarank gradient (phase ``gradient``): ``16·N`` bytes (score and
+  label read, gradient and hessian written) and 20 operations a pair of
+  documents of one query with different labels.
 
 :func:`roofline` joins them to the telemetry layer's measured spans of
 the same phase: attained GB/s and operations per second, and with a

@@ -27,7 +27,7 @@ from ..utils import log
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("hist", "partition")
+SOURCES = ("hist", "partition", "rank")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -132,6 +132,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.lgbm_partition_mask.argtypes = [p, ll, p, ll, p, i, i] + tail
         for fn in (lib.lgbm_partition_pane, lib.lgbm_partition_mask):
             fn.restype = i
+    elif name == "rank":
+        # score, perm, label, gain, items, n_items, item_docs,
+        # inv_max_dcg, discount, sigmoid, disc scratch, lambdas, hessians,
+        # stream
+        lib.lgbm_rank_gradients.argtypes = [p, p, p, p, p, i, i, p, p,
+                                            ctypes.c_float, p, p, p, p]
+        lib.lgbm_rank_gradients.restype = i
 
 
 _num_sms: Dict[int, int] = {}

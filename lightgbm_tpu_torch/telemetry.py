@@ -79,6 +79,7 @@ package's sink.  What differs, and why:
    (its pane entry's plain version)            ``hist/plain_pane``
    ``partition/pallas``                        ``partition/cuda``
    ``partition/xla``                           ``partition/plain``
+   (none: dense ops in objectives/rank.py)     ``rank/cuda``, ``rank/plain``
    ==========================================  ========================
 
    ``JAX_COUNTER_NAMES`` holds this table; a JAX name it maps to None has

@@ -372,6 +372,96 @@ def test_lambdarank_gradients_on_card_and_cpu(cuda):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
 
 
+def _rank_objectives(sizes, label, weights, devices):
+    """A lambdarank objective initialised on each of ``devices``."""
+    from lightgbm_tpu_torch.config import ObjectiveConfig
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective
+    qb = np.concatenate([[0], np.cumsum(sizes)])
+    md = Metadata()
+    md.set_label(label)
+    if weights is not None:
+        md.weights = weights
+    md.query_boundaries = qb.astype(np.int32)
+    md.finalize(int(qb[-1]))
+    objs = []
+    for dev in devices:
+        objs.append(create_objective("lambdarank", ObjectiveConfig()))
+        objs[-1].init(md, int(qb[-1]), dev)
+    return objs
+
+
+@pytest.mark.parametrize("case", ["ragged", "ties", "long", "weighted"])
+def test_lambdarank_kernel_matches_plain(cuda, case):
+    """csrc/rank.cu against the padded plain version on a CPU copy, within
+    rtol 1e-5 / atol 1e-7 (float64 ``exp`` and pair sums in another
+    order): ragged queries with a one-document query, an all-equal-label
+    query and a query whose scores are all equal (best == worst); scores
+    with many exact ties (the stable order); a query of 5,003 documents,
+    longer than the kernel's shared-memory tile; and row weights."""
+    from lightgbm_tpu_torch.objectives import rank
+    rng = np.random.RandomState(11)
+    sizes = np.concatenate([[1, 6, 9, 130], rng.randint(2, 300, 60)])
+    if case == "long":
+        sizes = np.array([1, 17, 5003, 300, 4])
+    n = int(sizes.sum())
+    qb = np.concatenate([[0], np.cumsum(sizes)])
+    label = rng.randint(0, 5, n).astype(np.float32)
+    label[qb[2]:qb[3]] = 3.0                    # all-equal-label query
+    score = (rng.randn(n) * 2).astype(np.float32)
+    if case == "ties":
+        score = np.round(score).astype(np.float32)
+    score[qb[3]:qb[4]] = 0.25                   # best == worst
+    weights = (rng.uniform(0.2, 2.0, n).astype(np.float32)
+               if case == "weighted" else None)
+    on_card, on_cpu = _rank_objectives(sizes, label, weights,
+                                       (cuda, torch.device("cpu")))
+    assert not hasattr(on_card, "doc_index")    # no padded tables
+    s = torch.as_tensor(score)
+    before = rank.launches
+    got = [t.cpu() for t in on_card.get_gradients(s.to(cuda))]
+    assert rank.launches == before + 1
+    want = on_cpu.get_gradients(s)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    for q in (0, 2):       # the one-document and all-equal-label queries
+        assert not got[0][qb[q]:qb[q + 1]].any()
+        assert not got[1][qb[q]:qb[q + 1]].any()
+    assert got[0].abs().max() > 0.1
+
+
+def test_lambdarank_kernel_is_deterministic_and_counted(cuda):
+    """Two launches give the same bits; ``launches`` and the telemetry
+    route ``rank/cuda`` count one a call, with the call's analytic cost
+    under the ``gradient`` phase."""
+    from lightgbm_tpu_torch import costmodel, telemetry
+    from lightgbm_tpu_torch.objectives import rank
+    rng = np.random.RandomState(12)
+    sizes = rng.randint(1, 700, 80)
+    n = int(sizes.sum())
+    label = rng.randint(0, 5, n).astype(np.float32)
+    (obj,) = _rank_objectives(sizes, label, None, (cuda,))
+    score = torch.as_tensor(rng.randn(n).astype(np.float32), device=cuda)
+    telemetry.enable()
+    telemetry.reset()
+    try:
+        before = rank.launches
+        first = obj.get_gradients(score)
+        second = obj.get_gradients(score)
+        assert rank.launches == before + 2
+        assert telemetry.counters()["rank/cuda"] == 2
+        (note,) = [p for p in costmodel.roofline({})["traced_passes"]
+                   if p["phase"] == "gradient"]
+        assert note["key"] == ["rank/cuda"] and note["traces"] == 2
+        assert note["macs"] == 2 * rank.PAIR_FLOPS * obj.pairs > 0
+        assert note["bytes_moved"] == 2 * rank.BYTES_PER_ROW * n
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_sampling_draws_equal_on_card_and_cpu(cuda):
     """The threefry bagging draw and the GOSS draw are integer arithmetic
     and stable sorts: bitwise the same on the card as on the CPU, at a

@@ -165,3 +165,98 @@ def test_lambdarank_needs_queries():
     md.set_label(np.zeros(4, np.float32))
     with pytest.raises(log.Fatal, match="query information"):
         create_objective("lambdarank", ObjectiveConfig()).init(md, 4, CPU)
+
+
+def test_lambdarank_cpu_takes_the_plain_route():
+    """A CPU tensor runs the padded plain version: ``init`` builds the
+    padded tables (and not the kernel's), a call counts ``rank/plain``
+    with its analytic cost under ``gradient``, leaves the kernel's
+    ``launches`` alone and loads no kernel library."""
+    from lightgbm_tpu_torch import costmodel, telemetry
+    from lightgbm_tpu_torch.objectives import rank
+    from lightgbm_tpu_torch.ops import cuda_build
+    rng = np.random.RandomState(5)
+    sizes = np.array([1, 4, 30, 12])
+    label, qb, score = _rank_case(rng, sizes)
+    _, t = _pair("lambdarank", label, None, qb)
+    assert t.doc_index.shape == t.valid.shape == t.labels.shape == (4, 30)
+    assert t.row_pos.shape == (len(label),)
+    assert not hasattr(t, "items")
+    # different-label pairs: sum over queries of (n^2 - sum_l n_l^2) / 2
+    want_pairs = sum(
+        (len(q) ** 2 - (np.unique(q, return_counts=True)[1] ** 2).sum()) // 2
+        for q in np.split(label, qb[1:-1]))
+    assert t.pairs == want_pairs > 0
+    before = rank.launches
+    telemetry.enable()
+    telemetry.reset()
+    try:
+        t.get_gradients(torch.as_tensor(score))
+        assert telemetry.counters()["rank/plain"] == 1
+        (note,) = costmodel.roofline({})["traced_passes"]
+        assert (note["phase"], note["key"], note["traces"]) == \
+            ("gradient", ["rank/plain"], 1)
+        assert note["macs"] == rank.PAIR_FLOPS * t.pairs
+        assert note["bytes_moved"] == rank.BYTES_PER_ROW * len(label)
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    assert rank.launches == before
+    assert not cuda_build._libs
+
+
+def test_lambdarank_kernel_tables_replay_the_plain_version():
+    """The kernel's tables (csrc/rank.cu), built here on the CPU: items
+    cover every document once, longest query first, in blocks of
+    ``ITEM_DOCS``; each query's documents are visited in label order.
+    Replayed in numpy as the kernel runs them (a document's place in
+    score order by counting, its pairs from either end, float64 sums),
+    they give the plain version's gradients, tied scores, best == worst
+    and the all-zero first iteration included."""
+    from lightgbm_tpu_torch.objectives import rank
+    rng = np.random.RandomState(6)
+    sizes = np.concatenate([[1, 5, 7, 300], rng.randint(2, 140, 20)])
+    label, qb, score = _rank_case(rng, sizes, ties=True)
+    score[qb[4]:qb[5]] = 0.5
+    _, t = _pair("lambdarank", label, None, qb)
+    b = qb.astype(np.int64)
+    t._init_items(np.repeat(np.arange(sizes.size), sizes),
+                  label.astype(np.int64), np.diff(b), b, int(sizes.max()),
+                  torch.as_tensor)
+    items = t.items.numpy()
+    perm = t.perm.numpy()
+    assert items[:3].tolist() == [[qb[3], 300, i0, 3] for i0 in (0, 128, 256)]
+    assert np.all(np.diff(items[:, 1]) <= 0)
+    covered = np.concatenate([perm[lo + i0:lo + min(i0 + rank.ITEM_DOCS, n)]
+                              for lo, n, i0, _ in items])
+    assert np.array_equal(np.sort(covered), np.arange(len(label)))
+    f = np.float32
+    inv, disc_t = t.inv_max_dcg.numpy(), t.discount.numpy()
+    for sc in (np.zeros_like(score), score):
+        want = [x.numpy() for x in t.get_gradients(torch.as_tensor(sc))]
+        lam = np.zeros_like(sc)
+        hes = np.zeros_like(sc)
+        for q in range(sizes.size):
+            rows = perm[qb[q]:qb[q + 1]]
+            assert np.all(np.diff(label[rows]) >= 0)
+            s, gain = sc[rows], t.pgains.numpy()[qb[q]:qb[q + 1]]
+            lq = t.plabels.numpy()[qb[q]:qb[q + 1]]
+            place = ((s[None, :] > s[:, None])
+                     | ((s[None, :] == s[:, None])
+                        & (rows[None, :] < rows[:, None]))).sum(1)
+            d = disc_t[place]
+            delta = s[:, None] - s[None, :]            # [hi, lo]
+            dn = (gain[:, None] - gain[None, :]) * np.abs(
+                d[:, None] - d[None, :]) * inv[q]
+            if s.max() != s.min():
+                dn = dn / (f(0.01) + np.abs(delta))
+            e = np.exp((f(2) * delta * f(1)).astype(np.float64)).astype(f)
+            sig = (f(1) / (f(1) + e)) * f(2)
+            pair = lq[:, None] > lq[None, :]
+            lt = np.where(pair, -sig * dn, f(0)).astype(np.float64)
+            ht = np.where(pair, f(2) * dn * (sig * (f(2) - sig)),
+                          f(0)).astype(np.float64)
+            lam[rows] = lt.sum(1) - lt.sum(0)
+            hes[rows] = ht.sum(1) + ht.sum(0)
+        np.testing.assert_allclose(lam, want[0], rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(hes, want[1], rtol=1e-5, atol=1e-7)
